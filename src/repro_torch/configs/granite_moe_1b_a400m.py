@@ -1,0 +1,18 @@
+"""granite-moe-1b-a400m [moe] — 32 experts, top-8
+[hf:ibm-granite/granite-3.0-1b-a400m-base]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=512,
+    vocab_size=49155,
+    num_experts=32,
+    top_k=8,
+    mlp_activation="silu",
+)
