@@ -10,21 +10,25 @@ the first phase that fails:
 1. build the port's CUDA kernels from the checkout's sources (one ``nvcc``
    per source, in parallel) and print the build time;
 2. hold each kernel against its plain PyTorch version at the serving
-   path's shapes, in float32 and bfloat16, with the tolerances printed, and
-   time kernel, plain version and (flash only) the library yardstick
-   ``F.scaled_dot_product_attention`` with CUDA events (median of 30 runs
-   after warm-up);
-3. serve the default path at full width — smollm-135m edge, granite-8b
-   cloud, bfloat16, seeded random weights, 8 requests of 16 prompt tokens,
-   24 new tokens, gamma 4, SpeculativePolicy(0.6), paged KV, linear lane,
-   T = 0 — and check every request, the logits' finiteness and that every
-   kernel's launch counter moved during that run;
-4. serve the same engine at float32, full width, 2 layers per model, once
+   paths' shapes, in float32 and bfloat16, with the tolerances printed, and
+   time kernel, plain version and (attention kernels) the library
+   yardstick ``F.scaled_dot_product_attention`` with CUDA events (median of
+   30 runs after warm-up);
+3. serve three paths at full width — smollm-135m edge, granite-8b cloud,
+   bfloat16, seeded random weights, 8 requests of 16 prompt tokens, 24 new
+   tokens, gamma 4, SpeculativePolicy(0.6), T = 0: the default path (paged
+   KV, linear lane), the tree lane (tree width 2, dense KV) and the self
+   lane (paged serving, exit layer 15) — and check every request, the
+   logits' finiteness and that each kernel the path runs was launched
+   during that path's run (counts reset just before it, read just after);
+   then time the pieces of the linear and tree rounds and profile both;
+4. serve each path again at float32, full width, 2 layers per model, once
    on the kernels (``attn_backend="auto"``) and once on the plain versions
    (``"plain"``); the traces must agree, a divergence being excused (and
    reported) only where the plain model's top-2 logit gap is below 1e-4;
-5. print the card's name and power limit, a ``{"kernels": [...]}`` line,
-   and last the result line ``{"ok": true, "device": {...}}``.
+5. print the card's name and power limit, a ``{"kernels": [...]}`` line
+   (launches summed over the three served paths) and last the result line
+   ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -289,11 +293,171 @@ def check_spec_verify(gen):
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
+def _gqa_sdpa_inputs(q, k, v, visible):
+    """The library yardstick's inputs, built before it is timed: queries
+    (B, H, Nq, hd), K/V expanded over the GQA groups (B, H, S, hd) and the
+    boolean mask (B, 1, Nq, S) of ``visible``."""
+    B, Kv, G = q.shape[:3]
+    hd = q.shape[-1]
+    qq = q.reshape(B, Kv * G, -1, hd)
+    kk = k.repeat_interleave(G, dim=1).contiguous()
+    vv = v.repeat_interleave(G, dim=1).contiguous()
+    return qq, kk, vv, visible[:, None].contiguous()
+
+
+def _dense_view(shape, dtype, gen):
+    """A (B, Kv, S, hd) view of a cache stored (B, S, Kv, hd), as the
+    serving path hands it to the kernels."""
+    import torch
+    B, Kv, S, hd = shape
+    x = torch.randn((B, S, Kv, hd), generator=gen, device="cuda")
+    return x.to(dtype).permute(0, 2, 1, 3)
+
+
+def check_decode(gen):
+    """Dense decode at the tree path's edge ticks: 8 slots, smollm-135m
+    heads (Kv 3, G 3, hd 64), slot_len 80 (16 + 24 + 2 * 16 + 8), lengths
+    15-40; the cache read through strides as it lies."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as K
+    B, Kv, G, hd, S = 8, 3, 3, 64, 80
+    errs = []
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn((B, Kv, G, hd), generator=gen, device="cuda") \
+            .to(dtype)
+        k = _dense_view((B, Kv, S, hd), dtype, gen)
+        v = _dense_view((B, Kv, S, hd), dtype, gen)
+        length = torch.randint(15, 41, (B,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        for window in (0, 24):
+            out = K.decode_attention_cuda(q, k, v, length, window=window)
+            ref = K.decode_attention_plain(q, k, v, length, window=window)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            print(f"[kernel] decode_attention {str(dtype)[6:]} "
+                  f"window={window}: max_abs_err={err:.3e} (tol {tol:g})",
+                  flush=True)
+            check(err <= tol, f"decode_attention {dtype} window {window}: "
+                              f"error {err} > {tol}")
+            errs.append(err)
+    # timing at the path's dtype (bfloat16, no window): kernel, plain
+    # version, and SDPA over GQA-expanded K/V with the same boolean mask
+    ms = time_ms(lambda: K.decode_attention_cuda(q, k, v, length))
+    plain = time_ms(lambda: K.decode_attention_plain(q, k, v, length))
+    visible = (torch.arange(S, device="cuda")[None, :]
+               < length.long()[:, None])[:, None, :]          # (B, 1, S)
+    qq, kk, vv, m = _gqa_sdpa_inputs(q[:, :, :, None], k, v, visible)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                         attn_mask=m))
+    n_pos = int(length.sum())
+    el = 2
+    nbytes = (2 * n_pos * Kv * hd * el + 2 * q.numel() * el
+              + length.numel() * 4)
+    ops = 4 * n_pos * Kv * G * hd
+    bnd, by = bound_ms(nbytes, ops, "bfloat16")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:76",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+
+
+def _tree_inputs(B, Kv, G, S, hd, lo, hi, dtype, gen):
+    """Tree-verify inputs at one span of the 2-wide depth-4 plan: queries
+    for nodes [lo, hi), mask columns [0, hi), tree base at 16-39 per slot
+    (the prompt plus some decoded tokens), cache stored (B, S, Kv, hd)."""
+    import torch
+    from repro_torch.core.tree_speculation import TreePlan, branching_for
+    plan = TreePlan(branching_for(2, 4))
+    T = hi - lo
+    q = torch.randn((B, T, Kv, G, hd), generator=gen, device="cuda") \
+        .to(dtype).permute(0, 2, 3, 1, 4)
+    k = _dense_view((B, Kv, S, hd), dtype, gen)
+    v = _dense_view((B, Kv, S, hd), dtype, gen)
+    base = torch.randint(16, 40, (B,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    mask = torch.as_tensor(plan.mask[lo:hi, :hi], device="cuda").contiguous()
+    depths = torch.as_tensor(plan.depths[lo:hi], device="cuda")
+    q_pos = (base[:, None] + depths).to(torch.int32).contiguous()
+    return q, k, v, (base + lo).contiguous(), mask, q_pos
+
+
+def _tree_visible(length, mask, S):
+    """(B, N, S) bool: which keys each node sees (no window)."""
+    import torch
+    N, C = mask.shape
+    base = length.long() - (C - N)
+    k_pos = torch.arange(S, device=length.device)
+    t = k_pos[None, :] - base[:, None]
+    cols = mask[:, t.clamp(0, C - 1)].movedim(1, 0)
+    return (k_pos[None, :] < base[:, None])[:, None, :] | (
+        ((t >= 0) & (t < C))[:, None, :] & cols)
+
+
+def check_tree(gen):
+    """Tree verify at the tree path's shapes: 8 slots, the 2-wide depth-4
+    plan (16 padded nodes), slot_len 80; the edge's incremental draft
+    levels (smollm-135m heads, Kv 3, G 3, hd 64) and both models' one-shot
+    verify (granite-8b heads, Kv 8, G 4, hd 128)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.tree_speculation import TreePlan, branching_for
+    from repro_torch.kernels import tree_attention as K
+    plan = TreePlan(branching_for(2, 4))
+    S = 80
+    spans = [(0, 1)] + list(plan.levels)
+    cases = [((8, 3, 3, S, 64), a, b) for a, b in spans] + \
+        [((8, 3, 3, S, 64), 0, plan.n_pad), ((8, 8, 4, S, 128), 0, plan.n_pad)]
+    errs = []
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for shape, lo, hi in cases:
+            args = _tree_inputs(*shape, lo, hi, dtype, gen)
+            for window in (0, 24):
+                out = K.tree_verify_attention_cuda(*args, window=window)
+                ref = K.tree_verify_attention_plain(*args, window=window)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                print(f"[kernel] tree_verify_attention {str(dtype)[6:]} "
+                      f"(B,Kv,G,S,hd)={shape} nodes [{lo},{hi}) "
+                      f"window={window}: max_abs_err={err:.3e} (tol {tol:g})",
+                      flush=True)
+                check(err <= tol, f"tree_verify_attention {dtype} {shape} "
+                                  f"[{lo},{hi}) window {window}: error {err}")
+                errs.append(err)
+    # timing: the cloud's one-shot verify (granite heads), bfloat16
+    B, Kv, G, _, hd = cases[-1][0]
+    q, k, v, length, mask, q_pos = _tree_inputs(B, Kv, G, S, hd, 0,
+                                                plan.n_pad, torch.bfloat16,
+                                                gen)
+    ms = time_ms(lambda: K.tree_verify_attention_cuda(q, k, v, length, mask,
+                                                      q_pos))
+    plain = time_ms(lambda: K.tree_verify_attention_plain(q, k, v, length,
+                                                          mask, q_pos))
+    visible = _tree_visible(length, mask, S)                  # (B, N, S)
+    qq, kk, vv, m = _gqa_sdpa_inputs(q.contiguous(), k, v, visible)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                         attn_mask=m))
+    N, C = mask.shape
+    el = 2
+    rows_read = int((length.long() - (C - N) + C).clamp(max=S).sum())
+    nbytes = (2 * rows_read * Kv * hd * el + 2 * q.numel() * el
+              + mask.numel() + q_pos.numel() * 4 + length.numel() * 4)
+    ops = 4 * int(visible.sum()) * Kv * G * hd
+    bnd, by = bound_ms(nbytes, ops, "bfloat16")
+    return {"name": "tree_verify_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tree_verify_attention.cu",
+            "replaces": "src/repro/kernels/tree_attention.py:90",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return [check_paged(gen), check_flash(gen), check_spec_verify(gen)]
+    return [check_paged(gen), check_flash(gen), check_spec_verify(gen),
+            check_tree(gen), check_decode(gen)]
 
 
 # --------------------------------------------------------------- phase 3
@@ -317,13 +481,26 @@ def _prompts(vocab: int, n: int = 8, length: int = 16):
     return [synth.sample(rng, i % synth.n_domains, length) for i in range(n)]
 
 
-def _engine(e_cfg, c_cfg, attn_backend="auto"):
+# the served paths: name, engine settings, the kernels the path must launch
+PATHS = (
+    ("linear", {},
+     ("paged_decode_attention", "flash_attention", "spec_verify")),
+    ("tree", {"spec_mode": "tree", "spec_tree_width": 2,
+              "kv_layout": "dense"},
+     ("tree_verify_attention", "decode_attention", "flash_attention")),
+    ("self", {"spec_mode": "self", "spec_exit_layer": 15},
+     ("paged_decode_attention", "flash_attention", "spec_verify")),
+)
+
+
+def _engine(e_cfg, c_cfg, attn_backend="auto", **kw):
     from repro_torch.core.policy import SpeculativePolicy
     from repro_torch.core.scheduler import BatchedEngine
     from repro_torch.models import Model
+    kw = {"kv_layout": "auto", **kw}
     return BatchedEngine(Model(e_cfg), Model(c_cfg), batch_size=8, gamma=4,
                          temperature=0.0, policy=SpeculativePolicy(0.6),
-                         kv_layout="auto", attn_backend=attn_backend)
+                         attn_backend=attn_backend, **kw)
 
 
 def phase_serve():
@@ -340,45 +517,59 @@ def phase_serve():
           f"cloud params, {c_cfg.param_dtype}) in "
           f"{time.perf_counter() - t:.1f}s", flush=True)
     prompts = _prompts(e_cfg.vocab_size)
-    # warm-up drain (library handles, allocator), not measured
-    _engine(e_cfg, c_cfg).serve_batch(ep, cp, prompts[:2], 4)
-    eng = _engine(e_cfg, c_cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t = time.perf_counter()
-    traces = eng.serve_batch(ep, cp, prompts, 24)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t
-    launches = ops.launch_counts()
-    stats = eng.stats()
+    total = {name: 0 for name in ops.KERNELS}
     V = e_cfg.vocab_size
-    for i, tr in enumerate(traces):
-        check(tr.tokens is not None and len(tr.tokens) == 24,
-              f"request {i}: {len(tr.tokens or [])} tokens, want 24")
-        check(all(0 <= t < V for t in tr.tokens),
-              f"request {i}: token outside [0, {V})")
-    paths = {}
-    for tr in traces:
-        paths[tr.path] = paths.get(tr.path, 0) + 1
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the serving path")
-    ticks = stats["ticks"]
-    print(f"[serve] paths {paths}; {len(traces) / dt:.2f} req/s, "
-          f"{24 * len(traces) / dt:.1f} tok/s, {dt:.2f}s; "
-          f"{ticks} edge ticks at "
-          f"{stats['tick_seconds'] / max(ticks, 1) * 1e3:.1f} ms/tick; "
-          f"spec accept rate {stats['spec_accept_rate']:.3f}; "
-          f"max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"launches {launches}", flush=True)
-    # finiteness of the logits on the path: one more edge step and one
-    # verify extend over the served tokens must give finite logits
-    _check_finite(ep, cp, e_cfg, c_cfg, prompts, traces)
+    for name, kw, kernels in PATHS:
+        # warm-up drain (library handles, allocator), not measured
+        _engine(e_cfg, c_cfg, **kw).serve_batch(ep, cp, prompts[:2], 4)
+        eng = _engine(e_cfg, c_cfg, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        traces = eng.serve_batch(ep, cp, prompts, 24)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = ops.launch_counts()
+        stats = eng.stats()
+        check(stats["spec_mode"] == kw.get("spec_mode", "linear"),
+              f"{name} path: engine served lane {stats['spec_mode']}")
+        for i, tr in enumerate(traces):
+            check(tr.tokens is not None and len(tr.tokens) == 24,
+                  f"{name} request {i}: {len(tr.tokens or [])} tokens, "
+                  "want 24")
+            check(all(0 <= t < V for t in tr.tokens),
+                  f"{name} request {i}: token outside [0, {V})")
+        for k in kernels:
+            check(launches[k] > 0,
+                  f"kernel {k} was not launched on the {name} path")
+        for k, n in launches.items():
+            total[k] += n
+        paths = {}
+        for tr in traces:
+            paths[tr.path] = paths.get(tr.path, 0) + 1
+        ticks = stats["ticks"]
+        lane = stats["spec_lanes"][stats["spec_mode"]]
+        print(f"[serve] {name} path ({stats['kv_layout']} KV): paths {paths}; "
+              f"{len(traces) / dt:.2f} req/s, "
+              f"{24 * len(traces) / dt:.1f} tok/s, {dt:.2f}s; "
+              f"{ticks} edge ticks at "
+              f"{stats['tick_seconds'] / max(ticks, 1) * 1e3:.1f} ms/tick; "
+              f"{lane['member_rounds']} member rounds, accept rate "
+              f"{stats['spec_accept_rate']:.3f}, "
+              f"{stats['accepted_tokens_per_step']:.2f} tokens per verify; "
+              f"cloud passes/request "
+              f"{sum(tr.cloud_passes for tr in traces) / len(traces):.1f}; "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {launches}", flush=True)
+        # finiteness of the logits on the path: a prefill of every served
+        # sequence through both models must give finite logits
+        _check_finite(ep, cp, e_cfg, c_cfg, prompts, traces)
     phase_breakdown(ep, cp, e_cfg, c_cfg, prompts)
     del ep, cp
     torch.cuda.empty_cache()
-    return launches
+    return total
 
 
 def _check_finite(ep, cp, e_cfg, c_cfg, prompts, traces):
@@ -417,57 +608,15 @@ def _host_device_ms(fn, reps: int = 10):
     return statistics.median(host), statistics.median(dev)
 
 
-def phase_breakdown(ep, cp, e_cfg, c_cfg, prompts):
-    """Where the full-width serving path's time goes: the pieces of one edge
-    tick step and one speculative round, timed alone at the path's shapes,
-    and a profiler pass over a whole drain for the device's busy share."""
+def _profile_drain(label, eng, ep, cp, prompts, max_new):
+    """Device busy share of one drain, device activity only; the
+    profiler's own overhead lengthens the wall time, so the share is a
+    lower bound."""
     import torch
-    from repro_torch.models import Model
-    from repro_torch.models import layers as L
-    B, bs, MB, T = 8, 32, 3, 5
-    dev = "cuda"
-    rows = {}
-    table = (torch.arange(B * MB, device=dev, dtype=torch.int32) + 1) \
-        .reshape(B, MB)
-    pos = torch.full((B,), 40, dtype=torch.int32, device=dev)
-    for name, params, cfg in (("edge", ep, e_cfg), ("cloud", cp, c_cfg)):
-        m = Model(cfg)
-        cache = m.init_paged_cache(B * MB + 1, bs, B, MB, device=dev)
-        cache = {**cache, "table": table, "pos": pos}
-        tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
-        toks = torch.ones((B, T), dtype=torch.int32, device=dev)
-        if name == "edge":
-            rows["edge decode step (30 layers, B=8)"] = _host_device_ms(
-                lambda: m.paged_decode_step(params, tok, cache))
-        else:
-            rows["cloud verify extend (36 layers, G=8, T=5)"] = \
-                _host_device_ms(lambda: m.paged_extend_step(params, toks,
-                                                            cache))
-            x = torch.randn((B, T, cfg.d_model), device=dev).to(
-                torch.bfloat16)
-            blk = params.blocks[0]
-            rows["cloud verify attention, one layer (gather + mha)"] = \
-                _host_device_ms(lambda: L.paged_extend_attention(
-                    blk.attn, x, cache["k"][0], cache["v"][0], table, pos,
-                    cfg))
-            rows["cloud f32 unembed (G=8, T=5)"] = _host_device_ms(
-                lambda: L.unembed(params.head, x))
-            one = torch.as_tensor(prompts[0][None, :16].astype("int32"),
-                                  device=dev)
-            rows["cloud prefill, one 16-token prompt"] = _host_device_ms(
-                lambda: m.prefill(params, {"tokens": one}))
-    for k, (h, d) in rows.items():
-        print(f"[breakdown] {k}: host issue {h:.3f} ms, stream span "
-              f"{d:.3f} ms", flush=True)
-    # device busy share over a short drain (8 requests, 8 new tokens: one
-    # edge tick and 8 speculative rounds), device activity only; the
-    # profiler's own overhead lengthens the wall time, so the share is a
-    # lower bound
     from torch.profiler import ProfilerActivity, profile
-    eng = _engine(e_cfg, c_cfg)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        eng.serve_batch(ep, cp, prompts, 8)
+        eng.serve_batch(ep, cp, prompts, max_new)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     evs = prof.key_averages()
@@ -478,10 +627,134 @@ def phase_breakdown(ep, cp, e_cfg, c_cfg, prompts):
 
     busy = sum(self_dev(e) for e in evs) / 1e3
     top = sorted(evs, key=self_dev, reverse=True)[:6]
-    print(f"[breakdown] profiled drain: wall {wall:.0f} ms, device busy "
-          f"{busy:.0f} ms ({busy / wall:.1%}); top device time: "
+    rounds = eng.stats()["spec_lanes"][eng.spec_mode]["member_rounds"]
+    print(f"[breakdown] profiled {label} drain ({len(prompts)} requests, "
+          f"{max_new} new, {rounds} member rounds): wall {wall:.0f} ms, "
+          f"device busy {busy:.0f} ms ({busy / wall:.1%}); top device time: "
           + "; ".join(f"{e.key[:60]} {self_dev(e) / 1e3:.1f} ms"
                       for e in top), flush=True)
+
+
+def _round_ms(eng, ep, cp, prompts):
+    """(host issue ms, stream span ms, device busy ms) of ONE speculative
+    round of ``eng``'s lane over the 8 prompts, on group states built as
+    ``BatchedEngine._spec_escalate`` builds them.  The device time is the
+    profiler's kernel time per round over 3 rounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    G = len(prompts)
+    need = [p.size - 1 + 24 + 20 for p in prompts]
+    d_state = eng._spec_edge.make_state(ep, G, 80, need_tokens=need)
+    states = [d_state]
+    if eng.spec_mode != "self":
+        states.append(eng._spec_cloud.make_state(cp, G, 80,
+                                                 need_tokens=need))
+    for st in states:
+        for i, (p, n) in enumerate(zip(prompts, need)):
+            st.admit(i, p, n)
+        st.flush()
+        st.prepare_tick(list(range(G)), [n - (p.size - 1) for p, n in
+                                         zip(prompts, need)], 1 << 30)
+    last = torch.as_tensor([[[int(p[-1])]] for p in prompts],
+                           dtype=torch.int32, device="cuda")
+    active = torch.ones((G,), dtype=torch.bool, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    caches = [st.caches for st in states]
+    if eng.spec_mode == "self":
+        fn = lambda: eng.spec._self_round(ep, caches[0], last, active, gen)
+    else:
+        fn = lambda: eng.spec._round(ep, cp, caches[0], caches[1], last,
+                                     active, gen)
+    host, span = _host_device_ms(fn, reps=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()) / 1e3 / 3
+    return host, span, busy
+
+
+def phase_breakdown(ep, cp, e_cfg, c_cfg, prompts):
+    """Where the full-width serving paths' time goes: the pieces of one
+    edge tick step, one linear round and one tree round, timed alone at
+    the paths' shapes, and a profiler pass over a linear and a tree drain
+    for the device's busy share."""
+    import torch
+    from repro_torch.core.tree_speculation import TreePlan, branching_for
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    B, bs, MB, T, S = 8, 32, 3, 5, 80
+    dev = "cuda"
+    plan = TreePlan(branching_for(2, 4))
+    mask = torch.as_tensor(plan.mask, device=dev)
+    depths = torch.as_tensor(plan.depths, device=dev)
+    lo, hi = plan.levels[-2]                      # a draft level, C > T
+    rows = {}
+    table = (torch.arange(B * MB, device=dev, dtype=torch.int32) + 1) \
+        .reshape(B, MB)
+    pos = torch.full((B,), 40, dtype=torch.int32, device=dev)
+    for name, params, cfg in (("edge", ep, e_cfg), ("cloud", cp, c_cfg)):
+        m = Model(cfg)
+        cache = m.init_paged_cache(B * MB + 1, bs, B, MB, device=dev)
+        cache = {**cache, "table": table, "pos": pos}
+        dense = {**m.init_cache(B, S, device=dev), "pos": pos}
+        tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
+        toks = torch.ones((B, T), dtype=torch.int32, device=dev)
+        tree_toks = torch.ones((B, plan.n_pad), dtype=torch.int32, device=dev)
+        q_tree = pos.long()[:, None] + depths.long()[None, :]
+        if name == "edge":
+            rows["edge paged decode step (30 layers, B=8)"] = \
+                _host_device_ms(lambda: m.paged_decode_step(params, tok,
+                                                            cache))
+            rows["edge dense decode step (30 layers, B=8)"] = \
+                _host_device_ms(lambda: m.decode_step(params, tok, dense))
+            rows[f"edge tree draft level (30 layers, G=8, nodes "
+                 f"[{lo},{hi}))"] = _host_device_ms(
+                lambda: m.extend_step(
+                    params, tree_toks[:, lo:hi], dense,
+                    block_mask=mask[lo:hi, :hi],
+                    q_positions=pos.long()[:, None]
+                    + (depths[lo:hi] - lo).long()[None, :]))
+        else:
+            rows["cloud verify extend (36 layers, G=8, T=5)"] = \
+                _host_device_ms(lambda: m.paged_extend_step(params, toks,
+                                                            cache))
+            rows["cloud tree verify extend (36 layers, G=8, T=16)"] = \
+                _host_device_ms(lambda: m.extend_step(
+                    params, tree_toks, dense, block_mask=mask,
+                    q_positions=q_tree))
+            dt = params.embed.dtype
+            x = torch.randn((B, T, cfg.d_model), device=dev).to(dt)
+            xt = torch.randn((B, plan.n_pad, cfg.d_model), device=dev).to(dt)
+            blk = params.blocks[0]
+            rows["cloud verify attention, one layer (gather + mha)"] = \
+                _host_device_ms(lambda: L.paged_extend_attention(
+                    blk.attn, x, cache["k"][0], cache["v"][0], table, pos,
+                    cfg))
+            rows["cloud tree verify attention, one layer (kernel)"] = \
+                _host_device_ms(lambda: L.extend_attention(
+                    blk.attn, xt, dense["k"][0], dense["v"][0], pos, cfg,
+                    block_mask=mask, q_positions=q_tree))
+            rows["cloud f32 unembed (G=8, T=5)"] = _host_device_ms(
+                lambda: L.unembed(params.head, x))
+            one = torch.as_tensor(prompts[0][None, :16].astype("int32"),
+                                  device=dev)
+            rows["cloud prefill, one 16-token prompt"] = _host_device_ms(
+                lambda: m.prefill(params, {"tokens": one}))
+    for k, (h, d) in rows.items():
+        print(f"[breakdown] {k}: host issue {h:.3f} ms, stream span "
+              f"{d:.3f} ms", flush=True)
+    for name, kw, _ in PATHS:
+        h, d, busy = _round_ms(_engine(e_cfg, c_cfg, **kw), ep, cp, prompts)
+        print(f"[breakdown] one {name} round (G=8): host issue {h:.3f} ms, "
+              f"stream span {d:.3f} ms, device busy {busy:.3f} ms",
+              flush=True)
+    # 8 requests, 8 new tokens: one edge tick and 8 speculative rounds
+    for label, kw in (("linear", {}), ("tree", PATHS[1][1])):
+        _profile_drain(label, _engine(e_cfg, c_cfg, **kw), ep, cp, prompts, 8)
 
 
 # --------------------------------------------------------------- phase 4
@@ -493,34 +766,42 @@ def phase_parity():
     ep = Model(e_cfg).init(seed=0, device="cuda")
     cp = Model(c_cfg).init(seed=1, device="cuda")
     prompts = _prompts(e_cfg.vocab_size)
-    runs = {}
-    for backend in ("auto", "plain"):
-        runs[backend] = _engine(e_cfg, c_cfg, backend).serve_batch(
-            ep, cp, prompts, 24)
-    excused = 0
-    for i, (a, b) in enumerate(zip(runs["auto"], runs["plain"])):
-        if (a.tokens, a.path, a.edge_calls) == (b.tokens, b.path,
-                                                b.edge_calls):
-            continue
-        check(a.path == b.path and a.tokens != b.tokens,
-              f"request {i}: kernel run {a.path}/{a.edge_calls} vs plain "
-              f"{b.path}/{b.edge_calls} with identical tokens")
-        j = next(k for k, (x, y) in enumerate(zip(a.tokens, b.tokens))
-                 if x != y)
-        params, cfg = (ep, e_cfg) if b.path == "edge" else (cp, c_cfg)
-        seq = torch.as_tensor([list(prompts[i]) + b.tokens[:j]],
-                              device="cuda")
-        logits, _ = transformer.forward(params, seq, cfg, backend="plain")
-        top2 = logits[0, -1].topk(2).values
-        gap = float(top2[0] - top2[1])
-        print(f"[parity] request {i} diverges at token {j}: plain top-2 "
-              f"gap {gap:.3e}", flush=True)
-        check(gap < GAP_TOL, f"request {i}: divergence at token {j} with a "
-                             f"top-2 gap {gap} >= {GAP_TOL}")
-        excused += 1
-    print(f"[parity] float32 2-layer full-width engine, kernels vs plain: "
-          f"{len(prompts) - excused}/{len(prompts)} traces identical, "
-          f"{excused} near-tie divergences", flush=True)
+    for name, kw, _ in PATHS:
+        if name == "self":
+            kw = {**kw, "spec_exit_layer": 1}     # 2 layers: exit after 1
+        runs = {}
+        for backend in ("auto", "plain"):
+            runs[backend] = _engine(e_cfg, c_cfg, backend, **kw).serve_batch(
+                ep, cp, prompts, 24)
+        excused = 0
+        for i, (a, b) in enumerate(zip(runs["auto"], runs["plain"])):
+            if (a.tokens, a.path, a.edge_calls) == (b.tokens, b.path,
+                                                    b.edge_calls):
+                continue
+            check(a.path == b.path and a.tokens != b.tokens,
+                  f"{name} request {i}: kernel run {a.path}/{a.edge_calls} "
+                  f"vs plain {b.path}/{b.edge_calls} with identical tokens")
+            j = next(k for k, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                     if x != y)
+            # the model that chose the diverging token: the edge for edge
+            # output and on the self lane, else the cloud
+            edge_chose = b.path == "edge" or name == "self"
+            params, cfg = (ep, e_cfg) if edge_chose else (cp, c_cfg)
+            seq = torch.as_tensor([list(prompts[i]) + b.tokens[:j]],
+                                  device="cuda")
+            logits, _ = transformer.forward(params, seq, cfg,
+                                            backend="plain")
+            top2 = logits[0, -1].topk(2).values
+            gap = float(top2[0] - top2[1])
+            print(f"[parity] {name} request {i} diverges at token {j}: "
+                  f"plain top-2 gap {gap:.3e}", flush=True)
+            check(gap < GAP_TOL, f"{name} request {i}: divergence at token "
+                                 f"{j} with a top-2 gap {gap} >= {GAP_TOL}")
+            excused += 1
+        print(f"[parity] {name} path, float32 2-layer full-width engine, "
+              f"kernels vs plain: {len(prompts) - excused}/{len(prompts)} "
+              f"traces identical, {excused} near-tie divergences",
+              flush=True)
     del ep, cp
     torch.cuda.empty_cache()
 

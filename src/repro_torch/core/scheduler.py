@@ -28,12 +28,12 @@ the PyTorch twin of the JAX package's ``core/scheduler.py``.
     longest per block of KV it would checkpoint).
   * ESCALATION runs GROUPED: one batched cloud generation ("cloud"), one
     batched skeleton + edge completion ("skeleton"), or one
-    ``BatchedSpecDecoder`` group on the linear lane ("speculative"), each
-    padded to ``batch_size``.
+    ``BatchedSpecDecoder`` group ("speculative") on the linear, tree or
+    self lane, each padded to ``batch_size``.  Tree and self groups run on
+    dense side states (``Lane.dense_side``), whatever the serving layout.
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-``mesh=`` (sharded serving), ``adaptation=`` (serve-time learning) and the
-``tree``/``self`` speculation lanes.
+``mesh=`` (sharded serving) and ``adaptation=`` (serve-time learning).
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ from repro_torch.core.policy import (ACTIONS, LANES, cloud_tokens,
 from repro_torch.core.seq_state import (Lane, host_pull, layout_for,
                                         pow2_steps, resolve_kv_layout)
 from repro_torch.core.speculative import BatchedSpecDecoder
+from repro_torch.core.tree_speculation import branching_for
 from repro_torch.core.traffic import VirtualClock, latency_rollup
 
 
@@ -97,10 +98,18 @@ class BatchedEngine:
     None = ``tick_tokens``, 0 = always whole-prompt), ``stop_token``.
     KV knobs: ``kv_layout`` ("auto" -> paged, "paged", "dense"),
     ``kv_block_size``, ``kv_blocks`` (total pool blocks incl. the trap).
-    ``attn_backend``: "auto" runs the Hopper kernels (paged decode, flash
-    prefill, spec verify) on CUDA and their plain versions on the CPU;
-    "plain" forces the plain versions everywhere (the parity oracle).
-    The device is the one the parameters passed to ``run`` live on.
+    ``attn_backend``: "auto" runs the Hopper kernels (paged and dense
+    decode, flash prefill, spec verify, tree verify) on CUDA and their
+    plain versions on the CPU; "plain" forces the plain versions everywhere
+    (the parity oracle).  The device is the one the parameters passed to
+    ``run`` live on.
+
+    Speculation lane: ``spec_mode`` ("linear" | "tree" | "self"; default
+    the policy's ``spec_mode``, else linear), ``spec_tree_width`` (the
+    tree's first-level branches, default 2) and ``spec_exit_layer`` (the
+    self lane's draft depth, default half the edge model).  A lane the
+    model families cannot serve falls back to linear; ``stats()`` reports
+    the effective one.
     """
 
     def __init__(self, edge_model, cloud_model, *, batch_size: int = 8,
@@ -117,6 +126,8 @@ class BatchedEngine:
                  prefill_chunk: Optional[int] = None,
                  stop_token: Optional[int] = None,
                  spec_mode: Optional[str] = None,
+                 spec_tree_width: Optional[int] = None,
+                 spec_exit_layer: Optional[int] = None,
                  attn_backend: str = "auto",
                  mesh=None, adaptation=None):
         if batch_size < 1:
@@ -164,14 +175,50 @@ class BatchedEngine:
                           attn_backend=attn_backend)
         self.cache = SemanticCache(threshold=cache_threshold) if use_cache \
             else None
-        # speculation lane: engine kwarg > policy attribute > linear
+        # speculation lane: engine kwarg > policy attribute > linear.  A
+        # model family the requested lane cannot serve falls back to the
+        # linear tape; stats()["spec_mode"] reports the effective mode
         mode = spec_mode if spec_mode is not None \
             else getattr(self.policy, "spec_mode", None) or "linear"
+        if mode not in ("linear", "tree", "self"):
+            raise ValueError(f"unknown spec_mode {mode!r}; "
+                             "known: linear | tree | self")
+        width = spec_tree_width if spec_tree_width is not None \
+            else getattr(self.policy, "spec_tree_width", None) or 2
+        exit_layer = spec_exit_layer if spec_exit_layer is not None \
+            else getattr(self.policy, "spec_exit_layer", None)
+        if mode == "tree" and not BatchedSpecDecoder.tree_supported(
+                edge_model, cloud_model):
+            mode = "linear"
+        if mode == "self" and not BatchedSpecDecoder.self_supported(
+                edge_model):
+            mode = "linear"
         self.spec_mode = mode
-        self.spec = BatchedSpecDecoder(edge_model, cloud_model, gamma=gamma,
-                                       temperature=temperature,
-                                       kv_layout=self.kv_layout, mode=mode,
-                                       attn_backend=attn_backend)
+        if mode == "tree":
+            self.spec = BatchedSpecDecoder(
+                edge_model, cloud_model, gamma=gamma,
+                temperature=temperature, mode="tree",
+                branching=branching_for(width, gamma),
+                attn_backend=attn_backend)
+        elif mode == "self":
+            self.spec = BatchedSpecDecoder(
+                edge_model, edge_model, gamma=gamma,
+                temperature=temperature, mode="self",
+                exit_layer=exit_layer, attn_backend=attn_backend)
+        else:
+            self.spec = BatchedSpecDecoder(edge_model, cloud_model,
+                                           gamma=gamma,
+                                           temperature=temperature,
+                                           kv_layout=self.kv_layout,
+                                           attn_backend=attn_backend)
+        # tree/self groups always run dense per-slot caches (block-masked
+        # extends are a dense-layout feature); Lane.dense_side() owns that
+        # layout decision and is identity on lanes that are already dense.
+        # Linear groups keep using the serving lanes
+        self._spec_edge = self.edge if mode == "linear" \
+            else self.edge.dense_side()
+        self._spec_cloud = self.cloud.dense_side() if mode == "tree" \
+            else self.cloud
         self._queue: collections.deque = collections.deque()
         self._next_rid = 0
         # intra-batch dedup: in-flight leaders and their coalesced followers
@@ -236,8 +283,10 @@ class BatchedEngine:
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(self.seed)
         # slot capacity: prompt + generation + speculative overdraft margin
+        # (a tree lane overdrafts a full padded tree per round)
+        ovr = self.spec.plan.n_pad if self.spec_mode == "tree" else self.gamma
         self._slot_len = max(r.prompt.size + r.max_new for r in self._queue) \
-            + 2 * max(self.gamma, 16) + 8
+            + 2 * max(ovr, 16) + 8
         self._kv_stats = {"kv_layout": self.kv_layout, "ticks": 0,
                           "tick_seconds": 0.0}
         state = self.edge.make_state(edge_params, B, self._slot_len,
@@ -720,20 +769,28 @@ class BatchedEngine:
     def _spec_escalate(self, edge_params, cloud_params, reqs, uncs):
         """One BatchedSpecDecoder group over all escalated requests.  Paged
         groups pre-grow each slot to prompt + budget + one round of draft
-        overdraft — spec rewinds only move ``pos``, never reallocate."""
+        overdraft — spec rewinds only move ``pos``, never reallocate.  A
+        tree lane overdrafts a full padded tree per round and runs on the
+        dense side lanes; the self lane builds ONE edge-side state (draft
+        and verify share cache and parameters — no cloud involvement, so
+        its traces carry ``cloud_passes=0``)."""
         G = self.batch_size
-        ovr = self.gamma + 2
+        mode = self.spec_mode
+        ovr = (self.spec.plan.n_pad if mode == "tree" else self.gamma) + 2
         need = [r.prompt.size - 1 + r.max_new + ovr for r in reqs]
-        d_state = self.edge.make_state(edge_params, G, self._slot_len,
-                                       need_tokens=need)
-        t_state = self.cloud.make_state(cloud_params, G, self._slot_len,
-                                        need_tokens=need)
-        states = [d_state, t_state]
+        d_state = self._spec_edge.make_state(edge_params, G, self._slot_len,
+                                             need_tokens=need)
+        states = [d_state]
+        if mode != "self":
+            t_state = self._spec_cloud.make_state(
+                cloud_params, G, self._slot_len, need_tokens=need)
+            states.append(t_state)
         last_h = np.zeros((G, 1, 1), np.int32)
         for i, (r, nd) in enumerate(zip(reqs, need)):
             for st in states:
                 st.admit(i, r.prompt, nd)
             last_h[i, 0, 0] = int(r.prompt[-1])
+        last = torch.as_tensor(last_h, device=edge_params.embed.device)
         overdraft = np.zeros((G,), np.int32)
         overdraft[:len(reqs)] = [n - (r.prompt.size - 1)
                                  for n, r in zip(need, reqs)]
@@ -743,20 +800,26 @@ class BatchedEngine:
         max_news = [r.max_new for r in reqs] + [0] * (G - len(reqs))
         for r in reqs:
             self.clock.on_prefill(r.prompt.size - 1)
-        outs, stats = self.spec.generate_group(
-            edge_params, cloud_params, d_state.caches, t_state.caches,
-            torch.as_tensor(last_h, device=edge_params.embed.device),
-            max_news, self._gen)
+        if mode == "self":
+            outs, stats = self.spec.generate_group_self(
+                edge_params, d_state.caches, last, max_news, self._gen)
+        else:
+            outs, stats = self.spec.generate_group(
+                edge_params, cloud_params, d_state.caches, t_state.caches,
+                last, max_news, self._gen)
         # modeled cost: the group runs the slowest member's rounds, each a
-        # gamma-step draft + one verify + one commit step
+        # draft chunk (gamma steps, or the tree's depth levels) + one
+        # verify + one commit step
+        draft_steps = self.spec.plan.depth if mode == "tree" else self.gamma
         self.clock.on_steps(max(st["rounds"] for st in stats[:len(reqs)])
-                            * (self.gamma + 2))
+                            * (draft_steps + 2))
         self._note_group(*states)
         return [(r, RequestTrace(
             "speculative",
-            edge_calls=r.max_new + stats[i]["rounds"] * (self.gamma + 1),
-            cloud_passes=stats[i]["rounds"], uncertainty=u,
-            tokens=outs[i])) for i, (r, u) in enumerate(zip(reqs, uncs))]
+            edge_calls=r.max_new + stats[i]["rounds"] * (draft_steps + 1),
+            cloud_passes=0 if mode == "self" else stats[i]["rounds"],
+            uncertainty=u, tokens=outs[i]))
+            for i, (r, u) in enumerate(zip(reqs, uncs))]
 
     # ------------------------------------------------------------ stats
     @property

@@ -16,16 +16,19 @@ only).
         copy-on-write and host-buffer swap for preemption.
 
   * ``SpecOps`` — the per-model ops speculative decoding composes:
-    ``step`` / ``extend`` and ``snapshot`` / ``commit`` (a ``pos`` write).
+    ``step`` / ``extend`` and ``snapshot`` / ``commit`` (a ``pos`` write),
+    plus the tree lane's ``extend_tree`` / ``reset`` / ``commit_permute``
+    on the dense layout.
   * ``Lane`` — the per-model batched machinery (bucketed prefill, chunked
     prefill, the multi-step decode loop with ONE host pull per tick) plus
-    the ``make_state`` factory.  All layout dispatch lives here.
+    the ``make_state`` factory and ``dense_side`` (the same model on dense
+    per-slot caches, for tree/self escalation groups).  All layout
+    dispatch lives here.
 
 Device tensors are updated IN PLACE where JAX returns new arrays (pools,
 tables, dense slabs); ``pos`` is always replaced by a new tensor, so a
-``pos`` snapshot never aliases live state.  The recurrent layout, the
-dense side lanes of tree/self speculation and the sharded pools are later
-slices of the port.
+``pos`` snapshot never aliases live state.  The recurrent layout and the
+sharded pools are later slices of the port.
 """
 from __future__ import annotations
 
@@ -142,8 +145,9 @@ class SpecOps:
     """Per-(model, layout) ops for batched speculative decoding:
     ``step``/``extend`` run one decode step / a multi-token extend over the
     whole group; ``snapshot``/``commit`` implement the per-round rewind.
-    ``attn_backend`` picks the paged decode read (see
-    ``Model.paged_decode_step``)."""
+    ``attn_backend`` picks the attention read of the decode steps and the
+    tree extends (see ``Model.paged_decode_step`` / ``decode_step`` /
+    ``extend_step``)."""
 
     def __init__(self, model, layout: str, attn_backend: str = "auto"):
         self.model = model
@@ -155,13 +159,57 @@ class SpecOps:
         if self.layout == "paged":
             return self.model.paged_decode_step(
                 params, tok[:, :, 0], caches, attn_backend=self.attn_backend)
-        return self.model.decode_step(params, tok[:, :, 0], caches)
+        return self.model.decode_step(params, tok[:, :, 0], caches,
+                                      attn_backend=self.attn_backend)
 
     def extend(self, params, tokens, caches):
         """tokens (G, T) -> (logits (G, T, V), caches)."""
         if self.layout == "paged":
             return self.model.paged_extend_step(params, tokens, caches)
         return self.model.extend_step(params, tokens, caches)
+
+    def extend_tree(self, params, tokens, caches, block_mask, depths):
+        """Tree-masked extend: each slot's ``tokens`` (G, T) row is a packed
+        token tree whose node ``i`` attends the cache prefix plus
+        ``block_mask[i]`` (T, C) of the tree, with RoPE positions
+        ``pos + depths`` (T,).  Dense layout only: token trees need a
+        customizable intra-block mask, and paged extends are linear-order."""
+        if self.layout != "dense":
+            raise ValueError(
+                f"token trees need a dense-layout attention model; got "
+                f"layout {self.layout!r}")
+        q_pos = caches["pos"].long()[:, None] + depths.long()[None, :]
+        return self.model.extend_step(params, tokens, caches,
+                                      block_mask=block_mask,
+                                      q_positions=q_pos,
+                                      attn_backend=self.attn_backend)
+
+    def reset(self, caches, snap):
+        """Roll the group back to the pre-round snapshot WITHOUT committing
+        anything (the self lane re-anchors before its verify)."""
+        return {**caches, "pos": snap}
+
+    def commit_permute(self, caches, snap, perm, counts):
+        """Gather-based tree commit: the verify extend wrote every tree
+        node's K/V at cache row ``snap + node`` with RoPE position ``snap +
+        depth(node)``, and the accepted root path has exactly one node per
+        depth — so its rows are already position-correct and merely sit at
+        the wrong cache index.  Copy them down to the contiguous prefix
+        [snap, snap + T) (IN PLACE) and advance ``pos``: no replay forward
+        pass.  ``perm`` (G, T) holds each slot's path node indices (entries
+        past ``counts`` land beyond ``pos`` and are dead).  Indices clip to
+        the cache and the write start clamps, as the JAX package's
+        ``take(mode="clip")`` and ``dynamic_update_slice`` do."""
+        S = caches["k"].shape[2]
+        T = perm.shape[1]
+        s = snap.long()
+        src = (s[:, None] + perm.long()).clamp(0, S - 1)             # (G,T)
+        dst = s.clamp(0, S - T)[:, None] + torch.arange(T, device=s.device)
+        g = torch.arange(src.shape[0], device=s.device)[:, None]
+        for name in ("k", "v"):
+            x = caches[name]                          # (L, G, S, Kv, hd)
+            x[:, g, dst] = x[:, g, src]
+        return {**caches, "pos": (snap + counts).to(torch.int32)}
 
     def snapshot(self, caches):
         """Pre-round rewind anchor: ``pos`` (G,) (never mutated later)."""
@@ -737,6 +785,22 @@ class Lane:
         self.attn_backend = attn_backend
         self.ops = SpecOps(model, layout, attn_backend)
         self._est = get_batched_estimator(estimator)
+        self._dense_side: Optional["Lane"] = None
+
+    def dense_side(self) -> "Lane":
+        """This lane's model re-hosted on dense per-slot caches (made once).
+        Tree/self speculation needs block-masked extends — a dense-layout
+        feature — so escalation groups build their side states through
+        here instead of the scheduler ever comparing ``.layout``.  Identity
+        on lanes that are already dense."""
+        if self.layout == "dense":
+            return self
+        if self._dense_side is None:
+            self._dense_side = Lane(self.model, self.estimator,
+                                    self.temperature, layout="dense",
+                                    block_size=self.block_size,
+                                    attn_backend=self.attn_backend)
+        return self._dense_side
 
     def prefill(self, params, prompt, max_seq: int):
         """Prefill ``prompt[:-1]`` into a fresh cache padded to ``max_seq``.

@@ -1,4 +1,5 @@
-"""Token-level mixture: speculative decoding (survey §2.4), linear lane.
+"""Token-level mixture: speculative decoding (survey §2.4), the batched
+linear, tree and self lanes.
 
 Edge SLM drafts gamma tokens; cloud LLM verifies them in ONE parallel pass
 (modified rejection sampling, Leviathan et al. / survey §2.4.1).  The
@@ -6,9 +7,8 @@ scheme is lossless: the output distribution equals sampling from the target
 model alone.
 
 KV caches roll back rejected tokens by resetting ``pos`` — stale entries
-are masked out and later overwritten.  The tree and self lanes, the
-per-request ``SpecDecoder`` and the recurrent-state replay are later slices
-of the port.
+are masked out and later overwritten.  The per-request ``SpecDecoder`` and
+the recurrent-state replay are later slices of the port.
 """
 from __future__ import annotations
 
@@ -18,10 +18,15 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import hot_path
+from repro_torch.core.self_speculative import partial_extend_step
 from repro_torch.core.seq_state import (SpecOps, host_pull, layout_for,
                                         next_tokens)
+from repro_torch.core.tree_speculation import (TreePlan, branching_for,
+                                               tree_accept)
 from repro_torch.kernels import ops
 from repro_torch.kernels.spec_verify import spec_verify_plain
+
+FAMILIES_WITH_TREES = ("dense", "moe", "vlm")
 
 
 def _probs(logits, temperature: float):
@@ -61,34 +66,45 @@ def speculative_sample(gen, target_logits, draft_logits, draft_tokens,
 
 
 class BatchedSpecDecoder:
-    """Grouped edge-draft / cloud-verify decoding for the serving scheduler
-    (linear lane).
+    """Grouped edge-draft / cloud-verify decoding for the serving scheduler.
 
-    Operates on a padded GROUP of requests with batched caches: drafting
-    is gamma+1 batched decode steps, verification ONE batched target
-    extend, acceptance ONE call of the spec-verify kernel (its plain
-    version on the CPU or under ``attn_backend="plain"``) with uniforms
-    drawn from the caller's ``torch.Generator``, and the per-slot rewind a
-    ``pos`` write — one host pull per ROUND, per group.  Dense and paged
-    layouts share the rounds through ``core.seq_state.SpecOps``; a paged
-    caller must have grown each slot's block table to cover prompt +
-    budget + one round of draft overdraft.
+    Operates on a padded GROUP of requests with batched caches; every lane
+    ends a round in ONE host pull.  ``mode`` picks the lane:
 
-    ``counters`` accumulates totals across ``generate_group`` calls:
-    member_rounds (verify passes), draft_tokens, verify_tokens,
-    accepted_tokens and emitted_tokens.
+    * ``"linear"`` (default) — drafting is gamma+1 batched decode steps,
+      verification ONE batched target extend, acceptance ONE call of the
+      spec-verify kernel (its plain version on the CPU or under
+      ``attn_backend="plain"``) with uniforms drawn from the caller's
+      ``torch.Generator``, and the per-slot rewind a ``pos`` write.  Dense
+      and paged layouts share the rounds through ``core.seq_state.SpecOps``;
+      a paged caller must have grown each slot's block table to cover
+      prompt + budget + one round of draft overdraft.
+    * ``"tree"`` — each slot drafts a PACKED TOKEN TREE (static
+      ``TreePlan``, pow2-padded width) level by level via top-k expansion,
+      each level a rectangular tree-masked extend over only its new nodes;
+      verification is ONE batched tree-masked target extend (the Hopper
+      tree-verify kernel on CUDA) and ``tree_accept`` walks the longest
+      target-consistent root path.  Both commits are row permutes
+      (``SpecOps.commit_permute``).  Group states are always dense.
+    * ``"self"`` — no second model: the draft model's OWN early-exit head
+      (first ``exit_layer`` blocks + shared LM head,
+      ``self_speculative.partial_extend_step``) drafts into the shared
+      cache and the full depth verifies, overwriting the shallow K/V;
+      acceptance through the spec-verify kernel as on the linear lane.
+      One cache, one set of parameters; use ``generate_group_self``.
+
+    ``counters`` accumulates totals across calls: member_rounds (verify
+    passes), draft_tokens, verify_tokens, accepted_tokens and
+    emitted_tokens.
     """
 
     def __init__(self, draft_model, target_model, *, gamma: int = 4,
                  temperature: float = 0.0, kv_layout: str = "dense",
-                 mode: str = "linear", attn_backend: str = "auto"):
+                 mode: str = "linear", branching=None, exit_layer=None,
+                 attn_backend: str = "auto"):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        if mode in ("tree", "self"):
-            raise NotImplementedError(
-                f"spec_mode {mode!r} is not ported yet: the tree and self "
-                "speculation lanes are a later slice of the port")
-        if mode != "linear":
+        if mode not in ("linear", "tree", "self"):
             raise ValueError(f"unknown speculation mode {mode!r}; "
                              "known: linear | tree | self")
         self.gamma = gamma
@@ -99,29 +115,78 @@ class BatchedSpecDecoder:
         self.counters = {"member_rounds": 0, "draft_tokens": 0,
                          "verify_tokens": 0, "accepted_tokens": 0,
                          "emitted_tokens": 0}
-        self._dops = SpecOps(draft_model, layout_for(draft_model, kv_layout),
-                             attn_backend)
-        self._tops = SpecOps(target_model,
-                             layout_for(target_model, kv_layout),
-                             attn_backend)
-        self._per_round = (gamma, gamma + 1)
+        if mode == "linear":
+            self._dops = SpecOps(draft_model,
+                                 layout_for(draft_model, kv_layout),
+                                 attn_backend)
+            self._tops = SpecOps(target_model,
+                                 layout_for(target_model, kv_layout),
+                                 attn_backend)
+            self._per_round = (gamma, gamma + 1)
+        elif mode == "tree":
+            if not self.tree_supported(draft_model, target_model):
+                raise ValueError(
+                    "tree speculation needs dense-layout attention families "
+                    f"on both models, got {draft_model.cfg.family!r} / "
+                    f"{target_model.cfg.family!r}")
+            # tree groups always run dense per-slot caches: block masks are
+            # a dense-layout feature (paged extends stay linear-order)
+            self._dops = SpecOps(draft_model, "dense", attn_backend)
+            self._tops = SpecOps(target_model, "dense", attn_backend)
+            self.plan = TreePlan(branching if branching is not None
+                                 else branching_for(2, gamma))
+            self._per_round = (self.plan.n - 1, self.plan.n_pad)
+            self._plan_on = {}          # device -> (mask, depths) tensors
+        else:                                            # self
+            model = draft_model
+            if not self.self_supported(model):
+                raise ValueError(
+                    "self-speculation needs a scan-stacked attention edge "
+                    f"model, got family {model.cfg.family!r}")
+            k = exit_layer if exit_layer is not None \
+                else max(model.cfg.num_layers // 2, 1)
+            if not 0 < k < model.cfg.num_layers:
+                raise ValueError(f"exit_layer {k} out of range "
+                                 f"(0, {model.cfg.num_layers})")
+            self.exit_layer = k
+            self.second_model_params = 0
+            self._cfg = model.cfg
+            self._tops = SpecOps(model, "dense", attn_backend)
+            self._per_round = (gamma, gamma + 1)
 
-    def _verify(self, t_logits, draft_lgs, draft_toks, u_acc, u_res):
-        if self.attn_backend == "plain":
-            return spec_verify_plain(t_logits, draft_lgs, draft_toks, u_acc,
-                                     u_res, temperature=self.temperature)
-        return ops.spec_verify(t_logits, draft_lgs, draft_toks, u_acc, u_res,
-                               temperature=self.temperature)
+    @staticmethod
+    def tree_supported(draft_model, target_model) -> bool:
+        return (draft_model.cfg.family in FAMILIES_WITH_TREES
+                and target_model.cfg.family in FAMILIES_WITH_TREES)
+
+    @staticmethod
+    def self_supported(model) -> bool:
+        return model.cfg.family in FAMILIES_WITH_TREES
+
+    def _accept(self, t_logits, draft_lgs, draft_toks, gen):
+        """Acceptance of a linear draft tape (linear and self lanes):
+        uniforms from ``gen``, then the spec-verify kernel (its plain
+        version under ``attn_backend="plain"``)."""
+        G, gamma = draft_toks.shape
+        u = torch.rand((2, G, gamma + 1), generator=gen,
+                       device=t_logits.device)
+        verify = spec_verify_plain if self.attn_backend == "plain" \
+            else ops.spec_verify
+        return verify(t_logits.float().contiguous(), draft_lgs.contiguous(),
+                      draft_toks, u[0], u[1], temperature=self.temperature)
 
     def _round(self, draft_params, target_params, d_slots, t_slots, last,
                active, gen):
-        """One draft/verify/commit round over the whole group.
+        """One draft/verify/commit round over the whole group (the linear
+        and tree lanes).
 
         last: (G, 1, 1) pending tokens; active: (G,) bool — frozen slots
         keep their cache position and pending token.  Both caches contain
         sequence[:-1] on entry and exit."""
+        if self.mode == "tree":
+            return self._tree_round(draft_params, target_params, d_slots,
+                                    t_slots, last, active, gen)
         gamma = self.gamma
-        G = last.shape[0]
         d_snap = self._dops.snapshot(d_slots)
         t_snap = self._tops.snapshot(t_slots)
 
@@ -141,10 +206,7 @@ class BatchedSpecDecoder:
         # ---- verify in one batched target pass over [last, d_0..d_{g-1}]
         ver_in = torch.cat([last[:, :, 0], draft_toks], dim=1)  # (G, g+1)
         t_logits, t_slots = self._tops.extend(target_params, ver_in, t_slots)
-        u = torch.rand((2, G, gamma + 1), generator=gen, device=last.device)
-        n_acc, next_tok = self._verify(t_logits.float().contiguous(),
-                                       draft_lgs.contiguous(), draft_toks,
-                                       u[0], u[1])
+        n_acc, next_tok = self._accept(t_logits, draft_lgs, draft_toks, gen)
 
         # ---- per-slot rewind to the accepted prefix [last, d_0..]
         counts = torch.where(active, n_acc + 1, 0).to(torch.int32)
@@ -156,6 +218,120 @@ class BatchedSpecDecoder:
                            last)
         return d_slots, t_slots, last, draft_toks, n_acc, next_tok
 
+    def _plan_tensors(self, device):
+        """The plan's (n_pad, n_pad) mask and (n_pad,) depths on
+        ``device``, copied there once."""
+        if device not in self._plan_on:
+            self._plan_on[device] = (
+                torch.as_tensor(self.plan.mask, device=device),
+                torch.as_tensor(self.plan.depths, device=device))
+        return self._plan_on[device]
+
+    def _tree_round(self, draft_params, target_params, d_slots, t_slots,
+                    last, active, gen):
+        """One packed-tree draft/verify/commit round over the whole group.
+
+        Drafting expands the static ``TreePlan`` level by level and
+        INCREMENTALLY: each span (root, then each level) is one rectangular
+        tree-masked extend over only that span's NEW nodes — the mask's
+        earlier columns cover the tree rows previous spans already wrote —
+        so a round forwards each of the ``n`` nodes once.  Parent-row
+        logits feed top-k child selection, ties ordered like ``lax.top_k``
+        (descending, lower index first: a stable sort).  Verification is
+        one batched tree-masked target extend over all ``n_pad`` nodes and
+        ``tree_accept`` walks the accepted root path.  Every node's row was
+        written at RoPE position snap + depth, so BOTH commits are row
+        permutes down to the contiguous prefix: no extra forward pass."""
+        plan = self.plan
+        G = last.shape[0]
+        D = plan.depth
+        dev = last.device
+        mask, depths = self._plan_tensors(dev)
+        d_snap = self._dops.snapshot(d_slots)
+        t_snap = self._tops.snapshot(t_slots)
+
+        # ---- draft: deterministic top-k tree expansion; node c's
+        # acceptance distribution q is its PARENT's draft logits
+        toks = torch.zeros((G, plan.n_pad), dtype=torch.int32, device=dev)
+        toks[:, 0] = last[:, 0, 0]
+        q_lgs = [None] * plan.n_pad
+        spans = [(0, 1)] + list(plan.levels)     # contiguous: b_i == a_{i+1}
+        for si, (a, b) in enumerate(spans):
+            # extend ONLY nodes [a, b): mask rows a..b over all b tree
+            # columns written so far; RoPE offset depths - a because the
+            # cache pos already advanced to snap + a
+            lgs, d_slots = self._dops.extend_tree(
+                draft_params, toks[:, a:b], d_slots, mask[a:b, :b],
+                depths[a:b] - a)
+            if si + 1 == len(spans):
+                break                            # deepest level: K/V only
+            lo, hi = spans[si + 1]
+            by_parent = {}
+            for c in range(lo, hi):
+                by_parent.setdefault(int(plan.parent[c]), []).append(c)
+            for pnode, kids in sorted(by_parent.items()):
+                plg = lgs[:, pnode - a].float()                  # (G, V)
+                top = torch.sort(plg, dim=-1, descending=True,
+                                 stable=True).indices[:, :len(kids)]
+                for j, c in enumerate(kids):
+                    toks[:, c] = top[:, j]
+                    q_lgs[c] = plg
+        zero = torch.zeros_like(q_lgs[plan.levels[0][0]])
+        q_logits = torch.stack([zero if l is None else l for l in q_lgs],
+                               dim=1)                           # (G,n_pad,V)
+
+        # ---- verify: ONE batched tree-masked target extend
+        t_lgs, t_slots = self._tops.extend_tree(target_params, toks, t_slots,
+                                                mask, depths)
+        kmax = max(plan.branching)
+        u_acc = torch.rand((G, D, kmax), generator=gen, device=dev)
+        u_res = torch.rand((G, D + 1), generator=gen, device=dev)
+        n_acc, em, path = tree_accept(t_lgs, q_logits, toks, plan, u_acc,
+                                      u_res, temperature=self.temperature)
+        next_tok = em.gather(1, n_acc.long()[:, None])[:, 0]
+
+        # ---- commit the accepted root path in both caches (row permutes)
+        counts = torch.where(active, n_acc + 1, 0).to(torch.int32)
+        d_slots = self._dops.commit_permute(d_slots, d_snap, path, counts)
+        t_slots = self._tops.commit_permute(t_slots, t_snap, path, counts)
+        last = torch.where(active[:, None, None], next_tok[:, None, None],
+                           last)
+        return d_slots, t_slots, last, em[:, :D], n_acc, next_tok
+
+    def _self_round(self, params, slots, last, active, gen):
+        """One self-speculative round: the model's first ``exit_layer``
+        blocks + shared head draft a gamma-chain into the SHARED cache
+        (shallow K/V at the draft positions, ``pos`` advanced by hand),
+        then the full depth verifies from the snapshot — overwriting every
+        layer's K/V at those positions — and the commit is the usual
+        ``pos`` write."""
+        gamma = self.gamma
+        snap = self._tops.snapshot(slots)
+        toks, lgs = [], []
+        tok = last
+        for _ in range(gamma):
+            lg, slots = partial_extend_step(params, tok[:, :, 0], slots,
+                                            self._cfg, self.exit_layer)
+            lg = lg[:, 0]                                        # (G, V)
+            slots = {**slots, "pos": slots["pos"] + 1}
+            nxt = next_tokens(lg, self.temperature, gen)
+            toks.append(nxt)
+            lgs.append(lg)
+            tok = nxt[:, None, None]
+        draft_toks = torch.stack(toks, dim=1)                    # (G, gamma)
+        draft_lgs = torch.stack(lgs, dim=1).float()              # (G,gamma,V)
+
+        ver_in = torch.cat([last[:, :, 0], draft_toks], dim=1)
+        slots = self._tops.reset(slots, snap)
+        t_logits, slots = self._tops.extend(params, ver_in, slots)
+        n_acc, next_tok = self._accept(t_logits, draft_lgs, draft_toks, gen)
+
+        counts = torch.where(active, n_acc + 1, 0).to(torch.int32)
+        slots = self._tops.commit(params, slots, snap, ver_in, counts)
+        last = torch.where(active[:, None, None], next_tok[:, None, None],
+                           last)
+        return slots, last, draft_toks, n_acc, next_tok
+
     @hot_path
     def generate_group(self, draft_params, target_params, d_slots, t_slots,
                        last, max_news, gen):
@@ -163,7 +339,12 @@ class BatchedSpecDecoder:
 
         last: (G, 1, 1) int32 on the device; max_news: per-slot budget (0
         for padding slots).  Returns (token lists, per-member stats dicts
-        with rounds/accepted)."""
+        with rounds/accepted).  The linear and tree lanes share this loop:
+        a tree round's tape is its emitted-path tokens, so the per-round
+        emission is ``tape[i, :n_acc] + [next_tok]`` in both."""
+        if self.mode == "self":
+            raise ValueError("the self lane decodes one shared state: use "
+                             "generate_group_self")
         G = last.shape[0]
         remaining = np.array(max_news, np.int64)    # host list, not a sync
         out: List[List[int]] = [[] for _ in range(G)]
@@ -173,6 +354,25 @@ class BatchedSpecDecoder:
             d_slots, t_slots, last, draft_toks, n_acc, next_tok = \
                 self._round(draft_params, target_params, d_slots, t_slots,
                             last, active, gen)
+            self._collect(remaining, draft_toks, n_acc, next_tok, out,
+                          member_stats)
+        return out, member_stats
+
+    @hot_path
+    def generate_group_self(self, params, slots, last, max_news, gen):
+        """Self-speculative twin of ``generate_group``: ONE model, ONE
+        batched dense cache (shallow draft and full-depth verify share
+        it)."""
+        if self.mode != "self":
+            raise ValueError("generate_group_self serves the self lane")
+        G = last.shape[0]
+        remaining = np.array(max_news, np.int64)    # host list, not a sync
+        out: List[List[int]] = [[] for _ in range(G)]
+        member_stats = [{"rounds": 0, "accepted": []} for _ in range(G)]
+        while (remaining > 0).any():
+            active = torch.as_tensor(remaining > 0, device=last.device)
+            slots, last, draft_toks, n_acc, next_tok = self._self_round(
+                params, slots, last, active, gen)
             self._collect(remaining, draft_toks, n_acc, next_tok, out,
                           member_stats)
         return out, member_stats

@@ -128,4 +128,5 @@ class CudaKernel:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float

@@ -8,10 +8,11 @@
 // Design: one thread block per (sequence b, kv head).  It holds the G query
 // rows of that kv head in shared memory, reads table[b, i] itself (the TPU
 // kernel's scalar prefetch) and walks the blocks in order, stopping at the
-// first block past `length`.  Four warps score the block's keys (one key per
-// warp at a time, lanes split the head dim), one warp per query row updates
-// the running max / denominator, and every thread owns a few (g, d)
-// accumulator entries for the P.V product.  Masked keys are skipped, never
+// first block past `length`.  Each block is one step of repro::decode_tile
+// (common.cuh, shared with the dense decode kernel): four warps score the
+// block's keys (one key per warp at a time, lanes split the head dim), one
+// warp per query row updates the running max / denominator, and every
+// thread owns a few (g, d) accumulator entries for the P.V product.  Masked keys are skipped, never
 // weighted by zero: the trap block and blocks not yet written hold whatever
 // was last stored there.  The windowed variant starts at logical block
 // max(length - window, 0) // bs, walks at most ns blocks and clamps the
@@ -27,7 +28,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHd = 256;                 // head dim, a multiple of 32
 constexpr int kMaxPairs = 32;               // G * hd <= kThreads * kMaxPairs
 
@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
     const int* __restrict__ length, T* __restrict__ out, int Kv, int G, int hd,
     int bs, int MB, int ns, int window, float scale) {
   const int b = blockIdx.x, kv = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   extern __shared__ float smem[];
   float* qs = smem;              // [G][hd] query rows
   float* ps = qs + G * hd;       // [G][bs] scores, then probabilities
@@ -60,7 +60,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
   const int sb = window > 0 ? max(len - window, 0) / bs : 0;
   const int lo = window > 0 ? len - window : 0;   // first visible pos
   const size_t row = static_cast<size_t>(Kv) * hd;      // pool position stride
-  const int nd = hd / 32;
   __syncthreads();
 
   for (int isb = 0; isb < ns; ++isb) {
@@ -74,61 +73,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
     const int iphys = window > 0 ? min(ilog, MB - 1) : ilog;
     const size_t base =
         static_cast<size_t>(table[b * MB + iphys]) * bs * row + kv * hd;
-    const T* kb = k_pool + base;
-    const T* vb = v_pool + base;
-
-    // ---- scores s[g][t] = q[g] . k[t] * scale, visible keys only
-    for (int t = t0 + warp; t < t1; t += kWarps) {
-      float kr[kMaxHd / 32];
-#pragma unroll
-      for (int j = 0; j < kMaxHd / 32; ++j)
-        kr[j] = j < nd ? repro::to_float(kb[t * row + lane + 32 * j]) : 0.f;
-      for (int g = 0; g < G; ++g) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxHd / 32; ++j)
-          if (j < nd) s += qs[g * hd + lane + 32 * j] * kr[j];
-        s = repro::warp_sum(s);
-        if (lane == 0) ps[g * bs + t] = s * scale;
-      }
-    }
-    __syncthreads();
-
-    // ---- online softmax statistics, one warp per query row
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = repro::kNeg;
-      for (int t = t0 + lane; t < t1; t += 32) mx = fmaxf(mx, ps[g * bs + t]);
-      mx = repro::warp_max(mx);
-      const float m_new = fmaxf(ms[g], mx);
-      float sum = 0.f;
-      for (int t = t0 + lane; t < t1; t += 32) {
-        const float p = expf(ps[g * bs + t] - m_new);
-        ps[g * bs + t] = p;
-        sum += p;
-      }
-      sum = repro::warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(ms[g] - m_new);
-        as[g] = alpha;
-        ls[g] = ls[g] * alpha + sum;
-        ms[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- acc[g][d] = acc * alpha + sum_t p[g][t] v[t][d]
-#pragma unroll
-    for (int j = 0; j < kMaxPairs; ++j) {
-      const int idx = tid + j * kThreads;
-      if (idx < G * hd) {
-        const int g = idx / hd, d = idx - (idx / hd) * hd;
-        float a = acc[j] * as[g];
-        for (int t = t0; t < t1; ++t)
-          a += ps[g * bs + t] * repro::to_float(vb[t * row + d]);
-        acc[j] = a;
-      }
-    }
-    __syncthreads();
+    repro::decode_tile<kThreads, kMaxHd, kMaxPairs>(
+        qs, k_pool + base, v_pool + base, row, t0, t1, G, hd, bs, scale, ps,
+        ms, ls, as, acc);
   }
 
 #pragma unroll

@@ -1,15 +1,25 @@
-"""Paged GQA decode attention: the Hopper kernel's wrapper and its plain
-PyTorch version.
+"""GQA decode attention, paged and dense: the Hopper kernels' wrappers and
+their plain PyTorch versions.
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/decode_attention.py::
-paged_decode_attention`` (body ``_paged_kernel``), the serving path's hot
-loop: one query per sequence against a shared (NB, bs, Kv, hd) K/V block
-pool read through a (B, MB) int32 block table.  The CUDA source is
-``csrc/paged_decode_attention.cu``; its header comment says what bounds it
-on the H100 and how the design answers that.  ``paged_decode_attention_plain``
-mirrors the JAX oracle ``kernels/ref.py::paged_decode_attention_ref``: gather
-the table into a contiguous cache, then masked dense attention with masked
-scores at -1e30.
+* Paged: replaces the Pallas TPU kernel ``src/repro/kernels/
+  decode_attention.py::paged_decode_attention`` (body ``_paged_kernel``),
+  the serving path's hot loop: one query per sequence against a shared
+  (NB, bs, Kv, hd) K/V block pool read through a (B, MB) int32 block table.
+  CUDA source ``csrc/paged_decode_attention.cu``.
+  ``paged_decode_attention_plain`` mirrors the JAX oracle
+  ``kernels/ref.py::paged_decode_attention_ref``: gather the table into a
+  contiguous cache, then masked dense attention.
+* Dense: replaces ``src/repro/kernels/decode_attention.py::
+  decode_attention`` (body ``_kernel``): one query per sequence against its
+  own (Kv, S, hd) cache — the dense layout's decode ticks.  CUDA source
+  ``csrc/decode_attention.cu``; the wrapper takes K/V as strided views, so
+  the serving cache's (B, S, Kv, hd) layout goes in without a copy, and any
+  S (the TPU kernel's ``S % bs == 0`` is a tiling limit of that machine).
+  ``decode_attention_plain`` mirrors ``kernels/ref.py::
+  decode_attention_ref``.
+
+Each CUDA source's header comment says what bounds it on the H100 and how
+the design answers that.  Masked scores are -1e30, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,12 +27,14 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import F, I, P, CudaKernel
+from repro_torch.kernels.build import F, I, L, P, CudaKernel
 
 NEG = -1e30
 
 KERNEL = CudaKernel("paged_decode_attention.cu", "repro_paged_decode_attention",
                     [I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P])
+DENSE_KERNEL = CudaKernel("decode_attention.cu", "repro_decode_attention",
+                          [I, P, P, P, P, P, I, I, I, I, I, L, L, L, I, F, P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,4 +93,59 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, length, *,
                   out.data_ptr(), B, Kv, G, hd, bs, MB, ns, int(window),
                   1.0 / math.sqrt(hd),
                   torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+# ---------------------------------------------------------------- dense
+def decode_attention_plain(q, k, v, length, *, window: int = 0):
+    """q: (B, Kv, G, hd); k, v: (B, Kv, S, hd) (any strides); length: (B,)
+    int32 — the query attends cache positions < length.  ``window`` > 0
+    keeps only the trailing ``window`` of them.  Returns (B, Kv, G, hd) in
+    q's dtype."""
+    hd = q.shape[-1]
+    s = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float()) / math.sqrt(hd)
+    k_pos = torch.arange(k.shape[2], device=q.device)
+    ln = length.long()[:, None]
+    mask = k_pos[None, :] < ln
+    if window:
+        mask = mask & (k_pos[None, :] >= ln - window)
+    s = torch.where(mask[:, None, None, :], s, NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgs,bksd->bkgd", p, v.float()).to(q.dtype)
+
+
+def decode_attention_cuda(q, k, v, length, *, window: int = 0):
+    """Launch the Hopper dense decode kernel (same contract as the plain
+    version; q contiguous, k and v views with the head dim contiguous and
+    equal strides).  Raises on anything the kernel does not take; never
+    falls back."""
+    B, Kv, G, hd = q.shape
+    S = k.shape[2]
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v, length)):
+        raise ValueError("decode_attention_cuda needs every tensor on one "
+                         "CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if length.dtype != torch.int32:
+        raise TypeError("length must be int32")
+    if k.shape != (B, Kv, S, hd) or v.shape != k.shape \
+            or length.shape != (B,):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, length "
+                         f"{tuple(length.shape)}")
+    if hd % 32 or hd > 256 or G * hd > 4096:
+        raise ValueError(f"unsupported head shape G={G} hd={hd}")
+    if not (q.is_contiguous() and length.is_contiguous()) \
+            or k.stride() != v.stride() or k.stride(3) != 1:
+        raise ValueError("decode_attention_cuda needs q and length "
+                         "contiguous, and k, v with equal strides and a "
+                         "contiguous head dim")
+    out = torch.empty_like(q)
+    sb, sh, ss, _ = k.stride()
+    DENSE_KERNEL.launch(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), length.data_ptr(), out.data_ptr(), B,
+                        Kv, G, hd, S, sb, sh, ss, int(window),
+                        1.0 / math.sqrt(hd),
+                        torch.cuda.current_stream(q.device).cuda_stream)
     return out

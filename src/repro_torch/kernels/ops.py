@@ -12,16 +12,23 @@ Ported kernels (TPU kernel they replace):
   flash_attention``
 * ``spec_verify`` — ``src/repro/kernels/spec_verify.py::spec_verify`` and
   ``spec_verify_batched`` (grouped)
+* ``tree_verify_attention`` — ``src/repro/kernels/tree_attention.py::
+  tree_verify_attention``
+* ``decode_attention`` — ``src/repro/kernels/decode_attention.py::
+  decode_attention`` (dense caches)
 """
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import spec_verify as _verify
+from repro_torch.kernels import tree_attention as _tree
 
 KERNELS = {"paged_decode_attention": _dec.KERNEL,
            "flash_attention": _flash.KERNEL,
-           "spec_verify": _verify.KERNEL}
+           "spec_verify": _verify.KERNEL,
+           "tree_verify_attention": _tree.KERNEL,
+           "decode_attention": _dec.DENSE_KERNEL}
 
 
 def reset_launch_counts() -> None:
@@ -39,6 +46,20 @@ def paged_decode_attention(q, k_pool, v_pool, table, length, *, window=0):
                                                 length, window=window)
     return _dec.paged_decode_attention_plain(q, k_pool, v_pool, table, length,
                                              window=window)
+
+
+def decode_attention(q, k, v, length, *, window=0):
+    if q.is_cuda:
+        return _dec.decode_attention_cuda(q, k, v, length, window=window)
+    return _dec.decode_attention_plain(q, k, v, length, window=window)
+
+
+def tree_verify_attention(q, k, v, length, tree_mask, q_pos, *, window=0):
+    if q.is_cuda:
+        return _tree.tree_verify_attention_cuda(q, k, v, length, tree_mask,
+                                                q_pos, window=window)
+    return _tree.tree_verify_attention_plain(q, k, v, length, tree_mask,
+                                             q_pos, window=window)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):

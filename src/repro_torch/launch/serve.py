@@ -8,12 +8,16 @@ surface picked by ``--policy`` (a ``core/policy.py::CollabPolicy``).
 Same flags and defaults as the JAX package's ``repro.launch.serve`` on the
 batched scheduler, plus ``--device`` (default ``cuda``: with no card it
 raises; ``--device cpu`` runs the plain PyTorch versions of the kernels on
-the CPU).  Not ported yet: ``--mesh``, ``--adapt*``, ``--spec-mode
-tree|self`` and ``--scheduler per-request``.
+the CPU).  Not ported yet: ``--mesh``, ``--adapt*`` and ``--scheduler
+per-request``.
 
 On CUDA the default path runs three hand-written Hopper kernels: the paged
 decode attention of every edge tick and draft step, the flash attention of
 every prefill, and the fused spec-verify of every speculative round.
+``--spec-mode tree`` drafts and verifies token trees through the
+tree-verify kernel on dense side caches; ``--kv-layout dense`` decodes
+through the dense decode kernel; ``--spec-mode self`` drafts with the
+edge model's own first ``--spec-exit-layer`` blocks.
 Parameters are the port's own seeded random init (edge seed 0, cloud seed
 1); random-init models are near-uniform, so the 0.6 entropy gate escalates
 every request into speculative verification.
@@ -83,10 +87,18 @@ def parse_args(argv=None):
     ap.add_argument("--budget-tokens", type=float, default=8.0,
                     help="cloud tokens accrued per admitted request "
                          "(budget policy)")
-    ap.add_argument("--spec-mode", default=None, choices=["linear"],
+    ap.add_argument("--spec-mode", default=None,
+                    choices=["linear", "tree", "self"],
                     help="speculation lane for grouped speculative "
-                         "escalations (the tree and self lanes are not "
-                         "ported yet)")
+                         "escalations: linear draft tape, packed token-tree "
+                         "verify, or self-speculative early-exit drafting; "
+                         "default: linear")
+    ap.add_argument("--spec-tree-width", type=int, default=None,
+                    help="first-level branches of the draft tree "
+                         "(--spec-mode tree); default 2")
+    ap.add_argument("--spec-exit-layer", type=int, default=None,
+                    help="draft exit layer (--spec-mode self); default: "
+                         "half the edge model's depth")
     ap.add_argument("--escalation", default=None,
                     choices=["speculative", "cloud", "skeleton"],
                     help="DEPRECATED: legacy mode name; use --policy")
@@ -156,7 +168,9 @@ def main(argv=None):
                         kv_block_size=args.kv_block_size,
                         kv_blocks=args.kv_blocks, slo_ms=args.slo_ms,
                         prefill_chunk=args.prefill_chunk,
-                        spec_mode=args.spec_mode)
+                        spec_mode=args.spec_mode,
+                        spec_tree_width=args.spec_tree_width,
+                        spec_exit_layer=args.spec_exit_layer)
     t0 = time.perf_counter()
     if args.arrival != "none":
         gen = (poisson_arrivals if args.arrival == "poisson"

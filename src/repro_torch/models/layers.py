@@ -26,9 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import (paged_decode_attention_cuda,
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  paged_decode_attention_cuda,
                                                   paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.tree_attention import tree_verify_attention_cuda
 
 NEG = -1e30
 # attention read paths: "auto" runs the Hopper kernel on CUDA tensors and the
@@ -196,15 +198,20 @@ def _rows(pos, B: int):
     return pos.expand(B) if pos.dim() == 0 else pos
 
 
-def decode_attention(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
+def decode_attention(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0,
+                     backend: str = "auto"):
     """Single-token decode over a dense cache.  x: (B,1,d); cache_k/v:
     (B,Smax,Kv,hd), written in place at each row's ``pos`` (() or (B,);
     the start clamps to Smax-1 like ``lax.dynamic_update_slice``).
 
+    The read dispatches on ``backend``: "auto" runs the Hopper dense decode
+    kernel on CUDA tensors (the cache goes in as a strided view) and, on
+    the CPU, ``mha`` over the cache as the JAX package does; "kernel"
+    insists on the kernel; "plain" forces ``mha`` (the parity oracle).
     Returns (out (B,1,d), cache_k, cache_v).  With ``window`` > 0 only the
     last ``window`` cache entries are read (sliding-window decode)."""
     B = x.shape[0]
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     Smax = cache_k.shape[1]
     q, k, v = _qkv(p, x, cfg)
     rows = _rows(pos, B)
@@ -215,6 +222,14 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
     start = rows.clamp(0, Smax - 1)
     cache_k[b, start] = k[:, 0].to(cache_k.dtype)
     cache_v[b, start] = v[:, 0].to(cache_v.dtype)
+    if backend == "kernel" or (backend == "auto" and x.is_cuda):
+        fn = decode_attention_cuda if backend == "kernel" \
+            else ops.decode_attention
+        out = fn(q[:, 0].reshape(B, Kv, H // Kv, hd),
+                 cache_k.permute(0, 2, 1, 3), cache_v.permute(0, 2, 1, 3),
+                 (rows + 1).to(torch.int32).contiguous(), window=window)
+        out = out.reshape(B, 1, H * hd).to(x.dtype)
+        return out @ p["wo"], cache_k, cache_v
     if window:
         first = (rows - (window - 1)).clamp(min=0)          # (B,)
         sl = first.clamp(max=Smax - window)[:, None] + \
@@ -229,18 +244,33 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
     return out.reshape(B, 1, H * hd) @ p["wo"], cache_k, cache_v
 
 
-def extend_attention(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
+def extend_attention(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0,
+                     block_mask=None, q_positions=None,
+                     backend: str = "auto"):
     """Multi-token cached decode (chunked prefill / speculative verify) over
-    a dense cache, causal within the new block.  x: (B,T,d); new k/v land
-    in place at [pos, pos+T) per row (start clamped to Smax-T like
-    ``lax.dynamic_update_slice``).  Returns (out (B,T,d), cache_k, cache_v).
-    """
+    a dense cache.  x: (B,T,d); new k/v land in place at [pos, pos+T) per
+    row (start clamped to Smax-T like ``lax.dynamic_update_slice``).
+
+    By default attention is causal within the new block.  ``block_mask``
+    (T, C) bool, C >= T, overrides that: its LAST T columns align with the
+    new tokens, earlier columns cover tree rows already in the cache at
+    [pos-(C-T), pos) (token trees drafted level by level; one-shot verify
+    passes C == T).  ``q_positions`` ((T,) or (B, T)) overrides the RoPE
+    positions (tree nodes use tree base + depth).  With a block mask the
+    read dispatches on ``backend`` as ``decode_attention`` does: CUDA runs
+    the Hopper tree-verify kernel over the cache as a strided view; the CPU
+    and "plain" run ``mha`` under the placed mask, whose start clamps like
+    ``lax.dynamic_update_slice`` as in the JAX package.
+    Returns (out (B,T,d), cache_k, cache_v)."""
     B, T, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     Smax = cache_k.shape[1]
     q, k, v = _qkv(p, x, cfg)
     rows = _rows(pos, B)
-    q_pos = rows[:, None] + torch.arange(T, device=x.device)   # (B,T)
+    if q_positions is None:
+        q_pos = rows[:, None] + torch.arange(T, device=x.device)   # (B,T)
+    else:
+        q_pos = q_positions.long().expand(B, T)
     if cfg.use_rope:
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
@@ -250,7 +280,26 @@ def extend_attention(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
     cache_k[b, idx] = k.to(cache_k.dtype)
     cache_v[b, idx] = v.to(cache_v.dtype)
     k_pos = torch.arange(Smax, device=x.device)
-    mask = k_pos[None, None, :] <= q_pos[:, :, None]               # (B,T,S)
+    if block_mask is None:
+        mask = k_pos[None, None, :] <= q_pos[:, :, None]           # (B,T,S)
+    elif backend == "kernel" or (backend == "auto" and x.is_cuda):
+        G = H // Kv
+        fn = tree_verify_attention_cuda if backend == "kernel" \
+            else ops.tree_verify_attention
+        out = fn(q.view(B, T, Kv, G, hd).permute(0, 2, 3, 1, 4),
+                 cache_k.permute(0, 2, 1, 3), cache_v.permute(0, 2, 1, 3),
+                 rows.to(torch.int32).contiguous(), block_mask,
+                 q_pos.to(torch.int32).contiguous(), window=window)
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd).to(x.dtype)
+        return out @ p["wo"], cache_k, cache_v
+    else:
+        C = block_mask.shape[1]
+        first = rows - (C - T)                     # tree rows start here
+        at = first.clamp(0, Smax - C)              # the placed mask's start
+        t = k_pos[None, :] - at[:, None]                            # (B,S)
+        cols = block_mask.bool()[:, t.clamp(0, C - 1)].movedim(1, 0)
+        placed = cols & ((t >= 0) & (t < C))[:, None, :]            # (B,T,S)
+        mask = (k_pos[None, :] < first[:, None])[:, None, :] | placed
     if window:
         mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
     out = mha(q, cache_k, cache_v, mask=mask[:, None, None])

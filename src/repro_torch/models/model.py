@@ -43,15 +43,26 @@ class Model:
                                    max_seq=max_seq, window=window,
                                    backend=attn_backend)
 
-    def decode_step(self, params, token, cache, *, window: int = 0):
+    def decode_step(self, params, token, cache, *, window: int = 0,
+                    attn_backend: str = "auto"):
+        """One decode step over a dense cache.  ``attn_backend``: "auto"
+        (CUDA: the Hopper dense decode kernel; CPU: ``mha``), "kernel" or
+        "plain"."""
         return transformer.decode_step(params, token, cache, self.cfg,
-                                       window=window)
+                                       window=window,
+                                       attn_backend=attn_backend)
 
-    def extend_step(self, params, tokens, cache, *, window: int = 0):
+    def extend_step(self, params, tokens, cache, *, window: int = 0,
+                    block_mask=None, q_positions=None,
+                    attn_backend: str = "auto"):
         """Multi-token cached decode (chunked prefill, speculative verify).
-        tokens (B,T) -> (logits (B,T,V), cache)."""
+        tokens (B,T) -> (logits (B,T,V), cache).  ``block_mask`` (T, C) and
+        ``q_positions`` drive token trees (the Hopper tree-verify kernel on
+        CUDA under ``attn_backend`` "auto" or "kernel")."""
         return transformer.extend_step(params, tokens, cache, self.cfg,
-                                       window=window)
+                                       window=window, block_mask=block_mask,
+                                       q_positions=q_positions,
+                                       attn_backend=attn_backend)
 
     # ---------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int, device="cuda"):

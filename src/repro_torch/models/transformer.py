@@ -229,23 +229,37 @@ def _cached(params, tokens, cache, cfg, attend):
     return h
 
 
-def extend_step(params, tokens, cache, cfg, *, window: int = 0):
+def extend_step(params, tokens, cache, cfg, *, window: int = 0,
+                block_mask=None, q_positions=None, attn_backend: str = "auto"):
     """Multi-token cached decode over a dense cache (pos () or (B,)).
-    tokens (B,T) -> (logits (B,T,V), cache)."""
+    tokens (B,T) -> (logits (B,T,V), cache).  ``block_mask`` (T, C), C >= T,
+    customizes intra-block attention (its last T columns are the new
+    tokens, earlier columns cover tree rows already in the cache — see
+    ``layers.extend_attention``; on CUDA the Hopper tree-verify kernel);
+    ``q_positions`` ((T,) or (B,T)) overrides the RoPE positions."""
+    L.check_backend(attn_backend)
     pos = cache["pos"]
     win = window or cfg.sliding_window
+    if block_mask is not None:
+        block_mask = block_mask.bool().contiguous()
     h = _cached(params, tokens, cache, cfg,
-                lambda p, x, ck, cv: L.extend_attention(p, x, ck, cv, pos,
-                                                        cfg, window=win))
+                lambda p, x, ck, cv: L.extend_attention(
+                    p, x, ck, cv, pos, cfg, window=win,
+                    block_mask=block_mask, q_positions=q_positions,
+                    backend=attn_backend))
     return _logits(params, h, cfg), {**cache, "pos": pos + tokens.shape[1]}
 
 
-def decode_step(params, token, cache, cfg, *, window: int = 0):
+def decode_step(params, token, cache, cfg, *, window: int = 0,
+                attn_backend: str = "auto"):
     """One decode step over a dense cache (pos () or (B,)). token: (B, 1).
-    Returns (logits (B,V), cache)."""
+    Returns (logits (B,V), cache).  ``attn_backend`` as in
+    ``layers.decode_attention``: on CUDA the Hopper dense decode kernel."""
+    L.check_backend(attn_backend)
     pos = cache["pos"]
     win = window or cfg.sliding_window
     h = _cached(params, token, cache, cfg,
-                lambda p, x, ck, cv: L.decode_attention(p, x, ck, cv, pos,
-                                                        cfg, window=win))
+                lambda p, x, ck, cv: L.decode_attention(
+                    p, x, ck, cv, pos, cfg, window=win,
+                    backend=attn_backend))
     return _logits(params, h[:, 0, :], cfg), {**cache, "pos": pos + 1}

@@ -18,11 +18,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    paged_decode_attention_cuda, paged_decode_attention_plain)
+    decode_attention_cuda, decode_attention_plain, paged_decode_attention_cuda,
+    paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.spec_verify import (  # noqa: E402
     spec_verify_cuda, spec_verify_plain)
+from repro_torch.kernels.tree_attention import (  # noqa: E402
+    tree_verify_attention_cuda, tree_verify_attention_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +85,85 @@ def test_paged_decode_kernel(cuda, B, Kv, G, bs, MB, hd, dtype, window):
     assert _err(out, ref) <= TOL[dtype]
 
 
+def _cache_view(seed, B, Kv, S, hd, dev, dtype):
+    """A (B, Kv, S, hd) view of a cache stored (B, S, Kv, hd), the serving
+    layout the kernels read through strides."""
+    return _rand(seed, (B, S, Kv, hd), dev, dtype).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,Kv,G,S,hd", [(1, 1, 1, 256, 64),
+                                         (2, 2, 4, 512, 64),
+                                         (8, 3, 3, 80, 64),
+                                         (8, 8, 4, 95, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 11, 64])
+def test_decode_attention_kernel(cuda, B, Kv, G, S, hd, dtype, window):
+    q = _rand(0, (B, Kv, G, hd), cuda, dtype)
+    k = _cache_view(1, B, Kv, S, hd, cuda, dtype)
+    v = _cache_view(2, B, Kv, S, hd, cuda, dtype)
+    length = torch.as_tensor(np.random.default_rng(0).integers(1, S + 3, B),
+                             dtype=torch.int32, device=cuda)   # some > S
+    out = decode_attention_cuda(q, k, v, length, window=window)
+    ref = decode_attention_plain(q, k, v, length, window=window)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+def _plan():
+    from repro_torch.core.tree_speculation import TreePlan, branching_for
+    return TreePlan(branching_for(2, 4))
+
+
+@pytest.mark.parametrize("B,Kv,G,S,hd", [(1, 1, 1, 256, 64),
+                                         (2, 2, 4, 160, 64),
+                                         (8, 3, 3, 90, 64),
+                                         (8, 8, 4, 90, 128),
+                                         (2, 2, 8, 100, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 8])
+def test_tree_verify_attention_kernel(cuda, B, Kv, G, S, hd, dtype, window):
+    """The one-shot verify (C == N, pad rows self-only); G * N = 128 rows
+    in the last case takes two blocks of query rows."""
+    plan = _plan()
+    N = plan.n_pad
+    q = _rand(0, (B, N, Kv, G, hd), cuda, dtype).permute(0, 2, 3, 1, 4)
+    k = _cache_view(1, B, Kv, S, hd, cuda, dtype)
+    v = _cache_view(2, B, Kv, S, hd, cuda, dtype)
+    rng = np.random.default_rng(0)
+    length = torch.as_tensor(rng.integers(1, S - N + 1, B), dtype=torch.int32,
+                             device=cuda)
+    q_pos = (length[:, None] + torch.as_tensor(plan.depths, device=cuda)) \
+        .to(torch.int32).contiguous()
+    mask = torch.as_tensor(plan.mask, device=cuda)
+    out = tree_verify_attention_cuda(q, k, v, length, mask, q_pos,
+                                     window=window)
+    ref = tree_verify_attention_plain(q, k, v, length, mask, q_pos,
+                                      window=window)
+    assert out.stride() == q.stride()
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_verify_attention_kernel_levels(cuda, level, dtype):
+    """Rectangular (T, C) masks of the incremental draft levels: the tree
+    starts at ``length - (C - T)``."""
+    plan = _plan()
+    lo, hi = plan.levels[level]
+    T, C = hi - lo, hi
+    B, Kv, G, S, hd = 8, 3, 3, 70, 64
+    base = torch.arange(B, dtype=torch.int32, device=cuda) * 5 + 3
+    q = _rand(3, (B, T, Kv, G, hd), cuda, dtype).permute(0, 2, 3, 1, 4)
+    k = _cache_view(4, B, Kv, S, hd, cuda, dtype)
+    v = _cache_view(5, B, Kv, S, hd, cuda, dtype)
+    mask = torch.as_tensor(plan.mask[lo:hi, :hi], device=cuda).contiguous()
+    q_pos = (base[:, None] + torch.as_tensor(plan.depths[lo:hi],
+                                             device=cuda)).to(torch.int32)
+    length = base + lo
+    out = tree_verify_attention_cuda(q, k, v, length, mask, q_pos)
+    ref = tree_verify_attention_plain(q, k, v, length, mask, q_pos)
+    assert _err(out, ref) <= TOL[dtype]
+
+
 @pytest.mark.parametrize("G,gamma,V", [(1, 1, 64), (3, 4, 1000),
                                        (8, 4, 49152)])
 @pytest.mark.parametrize("temperature", [0.0, 1.0])
@@ -109,4 +191,12 @@ def test_dispatch_counts_launches(cuda):
     ops.reset_launch_counts()
     q = _rand(0, (1, 2, 16, 64), cuda)
     ops.flash_attention(q, q, q)
-    assert ops.launch_counts()["flash_attention"] == 1
+    length = torch.ones((1,), dtype=torch.int32, device=cuda)
+    ops.decode_attention(q[:, :, :1].contiguous(), q, q, length)
+    ops.tree_verify_attention(q[:, :, None, :2], q, q, length,
+                              torch.eye(2, dtype=torch.bool, device=cuda),
+                              torch.ones((1, 2), dtype=torch.int32,
+                                         device=cuda))
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["decode_attention"],
+            counts["tree_verify_attention"]) == (1, 1, 1)

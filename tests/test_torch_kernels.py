@@ -1,10 +1,12 @@
 """The port's plain kernel versions vs the JAX package's Pallas kernels.
 
-Each of the three ported kernels' plain PyTorch version (what the port runs
+Each of the five ported kernels' plain PyTorch version (what the port runs
 on the CPU) is held against the JAX Pallas kernel in interpret mode
 (``repro.kernels.ops`` on the CPU) and against its jnp oracle
 (``repro.kernels.ref``), on the sweeps of ``tests/test_kernels.py``.  Inputs
-come from numpy seeds and are handed to both frameworks.
+come from numpy seeds and are handed to both frameworks; the dense caches
+reach the port as strided views of a (B, S, Kv, hd) array, the layout the
+serving path hands the kernels.
 
 Tolerances: float32 atol = rtol = 1e-5 (summation order differs between the
 frameworks); bfloat16 2e-2 (one bf16 ulp at |x| ~ 2).  ``spec_verify`` is
@@ -23,11 +25,14 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    paged_decode_attention_cuda, paged_decode_attention_plain)
+    decode_attention_cuda, decode_attention_plain, paged_decode_attention_cuda,
+    paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.spec_verify import (  # noqa: E402
     spec_verify_cuda, spec_verify_plain)
+from repro_torch.kernels.tree_attention import (  # noqa: E402
+    tree_verify_attention_cuda, tree_verify_attention_plain)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -125,6 +130,118 @@ def test_paged_decode_plain_windowed(window):
     _close(out, jref.paged_decode_attention_ref(q[0], kp[0], vp[0], table[0],
                                                 length[0], window=window),
            "float32")
+
+
+# ------------------------------------------------------------ dense decode
+def _dense_kv(seed, B, Kv, S, hd, dtype):
+    """One cache as a JAX (B, Kv, S, hd) array and a torch view of the same
+    values stored (B, S, Kv, hd)."""
+    x = _np(seed, (B, S, Kv, hd))
+    return (jnp.asarray(np.moveaxis(x, 2, 1)).astype(getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)).permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("B,Kv,G,S,hd", [(1, 1, 1, 256, 64),
+                                         (2, 2, 4, 512, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_vs_pallas(B, Kv, G, S, hd, dtype):
+    jq, tq = _both(_np(0, (B, Kv, G, hd)), dtype)
+    jk, tk = _dense_kv(1, B, Kv, S, hd, dtype)
+    jv, tv = _dense_kv(2, B, Kv, S, hd, dtype)
+    length = np.random.default_rng(0).integers(1, S + 1, B).astype(np.int32)
+    out = decode_attention_plain(tq, tk, tv, _t(length))
+    jl = jnp.asarray(length)
+    _close(out, jops.decode_attention(jq, jk, jv, jl, bs=128), dtype)
+    _close(out, jref.decode_attention_ref(jq, jk, jv, jl), dtype)
+    assert out.dtype == getattr(torch, dtype)
+
+
+@pytest.mark.parametrize("window", [64, 300])
+def test_decode_attention_plain_window(window):
+    """Windows shorter and longer than a sequence, through the CPU
+    dispatch."""
+    jq, tq = _both(_np(0, (2, 2, 2, 64)), "float32")
+    jk, tk = _dense_kv(1, 2, 2, 512, 64, "float32")
+    jv, tv = _dense_kv(2, 2, 2, 512, 64, "float32")
+    length = np.array([100, 512], np.int32)
+    out = tops.decode_attention(tq, tk, tv, _t(length), window=window)
+    _close(out, jops.decode_attention(jq, jk, jv, jnp.asarray(length),
+                                      window=window, bs=128), "float32")
+
+
+# ------------------------------------------------------------ tree verify
+def _plan():
+    from repro_torch.core.tree_speculation import TreePlan, branching_for
+    return TreePlan(branching_for(2, 4))
+
+
+def _tree_case(B, Kv, G, N, S, hd, dtype, length, q_pos, seed=0):
+    jq, tq = _both(_np(seed, (B, Kv, G, N, hd)), dtype)
+    jk, tk = _dense_kv(seed + 1, B, Kv, S, hd, dtype)
+    jv, tv = _dense_kv(seed + 2, B, Kv, S, hd, dtype)
+    length = np.asarray(length, np.int32)
+    q_pos = np.asarray(q_pos, np.int32)
+    return ((jq, jk, jv, jnp.asarray(length), jnp.asarray(q_pos)),
+            (tq, tk, tv, _t(length), _t(q_pos)))
+
+
+@pytest.mark.parametrize("B,Kv,G,S,hd", [(1, 1, 1, 256, 64),
+                                         (2, 2, 4, 160, 64),
+                                         (1, 4, 2, 160, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tree_verify_attention_plain_vs_pallas(B, Kv, G, S, hd, dtype):
+    """A real packed ancestor mask (pad rows self-only), per-sequence
+    lengths, and S = 160, which the Pallas wrapper pads to its block."""
+    plan = _plan()
+    N = plan.n_pad
+    length = np.random.default_rng(0).integers(1, S - N + 1, B)
+    q_pos = length[:, None] + plan.depths[None, :]
+    (jq, jk, jv, jl, jp), (tq, tk, tv, tl, tp) = _tree_case(
+        B, Kv, G, N, S, hd, dtype, length, q_pos)
+    mask = plan.mask
+    out = tree_verify_attention_plain(tq, tk, tv, tl, _t(mask), tp)
+    jm = jnp.asarray(mask)
+    _close(out, jops.tree_verify_attention(jq, jk, jv, jl, jm, jp, bs=128),
+           dtype)
+    _close(out, jref.tree_verify_attention_ref(jq, jk, jv, jl, jm, jp),
+           dtype)
+    assert out.dtype == getattr(torch, dtype)
+
+
+@pytest.mark.parametrize("window", [8, 64])
+def test_tree_verify_attention_plain_window(window):
+    """A node at depth d sees the window a linear decode at position
+    length + d would (through the CPU dispatch)."""
+    plan = _plan()
+    N = plan.n_pad
+    length = np.array([100, 220], np.int32)
+    q_pos = length[:, None] + plan.depths[None, :]
+    (jq, jk, jv, jl, jp), (tq, tk, tv, tl, tp) = _tree_case(
+        2, 2, 2, N, 256, 64, "float32", length, q_pos)
+    out = tops.tree_verify_attention(tq, tk, tv, tl, _t(plan.mask), tp,
+                                     window=window)
+    _close(out, jops.tree_verify_attention(jq, jk, jv, jl,
+                                           jnp.asarray(plan.mask), jp,
+                                           window=window, bs=128), "float32")
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tree_verify_attention_plain_rectangular(level, dtype):
+    """Rectangular (T, C) masks, C > T — an incremental draft level: the
+    queries are level ``level``'s nodes and the mask's first C - T columns
+    cover tree rows earlier levels wrote at [length - (C - T), length)."""
+    plan = _plan()
+    lo, hi = plan.levels[level]
+    T, C = hi - lo, hi
+    base = np.array([32, 100], np.int32)
+    q_pos = base[:, None] + plan.depths[None, lo:hi]
+    (jq, jk, jv, jl, jp), (tq, tk, tv, tl, tp) = _tree_case(
+        2, 2, 2, T, 256, 64, dtype, base + lo, q_pos, seed=3)
+    mask = np.ascontiguousarray(plan.mask[lo:hi, :hi])
+    out = tree_verify_attention_plain(tq, tk, tv, tl, _t(mask), tp)
+    _close(out, jops.tree_verify_attention(jq, jk, jv, jl, jnp.asarray(mask),
+                                           jp, bs=128), dtype)
 
 
 # ------------------------------------------------------------ spec verify
@@ -256,3 +373,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         spec_verify_cuda(torch.zeros((1, 2, 8)), torch.zeros((1, 1, 8)),
                          torch.zeros((1, 1), dtype=torch.int32),
                          torch.zeros((1, 2)), torch.zeros((1, 2)))
+    kv = torch.zeros((1, 1, 16, 64))
+    with pytest.raises(ValueError):
+        decode_attention_cuda(torch.zeros((1, 1, 1, 64)), kv, kv,
+                              torch.ones((1,), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tree_verify_attention_cuda(
+            torch.zeros((1, 1, 1, 2, 64)), kv, kv,
+            torch.ones((1,), dtype=torch.int32),
+            torch.ones((2, 2), dtype=torch.bool),
+            torch.ones((1, 2), dtype=torch.int32))

@@ -8,7 +8,9 @@ get identical ``tokens``, ``path``, ``edge_calls`` and ``cloud_passes``
 cases cover the serve defaults (paged KV, SpeculativePolicy(0.6), linear
 lane), the dense layout, pure-edge serving (threshold 1.1), the cloud and
 skeleton escalations, an edge that drafts with the cloud's own weights
-(every draft accepted), and chunked prefill with preemption by swap.
+(every draft accepted, on the linear and on the tree lane), chunked
+prefill with preemption by swap, and the tree lane (on paged serving with
+dense side groups, and on dense serving) and the self lane.
 """
 import numpy as np
 import pytest
@@ -72,6 +74,10 @@ CASES = {
     "chunked_prefill_and_swap": dict(
         policy=("SpeculativePolicy", 1.1), kv_blocks=9, batch_size=4,
         lengths=[40, 12, 36, 20, 44, 16]),
+    "tree_lane": dict(policy=("SpeculativePolicy", 0.6), spec_mode="tree"),
+    "tree_lane_dense": dict(policy=("SpeculativePolicy", 0.6),
+                            spec_mode="tree", kv_layout="dense"),
+    "self_lane": dict(policy=("SpeculativePolicy", 0.6), spec_mode="self"),
 }
 
 
@@ -86,7 +92,8 @@ def _serve(side, setup, case, edge_is_cloud=False):
                  temperature=0.0,
                  policy=getattr(pol_mod, name)(threshold=thr),
                  kv_layout=case.get("kv_layout", "auto"),
-                 kv_blocks=case.get("kv_blocks"))
+                 kv_blocks=case.get("kv_blocks"),
+                 spec_mode=case.get("spec_mode"))
     prompts = _prompts(setup["vocab"], lengths=case.get("lengths"))
     traces = eng.serve_batch(ep, cp, prompts, case.get("max_new", 24))
     return traces, eng.stats()
@@ -123,6 +130,19 @@ def test_engine_full_acceptance_matches_jax(setup):
     _assert_same(jt, tt)
     c = ts["spec_lanes"]["linear"]
     assert c["accepted_tokens"] == c["draft_tokens"] > 0
+    assert js["spec_lanes"] == ts["spec_lanes"]
+
+
+def test_engine_tree_full_acceptance_matches_jax(setup):
+    """The tree lane with the cloud's own weights drafting: every round
+    accepts a whole root path (``depth`` tokens, plus the bonus token), on
+    both engines alike."""
+    case = CASES["tree_lane"]
+    jt, js = _serve("j", setup, case, edge_is_cloud=True)
+    tt, ts = _serve("t", setup, case, edge_is_cloud=True)
+    _assert_same(jt, tt)
+    c = ts["spec_lanes"]["tree"]
+    assert c["accepted_tokens"] == 4 * c["member_rounds"] > 0
     assert js["spec_lanes"] == ts["spec_lanes"]
 
 
