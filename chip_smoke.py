@@ -13,21 +13,28 @@ the first phase that fails:
    paths' shapes, in float32 and bfloat16, with the tolerances printed, and
    time kernel, plain version and (attention kernels) the library
    yardstick ``F.scaled_dot_product_attention`` with CUDA events (median of
-   30 runs after warm-up);
-3. serve three paths at full width — smollm-135m edge, granite-8b cloud,
-   bfloat16, seeded random weights, 8 requests of 16 prompt tokens, 24 new
-   tokens, gamma 4, SpeculativePolicy(0.6), T = 0: the default path (paged
-   KV, linear lane), the tree lane (tree width 2, dense KV) and the self
-   lane (paged serving, exit layer 15) — and check every request, the
-   logits' finiteness and that each kernel the path runs was launched
-   during that path's run (counts reset just before it, read just after);
-   then time the pieces of the linear and tree rounds and profile both;
-4. serve each path again at float32, full width, 2 layers per model, once
-   on the kernels (``attn_backend="auto"``) and once on the plain versions
-   (``"plain"``); the traces must agree, a divergence being excused (and
-   reported) only where the plain model's top-2 logit gap is below 1e-4;
+   30 runs after warm-up); the attention kernels also at zamba2's head dim
+   80, the SSD scan at each recurrent edge's prompt prefill, a
+   front-padded three-chunk prompt and with carried random states;
+3. serve six paths at full width — granite-8b cloud, bfloat16, seeded
+   random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
+   SpeculativePolicy(0.6), T = 0: with the smollm-135m edge the default
+   path (paged KV, linear lane), the tree lane (tree width 2, dense KV)
+   and the self lane (paged serving, exit layer 15); with the recurrent
+   edges mamba2-370m, xlstm-125m and zamba2-2.7b the linear lane (KV
+   layout auto, resolved to dense) — and check every request, the logits'
+   finiteness and that each kernel the path runs was launched during that
+   path's run (counts reset just before it, read just after); then time
+   the pieces of the smollm rounds and profile the linear and tree drains,
+   and time one round of each recurrent path;
+4. serve each path again at float32, full width, cut depth (2 layers per
+   model; xLSTM 4, zamba2 6 — one whole shared-attention group), plus the
+   mamba2 path with chunked prefill, once on the kernels
+   (``attn_backend="auto"``) and once on the plain versions (``"plain"``);
+   the traces must agree, a divergence being excused (and reported) only
+   where the plain model's top-2 logit gap is below 1e-4;
 5. print the card's name and power limit, a ``{"kernels": [...]}`` line
-   (launches summed over the three served paths) and last the result line
+   (launches summed over the six served paths) and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -35,6 +42,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -102,11 +110,12 @@ def phase_build():
 
 
 # --------------------------------------------------------------- phase 2
-def _paged_inputs(dtype, gen):
+def _paged_inputs(dtype, gen, hd=64):
     """Serving-path shapes of the paged decode: 8 slots, smollm-135m heads
-    (Kv 3, G 3, hd 64), 32-token blocks, 3-block tables (slot_len 80)."""
+    (Kv 3, G 3, hd 64), 32-token blocks, 3-block tables (slot_len 80);
+    ``hd`` 80 checks a head dim that is not a multiple of 32."""
     import torch
-    B, Kv, G, hd, bs, MB = 8, 3, 3, 64, 32, 3
+    B, Kv, G, bs, MB = 8, 3, 3, 32, 3
     NB = B * MB + 1
     dev = "cuda"
     q = torch.randn((B, Kv, G, hd), generator=gen, device=dev).to(dtype)
@@ -123,8 +132,9 @@ def check_paged(gen):
     import torch
     from repro_torch.kernels import decode_attention as K
     rows = []
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        q, kp, vp, table, length = _paged_inputs(dtype, gen)
+    for (dtype, tol), hd in itertools.product(
+            ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)), (64, 80)):
+        q, kp, vp, table, length = _paged_inputs(dtype, gen, hd)
         for window in (0, 24):
             out = K.paged_decode_attention_cuda(q, kp, vp, table, length,
                                                 window=window)
@@ -132,11 +142,11 @@ def check_paged(gen):
                                                  window=window)
             torch.cuda.synchronize()
             err = max_err(out, ref)
-            print(f"[kernel] paged_decode_attention {str(dtype)[6:]} "
+            print(f"[kernel] paged_decode_attention {str(dtype)[6:]} hd={hd} "
                   f"window={window}: max_abs_err={err:.3e} (tol {tol:g})",
                   flush=True)
-            check(err <= tol, f"paged_decode_attention {dtype} window "
-                              f"{window}: error {err} > {tol}")
+            check(err <= tol, f"paged_decode_attention {dtype} hd {hd} "
+                              f"window {window}: error {err} > {tol}")
             rows.append(err)
     # timing at the serving path's dtype (bfloat16, no window)
     q, kp, vp, table, length = _paged_inputs(torch.bfloat16, gen)
@@ -164,8 +174,10 @@ def check_flash(gen):
     from repro_torch.kernels import flash_attention as K
     errs = []
     # serving-path prefill: one 16-entry bucket; edge (smollm) and cloud
-    # (granite) heads, plus a ragged length the TPU kernel cannot take
-    shapes = ((1, 9, 16, 64), (1, 32, 16, 128), (1, 32, 15, 128))
+    # (granite) heads, a ragged length the TPU kernel cannot take, and
+    # zamba2's shared attention (head dim 80, exact 15-token prefill)
+    shapes = ((1, 9, 16, 64), (1, 32, 16, 128), (1, 32, 15, 128),
+              (1, 32, 15, 80))
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         for shape in shapes:
             q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -315,15 +327,19 @@ def _dense_view(shape, dtype, gen):
 
 
 def check_decode(gen):
-    """Dense decode at the tree path's edge ticks: 8 slots, smollm-135m
-    heads (Kv 3, G 3, hd 64), slot_len 80 (16 + 24 + 2 * 16 + 8), lengths
-    15-40; the cache read through strides as it lies."""
+    """Dense decode at the edge ticks of the tree path (8 slots, smollm-135m
+    heads: Kv 3, G 3, hd 64) and of the hybrid path (zamba2-2.7b's shared
+    attention: Kv 32, G 1, hd 80), slot_len 80 (16 + 24 + 2 * 16 + 8),
+    lengths 15-40; the cache read through strides as it lies.  Timed at
+    the tree path's shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as K
-    B, Kv, G, hd, S = 8, 3, 3, 64, 80
+    B, S = 8, 80
     errs = []
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+    for (dtype, tol), (Kv, G, hd) in itertools.product(
+            ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)),
+            ((32, 1, 80), (3, 3, 64))):
         q = torch.randn((B, Kv, G, hd), generator=gen, device="cuda") \
             .to(dtype)
         k = _dense_view((B, Kv, S, hd), dtype, gen)
@@ -335,9 +351,9 @@ def check_decode(gen):
             ref = K.decode_attention_plain(q, k, v, length, window=window)
             torch.cuda.synchronize()
             err = max_err(out, ref)
-            print(f"[kernel] decode_attention {str(dtype)[6:]} "
-                  f"window={window}: max_abs_err={err:.3e} (tol {tol:g})",
-                  flush=True)
+            print(f"[kernel] decode_attention {str(dtype)[6:]} (Kv,G,hd)="
+                  f"{(Kv, G, hd)} window={window}: max_abs_err={err:.3e} "
+                  f"(tol {tol:g})", flush=True)
             check(err <= tol, f"decode_attention {dtype} window {window}: "
                               f"error {err} > {tol}")
             errs.append(err)
@@ -408,7 +424,8 @@ def check_tree(gen):
     S = 80
     spans = [(0, 1)] + list(plan.levels)
     cases = [((8, 3, 3, S, 64), a, b) for a, b in spans] + \
-        [((8, 3, 3, S, 64), 0, plan.n_pad), ((8, 8, 4, S, 128), 0, plan.n_pad)]
+        [((8, 3, 3, S, 64), 0, plan.n_pad), ((8, 4, 2, S, 80), 0, plan.n_pad),
+         ((8, 8, 4, S, 128), 0, plan.n_pad)]
     errs = []
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         for shape, lo, hi in cases:
@@ -452,25 +469,134 @@ def check_tree(gen):
             "bound_ms": bnd, "bound_by": by, "library_ms": lib}
 
 
+# the SSD scan at the serving paths' prompt prefills: (model, B, S, H, N, P,
+# chunk, q/k head-broadcast); the first row is the timed one
+SSD_ROWS = (("mamba2-370m", 1, 15, 32, 128, 64, 256, True),
+            ("xlstm-125m", 1, 15, 4, 384, 384, 128, False),
+            ("zamba2-2.7b", 1, 15, 80, 64, 64, 128, True))
+# more shapes held against the plain version: a front-padded three-chunk
+# prompt, and carried random states (a mamba2 verify extend of 8 slots, an
+# xLSTM prefill chunk, a zamba2 two-chunk extend)
+SSD_MORE = (("mamba2-370m S=600", 1, 600, 32, 128, 64, 256, True, False),
+            ("mamba2-370m extend", 8, 5, 32, 128, 64, 256, True, True),
+            ("xlstm-125m chunk", 1, 7, 4, 384, 384, 128, False, True),
+            ("zamba2-2.7b extend", 2, 200, 80, 64, 64, 128, True, True))
+
+
+def _ssd_inputs(B, S, H, N, P, dtype, gen, broadcast, carried):
+    """Scan inputs as the paths make them: q, k (B, S, H, N) — a stride-0
+    head view of one (B, S, 1, N) projection for mamba2 and zamba2 —, v,
+    decays log_a = -softplus(x) and input gates log_i; a random carried
+    state when asked."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    hq = 1 if broadcast else H
+    q = rnd((B, S, hq, N)).to(dtype).expand(B, S, H, N)
+    k = rnd((B, S, hq, N)).to(dtype).expand(B, S, H, N)
+    v = rnd((B, S, H, P)).to(dtype)
+    la, li = -F.softplus(rnd((B, S, H))), rnd((B, S, H), 0.5)
+    st = (rnd((B, H, N, P)), rnd((B, H, N)), rnd((B, H))) if carried \
+        else None
+    return q, k, v, la, li, st
+
+
+def _ssd_cost(B, S, H, N, P, chunk, el, broadcast, carried):
+    """(bytes, operations) the scan needs: each input read once (a
+    head-broadcast q/k counted once), each output written once; per real
+    chunk row, the masked intra-chunk products, the carried-in term and the
+    state update (front-pad rows excluded)."""
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    ops = 0
+    for c in range((S + pad) // Q):
+        r = Q - (pad if c == 0 else 0)
+        ops += r * (r + 1) // 2 * (2 * N + 2 * P + 1) \
+            + r * (4 * N * P + 4 * N + P)
+    state = B * H * (N * P + N + 1) * 4
+    nbytes = (2 * B * S * (1 if broadcast else H) * N * el
+              + B * S * H * P * el + 2 * B * S * H * 4      # v, gates
+              + B * S * H * (P + 2) * 4 + state              # y, den, m
+              + (state if carried else 0))
+    return nbytes, ops * B * H
+
+
+def check_ssd(gen):
+    """The chunked SSD / mLSTM scan against its plain version: y, den, m
+    and the final state, float32 (atol = rtol = 1e-4, the JAX kernel
+    sweep's) and bfloat16 inputs (2e-2); then kernel and plain time at each
+    path's prefill shape in bfloat16.  No single PyTorch call computes
+    this scan: no library yardstick."""
+    import torch
+    from repro_torch.kernels import ssd_scan as K
+    worst = 0.0
+    cases = [r + (False,) for r in SSD_ROWS] + list(SSD_MORE)
+    for (dtype, tol), case in itertools.product(
+            ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)), cases):
+        label, B, S, H, N, P, chunk, bc, carried = case
+        q, k, v, la, li, st = _ssd_inputs(B, S, H, N, P, dtype, gen, bc,
+                                          carried)
+        out = K.ssd_chunk_scan_cuda(q, k, v, la, li, chunk=chunk, state=st)
+        ref = K.ssd_chunk_scan_plain(q, k, v, la, li, chunk=chunk, state=st)
+        torch.cuda.synchronize()
+        err, ok = 0.0, True
+        for a, b in zip(out[:3] + out[3], ref[:3] + ref[3]):
+            d = (a - b).abs()
+            err = max(err, float(d.max()))
+            ok = ok and bool((d <= tol + tol * b.abs()).all())
+        print(f"[kernel] ssd_chunk_scan {str(dtype)[6:]} {label} "
+              f"(B,S,H,N,P,chunk)={(B, S, H, N, P, chunk)} carried={carried}"
+              f": max_abs_err={err:.3e} (atol = rtol = {tol:g})", flush=True)
+        check(ok, f"ssd_chunk_scan {dtype} {label}: error {err} beyond "
+                  f"atol = rtol = {tol}")
+        worst = max(worst, err)
+    row = None
+    for label, B, S, H, N, P, chunk, bc in SSD_ROWS:
+        q, k, v, la, li, _ = _ssd_inputs(B, S, H, N, P, torch.bfloat16, gen,
+                                         bc, False)
+        ms = time_ms(lambda: K.ssd_chunk_scan_cuda(q, k, v, la, li,
+                                                   chunk=chunk))
+        plain = time_ms(lambda: K.ssd_chunk_scan_plain(q, k, v, la, li,
+                                                       chunk=chunk))
+        bnd, by = bound_ms(*_ssd_cost(B, S, H, N, P, chunk, 2, bc, False),
+                           "bfloat16")
+        print(f"[kernel] ssd_chunk_scan timing {label} prefill bfloat16: "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.6f} ms "
+              f"({by})", flush=True)
+        row = row or (ms, plain, bnd, by)
+    ms, plain, bnd, by = row
+    return {"name": "ssd_chunk_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:78",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     return [check_paged(gen), check_flash(gen), check_spec_verify(gen),
-            check_tree(gen), check_decode(gen)]
+            check_tree(gen), check_decode(gen), check_ssd(gen)]
 
 
 # --------------------------------------------------------------- phase 3
-def _configs(num_layers=None, dtype=None):
+def _configs(edge: str, num_layers=None, dtype=None):
+    """(edge, granite-8b cloud) configs with the vocabulary cut to the
+    smaller of the two, as the serve CLI does; ``num_layers`` (edge layers,
+    cloud layers) cuts depth."""
     from repro_torch.configs import get_config
-    e, c = get_config("smollm-135m"), get_config("granite-8b")
-    v = min(e.vocab_size, c.vocab_size)
-    kw = {"vocab_size": v}
-    if num_layers is not None:
-        kw["num_layers"] = num_layers
+    e, c = get_config(edge), get_config("granite-8b")
+    kw = {"vocab_size": min(e.vocab_size, c.vocab_size)}
     if dtype is not None:
         kw.update(param_dtype=dtype, activ_dtype=dtype)
-    return e.replace(**kw), c.replace(**kw)
+    e, c = e.replace(**kw), c.replace(**kw)
+    if num_layers is not None:
+        e, c = e.replace(num_layers=num_layers[0]), \
+            c.replace(num_layers=num_layers[1])
+    return e, c
 
 
 def _prompts(vocab: int, n: int = 8, length: int = 16):
@@ -481,16 +607,26 @@ def _prompts(vocab: int, n: int = 8, length: int = 16):
     return [synth.sample(rng, i % synth.n_domains, length) for i in range(n)]
 
 
-# the served paths: name, engine settings, the kernels the path must launch
+# the served paths: name, edge model, engine settings, the kernels the path
+# must launch; the cloud is granite-8b throughout.  The recurrent edges
+# resolve kv_layout "auto" to dense (the edge rewinds by batched replay)
+RECURRENT_KERNELS = ("ssd_chunk_scan", "flash_attention", "spec_verify")
 PATHS = (
-    ("linear", {},
+    ("linear", "smollm-135m", {},
      ("paged_decode_attention", "flash_attention", "spec_verify")),
-    ("tree", {"spec_mode": "tree", "spec_tree_width": 2,
-              "kv_layout": "dense"},
+    ("tree", "smollm-135m", {"spec_mode": "tree", "spec_tree_width": 2,
+                             "kv_layout": "dense"},
      ("tree_verify_attention", "decode_attention", "flash_attention")),
-    ("self", {"spec_mode": "self", "spec_exit_layer": 15},
+    ("self", "smollm-135m", {"spec_mode": "self", "spec_exit_layer": 15},
      ("paged_decode_attention", "flash_attention", "spec_verify")),
+    ("mamba2", "mamba2-370m", {}, RECURRENT_KERNELS),
+    ("xlstm", "xlstm-125m", {}, RECURRENT_KERNELS),
+    ("hybrid", "zamba2-2.7b", {}, RECURRENT_KERNELS + ("decode_attention",)),
 )
+# f32 parity depth per edge (edge layers, cloud layers): zamba2 keeps its
+# own shared_attn_every = 6 (one group), xLSTM reaches its sLSTM block 3
+PARITY_DEPTH = {"smollm-135m": (2, 2), "mamba2-370m": (2, 2),
+                "xlstm-125m": (4, 2), "zamba2-2.7b": (6, 2)}
 
 
 def _engine(e_cfg, c_cfg, attn_backend="auto", **kw):
@@ -503,23 +639,36 @@ def _engine(e_cfg, c_cfg, attn_backend="auto", **kw):
                          attn_backend=attn_backend, **kw)
 
 
+def _init(cfg, seed):
+    import torch
+    from repro_torch.models import Model
+    t = time.perf_counter()
+    params = Model(cfg).init(seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    print(f"[serve] init {cfg.name} ({n / 1e9:.2f}e9 params, "
+          f"{cfg.param_dtype}, vocab {cfg.vocab_size}) in "
+          f"{time.perf_counter() - t:.1f}s", flush=True)
+    return params
+
+
 def phase_serve():
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.models import Model
-    e_cfg, c_cfg = _configs()
-    t = time.perf_counter()
-    ep = Model(e_cfg).init(seed=0, device="cuda")
-    cp = Model(c_cfg).init(seed=1, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in cp.parameters())
-    print(f"[serve] init {e_cfg.name} + {c_cfg.name} ({n_params / 1e9:.2f}e9 "
-          f"cloud params, {c_cfg.param_dtype}) in "
-          f"{time.perf_counter() - t:.1f}s", flush=True)
-    prompts = _prompts(e_cfg.vocab_size)
     total = {name: 0 for name in ops.KERNELS}
-    V = e_cfg.vocab_size
-    for name, kw, kernels in PATHS:
+    ep = cp = e_cfg = c_cfg = None
+    for name, edge, kw, kernels in PATHS:
+        e_new, c_new = _configs(edge)
+        if e_new != e_cfg:
+            ep = None
+            torch.cuda.empty_cache()
+            e_cfg, ep = e_new, _init(e_new, 0)
+        if c_new != c_cfg:
+            cp = None
+            torch.cuda.empty_cache()
+            c_cfg, cp = c_new, _init(c_new, 1)
+        prompts = _prompts(e_cfg.vocab_size)
+        V = e_cfg.vocab_size
         # warm-up drain (library handles, allocator), not measured
         _engine(e_cfg, c_cfg, **kw).serve_batch(ep, cp, prompts[:2], 4)
         eng = _engine(e_cfg, c_cfg, **kw)
@@ -550,7 +699,8 @@ def phase_serve():
             paths[tr.path] = paths.get(tr.path, 0) + 1
         ticks = stats["ticks"]
         lane = stats["spec_lanes"][stats["spec_mode"]]
-        print(f"[serve] {name} path ({stats['kv_layout']} KV): paths {paths}; "
+        print(f"[serve] {name} path ({e_cfg.name} edge, {stats['kv_layout']} "
+              f"KV): paths {paths}; "
               f"{len(traces) / dt:.2f} req/s, "
               f"{24 * len(traces) / dt:.1f} tok/s, {dt:.2f}s; "
               f"{ticks} edge ticks at "
@@ -566,7 +716,14 @@ def phase_serve():
         # finiteness of the logits on the path: a prefill of every served
         # sequence through both models must give finite logits
         _check_finite(ep, cp, e_cfg, c_cfg, prompts, traces)
-    phase_breakdown(ep, cp, e_cfg, c_cfg, prompts)
+        if name == "self":            # the last path of the dense edge
+            phase_breakdown(ep, cp, e_cfg, c_cfg, prompts)
+        if e_cfg.family != "dense":
+            h, d, busy = _round_ms(_engine(e_cfg, c_cfg, **kw), ep, cp,
+                                   prompts)
+            print(f"[breakdown] one {name} round (G=8): host issue "
+                  f"{h:.3f} ms, stream span {d:.3f} ms, device busy "
+                  f"{busy:.3f} ms", flush=True)
     del ep, cp
     torch.cuda.empty_cache()
     return total
@@ -747,26 +904,37 @@ def phase_breakdown(ep, cp, e_cfg, c_cfg, prompts):
     for k, (h, d) in rows.items():
         print(f"[breakdown] {k}: host issue {h:.3f} ms, stream span "
               f"{d:.3f} ms", flush=True)
-    for name, kw, _ in PATHS:
+    for name, edge, kw, _ in PATHS:
+        if edge != e_cfg.name:
+            continue
         h, d, busy = _round_ms(_engine(e_cfg, c_cfg, **kw), ep, cp, prompts)
         print(f"[breakdown] one {name} round (G=8): host issue {h:.3f} ms, "
               f"stream span {d:.3f} ms, device busy {busy:.3f} ms",
               flush=True)
     # 8 requests, 8 new tokens: one edge tick and 8 speculative rounds
-    for label, kw in (("linear", {}), ("tree", PATHS[1][1])):
+    for label, kw in (("linear", {}), ("tree", PATHS[1][2])):
         _profile_drain(label, _engine(e_cfg, c_cfg, **kw), ep, cp, prompts, 8)
 
 
 # --------------------------------------------------------------- phase 4
 def phase_parity():
+    """Every served path at float32, full width, cut depth
+    (``PARITY_DEPTH``), on the kernels and on the plain versions — plus the
+    mamba2 path with ``prefill_chunk=8``, whose 15-entry prompts then
+    prefill in two pieces, so the scan kernel carries a state on the
+    served path."""
     import torch
     from repro_torch.models import Model
-    from repro_torch.models import transformer
-    e_cfg, c_cfg = _configs(num_layers=2, dtype="float32")
-    ep = Model(e_cfg).init(seed=0, device="cuda")
-    cp = Model(c_cfg).init(seed=1, device="cuda")
-    prompts = _prompts(e_cfg.vocab_size)
-    for name, kw, _ in PATHS:
+    paths = list(PATHS) + [("mamba2 chunked", "mamba2-370m",
+                            {"prefill_chunk": 8}, ())]
+    ep = cp = e_cfg = c_cfg = None
+    for name, edge, kw, _ in paths:
+        e_new, c_new = _configs(edge, PARITY_DEPTH[edge], "float32")
+        if e_new != e_cfg:
+            e_cfg, ep = e_new, Model(e_new).init(seed=0, device="cuda")
+        if c_new != c_cfg:
+            c_cfg, cp = c_new, Model(c_new).init(seed=1, device="cuda")
+        prompts = _prompts(e_cfg.vocab_size)
         if name == "self":
             kw = {**kw, "spec_exit_layer": 1}     # 2 layers: exit after 1
         runs = {}
@@ -789,8 +957,8 @@ def phase_parity():
             params, cfg = (ep, e_cfg) if edge_chose else (cp, c_cfg)
             seq = torch.as_tensor([list(prompts[i]) + b.tokens[:j]],
                                   device="cuda")
-            logits, _ = transformer.forward(params, seq, cfg,
-                                            backend="plain")
+            logits, _ = Model(cfg).forward(params, {"tokens": seq},
+                                           attn_backend="plain")
             top2 = logits[0, -1].topk(2).values
             gap = float(top2[0] - top2[1])
             print(f"[parity] {name} request {i} diverges at token {j}: "
@@ -798,10 +966,11 @@ def phase_parity():
             check(gap < GAP_TOL, f"{name} request {i}: divergence at token "
                                  f"{j} with a top-2 gap {gap} >= {GAP_TOL}")
             excused += 1
-        print(f"[parity] {name} path, float32 2-layer full-width engine, "
-              f"kernels vs plain: {len(prompts) - excused}/{len(prompts)} "
-              f"traces identical, {excused} near-tie divergences",
-              flush=True)
+        print(f"[parity] {name} path, float32 full-width engine "
+              f"({e_cfg.num_layers}-layer {edge} + {c_cfg.num_layers}-layer "
+              f"granite-8b), kernels vs plain: "
+              f"{len(prompts) - excused}/{len(prompts)} traces identical, "
+              f"{excused} near-tie divergences", flush=True)
     del ep, cp
     torch.cuda.empty_cache()
 

@@ -4,8 +4,9 @@ the PyTorch twin of the JAX package's ``core/scheduler.py``.
   * SLOTS — ``batch_size`` slots, each holding one in-flight request; the
     per-slot device state lives behind the ``SequenceState`` adapters of
     ``core/seq_state.py`` (paged block pool by default, dense slabs as the
-    parity oracle).  The scheduler calls ``admit / flush / prepare_tick /
-    retire`` and never branches on layout or family itself.
+    parity oracle, whole per-slot states for the recurrent families).  The
+    scheduler calls ``admit / flush / prepare_tick / retire`` and never
+    branches on layout or family itself.
   * PREFILL on admission is pow2 LENGTH-BUCKETED and, past
     ``prefill_chunk`` entries, CHUNKED one chunk per tick into a detached
     cache that lands through ``SequenceState.finalize``.

@@ -1,6 +1,5 @@
 """Family-agnostic per-sequence decode state for the serving scheduler
-(the PyTorch twin of the JAX package's ``core/seq_state.py``, KV layouts
-only).
+(the PyTorch twin of the JAX package's ``core/seq_state.py``).
 
   * ``SequenceState`` — the host-side slot-state owner: ``admit`` (prefill
     + capacity reservation), ``flush`` (batched device writes),
@@ -14,21 +13,30 @@ only).
       - ``PagedKV`` — one shared block pool + per-slot block tables
         (``core/paged_cache.py``), with refcounted prefix sharing +
         copy-on-write and host-buffer swap for preemption.
+      - ``RecurrentState`` — fixed-size recurrent state (ssm / xlstm /
+        hybrid), stacked like the dense layout: recurrent state has no
+        sequence axis to page, so slots are whole per-slot states.
 
   * ``SpecOps`` — the per-model ops speculative decoding composes:
-    ``step`` / ``extend`` and ``snapshot`` / ``commit`` (a ``pos`` write),
-    plus the tree lane's ``extend_tree`` / ``reset`` / ``commit_permute``
-    on the dense layout.
+    ``step`` / ``extend`` and ``snapshot`` / ``commit``.  KV layouts
+    snapshot ``pos`` and commit with a ``pos`` write, plus the tree lane's
+    ``extend_tree`` / ``reset`` / ``commit_permute`` on the dense layout;
+    the recurrent layout snapshots the state and commits by replaying each
+    slot's accepted prefix through the model's batched ``replay_step``.
   * ``Lane`` — the per-model batched machinery (bucketed prefill, chunked
     prefill, the multi-step decode loop with ONE host pull per tick) plus
     the ``make_state`` factory and ``dense_side`` (the same model on dense
     per-slot caches, for tree/self escalation groups).  All layout
     dispatch lives here.
 
+Cache trees: every leaf has the slot axis first, except the attention
+slabs ``k`` / ``v`` (a leading layer or group axis, then the slot axis).
 Device tensors are updated IN PLACE where JAX returns new arrays (pools,
-tables, dense slabs); ``pos`` is always replaced by a new tensor, so a
-``pos`` snapshot never aliases live state.  The recurrent layout and the
-sharded pools are later slices of the port.
+tables, dense and hybrid K/V slabs, slot writes at admission); the
+recurrent models' steps return new state tensors, and ``pos`` is always
+replaced by a new tensor, so a snapshot never aliases live state except
+through the slabs, which the recurrent snapshot copies.  The sharded pools
+are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -45,6 +53,10 @@ from repro_torch.core.paged_cache import (BlockPool, blocks_for,
                                           prompt_cache_to_blocks,
                                           read_pool_blocks, write_pool_blocks)
 from repro_torch.core.uncertainty import get_batched_estimator
+from repro_torch.models.ssm import tree_leaves, tree_map
+
+# cache entries holding attention slabs (slot axis second, written in place)
+SLABS = ("k", "v")
 
 
 # ---------------------------------------------------------------- host pull
@@ -94,12 +106,22 @@ def stack_slot_caches(model, batch: int, slot_len: int, device):
 
 def write_slots(slots, bs: List[int], caches: List):
     """Overwrite slots ``bs`` with freshly prefilled single-sequence caches
-    in ONE scatter per tensor (K/V in place; ``pos`` replaced).  Also wipes
+    in ONE scatter per tensor, IN PLACE (each value cast to the slot
+    tensor's dtype, as JAX's scatter does; ``pos`` replaced).  Also wipes
     any garbage a retired occupant decoded past its budget."""
     dev = slots["pos"].device
     idx = torch.as_tensor(bs, dtype=torch.long, device=dev)
-    slots["k"][:, idx] = torch.cat([c["k"] for c in caches], dim=1)
-    slots["v"][:, idx] = torch.cat([c["v"] for c in caches], dim=1)
+
+    def put(axis):
+        def write(big, *smalls):
+            big[(slice(None),) * axis + (idx,)] = torch.cat(
+                smalls, dim=axis).to(big.dtype)
+        return write
+
+    for key, big in slots.items():
+        if key != "pos":
+            tree_map(put(1 if key in SLABS else 0), big,
+                     *(c[key] for c in caches))
     pos = slots["pos"].clone()
     pos[idx] = torch.stack([c["pos"] for c in caches]).to(torch.int32)
     return {**slots, "pos": pos}
@@ -117,9 +139,13 @@ def pow2_steps(n: int, cap: int) -> int:
 
 # ---------------------------------------------------------------- layouts
 def layout_for(model, kv_layout: str) -> str:
-    """Effective per-model layout under the engine-level ``kv_layout``."""
+    """Effective per-model layout under the engine-level ``kv_layout``:
+    "paged" where the engine runs paged and the family supports it,
+    "recurrent" for state-cache families, else "dense"."""
     if kv_layout == "paged" and model.paged_kv:
         return "paged"
+    if not model.rewindable_cache:
+        return "recurrent"
     return "dense"
 
 
@@ -145,9 +171,9 @@ class SpecOps:
     """Per-(model, layout) ops for batched speculative decoding:
     ``step``/``extend`` run one decode step / a multi-token extend over the
     whole group; ``snapshot``/``commit`` implement the per-round rewind.
-    ``attn_backend`` picks the attention read of the decode steps and the
-    tree extends (see ``Model.paged_decode_step`` / ``decode_step`` /
-    ``extend_step``)."""
+    ``attn_backend`` picks the kernels' or the plain path of the decode
+    steps, the extends and the replay (see ``Model.paged_decode_step`` /
+    ``decode_step`` / ``extend_step`` / ``replay_step``)."""
 
     def __init__(self, model, layout: str, attn_backend: str = "auto"):
         self.model = model
@@ -166,7 +192,8 @@ class SpecOps:
         """tokens (G, T) -> (logits (G, T, V), caches)."""
         if self.layout == "paged":
             return self.model.paged_extend_step(params, tokens, caches)
-        return self.model.extend_step(params, tokens, caches)
+        return self.model.extend_step(params, tokens, caches,
+                                      attn_backend=self.attn_backend)
 
     def extend_tree(self, params, tokens, caches, block_mask, depths):
         """Tree-masked extend: each slot's ``tokens`` (G, T) row is a packed
@@ -187,7 +214,20 @@ class SpecOps:
     def reset(self, caches, snap):
         """Roll the group back to the pre-round snapshot WITHOUT committing
         anything (the self lane re-anchors before its verify)."""
+        if self.layout == "recurrent":
+            return snap
         return {**caches, "pos": snap}
+
+    def commit_replay(self, params, caches, snap, tokens, counts):
+        """Replay-based commit: rewind to the snapshot, re-extend through
+        the padded accepted tape ``tokens`` (G, T), then keep each slot's
+        ``counts`` — the JAX package's tree-round rewind (the port's tree
+        lane commits by ``commit_permute``).  Recurrent layouts already
+        commit by replay."""
+        if self.layout == "recurrent":
+            return self.commit(params, caches, snap, tokens, counts)
+        _, caches = self.extend(params, tokens, self.reset(caches, snap))
+        return {**caches, "pos": (snap + counts).to(torch.int32)}
 
     def commit_permute(self, caches, snap, perm, counts):
         """Gather-based tree commit: the verify extend wrote every tree
@@ -212,13 +252,26 @@ class SpecOps:
         return {**caches, "pos": (snap + counts).to(torch.int32)}
 
     def snapshot(self, caches):
-        """Pre-round rewind anchor: ``pos`` (G,) (never mutated later)."""
+        """Pre-round rewind anchor: ``pos`` (G,) for KV layouts (never
+        mutated later); the cache tree itself for recurrent state, whose
+        steps return new tensors — with copies of the attention slabs
+        (hybrid), which the round's steps write in place."""
+        if self.layout == "recurrent":
+            return {k: v.clone() if k in SLABS else v
+                    for k, v in caches.items()}
         return caches["pos"]
 
     def commit(self, params, caches, snap, tokens, counts):
         """Rewind the post-round ``caches`` to each slot's accepted prefix:
-        one ``pos`` write (rejected entries stay, masked and overwritten).
-        ``counts`` (G,) int32 — 0 freezes a slot on its snapshot."""
+        ``tokens`` (G, T) is the round's draft tape [pending, d_0..], and
+        ``counts`` (G,) int32 (0 freezes a slot on its snapshot) how many
+        of its entries each slot commits.  KV: one ``pos`` write (rejected
+        entries stay, masked and overwritten).  Recurrent: the batched
+        ``replay_step`` from the snapshot — each slot re-advances through
+        its own prefix."""
+        if self.layout == "recurrent":
+            return self.model.replay_step(params, tokens, snap, counts,
+                                          attn_backend=self.attn_backend)
         return {**caches, "pos": (snap + counts).to(torch.int32)}
 
 
@@ -290,7 +343,7 @@ class SequenceState:
 
     @property
     def capacity_bytes(self) -> int:
-        return sum(t.nbytes for t in self.caches.values())
+        return sum(t.nbytes for t in tree_leaves(self.caches))
 
     @property
     def peak_bytes(self) -> int:
@@ -336,6 +389,15 @@ class DenseKV(SequenceState):
             self.caches = write_slots(self.caches, self._pend_bs,
                                       self._pend_caches)
             self._pend_bs, self._pend_caches = [], []
+
+
+class RecurrentState(DenseKV):
+    """Fixed-size recurrent state (ssm / xlstm / hybrid): stacked like the
+    dense layout — recurrent state has no sequence axis to page, so slots
+    are whole per-slot states.  A separate class so layout policy stays
+    out of the scheduler."""
+
+    layout = "recurrent"
 
 
 class PagedKV(SequenceState):
@@ -786,6 +848,12 @@ class Lane:
         self.ops = SpecOps(model, layout, attn_backend)
         self._est = get_batched_estimator(estimator)
         self._dense_side: Optional["Lane"] = None
+        # KV attention masks every key row past ``pos`` (score -1e30, weight
+        # exactly 0), so a prefill PADDED to a pow2 bucket with ``pos``
+        # pinned back is bit-identical to an exact-length one.  Recurrent
+        # families advance their state through EVERY input token, pads
+        # included, so they prefill and extend at exact length.
+        self._bucket_prefill = layout != "recurrent"
 
     def dense_side(self) -> "Lane":
         """This lane's model re-hosted on dense per-slot caches (made once).
@@ -804,13 +872,15 @@ class Lane:
 
     def prefill(self, params, prompt, max_seq: int):
         """Prefill ``prompt[:-1]`` into a fresh cache padded to ``max_seq``.
-        The ENTRY COUNT is padded to a pow2 bucket (capped at ``max_seq``)
-        and ``pos`` pinned back to the real length: masked keys weigh
-        exactly zero (plain ``mha`` and the flash kernel alike), so this is
-        bit-identical to an exact-length prefill."""
+        KV lanes pad the ENTRY COUNT to a pow2 bucket (capped at
+        ``max_seq``) and pin ``pos`` back to the real length: masked keys
+        weigh exactly zero (plain ``mha`` and the flash kernel alike), so
+        this is bit-identical to an exact-length prefill.  Recurrent lanes
+        prefill the exact length."""
         entries = np.asarray(prompt, np.int32)[:-1]
         E = entries.size
-        Ep = min(pow2_steps(E, 1 << 30), max_seq)
+        Ep = min(pow2_steps(E, 1 << 30), max_seq) if self._bucket_prefill \
+            else E
         if Ep > E:
             entries = np.concatenate([entries, np.zeros(Ep - E, np.int32)])
         dev = params.embed.device
@@ -835,7 +905,8 @@ class Lane:
     def advance_prefill(self, params, job: dict) -> bool:
         """Advance one chunk of a ``start_prefill`` job; True when every
         prompt entry is in the detached cache.  The final partial chunk
-        pow2-pads with ``pos`` pinned back (bit-exact)."""
+        pow2-pads with ``pos`` pinned back (bit-exact) on KV lanes and runs
+        exact-length on recurrent lanes."""
         entries, done, C = job["entries"], job["done"], job["chunk"]
         take = min(C, entries.size - done)
         toks = entries[done:done + take]
@@ -845,12 +916,13 @@ class Lane:
                 params, {"tokens": torch.as_tensor(toks[None], device=dev)},
                 max_seq=job["max_seq"], attn_backend=self.attn_backend)
         else:
-            Tp = min(pow2_steps(take, C), job["max_seq"] - done)
+            Tp = min(pow2_steps(take, C), job["max_seq"] - done) \
+                if self._bucket_prefill else take
             if Tp > take:
                 toks = np.concatenate([toks, np.zeros(Tp - take, np.int32)])
             _, cache = self.model.extend_step(
                 params, torch.as_tensor(toks[None], device=dev),
-                job["cache"])
+                job["cache"], attn_backend=self.attn_backend)
             if Tp > take:
                 cache = {**cache,
                          "pos": torch.full_like(cache["pos"], done + take)}
@@ -885,6 +957,8 @@ class Lane:
         """Build this lane's decode-state adapter.  ``need_tokens``
         (escalation groups) sizes a paged pool to the group's residency,
         pow2-bucketed."""
+        if self.layout == "recurrent":
+            return RecurrentState(self, params, batch, slot_len)
         if self.layout == "dense":
             return DenseKV(self, params, batch, slot_len)
         if num_blocks is None and need_tokens is not None:

@@ -7,8 +7,10 @@ scheme is lossless: the output distribution equals sampling from the target
 model alone.
 
 KV caches roll back rejected tokens by resetting ``pos`` — stale entries
-are masked out and later overwritten.  The per-request ``SpecDecoder`` and
-the recurrent-state replay are later slices of the port.
+are masked out and later overwritten; recurrent state (ssm / xlstm /
+hybrid) rolls back by a batched replay of each slot's accepted prefix from
+the round's snapshot (``SpecOps.commit``).  The per-request
+``SpecDecoder`` is a later slice of the port.
 """
 from __future__ import annotations
 

@@ -52,7 +52,9 @@ __device__ __forceinline__ float warp_max(float x) {
 // the tile's scores and then its probabilities; ms / ls / as the running
 // max, the running denominator and this tile's rescale of each row; every
 // thread owns the accumulator entries idx = threadIdx.x + j * kThreads of
-// the [G][hd] output.  All threads of the block call it (it synchronises).
+// the [G][hd] output.  Any head dim up to kMaxHd: lane l of a warp owns the
+// dims l, l + 32, ...; lanes past hd hold zeros.  All threads of the block
+// call it (it synchronises).
 template <int kThreads, int kMaxHd, int kMaxPairs, typename T>
 __device__ __forceinline__ void decode_tile(
     const float* qs, const T* __restrict__ kb, const T* __restrict__ vb,
@@ -60,19 +62,20 @@ __device__ __forceinline__ void decode_tile(
     float* ps, float* ms, float* ls, float* as, float (&acc)[kMaxPairs]) {
   constexpr int kWarps = kThreads / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nd = hd / 32;
+  const int nd = (hd + 31) / 32;             // 32-wide lane groups, tail masked
 
   // ---- scores s[g][t] = q[g] . k[t] * scale, one key per warp at a time
   for (int t = t0 + warp; t < t1; t += kWarps) {
     float kr[kMaxHd / 32];
 #pragma unroll
     for (int j = 0; j < kMaxHd / 32; ++j)
-      kr[j] = j < nd ? to_float(kb[t * row + lane + 32 * j]) : 0.f;
+      kr[j] = j < nd && lane + 32 * j < hd
+          ? to_float(kb[t * row + lane + 32 * j]) : 0.f;
     for (int g = 0; g < G; ++g) {
       float s = 0.f;
 #pragma unroll
       for (int j = 0; j < kMaxHd / 32; ++j)
-        if (j < nd) s += qs[g * hd + lane + 32 * j] * kr[j];
+        if (j < nd && lane + 32 * j < hd) s += qs[g * hd + lane + 32 * j] * kr[j];
       s = warp_sum(s);
       if (lane == 0) ps[g * ldp + t] = s * scale;
     }

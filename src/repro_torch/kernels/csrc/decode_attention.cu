@@ -26,7 +26,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxHd = 256;                 // head dim, a multiple of 32
+constexpr int kMaxHd = 256;                 // head dim, any up to 256
 constexpr int kMaxPairs = 32;               // G * hd <= kThreads * kMaxPairs
 constexpr int kTile = 32;                   // keys per decode_tile step
 
@@ -103,7 +103,7 @@ REPRO_EXPORT int repro_decode_attention(
     int dtype, const void* q, const void* k, const void* v, const int* length,
     void* out, int B, int Kv, int G, int hd, int S, long long sb,
     long long sh, long long ss, int window, float scale, void* stream) {
-  if (hd % 32 != 0 || hd > kMaxHd || G * hd > kThreads * kMaxPairs)
+  if (hd < 1 || hd > kMaxHd || G * hd > kThreads * kMaxPairs)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -12,8 +12,9 @@
 // first key to the causal limit, each staged in shared memory (K rows padded
 // by one float so a warp reading 32 different keys hits 32 banks).  Each
 // warp owns 4 query rows: lane j scores key j of the tile, the warp reduces
-// the tile's max and sum with shuffles, and every lane keeps hd/32 output
-// columns of the running accumulator in registers.  The TPU kernel needs
+// the tile's max and sum with shuffles, and every lane keeps ceil(hd/32)
+// output columns of the running accumulator in registers (any hd up to 256,
+// the tail lanes masked: zamba2's 80).  The TPU kernel needs
 // S % bq == 0; this one masks the ragged edge itself (keys past Sk, rows past
 // Sq).  Masked keys contribute exact zeros: they are skipped.
 //
@@ -60,7 +61,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const int q_last = min(q0 + kBQ, Sq) - 1;
   const int k_begin = window > 0 ? max(q0 - window + 1, 0) : 0;
   const int k_end = causal ? min(q_last + 1, Sk) : Sk;
-  const int nd = hd / 32;
+  const int nd = (hd + 31) / 32;             // lane groups; the tail is masked
 
   float m[kRows], l[kRows], acc[kRows][kMaxHd / 32];
 #pragma unroll
@@ -112,7 +113,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
         if (pt == 0.f) continue;             // warp-uniform: same pt
 #pragma unroll
         for (int j = 0; j < kMaxHd / 32; ++j)
-          if (j < nd) acc[r][j] += pt * vs[t * hd + lane + 32 * j];
+          if (j < nd && lane + 32 * j < hd)
+            acc[r][j] += pt * vs[t * hd + lane + 32 * j];
       }
     }
   }
@@ -125,7 +127,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     T* orow = out + (bh * Sq + qpos) * hd;
 #pragma unroll
     for (int j = 0; j < kMaxHd / 32; ++j)
-      if (j < nd) orow[lane + 32 * j] = repro::from_float<T>(acc[r][j] * inv);
+      if (j < nd && lane + 32 * j < hd)
+        orow[lane + 32 * j] = repro::from_float<T>(acc[r][j] * inv);
   }
 }
 
@@ -156,7 +159,7 @@ REPRO_EXPORT int repro_flash_attention(int dtype, const void* q,
                                        int B, int H, int Sq, int Sk, int hd,
                                        int causal, int window, float scale,
                                        void* stream) {
-  if (hd % 32 != 0 || hd > kMaxHd) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd < 1 || hd > kMaxHd) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, out, B, H, Sq, Sk, hd, causal, window,

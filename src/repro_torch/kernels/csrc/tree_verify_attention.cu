@@ -20,7 +20,8 @@
 // padded by one float so a warp reading 32 keys hits 32 banks), with an f32
 // online softmax.  Each of the 8 warps owns 8 query rows: lane j scores key
 // j of the tile, the warp reduces the tile's max and sum with shuffles, and
-// every lane keeps hd/32 output columns per row in registers.  The key loop
+// every lane keeps ceil(hd/32) output columns per row in registers (any hd
+// up to 256, the tail lanes masked).  The key loop
 // stops at base + C, because every later position is masked, and starts at
 // the window's first key.  The mask column is read directly at p - base:
 // the TPU kernel's one-hot matmul (a trick for its matrix unit) has no
@@ -87,7 +88,7 @@ __global__ void __launch_bounds__(kThreads) tree_verify_attention_kernel(
   const size_t head = static_cast<size_t>(b) * sb + static_cast<size_t>(kv) * sh;
   const T* kb = k + head;
   const T* vb = v + head;
-  const int nd = hd / 32;
+  const int nd = (hd + 31) / 32;             // lane groups; the tail is masked
 
   float m[kRows], l[kRows], acc[kRows][kMaxHd / 32];
 #pragma unroll
@@ -139,7 +140,8 @@ __global__ void __launch_bounds__(kThreads) tree_verify_attention_kernel(
         if (pt == 0.f) continue;               // warp-uniform: same pt
 #pragma unroll
         for (int j = 0; j < kMaxHd / 32; ++j)
-          if (j < nd) acc[r][j] += pt * vs[t * hd + lane + 32 * j];
+          if (j < nd && lane + 32 * j < hd)
+            acc[r][j] += pt * vs[t * hd + lane + 32 * j];
       }
     }
   }
@@ -153,7 +155,8 @@ __global__ void __launch_bounds__(kThreads) tree_verify_attention_kernel(
     T* orow = out + b * os_.a + kv * os_.b + g * os_.c + n * os_.d;
 #pragma unroll
     for (int j = 0; j < kMaxHd / 32; ++j)
-      if (j < nd) orow[lane + 32 * j] = repro::from_float<T>(acc[r][j] * inv);
+      if (j < nd && lane + 32 * j < hd)
+        orow[lane + 32 * j] = repro::from_float<T>(acc[r][j] * inv);
   }
 }
 
@@ -193,7 +196,7 @@ REPRO_EXPORT int repro_tree_verify_attention(
     const int* q_pos, void* out, long long o_sb, long long o_skv,
     long long o_sg, long long o_sn, int B, int Kv, int G, int N, int C,
     int hd, int S, int window, float scale, void* stream) {
-  if (hd % 32 != 0 || hd > kMaxHd || C < N || N < 1)
+  if (hd < 1 || hd > kMaxHd || C < N || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides4 qs_{q_sb, q_skv, q_sg, q_sn}, os_{o_sb, o_skv, o_sg, o_sn};
   auto s = static_cast<cudaStream_t>(stream);

@@ -82,7 +82,7 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, length, *,
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, "
                          f"table {tuple(table.shape)}, length "
                          f"{tuple(length.shape)}")
-    if hd % 32 or hd > 256 or G * hd > 4096 or G * (hd + bs + 3) > 12288:
+    if hd > 256 or G * hd > 4096 or G * (hd + bs + 3) > 12288:
         raise ValueError(f"unsupported head shape G={G} hd={hd} bs={bs}")
     if not all(t.is_contiguous() for t in (q, k_pool, v_pool, table, length)):
         raise ValueError("paged_decode_attention_cuda needs contiguous inputs")
@@ -134,7 +134,7 @@ def decode_attention_cuda(q, k, v, length, *, window: int = 0):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, length "
                          f"{tuple(length.shape)}")
-    if hd % 32 or hd > 256 or G * hd > 4096:
+    if hd > 256 or G * hd > 4096:
         raise ValueError(f"unsupported head shape G={G} hd={hd}")
     if not (q.is_contiguous() and length.is_contiguous()) \
             or k.stride() != v.stride() or k.stride(3) != 1:

@@ -58,9 +58,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     if k.shape != (B, H, Sk, hd) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if hd % 32 or hd > 256:
-        raise ValueError(f"unsupported head dim {hd} (a multiple of 32, "
-                         "at most 256)")
+    if hd > 256:
+        raise ValueError(f"unsupported head dim {hd} (at most 256)")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention_cuda needs contiguous inputs")
     out = torch.empty_like(q)

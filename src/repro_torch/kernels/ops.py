@@ -16,19 +16,23 @@ Ported kernels (TPU kernel they replace):
   tree_verify_attention``
 * ``decode_attention`` — ``src/repro/kernels/decode_attention.py::
   decode_attention`` (dense caches)
+* ``ssd_chunk_scan`` — ``src/repro/kernels/ssd_scan.py::ssd_chunk_scan``
+  (the chunked SSD / mLSTM scan, with a carried state)
 """
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import spec_verify as _verify
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import tree_attention as _tree
 
 KERNELS = {"paged_decode_attention": _dec.KERNEL,
            "flash_attention": _flash.KERNEL,
            "spec_verify": _verify.KERNEL,
            "tree_verify_attention": _tree.KERNEL,
-           "decode_attention": _dec.DENSE_KERNEL}
+           "decode_attention": _dec.DENSE_KERNEL,
+           "ssd_chunk_scan": _ssd.KERNEL}
 
 
 def reset_launch_counts() -> None:
@@ -78,3 +82,11 @@ def spec_verify(target_logits, draft_logits, draft_tokens, u_acc, u_res, *,
     return _verify.spec_verify_plain(target_logits, draft_logits,
                                      draft_tokens, u_acc, u_res,
                                      temperature=temperature)
+
+
+def ssd_chunk_scan(q, k, v, log_a, log_i, *, chunk, state=None):
+    if q.is_cuda:
+        return _ssd.ssd_chunk_scan_cuda(q, k, v, log_a, log_i, chunk=chunk,
+                                        state=state)
+    return _ssd.ssd_chunk_scan_plain(q, k, v, log_a, log_i, chunk=chunk,
+                                     state=state)

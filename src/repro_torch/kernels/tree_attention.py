@@ -84,9 +84,8 @@ def tree_verify_attention_cuda(q, k, v, length, tree_mask, q_pos, *,
                          f"{tuple(length.shape)}, mask "
                          f"{tuple(tree_mask.shape)}, q_pos "
                          f"{tuple(q_pos.shape)}")
-    if hd % 32 or hd > 256:
-        raise ValueError(f"unsupported head dim {hd} (a multiple of 32, at "
-                         "most 256)")
+    if hd > 256:
+        raise ValueError(f"unsupported head dim {hd} (at most 256)")
     if q.stride(4) != 1 or k.stride(3) != 1 or k.stride() != v.stride() \
             or not all(t.is_contiguous() for t in (length, tree_mask,
                                                    q_pos)):

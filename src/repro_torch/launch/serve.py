@@ -17,7 +17,12 @@ every prefill, and the fused spec-verify of every speculative round.
 ``--spec-mode tree`` drafts and verifies token trees through the
 tree-verify kernel on dense side caches; ``--kv-layout dense`` decodes
 through the dense decode kernel; ``--spec-mode self`` drafts with the
-edge model's own first ``--spec-exit-layer`` blocks.
+edge model's own first ``--spec-exit-layer`` blocks.  ``--edge`` also
+takes the recurrent families — ``mamba2-370m``, ``xlstm-125m``,
+``zamba2-2.7b`` — whose prefills and extends run the chunked SSD-scan
+kernel; with them ``--kv-layout auto`` resolves to dense, a speculative
+round rewinds the edge by a batched replay, and the tree and self lanes
+fall back to linear.
 Parameters are the port's own seeded random init (edge seed 0, cloud seed
 1); random-init models are near-uniform, so the 0.6 entropy gate escalates
 every request into speculative verification.

@@ -1,4 +1,5 @@
-"""Shared neural-net layers, dense subset (plain functions on tensors).
+"""Shared neural-net layers (plain functions on tensors), and the
+``ParamTree`` that holds the recurrent families' parameters.
 
 Conventions, as in the JAX package's ``models/layers.py``:
   * weights are stored for ``x @ w`` with ``w`` shaped (in, out); a layer's
@@ -24,6 +25,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
@@ -44,6 +46,28 @@ def check_backend(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; known: "
                          f"{' | '.join(BACKENDS)}")
+
+
+class ParamTree(nn.Module):
+    """Frozen parameters nested like the JAX pytree: built from a dict whose
+    values are tensors, dicts (sub-trees) or lists of dicts (an
+    ``nn.ModuleList`` of sub-trees, e.g. per-layer blocks).  ``p["name"]``
+    and ``p.name`` read the same entry, so layer code indexes it as the JAX
+    package indexes its dicts."""
+
+    def __init__(self, tree):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            elif isinstance(val, (list, tuple)):
+                self.add_module(key, nn.ModuleList(ParamTree(x) for x in val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
 
 
 # ----------------------------------------------------------------- init utils
@@ -91,6 +115,16 @@ def rmsnorm(x, weight, eps: float = 1e-5):
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * (1.0 + weight.float())).to(dt)
+
+
+def groupnorm_heads(x, weight, eps: float = 1e-5):
+    """Per-head group norm of the xLSTM cell outputs. x: (..., H, hd)."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(dt)
 
 
 # ----------------------------------------------------------------- rope

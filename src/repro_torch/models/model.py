@@ -1,13 +1,17 @@
-"""Model facade over the ported families (the dense family in this slice).
+"""Model facade over the ported families: dense, ssm (mamba2), xlstm and
+hybrid (zamba2).
 
     m = Model(cfg)
     params = m.init(seed=0)                       # on CUDA unless told
     logits, aux = m.forward(params, {"tokens": tokens})
     logits, cache = m.prefill(params, {"tokens": tokens}, max_seq=...)
-    logits, cache = m.paged_decode_step(params, token, paged_cache)
+    logits, cache = m.decode_step(params, token, cache)
 
-Same entry points as the JAX package's ``Model``; parameters are the
-``models.transformer.Transformer`` module.  Other families raise
+Same entry points as the JAX package's ``Model``.  Parameters are the
+``models.transformer.Transformer`` module for the dense family and a
+``layers.ParamTree`` for the recurrent ones.  ``attn_backend`` ("auto" |
+"kernel" | "plain") picks the kernels' or the plain path of every entry
+that reaches a kernel.  The moe, vlm and encdec families raise
 ``NotImplementedError`` naming their later slice.
 """
 from __future__ import annotations
@@ -17,40 +21,53 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm, transformer, xlstm
+
+FAMILIES = {"dense": transformer, "ssm": ssm, "xlstm": xlstm,
+            "hybrid": hybrid}
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        transformer.require_dense(cfg)
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(
+                f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
+                "PyTorch port serves the dense, ssm, xlstm and hybrid "
+                "families; moe, vlm and encdec are later slices")
         self.cfg = cfg
+        self._mod = FAMILIES[cfg.family]
+        # families with attention: a sliding window, a K/V cache to size
+        self._attn = cfg.family in ("dense", "hybrid")
 
     # ---------------------------------------------------------------- init
     def init(self, seed: int = 0, device="cuda"):
         """Seeded random parameters on ``device`` (CUDA by default; pass
         ``device="cpu"`` explicitly for the CPU)."""
-        return transformer.init_params(self.cfg, seed, device)
+        return self._mod.init_params(self.cfg, seed, device)
 
     # ---------------------------------------------------------------- fwd
     def forward(self, params, batch: Dict, *, window: int = 0,
                 attn_backend: str = "auto"):
-        return transformer.forward(params, batch["tokens"], self.cfg,
-                                   window=window, backend=attn_backend)
+        kw = {"window": window} if self._attn else {}
+        return self._mod.forward(params, batch["tokens"], self.cfg,
+                                 backend=attn_backend, **kw)
 
     def prefill(self, params, batch: Dict, *, max_seq: Optional[int] = None,
                 window: int = 0, attn_backend: str = "auto"):
-        return transformer.prefill(params, batch["tokens"], self.cfg,
-                                   max_seq=max_seq, window=window,
-                                   backend=attn_backend)
+        kw = {"max_seq": max_seq, "window": window} if self._attn else {}
+        return self._mod.prefill(params, batch["tokens"], self.cfg,
+                                 backend=attn_backend, **kw)
 
     def decode_step(self, params, token, cache, *, window: int = 0,
                     attn_backend: str = "auto"):
-        """One decode step over a dense cache.  ``attn_backend``: "auto"
-        (CUDA: the Hopper dense decode kernel; CPU: ``mha``), "kernel" or
-        "plain"."""
-        return transformer.decode_step(params, token, cache, self.cfg,
-                                       window=window,
-                                       attn_backend=attn_backend)
+        """One decode step.  ``attn_backend``: "auto" (CUDA: the Hopper
+        dense decode kernel of every attention read; CPU: ``mha``), "kernel"
+        or "plain".  The recurrent families' own step has no kernel."""
+        if self._attn:
+            return self._mod.decode_step(params, token, cache, self.cfg,
+                                         window=window,
+                                         attn_backend=attn_backend)
+        return self._mod.decode_step(params, token, cache, self.cfg)
 
     def extend_step(self, params, tokens, cache, *, window: int = 0,
                     block_mask=None, q_positions=None,
@@ -58,25 +75,45 @@ class Model:
         """Multi-token cached decode (chunked prefill, speculative verify).
         tokens (B,T) -> (logits (B,T,V), cache).  ``block_mask`` (T, C) and
         ``q_positions`` drive token trees (the Hopper tree-verify kernel on
-        CUDA under ``attn_backend`` "auto" or "kernel")."""
-        return transformer.extend_step(params, tokens, cache, self.cfg,
-                                       window=window, block_mask=block_mask,
-                                       q_positions=q_positions,
-                                       attn_backend=attn_backend)
+        CUDA) and exist only for attention families: a recurrence is
+        linear-order.  The recurrent families' extends run the SSD-scan
+        kernel on CUDA."""
+        cfg = self.cfg
+        if cfg.family == "dense":
+            return transformer.extend_step(params, tokens, cache, cfg,
+                                           window=window,
+                                           block_mask=block_mask,
+                                           q_positions=q_positions,
+                                           attn_backend=attn_backend)
+        if block_mask is not None or q_positions is not None:
+            raise ValueError(f"block_mask unsupported for family {cfg.family}")
+        kw = {"window": window} if self._attn else {}
+        return self._mod.extend_step(params, tokens, cache, cfg,
+                                     backend=attn_backend, **kw)
 
     # ---------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int, device="cuda"):
-        return transformer.init_cache(self.cfg, batch_size, max_seq,
-                                      device=device)
+        if self._attn:
+            return self._mod.init_cache(self.cfg, batch_size, max_seq,
+                                        device=device)
+        return self._mod.init_cache(self.cfg, batch_size, device)
 
     @property
     def paged_kv(self) -> bool:
-        """True: the dense family's cache pages (shared block pool + block
-        tables, see ``core/paged_cache.py``)."""
-        return True
+        """True if the cache is a pure self-attention KV cache that pages
+        (shared block pool + block tables, see ``core/paged_cache.py``):
+        the dense family.  Recurrent state has no sequence axis to page."""
+        return self.cfg.family == "dense"
+
+    def _require_paged(self):
+        if not self.paged_kv:
+            raise ValueError(f"paged KV cache unsupported for family "
+                             f"{self.cfg.family!r} (KV-cache transformer "
+                             "families only)")
 
     def init_paged_cache(self, num_blocks: int, block_size: int, batch: int,
                          max_blocks: int, device="cuda"):
+        self._require_paged()
         return transformer.init_paged_cache(self.cfg, num_blocks, block_size,
                                             batch, max_blocks, device=device)
 
@@ -86,20 +123,41 @@ class Model:
         cache).  ``attn_backend``: "auto" (CUDA: the Hopper paged-decode
         kernel; CPU: its plain version), "kernel", "plain", or "gather"
         (the full block-table gather, a test oracle)."""
+        self._require_paged()
         return transformer.paged_decode_step(params, token, cache, self.cfg,
                                              attn_backend=attn_backend)
 
     def paged_extend_step(self, params, tokens, cache):
         """Multi-token cached decode over a paged cache. tokens (B,T) ->
         (logits (B,T,V), cache)."""
+        self._require_paged()
         return transformer.paged_extend_step(params, tokens, cache, self.cfg)
 
     @property
     def rewindable_cache(self) -> bool:
-        """True: KV caches roll back by resetting ``pos``."""
-        return True
+        """True if the cache rolls back by resetting ``pos`` (KV caches);
+        False for recurrent state, which rewinds by replaying the accepted
+        prefix (``replay_step``)."""
+        return self.cfg.family == "dense"
 
     def rewind(self, cache, new_pos):
+        assert self.rewindable_cache
         pos = cache["pos"]
         return {**cache, "pos": torch.as_tensor(new_pos, dtype=torch.int32,
                                                 device=pos.device)}
+
+    def replay_step(self, params, tokens, cache, count, *,
+                    attn_backend: str = "auto"):
+        """Recurrent-state rewind: re-advance ``cache`` through each slot's
+        accepted prefix ``tokens[:, :count]`` of a padded draft tape
+        (``count`` (B,) or () int32; 0 keeps a slot's cache) in one batched
+        loop — the port of the JAX package's per-slot ``vmap``.  KV-cache
+        families rewind via ``rewind`` instead."""
+        if self.rewindable_cache:
+            raise ValueError(f"replay_step is for recurrent-state families; "
+                             f"{self.cfg.family!r} caches rewind via pos")
+        count = torch.as_tensor(count, dtype=torch.int32,
+                                device=tokens.device)
+        kw = {"attn_backend": attn_backend} if self._attn else {}
+        return self._mod.replay_step(params, tokens, cache, count, self.cfg,
+                                     **kw)

@@ -29,9 +29,9 @@ def dtype_of(name: str) -> torch.dtype:
 def require_dense(cfg) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            "PyTorch port serves the dense family; moe, vlm, the recurrent "
-            "families and encdec are later slices")
+            f"family {cfg.family!r} ({cfg.name}) is not a dense transformer: "
+            "this module serves the dense family (the recurrent families "
+            "have their own modules); moe and vlm are later slices")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:

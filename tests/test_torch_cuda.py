@@ -7,7 +7,9 @@ module imports only torch and numpy, so it runs on a machine without JAX:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 atol 1e-5, bfloat16 2e-2 (kernel and plain version
-differ in summation order; bfloat16 outputs round once).  ``spec_verify``
+differ in summation order; bfloat16 outputs round once); the SSD scan
+atol = rtol = 1e-4 in float32 (the JAX kernel sweep's: chunked sums of up
+to 256 products) and 2e-2 from bfloat16 inputs.  ``spec_verify``
 is exact at T = 0; at T = 1 with shared uniforms it is exact on every
 group without a near-tie (a uniform within 1e-6 of a cdf entry).
 """
@@ -24,6 +26,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.spec_verify import (  # noqa: E402
     spec_verify_cuda, spec_verify_plain)
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_chunk_scan_cuda, ssd_chunk_scan_plain)
 from repro_torch.kernels.tree_attention import (  # noqa: E402
     tree_verify_attention_cuda, tree_verify_attention_plain)
 
@@ -51,7 +55,7 @@ def _err(a, b):
 
 @pytest.mark.parametrize("B,H,S,hd", [(1, 1, 128, 64), (2, 3, 256, 64),
                                       (1, 2, 512, 128), (1, 9, 16, 64),
-                                      (1, 32, 15, 128)])
+                                      (1, 32, 15, 128), (1, 32, 15, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32),
                                            (False, 0)])
@@ -65,7 +69,8 @@ def test_flash_attention_kernel(cuda, B, H, S, hd, dtype, causal, window):
 @pytest.mark.parametrize("B,Kv,G,bs,MB,hd", [(1, 1, 1, 16, 4, 64),
                                              (3, 2, 4, 16, 8, 64),
                                              (2, 4, 2, 32, 4, 128),
-                                             (8, 3, 3, 32, 3, 64)])
+                                             (8, 3, 3, 32, 3, 64),
+                                             (2, 4, 2, 32, 4, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 11, 48])
 def test_paged_decode_kernel(cuda, B, Kv, G, bs, MB, hd, dtype, window):
@@ -94,7 +99,8 @@ def _cache_view(seed, B, Kv, S, hd, dev, dtype):
 @pytest.mark.parametrize("B,Kv,G,S,hd", [(1, 1, 1, 256, 64),
                                          (2, 2, 4, 512, 64),
                                          (8, 3, 3, 80, 64),
-                                         (8, 8, 4, 95, 128)])
+                                         (8, 8, 4, 95, 128),
+                                         (8, 32, 1, 45, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 11, 64])
 def test_decode_attention_kernel(cuda, B, Kv, G, S, hd, dtype, window):
@@ -117,7 +123,8 @@ def _plan():
                                          (2, 2, 4, 160, 64),
                                          (8, 3, 3, 90, 64),
                                          (8, 8, 4, 90, 128),
-                                         (2, 2, 8, 100, 64)])
+                                         (2, 2, 8, 100, 64),
+                                         (2, 2, 4, 90, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 8])
 def test_tree_verify_attention_kernel(cuda, B, Kv, G, S, hd, dtype, window):
@@ -200,3 +207,50 @@ def test_dispatch_counts_launches(cuda):
     counts = ops.launch_counts()
     assert (counts["flash_attention"], counts["decode_attention"],
             counts["tree_verify_attention"]) == (1, 1, 1)
+
+
+# (B, S, H, N, P, chunk): the serving paths' prompt prefills (mamba2-370m,
+# xLSTM-125m's mLSTM, zamba2-2.7b), a front-padded three-chunk case, the
+# JAX sweep's shapes and a verify extend of 8 slots
+SSD_SHAPES = [(1, 15, 32, 128, 64, 256), (1, 15, 4, 384, 384, 128),
+              (1, 15, 80, 64, 64, 128), (1, 600, 32, 128, 64, 256),
+              (2, 256, 3, 32, 64, 64), (1, 512, 1, 64, 64, 128),
+              (8, 5, 32, 128, 64, 256)]
+
+
+def _ssd_inputs(B, S, H, N, P, dev, dtype, carried, broadcast):
+    q = _rand(0, (B, S, 1 if broadcast else H, N), dev, dtype)
+    k = _rand(1, (B, S, 1 if broadcast else H, N), dev, dtype)
+    q, k = q.expand(B, S, H, N), k.expand(B, S, H, N)
+    v = _rand(2, (B, S, H, P), dev, dtype)
+    la = -torch.nn.functional.softplus(_rand(3, (B, S, H), dev))
+    li = _rand(4, (B, S, H), dev, scale=0.5)
+    st = None
+    if carried:
+        st = (_rand(5, (B, H, N, P), dev), _rand(6, (B, H, N), dev),
+              _rand(7, (B, H), dev))
+    return q, k, v, la, li, st
+
+
+@pytest.mark.parametrize("B,S,H,N,P,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("carried", [False, True])
+def test_ssd_chunk_scan_kernel(cuda, B, S, H, N, P, chunk, dtype, carried):
+    """Outputs and the final state against the plain version; q and k go
+    in as head-broadcast views (mamba2's layout) when there are 32 heads
+    or more."""
+    q, k, v, la, li, st = _ssd_inputs(B, S, H, N, P, cuda, dtype, carried,
+                                      H >= 32)
+    out = ssd_chunk_scan_cuda(q, k, v, la, li, chunk=chunk, state=st)
+    ref = ssd_chunk_scan_plain(q, k, v, la, li, chunk=chunk, state=st)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(out[:3] + out[3], ref[:3] + ref[3]):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+def test_ssd_dispatch_counts_launches(cuda):
+    ops.reset_launch_counts()
+    q, k, v, la, li, _ = _ssd_inputs(1, 15, 4, 16, 32, cuda, torch.float32,
+                                     False, False)
+    ops.ssd_chunk_scan(q, k, v, la, li, chunk=8)
+    assert ops.launch_counts()["ssd_chunk_scan"] == 1

@@ -10,7 +10,9 @@ lane), the dense layout, pure-edge serving (threshold 1.1), the cloud and
 skeleton escalations, an edge that drafts with the cloud's own weights
 (every draft accepted, on the linear and on the tree lane), chunked
 prefill with preemption by swap, and the tree lane (on paged serving with
-dense side groups, and on dense serving) and the self lane.
+dense side groups, and on dense serving) and the self lane.  Each recurrent
+edge family (mamba2, xLSTM, zamba2) drafts for the same cloud on the
+recurrent layout, and a recurrent cloud verifies for the dense edge.
 """
 import numpy as np
 import pytest
@@ -143,6 +145,89 @@ def test_engine_tree_full_acceptance_matches_jax(setup):
     _assert_same(jt, tt)
     c = ts["spec_lanes"]["tree"]
     assert c["accepted_tokens"] == 4 * c["member_rounds"] > 0
+    assert js["spec_lanes"] == ts["spec_lanes"]
+
+
+RECURRENT = {"ssm": "mamba2-370m", "xlstm": "xlstm-125m",
+             "hybrid": "zamba2-2.7b"}
+STAGGERED = [10, 16, 7, 13]
+# per recurrent edge family: speculative escalation over staggered prompt
+# lengths (more requests than slots) with chunked prefill, asking for a
+# lane the family cannot serve (it falls back to linear); cloud and
+# skeleton escalations
+RCASES = {
+    "speculative": dict(policy=("SpeculativePolicy", 0.6), prefill_chunk=6,
+                        lengths=STAGGERED, batch_size=2, max_new=8),
+    "cloud_escalation": dict(policy=("ThresholdPolicy", 0.6),
+                             lengths=STAGGERED[:3], batch_size=2, max_new=8),
+    "skeleton_escalation": dict(policy=("SkeletonPolicy", 0.6), max_new=10,
+                                lengths=STAGGERED[:3], batch_size=2),
+}
+FALLBACK = {"ssm": "tree", "xlstm": "self", "hybrid": "tree"}
+
+
+@pytest.fixture(scope="module")
+def rec_models(setup):
+    """JAX and bridged port models of each reduced recurrent edge (vocab
+    512, as the granite cloud of ``setup``)."""
+    out = {}
+    for fam, arch in RECURRENT.items():
+        je, te = _pair(jget, arch), _pair(tget, arch)
+        jcfg, tcfg = je[0], te[0]
+        jp = JModel(jcfg).init(jax.random.PRNGKey(0))
+        out[fam] = {"j": (JModel(jcfg), jp),
+                    "t": (TModel(tcfg), params_from_numpy(_host(jp), tcfg,
+                                                          "cpu"))}
+    return out
+
+
+def _serve_pair(side, edge, cloud, case, vocab, spec_mode=None):
+    (em, ep), (cm, cp) = edge[side], cloud[side]
+    pol_mod = jpol if side == "j" else tpol
+    Engine = JEngine if side == "j" else TEngine
+    name, thr = case["policy"]
+    eng = Engine(em, cm, batch_size=case.get("batch_size", 8), gamma=4,
+                 temperature=0.0,
+                 policy=getattr(pol_mod, name)(threshold=thr),
+                 prefill_chunk=case.get("prefill_chunk"),
+                 spec_mode=spec_mode)
+    prompts = _prompts(vocab, lengths=case.get("lengths"))
+    return eng.serve_batch(ep, cp, prompts, case.get("max_new", 10)), \
+        eng.stats()
+
+
+@pytest.mark.parametrize("family", list(RECURRENT))
+@pytest.mark.parametrize("name", list(RCASES))
+def test_recurrent_edge_traces_match_jax(setup, rec_models, family, name):
+    """A recurrent edge (dense layout resolved from ``auto``, rewinds by
+    batched replay) drafting for the granite cloud: identical traces and
+    speculation counters on both engines."""
+    case = RCASES[name]
+    cloud = {s: (setup[s][1], setup[s][3]) for s in "jt"}
+    mode = FALLBACK[family] if name == "speculative" else None
+    jt, js = _serve_pair("j", rec_models[family], cloud, case,
+                         setup["vocab"], mode)
+    tt, ts = _serve_pair("t", rec_models[family], cloud, case,
+                         setup["vocab"], mode)
+    _assert_same(jt, tt)
+    assert js["spec_lanes"] == ts["spec_lanes"]
+    assert ts["spec_mode"] == js["spec_mode"] == "linear"
+    assert ts["kv_layout"] == js["kv_layout"] == "dense"
+    if name == "speculative":
+        assert ts["spec_lanes"]["linear"]["member_rounds"] > 0
+
+
+def test_recurrent_cloud_side_replay_matches_jax(setup, rec_models):
+    """A recurrent CLOUD (the dense edge drafting for the hybrid verifier):
+    the target-side rewind is the replay, on both engines alike."""
+    case = dict(policy=("SpeculativePolicy", -1.0), lengths=[8, 6],
+                batch_size=2)
+    edge = {s: (setup[s][0], setup[s][2]) for s in "jt"}
+    jt, js = _serve_pair("j", edge, rec_models["hybrid"], case,
+                         setup["vocab"])
+    tt, ts = _serve_pair("t", edge, rec_models["hybrid"], case,
+                         setup["vocab"])
+    _assert_same(jt, tt)
     assert js["spec_lanes"] == ts["spec_lanes"]
 
 
