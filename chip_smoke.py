@@ -8,14 +8,20 @@ JAX, never the JAX package), and fails (exit code 1, no result line) on
 the first phase that fails:
 
 1. build the port's CUDA kernels from the checkout's sources (one ``nvcc``
-   per source, in parallel) and print the build time;
+   per source, in parallel), print the build time and the tensor-core
+   instructions (``HGMMA``/``HMMA``, from ``cuobjdump -sass``) of the flash
+   and tree libraries, which must not be 0;
 2. hold each kernel against its plain PyTorch version at the serving
    paths' shapes, in float32 and bfloat16, with the tolerances printed, and
    time kernel, plain version and (attention kernels) the library
    yardstick ``F.scaled_dot_product_attention`` with CUDA events (median of
    30 runs after warm-up); the attention kernels also at zamba2's head dim
-   80, the SSD scan at each recurrent edge's prompt prefill, a
-   front-padded three-chunk prompt and with carried random states;
+   80, flash and tree verify also with GQA, through strided views and at a
+   long prompt (2048 tokens) and a long cache (1024 positions), and timed
+   there too, per call (kernel and SDPA in turns) and on the device alone
+   (a CUDA graph of 20 calls); the SSD scan at each recurrent edge's
+   prompt prefill, a front-padded three-chunk prompt and with carried
+   random states;
 3. serve six paths at full width — granite-8b cloud, bfloat16, seeded
    random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
    SpeculativePolicy(0.6), T = 0: with the smollm-135m edge the default
@@ -87,6 +93,59 @@ def time_ms(fn, reps: int = 30, warm: int = 5) -> float:
     return statistics.median(ts)
 
 
+def device_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms, host launch cost excluded:
+    ``n`` calls captured in a CUDA graph, CUDA events around each replay
+    (median of ``reps`` replays after a warm-up), divided by ``n``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / n)
+    del graph
+    return statistics.median(ts)
+
+
+def paired_ms(kernel, library, reps: int = 60):
+    """Per-call ms of ``kernel`` and ``library`` as ``time_ms`` measures
+    them, but timed in turns (kernel, library, kernel, ...) so that both
+    medians see the same host, and their device ms."""
+    import torch
+    for _ in range(5):
+        kernel()
+        library()
+    torch.cuda.synchronize()
+    ts = ([], [])
+    for _ in range(reps):
+        for fn, t in zip((kernel, library), ts):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            t.append(a.elapsed_time(b))
+    return (statistics.median(ts[0]), device_ms(kernel),
+            statistics.median(ts[1]), device_ms(library))
+
+
 def bound_ms(nbytes: float, ops: float, dtype: str):
     """Least time the card could take: the larger of bytes over the memory
     rate and operations over the peak rate for the inputs' type."""
@@ -107,6 +166,18 @@ def phase_build():
     dt = time.perf_counter() - t
     print(f"[build] {len(libs)} kernel libraries in {dt:.1f}s: "
           + ", ".join(p.name for p in libs.values()), flush=True)
+    # the redesigned attention kernels must run their bf16 products on the
+    # tensor cores: count wgmma (HGMMA) and mma.sync (HMMA) instructions
+    from repro_torch.kernels.build import nvcc
+    dump = Path(nvcc()).with_name("cuobjdump")
+    for src in ("flash_attention.cu", "tree_verify_attention.cu"):
+        sass = subprocess.run([str(dump), "-sass", str(libs[src])],
+                              capture_output=True, text=True, check=False)
+        n_wg, n_mma = sass.stdout.count("HGMMA"), sass.stdout.count("HMMA")
+        print(f"[build] {src}: {n_wg} HGMMA and {n_mma} HMMA instructions "
+              f"(cuobjdump -sass)", flush=True)
+        check(n_wg + n_mma > 0, f"{src}: no tensor-core instruction in its "
+                                f"SASS (cuobjdump rc {sass.returncode})")
 
 
 # --------------------------------------------------------------- phase 2
@@ -168,49 +239,87 @@ def check_paged(gen):
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
-def check_flash(gen):
+def _proj_view(shape, dtype, gen):
+    """A (B, heads, S, hd) view of a projection stored (B, S, heads, hd),
+    as the prefill attention hands it to the flash kernel."""
+    import torch
+    B, n, S, hd = shape
+    x = torch.randn((B, S, n, hd), generator=gen, device="cuda")
+    return x.to(dtype).transpose(1, 2)
+
+
+# flash shapes (B, H, Kv, S, hd): the serving paths' prefills — smollm-135m
+# and granite-8b heads over one 16-entry bucket, a ragged 15-token prompt,
+# zamba2's shared attention (Kv = H, head dim 80) — and one long granite
+# prompt; the second and the last are timed
+FLASH_SERVING = ((1, 9, 3, 16, 64), (1, 32, 8, 16, 128), (1, 32, 8, 15, 128),
+                 (1, 32, 32, 15, 80))
+FLASH_LONG = (1, 32, 8, 2048, 128)
+
+
+def _flash_timing(K, shape, gen):
+    """Kernel, plain and SDPA times of one causal bf16 flash call at
+    ``shape``, per call and on the device, with the bound."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as K
-    errs = []
-    # serving-path prefill: one 16-entry bucket; edge (smollm) and cloud
-    # (granite) heads, a ragged length the TPU kernel cannot take, and
-    # zamba2's shared attention (head dim 80, exact 15-token prefill)
-    shapes = ((1, 9, 16, 64), (1, 32, 16, 128), (1, 32, 15, 128),
-              (1, 32, 15, 80))
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for shape in shapes:
-            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-                       .to(dtype) for _ in range(3))
-            for causal, window in ((True, 0), (True, 6), (False, 0)):
-                out = K.flash_attention_cuda(q, k, v, causal=causal,
-                                             window=window)
-                ref = K.flash_attention_plain(q, k, v, causal=causal,
-                                              window=window)
-                torch.cuda.synchronize()
-                err = max_err(out, ref)
-                print(f"[kernel] flash_attention {str(dtype)[6:]} "
-                      f"{tuple(shape)} causal={causal} window={window}: "
-                      f"max_abs_err={err:.3e} (tol {tol:g})", flush=True)
-                check(err <= tol, f"flash_attention {dtype} {shape} causal "
-                                  f"{causal} window {window}: error {err}")
-                errs.append(err)
-    # timing: the cloud prefill (granite heads), bfloat16, causal
-    B, H, S, hd = 1, 32, 16, 128
-    q, k, v = (torch.randn((B, H, S, hd), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    ms = time_ms(lambda: K.flash_attention_cuda(q, k, v, causal=True))
-    plain = time_ms(lambda: K.flash_attention_plain(q, k, v, causal=True))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         is_causal=True))
-    nbytes = 4 * B * H * S * hd * 2
+    B, H, Kv, S, hd = shape
+    q = _proj_view((B, H, S, hd), torch.bfloat16, gen)
+    k, v = (_proj_view((B, Kv, S, hd), torch.bfloat16, gen)
+            for _ in range(2))
+    # the library yardstick on the kernel's own inputs, GQA resolved by it
+    ms, dev, lib, lib_dev = paired_ms(
+        lambda: K.flash_attention_cuda(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True))
+    plain = time_ms(lambda: K.flash_attention_plain(q, k, v, causal=True),
+                    reps=10 if S > 1024 else 30)
+    nbytes = 2 * (2 * B * H * S * hd + 2 * B * Kv * S * hd)
     ops = 4 * B * H * hd * S * (S + 1) // 2
     bnd, by = bound_ms(nbytes, ops, "bfloat16")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:69",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+    print(f"[kernel] flash_attention timing (B,H,Kv,S,hd)={shape} bfloat16 "
+          f"causal: {ms:.4f} ms per call, {dev:.4f} ms on the device; SDPA "
+          f"{lib:.4f} / {lib_dev:.4f} ms; plain {plain:.4f} ms; bound "
+          f"{bnd:.6f} ms ({by})", flush=True)
+    return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib, "library_device_ms": lib_dev}
+
+
+def check_flash(gen):
+    """Flash prefill against its plain version: q, k, v as strided views
+    of (B, S, heads, hd) projections, GQA resolved in the kernel, causal,
+    windowed and full, float32 and bfloat16, at the serving shapes and one
+    long prompt; then timed at granite-8b's 16-token prefill and the long
+    prompt."""
+    import torch
+    from repro_torch.kernels import flash_attention as K
+    errs = []
+    cases = [(sh, m) for sh in FLASH_SERVING
+             for m in ((True, 0), (True, 6), (False, 0))] + \
+        [(FLASH_LONG, m) for m in ((True, 0), (True, 256))]
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for (B, H, Kv, S, hd), (causal, window) in cases:
+            q = _proj_view((B, H, S, hd), dtype, gen)
+            k, v = (_proj_view((B, Kv, S, hd), dtype, gen) for _ in range(2))
+            out = K.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window)
+            ref = K.flash_attention_plain(q, k, v, causal=causal,
+                                          window=window)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            print(f"[kernel] flash_attention {str(dtype)[6:]} (B,H,Kv,S,hd)="
+                  f"{(B, H, Kv, S, hd)} causal={causal} window={window}: "
+                  f"max_abs_err={err:.3e} (tol {tol:g})", flush=True)
+            check(err <= tol, f"flash_attention {dtype} {(B, H, Kv, S, hd)} "
+                              f"causal {causal} window {window}: error {err}")
+            errs.append(err)
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:69",
+           "max_abs_err": max(errs)}
+    row.update(_flash_timing(K, FLASH_SERVING[1], gen))
+    row["long"] = {"shape": "(B,H,Kv,S,hd)=" + str(FLASH_LONG),
+                   **_flash_timing(K, FLASH_LONG, gen)}
+    return row
 
 
 def _near_tie_rows(tl, dl, toks, u_acc, u_res, temperature, tol=1e-6):
@@ -379,10 +488,11 @@ def check_decode(gen):
             "bound_ms": bnd, "bound_by": by, "library_ms": lib}
 
 
-def _tree_inputs(B, Kv, G, S, hd, lo, hi, dtype, gen):
+def _tree_inputs(B, Kv, G, S, hd, lo, hi, dtype, gen, base=(16, 40)):
     """Tree-verify inputs at one span of the 2-wide depth-4 plan: queries
-    for nodes [lo, hi), mask columns [0, hi), tree base at 16-39 per slot
-    (the prompt plus some decoded tokens), cache stored (B, S, Kv, hd)."""
+    for nodes [lo, hi), mask columns [0, hi), tree base drawn from ``base``
+    per slot (16-39: the prompt plus some decoded tokens), cache stored
+    (B, S, Kv, hd)."""
     import torch
     from repro_torch.core.tree_speculation import TreePlan, branching_for
     plan = TreePlan(branching_for(2, 4))
@@ -391,7 +501,7 @@ def _tree_inputs(B, Kv, G, S, hd, lo, hi, dtype, gen):
         .to(dtype).permute(0, 2, 3, 1, 4)
     k = _dense_view((B, Kv, S, hd), dtype, gen)
     v = _dense_view((B, Kv, S, hd), dtype, gen)
-    base = torch.randint(16, 40, (B,), generator=gen, device="cuda",
+    base = torch.randint(*base, (B,), generator=gen, device="cuda",
                          dtype=torch.int32)
     mask = torch.as_tensor(plan.mask[lo:hi, :hi], device="cuda").contiguous()
     depths = torch.as_tensor(plan.depths[lo:hi], device="cuda")
@@ -411,25 +521,68 @@ def _tree_visible(length, mask, S):
         ((t >= 0) & (t < C))[:, None, :] & cols)
 
 
+# the long tree case: 8 slots of granite-8b heads over a 1024-position
+# cache whose tree starts at 984-1007 (the kernel splits the key range)
+TREE_LONG_S, TREE_LONG_BASE = 1024, (984, 1008)
+
+
+def _tree_timing(K, S, base, gen):
+    """Kernel, plain and SDPA times of the cloud's one-shot verify (granite
+    heads, bf16) over an S-position cache, per call and on the device."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.tree_speculation import TreePlan, branching_for
+    plan = TreePlan(branching_for(2, 4))
+    B, Kv, G, hd = 8, 8, 4, 128
+    q, k, v, length, mask, q_pos = _tree_inputs(B, Kv, G, S, hd, 0,
+                                                plan.n_pad, torch.bfloat16,
+                                                gen, base)
+    visible = _tree_visible(length, mask, S)                  # (B, N, S)
+    qq, kk, vv, m = _gqa_sdpa_inputs(q.contiguous(), k, v, visible)
+    ms, dev, lib, lib_dev = paired_ms(
+        lambda: K.tree_verify_attention_cuda(q, k, v, length, mask, q_pos),
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=m))
+    plain = time_ms(lambda: K.tree_verify_attention_plain(q, k, v, length,
+                                                          mask, q_pos))
+    N, C = mask.shape
+    el = 2
+    rows_read = int((length.long() - (C - N) + C).clamp(max=S).sum())
+    nbytes = (2 * rows_read * Kv * hd * el + 2 * q.numel() * el
+              + mask.numel() + q_pos.numel() * 4 + length.numel() * 4)
+    ops = 4 * int(visible.sum()) * Kv * G * hd
+    bnd, by = bound_ms(nbytes, ops, "bfloat16")
+    print(f"[kernel] tree_verify_attention timing (B,Kv,G,N,S,hd)="
+          f"{(B, Kv, G, N, S, hd)} bfloat16: {ms:.4f} ms per call, "
+          f"{dev:.4f} ms on the device; SDPA {lib:.4f} / {lib_dev:.4f} ms; "
+          f"plain {plain:.4f} ms; bound {bnd:.6f} ms ({by})", flush=True)
+    return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib, "library_device_ms": lib_dev}
+
+
 def check_tree(gen):
     """Tree verify at the tree path's shapes: 8 slots, the 2-wide depth-4
     plan (16 padded nodes), slot_len 80; the edge's incremental draft
     levels (smollm-135m heads, Kv 3, G 3, hd 64) and both models' one-shot
-    verify (granite-8b heads, Kv 8, G 4, hd 128)."""
+    verify (granite-8b heads, Kv 8, G 4, hd 128); and a long cache
+    (S 1024, granite heads, a draft level and the one-shot verify), where
+    the key range is split across blocks.  Timed at the serving one-shot
+    verify and the long one."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.core.tree_speculation import TreePlan, branching_for
     from repro_torch.kernels import tree_attention as K
     plan = TreePlan(branching_for(2, 4))
     S = 80
     spans = [(0, 1)] + list(plan.levels)
-    cases = [((8, 3, 3, S, 64), a, b) for a, b in spans] + \
-        [((8, 3, 3, S, 64), 0, plan.n_pad), ((8, 4, 2, S, 80), 0, plan.n_pad),
-         ((8, 8, 4, S, 128), 0, plan.n_pad)]
+    cases = [((8, 3, 3, S, 64), a, b, (16, 40)) for a, b in spans] + \
+        [((8, 3, 3, S, 64), 0, plan.n_pad, (16, 40)),
+         ((8, 4, 2, S, 80), 0, plan.n_pad, (16, 40)),
+         ((8, 8, 4, S, 128), 0, plan.n_pad, (16, 40))] + \
+        [((8, 8, 4, TREE_LONG_S, 128), a, b, TREE_LONG_BASE)
+         for a, b in (plan.levels[-1], (0, plan.n_pad))]
     errs = []
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for shape, lo, hi in cases:
-            args = _tree_inputs(*shape, lo, hi, dtype, gen)
+        for shape, lo, hi, base in cases:
+            args = _tree_inputs(*shape, lo, hi, dtype, gen, base)
             for window in (0, 24):
                 out = K.tree_verify_attention_cuda(*args, window=window)
                 ref = K.tree_verify_attention_plain(*args, window=window)
@@ -442,31 +595,15 @@ def check_tree(gen):
                 check(err <= tol, f"tree_verify_attention {dtype} {shape} "
                                   f"[{lo},{hi}) window {window}: error {err}")
                 errs.append(err)
-    # timing: the cloud's one-shot verify (granite heads), bfloat16
-    B, Kv, G, _, hd = cases[-1][0]
-    q, k, v, length, mask, q_pos = _tree_inputs(B, Kv, G, S, hd, 0,
-                                                plan.n_pad, torch.bfloat16,
-                                                gen)
-    ms = time_ms(lambda: K.tree_verify_attention_cuda(q, k, v, length, mask,
-                                                      q_pos))
-    plain = time_ms(lambda: K.tree_verify_attention_plain(q, k, v, length,
-                                                          mask, q_pos))
-    visible = _tree_visible(length, mask, S)                  # (B, N, S)
-    qq, kk, vv, m = _gqa_sdpa_inputs(q.contiguous(), k, v, visible)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv,
-                                                         attn_mask=m))
-    N, C = mask.shape
-    el = 2
-    rows_read = int((length.long() - (C - N) + C).clamp(max=S).sum())
-    nbytes = (2 * rows_read * Kv * hd * el + 2 * q.numel() * el
-              + mask.numel() + q_pos.numel() * 4 + length.numel() * 4)
-    ops = 4 * int(visible.sum()) * Kv * G * hd
-    bnd, by = bound_ms(nbytes, ops, "bfloat16")
-    return {"name": "tree_verify_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/tree_verify_attention.cu",
-            "replaces": "src/repro/kernels/tree_attention.py:90",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+    row = {"name": "tree_verify_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/tree_verify_attention.cu",
+           "replaces": "src/repro/kernels/tree_attention.py:90",
+           "max_abs_err": max(errs)}
+    row.update(_tree_timing(K, S, (16, 40), gen))
+    row["long"] = {"shape": f"(B,Kv,G,N,S,hd)=(8, 8, 4, 16, {TREE_LONG_S}, "
+                            "128)", **_tree_timing(K, TREE_LONG_S,
+                                                   TREE_LONG_BASE, gen)}
+    return row
 
 
 # the SSD scan at the serving paths' prompt prefills: (model, B, S, H, N, P,

@@ -126,7 +126,16 @@ class CudaKernel:
         self.launches += 1
 
 
+def raw_stream(t) -> int:
+    """Handle of PyTorch's current CUDA stream on ``t``'s device (the
+    capturing stream under CUDA-graph capture), without building a
+    ``torch.cuda.Stream``: the cheap form for launch-bound wrappers."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 F = ctypes.c_float
+PACKED = ctypes.c_char_p    # int64 arguments packed with struct.pack

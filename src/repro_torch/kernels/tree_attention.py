@@ -11,25 +11,48 @@ every tree verify of the ``tree`` speculation lane runs it
 is ``csrc/tree_verify_attention.cu``; its header comment says what bounds it
 on the H100 and how the design answers that.  Unlike the TPU kernel it pads
 nothing (the ragged tail is masked), and it reads q, K, V and writes the
-output through strides, so the serving cache goes in as a view.
+output through strides, so the serving cache goes in as a view.  When the
+grid would leave most of the card idle and the cache is long, the kernel
+splits each block's key range (``split_plan``) and combines the partial
+softmaxes in a second pass of the same call.
 ``tree_verify_attention_plain`` mirrors the JAX oracle
 ``kernels/ref.py::tree_verify_attention_ref`` (masked scores at -1e30).
 """
 from __future__ import annotations
 
+import functools
 import math
+import struct
 
 import torch
 
-from repro_torch.kernels.build import F, I, L, P, CudaKernel
+from repro_torch.kernels.build import F, P, PACKED, CudaKernel, raw_stream
 
 NEG = -1e30
+ROWS = 64           # query rows (G * N, packed) per block
+KEYS = 64           # keys per tile of the bf16 kernel
+MIN_SPLIT_TILES = 4
 
 KERNEL = CudaKernel("tree_verify_attention.cu", "repro_tree_verify_attention",
-                    [I, P, L, L, L, L, P, P, L, L, L, P, P, P, P, L, L, L, L,
-                     I, I, I, I, I, I, I, I, F, P])
+                    [PACKED, F, P])
+_ARGS = struct.Struct("29q")     # the C entry's packed int64 arguments
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def split_plan(blocks: int, key_tiles: int, n_sm: int) -> int:
+    """Key-range splits per block of the tree kernel: 1 unless the grid of
+    ``blocks`` fills under half of the ``n_sm`` SMs; then as many as fill
+    one wave, keeping at least ``MIN_SPLIT_TILES`` of the ``key_tiles`` to
+    each split (fewer would not pay for the combine pass)."""
+    if 2 * blocks > n_sm:
+        return 1
+    return max(1, min(n_sm // blocks, key_tiles // MIN_SPLIT_TILES))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tree_verify_attention_plain(q, k, v, length, tree_mask, q_pos, *,
@@ -93,10 +116,17 @@ def tree_verify_attention_cuda(q, k, v, length, tree_mask, q_pos, *,
                          "dim, k and v with equal strides, and contiguous "
                          "length, mask and q_pos")
     out = torch.empty_like(q)
-    KERNEL.launch(_DTYPES[q.dtype], q.data_ptr(), *q.stride()[:4],
-                  k.data_ptr(), v.data_ptr(), *k.stride()[:3],
-                  length.data_ptr(), tree_mask.data_ptr(), q_pos.data_ptr(),
-                  out.data_ptr(), *out.stride()[:4], B, Kv, G, N, C, hd, S,
-                  int(window), 1.0 / math.sqrt(hd),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    splits = split_plan(B * Kv * -(-G * N // ROWS), -(-S // KEYS),
+                        _sm_count(q.get_device()))
+    part = torch.empty(splits * B * Kv * G * N * (hd + 2),
+                       dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
+    KERNEL.launch(_ARGS.pack(_DTYPES[q.dtype], q.data_ptr(), *q.stride()[:4],
+                             k.data_ptr(), v.data_ptr(), *k.stride()[:3],
+                             length.data_ptr(), tree_mask.data_ptr(),
+                             q_pos.data_ptr(), out.data_ptr(),
+                             *out.stride()[:4],
+                             0 if part is None else part.data_ptr(), B, Kv,
+                             G, N, C, hd, S, int(window), splits),
+                  1.0 / math.sqrt(hd), raw_stream(q))
     return out

@@ -201,24 +201,23 @@ def attention_block(p, x, positions, cfg, *, causal: bool = True,
     """Full (prefill / train) attention. x: (B,S,d) -> (B,S,d), plus (k,v).
 
     On CUDA (``backend`` "auto" or "kernel") the scores never leave the
-    chip: the Hopper flash kernel runs at every length, on heads expanded
-    over the GQA groups.  The CPU and ``backend="plain"`` materialize the
+    chip: the Hopper flash kernel runs at every length on the projections
+    as they lie — (B, H, S, hd) and (B, Kv, S, hd) views, GQA resolved in
+    the kernel — and writes its output in (B, S, H, hd), so nothing is
+    copied around it.  The CPU and ``backend="plain"`` materialize the
     (S, S) mask and run ``mha``, as the JAX package does below its chunking
     threshold."""
     B, S, d = x.shape
-    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _qkv(p, x, cfg)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if backend == "kernel" or (backend == "auto" and x.is_cuda):
-        G = H // Kv
-        qt = q.transpose(1, 2).contiguous()                   # (B,H,S,hd)
-        kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-        vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
         fn = flash_attention_cuda if backend == "kernel" \
             else ops.flash_attention
-        out = fn(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
+        out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=causal, window=window).transpose(1, 2)
     else:
         mask = _attn_mask(positions, positions, causal=causal,
                           window=window) if causal or window else None

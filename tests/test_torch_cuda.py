@@ -66,6 +66,80 @@ def test_flash_attention_kernel(cuda, B, H, S, hd, dtype, causal, window):
     assert _err(out, ref) <= TOL[dtype]
 
 
+def _proj_view(seed, B, S, heads, hd, dev, dtype):
+    """A (B, heads, S, hd) view of a projection stored (B, S, heads, hd),
+    as ``layers.attention_block`` hands it to the kernel."""
+    return _rand(seed, (B, S, heads, hd), dev, dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("S,hd,causal", [(15, 80, True), (16, 64, True),
+                                         (16, 128, True), (200, 128, True),
+                                         (200, 64, False),
+                                         (2048, 128, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 37])
+def test_flash_attention_kernel_gqa_views(cuda, G, S, hd, causal, dtype,
+                                          window):
+    """Kv = 2 kv heads of G query heads each, q/k/v as strided views of
+    (B, S, heads, hd) projections: the kernel reads them in place and
+    writes its output laid out like q."""
+    B, Kv = 2 if S < 2048 else 1, 2
+    q = _proj_view(0, B, S, Kv * G, hd, cuda, dtype)
+    k = _proj_view(1, B, S, Kv, hd, cuda, dtype)
+    v = _proj_view(2, B, S, Kv, hd, cuda, dtype)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.stride() == q.stride()
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("B,Kv,G", [(1, 8, 4), (1, 16, 1), (8, 8, 4),
+                                    (8, 32, 1)])
+@pytest.mark.parametrize("window", [0, 5])
+def test_flash_attention_kernel_short_prefill(cuda, B, Kv, G, window):
+    """16-token prefills whose grids fill a small part (8 or 16 blocks),
+    half (64 blocks) or more than the card: the kernel gives each block of
+    a grid of at most a quarter of the SMs 16 rows, a larger one 64."""
+    S, hd = 16, 128
+    q = _proj_view(0, B, S, Kv * G, hd, cuda, torch.bfloat16)
+    k = _proj_view(1, B, S, Kv, hd, cuda, torch.bfloat16)
+    v = _proj_view(2, B, S, Kv, hd, cuda, torch.bfloat16)
+    out = flash_attention_cuda(q, k, v, causal=True, window=window)
+    ref = flash_attention_plain(q, k, v, causal=True, window=window)
+    assert _err(out, ref) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_block_makes_no_copies(cuda, dtype):
+    """On CUDA the prefill attention hands its projections to the flash
+    kernel as views: no repeat_interleave and no contiguous copy of q, k or
+    v (torch.profiler's operator counts), one kernel launch, and at float32
+    the plain path's result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    cfg = get_config("smollm-135m").replace(
+        num_layers=1, vocab_size=512, param_dtype=str(dtype)[6:],
+        activ_dtype=str(dtype)[6:])
+    attn = Model(cfg).init(seed=0, device="cuda").blocks[0].attn
+    x = _rand(0, (2, 16, cfg.d_model), cuda, dtype)
+    pos = torch.arange(16, device=cuda)
+    L.attention_block(attn, x, pos, cfg)                   # warm-up
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out, _ = L.attention_block(attn, x, pos, cfg)
+    names = {e.key: e.count for e in prof.key_averages()}
+    for op in ("aten::repeat_interleave", "aten::contiguous", "aten::clone"):
+        assert op not in names, f"{op} x{names[op]}"
+    assert ops.launch_counts()["flash_attention"] == 1
+    if dtype == torch.float32:
+        ref, _ = L.attention_block(attn, x, pos, cfg, backend="plain")
+        assert _err(out, ref) <= 1e-4
+
+
 @pytest.mark.parametrize("B,Kv,G,bs,MB,hd", [(1, 1, 1, 16, 4, 64),
                                              (3, 2, 4, 16, 8, 64),
                                              (2, 4, 2, 32, 4, 128),
@@ -168,6 +242,51 @@ def test_tree_verify_attention_kernel_levels(cuda, level, dtype):
     length = base + lo
     out = tree_verify_attention_cuda(q, k, v, length, mask, q_pos)
     ref = tree_verify_attention_plain(q, k, v, length, mask, q_pos)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+def _tree_span_case(S, Kv, G, hd, lo, hi, base, dev, dtype):
+    """Queries for nodes [lo, hi) of the 2-wide depth-4 plan over a cache
+    of S positions whose tree starts at ``base`` (B,)."""
+    plan = _plan()
+    B, T = base.shape[0], hi - lo
+    q = _rand(3, (B, T, Kv, G, hd), dev, dtype).permute(0, 2, 3, 1, 4)
+    k = _cache_view(4, B, Kv, S, hd, dev, dtype)
+    v = _cache_view(5, B, Kv, S, hd, dev, dtype)
+    mask = torch.as_tensor(plan.mask[lo:hi, :hi], device=dev).contiguous()
+    q_pos = (base[:, None] + torch.as_tensor(plan.depths[lo:hi], device=dev)
+             ).to(torch.int32).contiguous()
+    return q, k, v, (base + lo).to(torch.int32).contiguous(), mask, q_pos
+
+
+def _spans():
+    plan = _plan()
+    return [(0, 1)] + list(plan.levels) + [(0, plan.n_pad)]
+
+
+@pytest.mark.parametrize("span", range(6))
+@pytest.mark.parametrize("S", [80, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 100])
+def test_tree_verify_attention_kernel_spans(cuda, span, S, dtype, window):
+    """Every draft-level span and the one-shot verify, granite-8b's heads
+    (Kv 8, G 4, hd 128) over 8 slots, at the serving cache (S 80, tree base
+    16-39) and a long one (S 1024, base 960-999), where the key range is
+    split across blocks."""
+    from repro_torch.kernels.tree_attention import KEYS, ROWS, split_plan
+    lo, hi = _spans()[span]
+    B, Kv, G, hd = 8, 8, 4, 128
+    rng = np.random.default_rng(span)
+    lo_base, hi_base = (16, 40) if S == 80 else (960, 1000)
+    base = torch.as_tensor(rng.integers(lo_base, hi_base, B),
+                           dtype=torch.int32, device=cuda)
+    args = _tree_span_case(S, Kv, G, hd, lo, hi, base, cuda, dtype)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = split_plan(B * Kv * -(-G * (hi - lo) // ROWS), -(-S // KEYS),
+                        n_sm)
+    assert (splits > 1) == (S == 1024 and n_sm >= 128)
+    out = tree_verify_attention_cuda(*args, window=window)
+    ref = tree_verify_attention_plain(*args, window=window)
     assert _err(out, ref) <= TOL[dtype]
 
 

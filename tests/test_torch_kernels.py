@@ -32,7 +32,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.spec_verify import (  # noqa: E402
     spec_verify_cuda, spec_verify_plain)
 from repro_torch.kernels.tree_attention import (  # noqa: E402
-    tree_verify_attention_cuda, tree_verify_attention_plain)
+    KEYS, split_plan, tree_verify_attention_cuda, tree_verify_attention_plain)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -83,6 +83,28 @@ def test_flash_attention_plain_noncausal():
     out = tops.flash_attention(tq, tk, tv, causal=False)   # CPU dispatch
     _close(out, jops.flash_attention(jq, jk, jv, causal=False, bq=64, bk=64),
            "float32")
+
+
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 37),
+                                           (False, 0)])
+def test_flash_attention_plain_gqa(G, causal, window):
+    """K/V with Kv = 2 heads for H = 2 G query heads (query head h reads kv
+    head h // G), taken as strided views of (B, S, heads, hd) projections:
+    the plain version matches itself on repeat_interleave'd K/V and the JAX
+    kernel (interpret mode) on the expanded heads."""
+    B, S, Kv, hd = 2, 96, 2, 64
+    x = [_np(i, (B, S, n, hd)) for i, n in enumerate((Kv * G, Kv, Kv))]
+    q, k, v = (torch.from_numpy(a).transpose(1, 2) for a in x)
+    out = tops.flash_attention(q, k, v, causal=causal, window=window)
+    kx, vx = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    torch.testing.assert_close(
+        out, flash_attention_plain(q, kx, vx, causal=causal, window=window),
+        atol=0, rtol=0)
+    jq, jk, jv = (jnp.asarray(np.ascontiguousarray(t.numpy()))
+                  for t in (q, kx, vx))
+    _close(out, jops.flash_attention(jq, jk, jv, causal=causal,
+                                     window=window, bq=32, bk=32), "float32")
 
 
 # ------------------------------------------------------------ paged decode
@@ -242,6 +264,87 @@ def test_tree_verify_attention_plain_rectangular(level, dtype):
     out = tree_verify_attention_plain(tq, tk, tv, tl, _t(mask), tp)
     _close(out, jops.tree_verify_attention(jq, jk, jv, jl, jnp.asarray(mask),
                                            jp, bs=128), dtype)
+
+
+def test_tree_split_plan():
+    """Splits only when the grid fills under half the SMs and each split
+    keeps at least four key tiles: none at the serving shapes (8 slots of
+    granite-8b or smollm-135m heads, an 80-position cache), two for 8 x 8
+    blocks over a 1024-position cache on 132 SMs."""
+    assert split_plan(8 * 8, -(-80 // KEYS), 132) == 1
+    assert split_plan(8 * 3, -(-80 // KEYS), 132) == 1
+    assert split_plan(8 * 8, -(-1024 // KEYS), 132) == 2
+    assert split_plan(1, 16, 132) == 4
+    assert split_plan(1, 1000, 132) == 132
+    assert split_plan(67, 1000, 132) == 1
+    assert split_plan(3, 3, 132) == 1
+
+
+NEG_T = -1e30
+
+
+def _split_combine(q, k, v, length, mask, q_pos, window, splits):
+    """A plain model of the tree kernel's key split: per sequence, the key
+    range [window start rounded down to a tile, base + C) in KEYS-key
+    tiles is cut into ``splits`` runs of whole tiles; each run makes an
+    unnormalised softmax partial (output, row max, row sum) and the
+    partials are combined, rescaled to the largest max."""
+    B, Kv, G, N, hd = q.shape
+    S, C = k.shape[2], mask.shape[1]
+    s = torch.einsum("bkgnd,bksd->bkgns", q.float(), k.float()) \
+        / hd ** 0.5
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    key = torch.arange(S)
+    for b in range(B):
+        base = int(length[b]) - (C - N)
+        k_end = min(S, base + C)
+        tree = (key - base).clamp(0, C - 1)
+        vis = (key < k_end) & ((key < base)[None, :] | mask[:, tree])
+        k_begin = 0
+        if window:
+            vis &= key[None, :] > q_pos[b].long()[:, None] - window
+            k_begin = max(int(q_pos[b].min()) - window + 1, 0)
+        k_first = k_begin // KEYS * KEYS
+        n_all = max(-(-(k_end - k_first) // KEYS), 0)
+        parts = []
+        for sp in range(splits):
+            lo = k_first + n_all * sp // splits * KEYS
+            hi = min(k_first + n_all * (sp + 1) // splits * KEYS, k_end)
+            sc = torch.where(vis[:, lo:hi], s[b, :, :, :, lo:hi], NEG_T)
+            m = sc.amax(-1, keepdim=True) if hi > lo else \
+                torch.full(sc.shape[:-1] + (1,), NEG_T)
+            p = torch.where(vis[:, lo:hi], torch.exp(sc - m), 0.0)
+            parts.append((p @ v[b, :, None, lo:hi].float(), m,
+                          p.sum(-1, keepdim=True)))
+        M = torch.stack([m for _, m, _ in parts]).amax(0)
+        L = sum(l * torch.exp(m - M) for _, m, l in parts)
+        out[b] = sum(o * torch.exp(m - M) for o, m, _ in parts) \
+            / L.clamp(min=1e-20)
+    return out.to(q.dtype)
+
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+@pytest.mark.parametrize("window", [0, 150])
+def test_tree_split_combine_model(splits, window):
+    """Cutting each sequence's key range into whole-tile splits and
+    combining the partial softmaxes gives the unsplit answer: the plain
+    version and the JAX kernel (interpret mode), on the one-shot verify
+    of the 2-wide depth-4 plan over a 400-position cache."""
+    plan = _plan()
+    N = plan.n_pad
+    length = np.array([310, 381], np.int32)
+    q_pos = length[:, None] + plan.depths[None, :]
+    (jq, jk, jv, jl, jp), (tq, tk, tv, tl, tp) = _tree_case(
+        2, 2, 2, N, 400, 64, "float32", length, q_pos, seed=5)
+    mask = _t(plan.mask)
+    out = _split_combine(tq, tk, tv, tl, mask, tp, window, splits)
+    _close(out, tree_verify_attention_plain(tq, tk, tv, tl, mask, tp,
+                                            window=window).numpy(),
+           "float32")
+    _close(out, jops.tree_verify_attention(jq, jk, jv, jl,
+                                           jnp.asarray(plan.mask), jp,
+                                           window=window, bs=128), "float32")
 
 
 # ------------------------------------------------------------ spec verify
