@@ -9,19 +9,22 @@ the first phase that fails:
 
 1. build the port's CUDA kernels from the checkout's sources (one ``nvcc``
    per source, in parallel), print the build time and the tensor-core
-   instructions (``HGMMA``/``HMMA``, from ``cuobjdump -sass``) of the flash
-   and tree libraries, which must not be 0;
+   instructions (``HGMMA``/``HMMA``, from ``cuobjdump -sass``) of the flash,
+   tree and SSD-scan libraries, which must not be 0;
 2. hold each kernel against its plain PyTorch version at the serving
    paths' shapes, in float32 and bfloat16, with the tolerances printed, and
-   time kernel, plain version and (attention kernels) the library
-   yardstick ``F.scaled_dot_product_attention`` with CUDA events (median of
-   30 runs after warm-up); the attention kernels also at zamba2's head dim
-   80, flash and tree verify also with GQA, through strided views and at a
-   long prompt (2048 tokens) and a long cache (1024 positions), and timed
-   there too, per call (kernel and SDPA in turns) and on the device alone
-   (a CUDA graph of 20 calls); the SSD scan at each recurrent edge's
-   prompt prefill, a front-padded three-chunk prompt and with carried
-   random states;
+   time every kernel per call (CUDA events around one wrapper call, median
+   of 30 runs after warm-up) and on the device alone (a CUDA graph of 20
+   calls), beside its plain version and, for the attention kernels, the
+   yardstick ``F.scaled_dot_product_attention`` timed in turns with it
+   (paged decode: SDPA on the cache gathered beforehand, the gather not
+   timed); the attention kernels also at zamba2's head dim 80, flash and
+   tree verify also with GQA and through strided views; the long shapes
+   held and timed too: a 2048-token flash prompt, a 1024-position tree
+   cache, 128-block paged tables (4096 positions) and 2048-token mamba2
+   and xLSTM scans; the SSD scan also at each recurrent edge's prompt
+   prefill, a front-padded three-chunk prompt and with carried random
+   states;
 3. serve six paths at full width — granite-8b cloud, bfloat16, seeded
    random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
    SpeculativePolicy(0.6), T = 0: with the smollm-135m edge the default
@@ -166,11 +169,13 @@ def phase_build():
     dt = time.perf_counter() - t
     print(f"[build] {len(libs)} kernel libraries in {dt:.1f}s: "
           + ", ".join(p.name for p in libs.values()), flush=True)
-    # the redesigned attention kernels must run their bf16 products on the
-    # tensor cores: count wgmma (HGMMA) and mma.sync (HMMA) instructions
+    # the redesigned attention kernels and the SSD scan must run their bf16
+    # products on the tensor cores: count wgmma (HGMMA) and mma.sync (HMMA)
+    # instructions
     from repro_torch.kernels.build import nvcc
     dump = Path(nvcc()).with_name("cuobjdump")
-    for src in ("flash_attention.cu", "tree_verify_attention.cu"):
+    for src in ("flash_attention.cu", "tree_verify_attention.cu",
+                "ssd_scan.cu"):
         sass = subprocess.run([str(dump), "-sass", str(libs[src])],
                               capture_output=True, text=True, check=False)
         n_wg, n_mma = sass.stdout.count("HGMMA"), sass.stdout.count("HMMA")
@@ -181,12 +186,13 @@ def phase_build():
 
 
 # --------------------------------------------------------------- phase 2
-def _paged_inputs(dtype, gen, hd=64):
+def _paged_inputs(dtype, gen, hd=64, MB=3, lengths=(15, 46)):
     """Serving-path shapes of the paged decode: 8 slots, smollm-135m heads
-    (Kv 3, G 3, hd 64), 32-token blocks, 3-block tables (slot_len 80);
-    ``hd`` 80 checks a head dim that is not a multiple of 32."""
+    (Kv 3, G 3, hd 64), 32-token blocks, 3-block tables (slot_len 80),
+    lengths 15-45; ``hd`` 80 checks a head dim that is not a multiple of
+    32; ``MB`` and ``lengths`` make the long case."""
     import torch
-    B, Kv, G, bs, MB = 8, 3, 3, 32, 3
+    B, Kv, G, bs = 8, 3, 3, 32
     NB = B * MB + 1
     dev = "cuda"
     q = torch.randn((B, Kv, G, hd), generator=gen, device=dev).to(dtype)
@@ -194,18 +200,65 @@ def _paged_inputs(dtype, gen, hd=64):
     vp = torch.randn((NB, bs, Kv, hd), generator=gen, device=dev).to(dtype)
     perm = torch.randperm(NB - 1, generator=gen, device=dev) + 1
     table = perm.reshape(B, MB).to(torch.int32).contiguous()
-    length = torch.randint(15, 46, (B,), generator=gen, device=dev,
+    length = torch.randint(*lengths, (B,), generator=gen, device=dev,
                            dtype=torch.int32)
     return q, kp, vp, table, length
 
 
+# the long paged case: the serving heads over 128-block tables (4096
+# positions), lengths 3968-4096 — the kernel splits the key range
+PAGED_LONG = (128, (3968, 4097))
+
+
+def paged_timing(K, gen, MB=3, lengths=(15, 46)):
+    """Kernel, plain and yardstick times of the bf16 paged decode (no
+    window), per call and on the device, with the bound.  The yardstick is
+    SDPA on the cache gathered through the table beforehand (contiguous,
+    GQA expanded, boolean length mask): the gather is not timed, so it is
+    not a PyTorch call computing the paged read itself."""
+    import torch
+    import torch.nn.functional as F
+    q, kp, vp, table, length = _paged_inputs(torch.bfloat16, gen, 64, MB,
+                                             lengths)
+    B, Kv, G, hd = q.shape
+    bs = kp.shape[1]
+    kk = kp[table.long()].reshape(B, MB * bs, Kv, hd).permute(0, 2, 1, 3)
+    vv = vp[table.long()].reshape(B, MB * bs, Kv, hd).permute(0, 2, 1, 3)
+    visible = (torch.arange(MB * bs, device="cuda")[None, :]
+               < length.long()[:, None])[:, None, :]            # (B, 1, S)
+    qq, kk, vv, m = _gqa_sdpa_inputs(q[:, :, :, None], kk, vv, visible)
+    ms, dev, lib, lib_dev = paired_ms(
+        lambda: K.paged_decode_attention_cuda(q, kp, vp, table, length),
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=m))
+    plain = time_ms(lambda: K.paged_decode_attention_plain(q, kp, vp, table,
+                                                           length))
+    n_pos = int(length.sum())
+    el = 2
+    nbytes = (2 * n_pos * Kv * hd * el + 2 * q.numel() * el
+              + table.numel() * 4 + length.numel() * 4)
+    ops = 4 * n_pos * Kv * G * hd
+    bnd, by = bound_ms(nbytes, ops, "bfloat16")
+    print(f"[kernel] paged_decode_attention timing (B,Kv,G,hd,bs,MB)="
+          f"{(B, Kv, G, hd, bs, MB)} lengths {lengths[0]}-{lengths[1] - 1} "
+          f"bfloat16: {ms:.4f} ms per call, {dev:.5f} ms on the device; SDPA "
+          f"on the gathered cache {lib:.4f} / {lib_dev:.5f} ms; plain "
+          f"{plain:.4f} ms; bound {bnd:.6f} ms ({by})", flush=True)
+    return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "sdpa_gathered_ms": lib,
+            "sdpa_gathered_device_ms": lib_dev}
+
+
 def check_paged(gen):
+    """Paged decode against its plain version at the serving shape (head
+    dims 64 and 80) and the long one, float32 and bfloat16, windows 0 and
+    24; then timed at both in bfloat16."""
     import torch
     from repro_torch.kernels import decode_attention as K
     rows = []
-    for (dtype, tol), hd in itertools.product(
-            ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)), (64, 80)):
-        q, kp, vp, table, length = _paged_inputs(dtype, gen, hd)
+    cases = [(hd, 3, (15, 46)) for hd in (64, 80)] + [(64, *PAGED_LONG)]
+    for (dtype, tol), (hd, MB, lengths) in itertools.product(
+            ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)), cases):
+        q, kp, vp, table, length = _paged_inputs(dtype, gen, hd, MB, lengths)
         for window in (0, 24):
             out = K.paged_decode_attention_cuda(q, kp, vp, table, length,
                                                 window=window)
@@ -214,29 +267,20 @@ def check_paged(gen):
             torch.cuda.synchronize()
             err = max_err(out, ref)
             print(f"[kernel] paged_decode_attention {str(dtype)[6:]} hd={hd} "
-                  f"window={window}: max_abs_err={err:.3e} (tol {tol:g})",
-                  flush=True)
-            check(err <= tol, f"paged_decode_attention {dtype} hd {hd} "
-                              f"window {window}: error {err} > {tol}")
+                  f"MB={MB} window={window}: max_abs_err={err:.3e} "
+                  f"(tol {tol:g})", flush=True)
+            check(err <= tol, f"paged_decode_attention {dtype} hd {hd} MB "
+                              f"{MB} window {window}: error {err} > {tol}")
             rows.append(err)
-    # timing at the serving path's dtype (bfloat16, no window)
-    q, kp, vp, table, length = _paged_inputs(torch.bfloat16, gen)
-    ms = time_ms(lambda: K.paged_decode_attention_cuda(q, kp, vp, table,
-                                                       length))
-    plain = time_ms(lambda: K.paged_decode_attention_plain(q, kp, vp, table,
-                                                           length))
-    B, Kv, G, hd = q.shape
-    n_pos = int(length.sum())
-    el = 2
-    nbytes = (2 * n_pos * Kv * hd * el + 2 * q.numel() * el
-              + table.numel() * 4 + length.numel() * 4)
-    ops = 4 * n_pos * Kv * G * hd
-    bnd, by = bound_ms(nbytes, ops, "bfloat16")
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention.py:156",
-            "max_abs_err": max(rows), "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    row = {"name": "paged_decode_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention.py:156",
+           "max_abs_err": max(rows), "library_ms": None}
+    row.update(paged_timing(K, gen))
+    row["long"] = {"shape": "(B,Kv,G,hd,bs,MB)=(8, 3, 3, 64, 32, "
+                            f"{PAGED_LONG[0]})",
+                   **paged_timing(K, gen, *PAGED_LONG)}
+    return row
 
 
 def _proj_view(shape, dtype, gen):
@@ -395,23 +439,39 @@ def check_spec_verify(gen):
               f"{'everywhere' if temperature == 0.0 else 'away from rows with |cdf-u|<1e-6'})",
               flush=True)
         worst = max(worst, float(n_bad))
-    # timing at the serving path's shapes, T = 0 (the engine's setting)
+    row = {"name": "spec_verify", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/spec_verify.cu",
+           "replaces": "src/repro/kernels/spec_verify.py:60",
+           "max_abs_err": worst, "library_ms": None}
+    row.update(spec_timing(K, gen))
+    return row
+
+
+def spec_timing(K, gen):
+    """Kernel and plain time of spec verify at the serving shapes (8
+    groups, gamma 4, granite's 49152-entry vocabulary), T = 0 (the
+    engine's setting), per call and on the device, with the bound."""
+    import torch
+    G, gamma, V = 8, 4, 49152
+    R = gamma + 1
+    dev = "cuda"
     tl = torch.randn((G, R, V), generator=gen, device=dev)
     dl = torch.randn((G, gamma, V), generator=gen, device=dev)
     toks = dl.argmax(-1).to(torch.int32)
     u = torch.rand((2, G, R), generator=gen, device=dev)
     args = (tl, dl, toks, u[0].contiguous(), u[1].contiguous())
-    ms = time_ms(lambda: K.spec_verify_cuda(*args, temperature=0.0))
+    fn = lambda: K.spec_verify_cuda(*args, temperature=0.0)  # noqa: E731
+    ms, dev_ms = time_ms(fn), device_ms(fn)
     plain = time_ms(lambda: K.spec_verify_plain(*args, temperature=0.0))
     nbytes = (tl.numel() + dl.numel()) * 4 + toks.numel() * 4 \
         + 2 * G * R * 4 + 3 * G * R * 4
     ops = 8 * (tl.numel() + dl.numel())
     bnd, by = bound_ms(nbytes, ops, "float32")
-    return {"name": "spec_verify", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/spec_verify.cu",
-            "replaces": "src/repro/kernels/spec_verify.py:60",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    print(f"[kernel] spec_verify timing (G,gamma,V)={(G, gamma, V)} T=0: "
+          f"{ms:.4f} ms per call, {dev_ms:.5f} ms on the device; plain "
+          f"{plain:.4f} ms; bound {bnd:.6f} ms ({by})", flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by}
 
 
 def _gqa_sdpa_inputs(q, k, v, visible):
@@ -442,7 +502,6 @@ def check_decode(gen):
     lengths 15-40; the cache read through strides as it lies.  Timed at
     the tree path's shape."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as K
     B, S = 8, 80
     errs = []
@@ -466,26 +525,47 @@ def check_decode(gen):
             check(err <= tol, f"decode_attention {dtype} window {window}: "
                               f"error {err} > {tol}")
             errs.append(err)
-    # timing at the path's dtype (bfloat16, no window): kernel, plain
-    # version, and SDPA over GQA-expanded K/V with the same boolean mask
-    ms = time_ms(lambda: K.decode_attention_cuda(q, k, v, length))
-    plain = time_ms(lambda: K.decode_attention_plain(q, k, v, length))
+    row = {"name": "decode_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention.py:76",
+           "max_abs_err": max(errs)}
+    row.update(decode_timing(K, gen))
+    return row
+
+
+def decode_timing(K, gen):
+    """Kernel, plain and SDPA times of the dense decode at the tree path's
+    edge ticks (8 slots, smollm-135m heads, S 80, lengths 15-40, bf16, no
+    window), per call (kernel and SDPA in turns) and on the device; SDPA
+    over GQA-expanded K/V with the same boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    B, S, Kv, G, hd = 8, 80, 3, 3, 64
+    q = torch.randn((B, Kv, G, hd), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    k = _dense_view((B, Kv, S, hd), torch.bfloat16, gen)
+    v = _dense_view((B, Kv, S, hd), torch.bfloat16, gen)
+    length = torch.randint(15, 41, (B,), generator=gen, device="cuda",
+                           dtype=torch.int32)
     visible = (torch.arange(S, device="cuda")[None, :]
                < length.long()[:, None])[:, None, :]          # (B, 1, S)
     qq, kk, vv, m = _gqa_sdpa_inputs(q[:, :, :, None], k, v, visible)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv,
-                                                         attn_mask=m))
+    ms, dev, lib, lib_dev = paired_ms(
+        lambda: K.decode_attention_cuda(q, k, v, length),
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=m))
+    plain = time_ms(lambda: K.decode_attention_plain(q, k, v, length))
     n_pos = int(length.sum())
     el = 2
     nbytes = (2 * n_pos * Kv * hd * el + 2 * q.numel() * el
               + length.numel() * 4)
     ops = 4 * n_pos * Kv * G * hd
     bnd, by = bound_ms(nbytes, ops, "bfloat16")
-    return {"name": "decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention.py:76",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+    print(f"[kernel] decode_attention timing (B,Kv,G,S,hd)="
+          f"{(B, Kv, G, S, hd)} bfloat16: {ms:.4f} ms per call, {dev:.5f} ms "
+          f"on the device; SDPA {lib:.4f} / {lib_dev:.5f} ms; plain "
+          f"{plain:.4f} ms; bound {bnd:.6f} ms ({by})", flush=True)
+    return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib, "library_device_ms": lib_dev}
 
 
 def _tree_inputs(B, Kv, G, S, hd, lo, hi, dtype, gen, base=(16, 40)):
@@ -618,6 +698,10 @@ SSD_MORE = (("mamba2-370m S=600", 1, 600, 32, 128, 64, 256, True, False),
             ("mamba2-370m extend", 8, 5, 32, 128, 64, 256, True, True),
             ("xlstm-125m chunk", 1, 7, 4, 384, 384, 128, False, True),
             ("zamba2-2.7b extend", 2, 200, 80, 64, 64, 128, True, True))
+# the long single prompts (B 1, S 2048): mamba2 (8 chunks of 256, 32 heads)
+# and xLSTM's mLSTM (16 chunks of 128, 4 heads of 384 x 384)
+SSD_LONG = (("mamba2-370m long", 1, 2048, 32, 128, 64, 256, True),
+            ("xlstm-125m long", 1, 2048, 4, 384, 384, 128, False))
 
 
 def _ssd_inputs(B, S, H, N, P, dtype, gen, broadcast, carried):
@@ -669,7 +753,7 @@ def check_ssd(gen):
     import torch
     from repro_torch.kernels import ssd_scan as K
     worst = 0.0
-    cases = [r + (False,) for r in SSD_ROWS] + list(SSD_MORE)
+    cases = [r + (False,) for r in SSD_ROWS + SSD_LONG] + list(SSD_MORE)
     for (dtype, tol), case in itertools.product(
             ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)), cases):
         label, B, S, H, N, P, chunk, bc, carried = case
@@ -689,26 +773,40 @@ def check_ssd(gen):
         check(ok, f"ssd_chunk_scan {dtype} {label}: error {err} beyond "
                   f"atol = rtol = {tol}")
         worst = max(worst, err)
-    row = None
-    for label, B, S, H, N, P, chunk, bc in SSD_ROWS:
-        q, k, v, la, li, _ = _ssd_inputs(B, S, H, N, P, torch.bfloat16, gen,
-                                         bc, False)
-        ms = time_ms(lambda: K.ssd_chunk_scan_cuda(q, k, v, la, li,
-                                                   chunk=chunk))
-        plain = time_ms(lambda: K.ssd_chunk_scan_plain(q, k, v, la, li,
-                                                       chunk=chunk))
-        bnd, by = bound_ms(*_ssd_cost(B, S, H, N, P, chunk, 2, bc, False),
-                           "bfloat16")
-        print(f"[kernel] ssd_chunk_scan timing {label} prefill bfloat16: "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.6f} ms "
-              f"({by})", flush=True)
-        row = row or (ms, plain, bnd, by)
-    ms, plain, bnd, by = row
-    return {"name": "ssd_chunk_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan.py:78",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    row = {"name": "ssd_chunk_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:78",
+           "max_abs_err": worst, "library_ms": None}
+    rows = [ssd_timing(K, case, gen) for case in SSD_ROWS]
+    row.update(rows[0])
+    row["other_prefills"] = rows[1:]
+    row["long"] = [ssd_timing(K, case, gen) for case in SSD_LONG]
+    return row
+
+
+def ssd_timing(K, case, gen):
+    """Kernel and plain time of one bf16 scan (no carried state) at
+    ``case`` = (label, B, S, H, N, P, chunk, q/k head-broadcast), per call
+    and on the device, with the bound."""
+    import torch
+    label, B, S, H, N, P, chunk, bc = case
+    q, k, v, la, li, _ = _ssd_inputs(B, S, H, N, P, torch.bfloat16, gen, bc,
+                                     False)
+    fn = lambda: K.ssd_chunk_scan_cuda(q, k, v, la, li,  # noqa: E731
+                                       chunk=chunk)
+    ms, dev = time_ms(fn, reps=10 if S > 1024 else 30), device_ms(fn)
+    plain = time_ms(lambda: K.ssd_chunk_scan_plain(q, k, v, la, li,
+                                                   chunk=chunk),
+                    reps=10 if S > 1024 else 30)
+    bnd, by = bound_ms(*_ssd_cost(B, S, H, N, P, chunk, 2, bc, False),
+                       "bfloat16")
+    print(f"[kernel] ssd_chunk_scan timing {label} (B,S,H,N,P,chunk)="
+          f"{(B, S, H, N, P, chunk)} bfloat16: {ms:.4f} ms per call, "
+          f"{dev:.5f} ms on the device; plain {plain:.4f} ms; bound "
+          f"{bnd:.6f} ms ({by})", flush=True)
+    return {"shape": f"{label} (B,S,H,N,P,chunk)={(B, S, H, N, P, chunk)}",
+            "ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by}
 
 
 def phase_kernels():

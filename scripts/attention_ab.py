@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""Time the flash-prefill and tree-verify kernels of one checkout, so that
-two versions can be compared on one card.
+"""Time the port's kernels of one checkout, so that two versions can be
+compared on one card.
 
     python3 scripts/attention_ab.py [--src DIR] [--label NAME]
+                                    [--kernels flash,tree,paged,ssd,decode,spec]
 
-Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
-holds each kernel against its plain version once, and times it by
-``chip_smoke.py``'s procedure — per call: CUDA events around one wrapper
-call, median of 30; on the device: a CUDA graph of 20 calls, events around
-each replay — on inputs that every version of the wrappers takes: flash at
-granite-8b's 32 heads with K/V given per query head (contiguous), at the
-16-token prefill and a 2048-token prompt, causal; tree verify, the
-one-shot verify of 8 slots with granite-8b's heads, over the serving
-cache (S 80) and a 1024-position one.  Prints one JSON line.  Compare two
-versions within one run on the card, in turns: A, B, B, A.
+Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``)
+and times each selected kernel by ``chip_smoke.py``'s procedure — per call:
+CUDA events around one wrapper call, median of 30; on the device: a CUDA
+graph of 20 calls, events around each replay — on inputs that every
+version of the wrappers takes:
+
+* ``flash``: granite-8b's 32 heads with K/V given per query head
+  (contiguous), a 16-token prefill and a 2048-token prompt, causal; held
+  against the plain version once;
+* ``tree``: the one-shot verify of 8 slots with granite-8b's heads, over
+  the serving cache (S 80) and a 1024-position one; held likewise;
+* ``paged``: the paged decode at the serving shape (8 slots, smollm-135m
+  heads, 3-block tables) and the long one (128-block tables, lengths
+  3968-4096), with SDPA on the pre-gathered cache as the yardstick;
+* ``ssd``: the SSD scan at the three recurrent edges' 15-token prefills
+  and the two long prompts (mamba2 and xLSTM, S 2048);
+* ``decode``: the dense decode at the tree path's edge ticks, with SDPA;
+* ``spec``: spec verify at the serving shape.
+
+The helpers are this checkout's ``chip_smoke.py``; only the kernel
+modules come from ``DIR``.  Prints one JSON line.  Compare two versions
+within one run on the card, in turns: A, B, B, A.
 """
 from __future__ import annotations
 
@@ -27,27 +40,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts this checkout's src on the path)
 
+ALL = ("flash", "tree", "paged", "ssd", "decode", "spec")
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--label", default="this checkout")
-    args = ap.parse_args()
-    src = Path(args.src).resolve()
-    sys.path.insert(0, str(src))
+
+def _flash(res, gen):
     import torch
-    if not torch.cuda.is_available():
-        print("attention_ab: no CUDA device", file=sys.stderr)
-        return 2
     from repro_torch.kernels import flash_attention as FK
-    from repro_torch.kernels import tree_attention as TK
-    if not Path(FK.__file__).resolve().is_relative_to(src):
-        print(f"attention_ab: imported {FK.__file__}, not from {src}",
-              file=sys.stderr)
-        return 2
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    res = {"label": args.label, "device": torch.cuda.get_device_name(0)}
     for name, S in (("serving", 16), ("long", 2048)):
         q, k, v = (torch.randn((1, 32, S, 128), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
@@ -57,6 +55,11 @@ def main() -> int:
         ms, dev = cs.time_ms(fn), cs.device_ms(fn)
         res[f"flash_{name}"] = {"S": S, "ms": ms, "device_ms": dev,
                                 "max_abs_err": err}
+
+
+def _tree(res, gen):
+    import torch
+    from repro_torch.kernels import tree_attention as TK
     for name, S, base in (("serving", 80, (16, 40)),
                           ("long", cs.TREE_LONG_S, cs.TREE_LONG_BASE)):
         a = cs._tree_inputs(8, 8, 4, S, 128, 0, 16, torch.bfloat16, gen, base)
@@ -66,6 +69,60 @@ def main() -> int:
         ms, dev = cs.time_ms(fn), cs.device_ms(fn)
         res[f"tree_{name}"] = {"S": S, "ms": ms, "device_ms": dev,
                                "max_abs_err": err}
+
+
+def _paged(res, gen):
+    from repro_torch.kernels import decode_attention as K
+    res["paged_serving"] = cs.paged_timing(K, gen)
+    res["paged_long"] = cs.paged_timing(K, gen, *cs.PAGED_LONG)
+
+
+def _ssd(res, gen):
+    from repro_torch.kernels import ssd_scan as K
+    for case in cs.SSD_ROWS + cs.SSD_LONG:
+        res[f"ssd {case[0]}"] = cs.ssd_timing(K, case, gen)
+
+
+def _decode(res, gen):
+    from repro_torch.kernels import decode_attention as K
+    res["decode_serving"] = cs.decode_timing(K, gen)
+
+
+def _spec(res, gen):
+    from repro_torch.kernels import spec_verify as K
+    res["spec_serving"] = cs.spec_timing(K, gen)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--kernels", default=",".join(ALL),
+                    help="comma-separated subset of " + ",".join(ALL))
+    args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
+    unknown = sorted(set(kernels) - set(ALL))
+    if unknown:
+        ap.error(f"unknown kernels {unknown}; choose from {ALL}")
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    import torch
+    if not torch.cuda.is_available():
+        print("attention_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import repro_torch
+    if not Path(repro_torch.__file__).resolve().is_relative_to(src):
+        print(f"attention_ab: imported {repro_torch.__file__}, not from "
+              f"{src}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    res = {"label": args.label, "device": torch.cuda.get_device_name(0)}
+    steps = {"flash": _flash, "tree": _tree, "paged": _paged, "ssd": _ssd,
+             "decode": _decode, "spec": _spec}
+    for k in kernels:
+        steps[k](res, gen)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -27,12 +27,12 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import F, I, L, P, CudaKernel
+from repro_torch.kernels.build import F, I, L, P, CudaKernel, raw_stream
 
 NEG = -1e30
 
 KERNEL = CudaKernel("paged_decode_attention.cu", "repro_paged_decode_attention",
-                    [I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P])
+                    [I] + [P] * 7 + [I] * 10 + [F, P])
 DENSE_KERNEL = CudaKernel("decode_attention.cu", "repro_decode_attention",
                           [I, P, P, P, P, P, I, I, I, I, I, L, L, L, I, F, P])
 
@@ -59,6 +59,41 @@ def paged_decode_attention_plain(q, k_pool, v_pool, table, length, *,
     return torch.einsum("bkgs,bksd->bkgd", p, vv.float()).to(q.dtype)
 
 
+# the paged kernel's split of the key range (csrc/paged_decode_attention.cu)
+PAGED_ROWS = 4             # query rows of a block: G goes in groups of 4
+PAGED_MIN_ENTRIES = 8      # table entries a split walks at least
+PAGED_MAX_ENTRIES = 4096   # the block's table slice in shared memory
+_SMS = {}
+
+
+def paged_walk(MB: int, bs: int, window: int) -> int:
+    """Table entries the kernel walks per sequence: all MB, or with a
+    window the at most ``(window + bs - 2) // bs + 1`` blocks that can
+    hold its positions (the JAX kernel's ``ns``)."""
+    return MB if not window else min(MB, (window + bs - 2) // bs + 1)
+
+
+def paged_splits(B: int, Kv: int, G: int, ns: int, sms: int = 132):
+    """(nsplit, entries per split) for ``ns`` walked table entries: enough
+    splits that the grid covers two blocks per SM, none walking fewer than
+    ``PAGED_MIN_ENTRIES`` entries (or more than ``PAGED_MAX_ENTRIES``).
+    From shapes only — the lengths stay on the device."""
+    blocks = B * Kv * -(-G // PAGED_ROWS)
+    want = -(-2 * sms // blocks)
+    nsplit = max(1, min(want, ns // PAGED_MIN_ENTRIES),
+                 -(-ns // PAGED_MAX_ENTRIES))
+    eps = -(-ns // nsplit)
+    return -(-ns // eps), eps
+
+
+def _sm_count(dev) -> int:
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(dev) \
+            .multi_processor_count
+    return n
+
+
 def paged_decode_attention_cuda(q, k_pool, v_pool, table, length, *,
                                 window: int = 0):
     """Launch the Hopper kernel (same contract as the plain version).
@@ -66,8 +101,9 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, length, *,
     B, Kv, G, hd = q.shape
     NB, bs, Kv2, hd2 = k_pool.shape
     MB = table.shape[1]
-    if not all(t.is_cuda and t.device == q.device
-               for t in (q, k_pool, v_pool, table, length)):
+    dev = q.device
+    if not (q.is_cuda and k_pool.device == dev and v_pool.device == dev
+            and table.device == dev and length.device == dev):
         raise ValueError("paged_decode_attention_cuda needs every tensor on "
                          "one CUDA device")
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
@@ -82,17 +118,23 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, length, *,
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, "
                          f"table {tuple(table.shape)}, length "
                          f"{tuple(length.shape)}")
-    if hd > 256 or G * hd > 4096 or G * (hd + bs + 3) > 12288:
-        raise ValueError(f"unsupported head shape G={G} hd={hd} bs={bs}")
-    if not all(t.is_contiguous() for t in (q, k_pool, v_pool, table, length)):
+    if hd > 256:
+        raise ValueError(f"unsupported head dim {hd} (at most 256)")
+    if not (q.is_contiguous() and k_pool.is_contiguous()
+            and v_pool.is_contiguous() and table.is_contiguous()
+            and length.is_contiguous()):
         raise ValueError("paged_decode_attention_cuda needs contiguous inputs")
-    ns = MB if not window else min(MB, (window + bs - 2) // bs + 1)
+    ns = paged_walk(MB, bs, window)
+    nsplit, eps = paged_splits(B, Kv, G, ns, _sm_count(dev))
     out = torch.empty_like(q)
+    part = torch.empty((B * Kv * G * nsplit * (hd + 2),), dtype=torch.float32,
+                       device=dev) if nsplit > 1 else None
     KERNEL.launch(_DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
                   v_pool.data_ptr(), table.data_ptr(), length.data_ptr(),
-                  out.data_ptr(), B, Kv, G, hd, bs, MB, ns, int(window),
-                  1.0 / math.sqrt(hd),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  out.data_ptr(), part if part is None else part.data_ptr(),
+                  B, Kv, G, hd, bs, MB, ns,
+                  int(window), nsplit, eps, 1.0 / math.sqrt(hd),
+                  raw_stream(q))
     return out
 
 

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import I, L, P, CudaKernel
+from repro_torch.kernels.build import I, L, P, CudaKernel, raw_stream
 
 NEG = -1e30
 
@@ -189,6 +189,5 @@ def ssd_chunk_scan_cuda(q, k, v, log_a, log_i, *, chunk: int, state=None):
                   *strided(log_a), *strided(log_i), *st, y.data_ptr(),
                   den.data_ptr(), m.data_ptr(), S_out.data_ptr(),
                   n_out.data_ptr(), m_out.data_ptr(), B, S, H, N, Pv, Q,
-                  pad,
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  pad, raw_stream(q))
     return y, den, m, (S_out, n_out, m_out)

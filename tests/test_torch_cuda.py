@@ -144,7 +144,9 @@ def test_attention_block_makes_no_copies(cuda, dtype):
                                              (3, 2, 4, 16, 8, 64),
                                              (2, 4, 2, 32, 4, 128),
                                              (8, 3, 3, 32, 3, 64),
-                                             (2, 4, 2, 32, 4, 80)])
+                                             (2, 4, 2, 32, 4, 80),
+                                             (2, 2, 5, 16, 4, 64),
+                                             (3, 1, 8, 32, 4, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 11, 48])
 def test_paged_decode_kernel(cuda, B, Kv, G, bs, MB, hd, dtype, window):
@@ -161,6 +163,85 @@ def test_paged_decode_kernel(cuda, B, Kv, G, bs, MB, hd, dtype, window):
                                       window=window)
     ref = paged_decode_attention_plain(q, kp, vp, table, length,
                                        window=window)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+def _boundary_lengths(bs, MB, eps):
+    """Lengths on and beside the block and split boundaries of a table of
+    MB blocks walked in splits of ``eps`` entries, and length 1."""
+    edges = {1, bs - 1, bs, bs + 1, eps * bs - 1, eps * bs, eps * bs + 1,
+             MB * bs - 1, MB * bs}
+    return sorted(x for x in edges if 1 <= x <= MB * bs)
+
+
+@pytest.mark.parametrize("Kv,G,bs,MB,hd", [(2, 3, 32, 128, 64),
+                                          (1, 4, 16, 96, 128),
+                                          (3, 3, 32, 64, 80),
+                                          (1, 5, 32, 128, 64),
+                                          (2, 8, 16, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 11, 48])
+def test_paged_decode_kernel_split(cuda, Kv, G, bs, MB, hd, dtype, window):
+    """Tables long enough that the kernel splits the key range: lengths on
+    and beside the split and block boundaries, length 1 (every split but
+    the first sees no key), against the plain version."""
+    from repro_torch.kernels.decode_attention import paged_splits, paged_walk
+    nsplit, eps = paged_splits(8, Kv, G, paged_walk(MB, bs, 0),
+                               torch.cuda.get_device_properties(cuda)
+                               .multi_processor_count)
+    assert window or nsplit > 1
+    lengths = _boundary_lengths(bs, MB, eps)
+    B = len(lengths)
+    NB = B * MB + 1
+    q = _rand(0, (B, Kv, G, hd), cuda, dtype)
+    kp = _rand(1, (NB, bs, Kv, hd), cuda, dtype)
+    vp = _rand(2, (NB, bs, Kv, hd), cuda, dtype)
+    rng = np.random.default_rng(1)
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB)).reshape(B, MB),
+                            dtype=torch.int32, device=cuda)
+    length = torch.as_tensor(lengths, dtype=torch.int32, device=cuda)
+    out = paged_decode_attention_cuda(q, kp, vp, table, length,
+                                      window=window)
+    ref = paged_decode_attention_plain(q, kp, vp, table, length,
+                                       window=window)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("MB", [4, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 11, 48])
+def test_paged_decode_kernel_masks_by_selection(cuda, MB, dtype, window):
+    """The trap block, every table entry past a slot's length (pointing at
+    the trap block, as the serving pool leaves them) and every position at
+    or past the length are NaN in the kernel's pools; the plain version,
+    which weights masked keys by zero, runs on the same pools with those
+    entries zeroed.  Equal outputs show the kernel never multiplies a
+    masked key by zero."""
+    B, Kv, G, bs, hd = 6, 2, 3, 16, 64
+    lengths = [1, 15, 16, 17, 40, MB * bs]
+    NB = B * MB + 1
+    q = _rand(0, (B, Kv, G, hd), cuda, dtype)
+    kp = _rand(1, (NB, bs, Kv, hd), cuda, dtype)
+    vp = _rand(2, (NB, bs, Kv, hd), cuda, dtype)
+    table = torch.arange(1, NB, dtype=torch.int32, device=cuda).reshape(B, MB)
+    nan = torch.zeros((NB, bs), dtype=torch.bool, device=cuda)
+    nan[0] = True
+    for b, n in enumerate(lengths):
+        for i in range(MB):
+            if i * bs >= n:
+                table[b, i] = 0
+            else:
+                nan[table[b, i], max(n - i * bs, 0):] = True
+    length = torch.as_tensor(lengths, dtype=torch.int32, device=cuda)
+    kz, vz = (torch.where(nan[:, :, None, None], 0.0, x).to(dtype)
+              for x in (kp, vp))
+    kn, vn = (torch.where(nan[:, :, None, None], float("nan"), x).to(dtype)
+              for x in (kp, vp))
+    out = paged_decode_attention_cuda(q, kn, vn, table, length,
+                                      window=window)
+    ref = paged_decode_attention_plain(q, kz, vz, table, length,
+                                       window=window)
+    assert bool(torch.isfinite(out).all())
     assert _err(out, ref) <= TOL[dtype]
 
 
@@ -330,11 +411,16 @@ def test_dispatch_counts_launches(cuda):
 
 # (B, S, H, N, P, chunk): the serving paths' prompt prefills (mamba2-370m,
 # xLSTM-125m's mLSTM, zamba2-2.7b), a front-padded three-chunk case, the
-# JAX sweep's shapes and a verify extend of 8 slots
+# JAX sweep's shapes, a verify extend of 8 slots, the long single prompts
+# (mamba2 and xLSTM, S 2048), a front-padded long xLSTM prompt, and value
+# widths of 3, 8 and 9 64-column P tiles (the first one's last tile ragged)
 SSD_SHAPES = [(1, 15, 32, 128, 64, 256), (1, 15, 4, 384, 384, 128),
               (1, 15, 80, 64, 64, 128), (1, 600, 32, 128, 64, 256),
               (2, 256, 3, 32, 64, 64), (1, 512, 1, 64, 64, 128),
-              (8, 5, 32, 128, 64, 256)]
+              (8, 5, 32, 128, 64, 256), (1, 2048, 32, 128, 64, 256),
+              (1, 2048, 4, 384, 384, 128), (1, 2000, 4, 384, 384, 128),
+              (2, 300, 2, 64, 160, 128), (1, 200, 2, 64, 512, 128),
+              (1, 70, 1, 32, 576, 64)]
 
 
 def _ssd_inputs(B, S, H, N, P, dev, dtype, carried, broadcast):

@@ -26,7 +26,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, decode_attention_plain, paged_decode_attention_cuda,
-    paged_decode_attention_plain)
+    paged_decode_attention_plain, paged_splits, paged_walk)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.spec_verify import (  # noqa: E402
@@ -151,6 +151,88 @@ def test_paged_decode_plain_windowed(window):
            "float32")
     _close(out, jref.paged_decode_attention_ref(q[0], kp[0], vp[0], table[0],
                                                 length[0], window=window),
+           "float32")
+
+
+def test_paged_split_plan():
+    """The paged kernel's key split, from shapes only: one split at the
+    serving shape (8 slots of smollm-135m heads over 3-entry tables), with
+    a window, and wherever the grid already covers two blocks per SM; over
+    a 128-entry table 11 splits of 12 entries (264 blocks on 132 SMs); no
+    split walks fewer than 8 entries, or more than 4096."""
+    assert (paged_walk(3, 32, 0), paged_walk(128, 32, 24),
+            paged_walk(128, 32, 48), paged_walk(2, 32, 48)) == (3, 2, 3, 2)
+    assert paged_splits(8, 3, 3, 3, 132) == (1, 3)
+    assert paged_splits(8, 3, 3, 128, 132) == (11, 12)
+    assert paged_splits(8, 3, 3, paged_walk(128, 32, 48), 132) == (1, 3)
+    assert paged_splits(64, 8, 4, 128, 132) == (1, 128)
+    assert paged_splits(1, 1, 1, 20, 132) == (2, 10)
+    assert paged_splits(1000, 8, 4, 10000, 132) == (3, 3334)
+    for B, Kv, G, ns in ((1, 1, 9, 1000), (2, 3, 4, 64), (5, 2, 1, 17)):
+        nsplit, eps = paged_splits(B, Kv, G, ns, 132)
+        assert (nsplit - 1) * eps < ns <= nsplit * eps
+        assert nsplit == 1 or eps >= 8
+
+
+def _paged_split_model(q, kp, vp, table, length, window, nsplit, eps):
+    """A plain model of the paged kernel's split: the walked table entries
+    (logical blocks sb, sb + 1, ... of each sequence, the index clamped to
+    MB - 1) are cut into runs of ``eps``; each run makes an unnormalised
+    partial (output, max, sum) over its visible positions — an empty run
+    has max -1e30 and sum 0 — and the partials merge rescaled to the
+    largest max."""
+    B, Kv, G, hd = q.shape
+    bs, MB = kp.shape[1], table.shape[1]
+    ns = paged_walk(MB, bs, window)
+    out = torch.zeros((B, Kv, G, hd))
+    for b in range(B):
+        n = int(length[b])
+        sb = max(n - window, 0) // bs if window else 0
+        lo = n - window if window else 0
+        parts = []
+        for sp in range(nsplit):
+            e0, e1 = sp * eps, min(sp * eps + eps, ns)
+            pos = [p for p in range((sb + e0) * bs, (sb + e1) * bs)
+                   if lo <= p < n]
+            if not pos:
+                parts.append((torch.zeros((Kv, G, hd)),
+                              torch.full((Kv, G, 1), -1e30),
+                              torch.zeros((Kv, G, 1))))
+                continue
+            blk = table[b, [min(p // bs, MB - 1) for p in pos]].long()
+            off = torch.as_tensor([p % bs for p in pos])
+            kk, vv = kp[blk, off].float(), vp[blk, off].float()  # (n, Kv, hd)
+            s = torch.einsum("kgd,nkd->kgn", q[b].float(), kk) / hd ** 0.5
+            m = s.amax(-1, keepdim=True)
+            e = torch.exp(s - m)
+            parts.append((torch.einsum("kgn,nkd->kgd", e, vv), m,
+                          e.sum(-1, keepdim=True)))
+        M = torch.stack([m for _, m, _ in parts]).amax(0)
+        den = sum(l * torch.exp(m - M) for _, m, l in parts)
+        out[b] = sum(o * torch.exp(m - M) for o, m, _ in parts) \
+            / den.clamp(min=1e-20)
+    return out
+
+
+@pytest.mark.parametrize("nsplit,eps", [(1, 12), (3, 4), (12, 1)])
+@pytest.mark.parametrize("window", [0, 11])
+def test_paged_split_combine_model(nsplit, eps, window):
+    """Cutting the walked table into runs and merging the partial softmaxes
+    gives the unsplit answer, empty runs (length 1, windows) included: the
+    plain version and the JAX kernel (interpret mode), over 12-entry
+    tables of 8-position blocks."""
+    B, Kv, G, bs, MB, hd = 4, 2, 3, 8, 12, 32
+    if window:
+        nsplit, eps = -(-paged_walk(MB, bs, window) // eps), eps
+    q, kp, vp, table, length = _paged_case(B, Kv, G, bs, MB, hd, "float32",
+                                           lengths=[1, 8, 33, MB * bs])
+    out = _paged_split_model(q[1], kp[1], vp[1], table[1], length[1],
+                             window, nsplit, eps)
+    _close(out, paged_decode_attention_plain(q[1], kp[1], vp[1], table[1],
+                                             length[1], window=window)
+           .numpy(), "float32")
+    _close(out, jops.paged_decode_attention(q[0], kp[0], vp[0], table[0],
+                                            length[0], window=window),
            "float32")
 
 
