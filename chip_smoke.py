@@ -18,13 +18,15 @@ the first phase that fails:
    calls), beside its plain version and, for the attention kernels, the
    yardstick ``F.scaled_dot_product_attention`` timed in turns with it
    (paged decode: SDPA on the cache gathered beforehand, the gather not
-   timed); the attention kernels also at zamba2's head dim 80, flash and
-   tree verify also with GQA and through strided views; the long shapes
-   held and timed too: a 2048-token flash prompt, a 1024-position tree
-   cache, 128-block paged tables (4096 positions) and 2048-token mamba2
-   and xLSTM scans; the SSD scan also at each recurrent edge's prompt
-   prefill, a front-padded three-chunk prompt and with carried random
-   states;
+   timed); the attention kernels also at zamba2's head dim 80 (dense
+   decode timed there too), flash and tree verify also with GQA and
+   through strided views; the long shapes held and timed too: a
+   2048-token flash prompt, a 1024-position tree cache, 128-block paged
+   tables and a dense cache of 4096 positions, and 2048-token mamba2 and
+   xLSTM scans; spec verify timed at T = 0 and T = 1 and at zamba2's
+   32000-entry vocabulary; the SSD scan also at each recurrent edge's
+   prompt prefill, a front-padded three-chunk prompt and with carried
+   random states;
 3. serve six paths at full width — granite-8b cloud, bfloat16, seeded
    random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
    SpeculativePolicy(0.6), T = 0: with the smollm-135m edge the default
@@ -444,15 +446,24 @@ def check_spec_verify(gen):
            "replaces": "src/repro/kernels/spec_verify.py:60",
            "max_abs_err": worst, "library_ms": None}
     row.update(spec_timing(K, gen))
+    for key, V, temperature in SPEC_MORE:
+        row[key] = spec_timing(K, gen, V, temperature)
     return row
 
 
-def spec_timing(K, gen):
-    """Kernel and plain time of spec verify at the serving shapes (8
-    groups, gamma 4, granite's 49152-entry vocabulary), T = 0 (the
-    engine's setting), per call and on the device, with the bound."""
+# more spec-verify timings: T = 1 at the serving shape, and the hybrid
+# path's 32000-entry vocabulary
+SPEC_MORE = (("t1", 49152, 1.0), ("v32000", 32000, 0.0))
+
+
+def spec_timing(K, gen, V=49152, temperature=0.0):
+    """Kernel and plain time of spec verify at the serving shape (8 groups,
+    gamma 4, granite's 49152-entry vocabulary, or ``V``), at T = 0 (the
+    engine's setting) or ``temperature``, per call and on the device, with
+    the bound: the logits, tokens and uniforms read once and (n_acc,
+    next_token) written once."""
     import torch
-    G, gamma, V = 8, 4, 49152
+    G, gamma = 8, 4
     R = gamma + 1
     dev = "cuda"
     tl = torch.randn((G, R, V), generator=gen, device=dev)
@@ -460,17 +471,20 @@ def spec_timing(K, gen):
     toks = dl.argmax(-1).to(torch.int32)
     u = torch.rand((2, G, R), generator=gen, device=dev)
     args = (tl, dl, toks, u[0].contiguous(), u[1].contiguous())
-    fn = lambda: K.spec_verify_cuda(*args, temperature=0.0)  # noqa: E731
+    fn = lambda: K.spec_verify_cuda(*args, temperature=temperature)  # noqa: E731
     ms, dev_ms = time_ms(fn), device_ms(fn)
-    plain = time_ms(lambda: K.spec_verify_plain(*args, temperature=0.0))
+    plain = time_ms(lambda: K.spec_verify_plain(*args,
+                                                temperature=temperature))
     nbytes = (tl.numel() + dl.numel()) * 4 + toks.numel() * 4 \
-        + 2 * G * R * 4 + 3 * G * R * 4
+        + 2 * G * R * 4 + 2 * G * 4
     ops = 8 * (tl.numel() + dl.numel())
     bnd, by = bound_ms(nbytes, ops, "float32")
-    print(f"[kernel] spec_verify timing (G,gamma,V)={(G, gamma, V)} T=0: "
-          f"{ms:.4f} ms per call, {dev_ms:.5f} ms on the device; plain "
-          f"{plain:.4f} ms; bound {bnd:.6f} ms ({by})", flush=True)
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+    print(f"[kernel] spec_verify timing (G,gamma,V)={(G, gamma, V)} "
+          f"T={temperature:g}: {ms:.4f} ms per call, {dev_ms:.5f} ms on the "
+          f"device; plain {plain:.4f} ms; bound {bnd:.6f} ms ({by})",
+          flush=True)
+    return {"shape": f"(G,gamma,V)={(G, gamma, V)} T={temperature:g}",
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by}
 
 
@@ -499,28 +513,30 @@ def check_decode(gen):
     """Dense decode at the edge ticks of the tree path (8 slots, smollm-135m
     heads: Kv 3, G 3, hd 64) and of the hybrid path (zamba2-2.7b's shared
     attention: Kv 32, G 1, hd 80), slot_len 80 (16 + 24 + 2 * 16 + 8),
-    lengths 15-40; the cache read through strides as it lies.  Timed at
-    the tree path's shape."""
+    lengths 15-40, and over a 4096-position cache (lengths 3968-4096,
+    which the kernel splits); the cache read through strides as it lies.
+    Timed at the tree path's shape, then at the hybrid and long ones."""
     import torch
     from repro_torch.kernels import decode_attention as K
-    B, S = 8, 80
+    B = 8
     errs = []
-    for (dtype, tol), (Kv, G, hd) in itertools.product(
+    for (dtype, tol), (Kv, G, hd, S, lengths) in itertools.product(
             ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)),
-            ((32, 1, 80), (3, 3, 64))):
+            ((32, 1, 80, 80, (15, 41)), (3, 3, 64, 80, (15, 41)),
+             (3, 3, 64, 4096, (3968, 4097)))):
         q = torch.randn((B, Kv, G, hd), generator=gen, device="cuda") \
             .to(dtype)
         k = _dense_view((B, Kv, S, hd), dtype, gen)
         v = _dense_view((B, Kv, S, hd), dtype, gen)
-        length = torch.randint(15, 41, (B,), generator=gen, device="cuda",
+        length = torch.randint(*lengths, (B,), generator=gen, device="cuda",
                                dtype=torch.int32)
         for window in (0, 24):
             out = K.decode_attention_cuda(q, k, v, length, window=window)
             ref = K.decode_attention_plain(q, k, v, length, window=window)
             torch.cuda.synchronize()
             err = max_err(out, ref)
-            print(f"[kernel] decode_attention {str(dtype)[6:]} (Kv,G,hd)="
-                  f"{(Kv, G, hd)} window={window}: max_abs_err={err:.3e} "
+            print(f"[kernel] decode_attention {str(dtype)[6:]} (Kv,G,hd,S)="
+                  f"{(Kv, G, hd, S)} window={window}: max_abs_err={err:.3e} "
                   f"(tol {tol:g})", flush=True)
             check(err <= tol, f"decode_attention {dtype} window {window}: "
                               f"error {err} > {tol}")
@@ -530,22 +546,32 @@ def check_decode(gen):
            "replaces": "src/repro/kernels/decode_attention.py:76",
            "max_abs_err": max(errs)}
     row.update(decode_timing(K, gen))
+    for key, shape in DECODE_MORE:
+        row[key] = decode_timing(K, gen, *shape)
     return row
 
 
-def decode_timing(K, gen):
+# more dense-decode timings, (Kv, G, hd, S, lengths): the hybrid path's
+# shared attention (zamba2-2.7b: Kv 32, G 1, hd 80) and a 4096-position
+# cache with the tree path's heads, which the kernel splits
+DECODE_MORE = (("hybrid", (32, 1, 80, 80, (15, 41))),
+               ("long", (3, 3, 64, 4096, (3968, 4097))))
+
+
+def decode_timing(K, gen, Kv=3, G=3, hd=64, S=80, lengths=(15, 41)):
     """Kernel, plain and SDPA times of the dense decode at the tree path's
     edge ticks (8 slots, smollm-135m heads, S 80, lengths 15-40, bf16, no
-    window), per call (kernel and SDPA in turns) and on the device; SDPA
-    over GQA-expanded K/V with the same boolean mask."""
+    window; or the heads, cache and lengths given), per call (kernel and
+    SDPA in turns) and on the device; SDPA over GQA-expanded K/V with the
+    same boolean mask."""
     import torch
     import torch.nn.functional as F
-    B, S, Kv, G, hd = 8, 80, 3, 3, 64
+    B = 8
     q = torch.randn((B, Kv, G, hd), generator=gen, device="cuda") \
         .to(torch.bfloat16)
     k = _dense_view((B, Kv, S, hd), torch.bfloat16, gen)
     v = _dense_view((B, Kv, S, hd), torch.bfloat16, gen)
-    length = torch.randint(15, 41, (B,), generator=gen, device="cuda",
+    length = torch.randint(*lengths, (B,), generator=gen, device="cuda",
                            dtype=torch.int32)
     visible = (torch.arange(S, device="cuda")[None, :]
                < length.long()[:, None])[:, None, :]          # (B, 1, S)
@@ -554,7 +580,7 @@ def decode_timing(K, gen):
         lambda: K.decode_attention_cuda(q, k, v, length),
         lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=m))
     plain = time_ms(lambda: K.decode_attention_plain(q, k, v, length))
-    n_pos = int(length.sum())
+    n_pos = int(length.clamp(max=S).sum())
     el = 2
     nbytes = (2 * n_pos * Kv * hd * el + 2 * q.numel() * el
               + length.numel() * 4)
@@ -564,7 +590,8 @@ def decode_timing(K, gen):
           f"{(B, Kv, G, S, hd)} bfloat16: {ms:.4f} ms per call, {dev:.5f} ms "
           f"on the device; SDPA {lib:.4f} / {lib_dev:.5f} ms; plain "
           f"{plain:.4f} ms; bound {bnd:.6f} ms ({by})", flush=True)
-    return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
+    return {"shape": f"(B,Kv,G,S,hd)={(B, Kv, G, S, hd)}", "ms": ms,
+            "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
             "bound_by": by, "library_ms": lib, "library_device_ms": lib_dev}
 
 

@@ -21,8 +21,11 @@ version of the wrappers takes:
   3968-4096), with SDPA on the pre-gathered cache as the yardstick;
 * ``ssd``: the SSD scan at the three recurrent edges' 15-token prefills
   and the two long prompts (mamba2 and xLSTM, S 2048);
-* ``decode``: the dense decode at the tree path's edge ticks, with SDPA;
-* ``spec``: spec verify at the serving shape.
+* ``decode``: the dense decode at the tree path's edge ticks, the hybrid
+  path's shared attention (Kv 32, G 1, hd 80) and a 4096-position cache,
+  each with SDPA;
+* ``spec``: spec verify at the serving shape at T = 0 and T = 1, and at
+  the hybrid path's 32000-entry vocabulary.
 
 The helpers are this checkout's ``chip_smoke.py``; only the kernel
 modules come from ``DIR``.  Prints one JSON line.  Compare two versions
@@ -86,11 +89,15 @@ def _ssd(res, gen):
 def _decode(res, gen):
     from repro_torch.kernels import decode_attention as K
     res["decode_serving"] = cs.decode_timing(K, gen)
+    for key, shape in cs.DECODE_MORE:
+        res[f"decode_{key}"] = cs.decode_timing(K, gen, *shape)
 
 
 def _spec(res, gen):
     from repro_torch.kernels import spec_verify as K
     res["spec_serving"] = cs.spec_timing(K, gen)
+    for key, V, temperature in cs.SPEC_MORE:
+        res[f"spec_{key}"] = cs.spec_timing(K, gen, V, temperature)
 
 
 def main() -> int:

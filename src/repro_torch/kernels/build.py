@@ -126,6 +126,20 @@ class CudaKernel:
         self.launches += 1
 
 
+_SMS: Dict[object, int] = {}
+
+
+def sm_count(dev) -> int:
+    """Number of SMs of CUDA device ``dev`` (a device or an index), read
+    once per device: the kernels' split plans take it."""
+    n = _SMS.get(dev)
+    if n is None:
+        import torch
+        n = _SMS[dev] = torch.cuda.get_device_properties(dev) \
+            .multi_processor_count
+    return n
+
+
 def raw_stream(t) -> int:
     """Handle of PyTorch's current CUDA stream on ``t``'s device (the
     capturing stream under CUDA-graph capture), without building a

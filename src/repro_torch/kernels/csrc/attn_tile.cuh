@@ -462,20 +462,23 @@ __host__ inline int sm_count() {
 }
 
 // Once per kernel instantiation: allow the largest dynamic shared memory
-// the device grants (the limit only caps a launch's request), so no launch
-// pays for cudaFuncSetAttribute.  Thread-safe (a function-local static).
+// the device grants beside the kernel's static shared memory (the limit
+// only caps a launch's request), so no launch pays for
+// cudaFuncSetAttribute.  Thread-safe (a function-local static).
 template <auto kernel>
 __host__ inline cudaError_t allow_smem() {
   static const cudaError_t err = [] {
     int dev = 0, optin = 0;
+    cudaFuncAttributes fa = {};
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          optin - static_cast<int>(fa.sharedSizeBytes));
     return e;
   }();
   return err;

@@ -41,59 +41,22 @@
 //   shared memory.
 // * Masked keys are excluded by selection, never by multiplying by zero:
 //   a position outside [max(length - window, 0), length) is not copied
-//   (its ring slot is zero-filled) and its probability is chosen as 0.  The trap block and blocks not
-//   yet written hold whatever was last stored there, NaN included.
+//   (its ring slot is zero-filled) and its probability is chosen as 0.
+//   The trap block and blocks not yet written hold whatever was last
+//   stored there, NaN included.
 // * The windowed variant walks logical blocks from max(length - window, 0)
 //   // bs, at most ns of them, and clamps the table index to MB - 1,
 //   exactly as decode_attention.py:187-194 of the JAX package does.
 //
 // Any head dim up to 256, float32 or bfloat16; 16-byte copies when hd
 // fills whole 16-byte pieces and the pointers are aligned, element loads
-// otherwise.
-#include <cstdint>
-#include <type_traits>
-
-#include "attn_tile.cuh"
+// otherwise.  The 16-byte loads, the merge kernel and the lane layout come
+// from decode_warp.cuh, shared with the dense decode kernel.
+#include "decode_warp.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kG = 4;                        // query rows a block holds
-constexpr int kStages = 3;                   // tiles in a warp's copy ring
-
-// 16 bytes of a row: elements [ci * kE, ci * kE + kE), zero past hd.
-template <typename T>
-__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ row, int ci,
-                                            int hd, bool vec) {
-  constexpr int kE = 16 / sizeof(T);
-  uint4 u = make_uint4(0u, 0u, 0u, 0u);
-  const int d0 = ci * kE;
-  if (vec) {
-    if (d0 < hd) u = __ldg(reinterpret_cast<const uint4*>(row + d0));
-  } else {
-    T* e = reinterpret_cast<T*>(&u);
-#pragma unroll
-    for (int i = 0; i < kE; ++i)
-      if (d0 + i < hd) e[i] = row[d0 + i];
-  }
-  return u;
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {              // bf16 -> f32 is exact
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
+using namespace repro::dec;
 
 // kL lanes per key (16-byte pieces of the head dim, kC pieces a lane);
 // 32 / kL keys per warp step, kSteps steps per tile.
@@ -333,40 +296,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
   }
 }
 
-// Merge the splits' partials of one query row (grid: B * Kv * G rows).
-// Launched as a programmatic dependent of the split kernel, so its launch
-// overlaps that kernel; griddepcontrol.wait holds it until the split
-// kernel has finished and its partials are visible.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_combine_kernel(
-    const float* __restrict__ part, T* __restrict__ out, int hd,
-    int nsplit) {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const size_t row = blockIdx.x;
-  const float* pr = part + row * nsplit * (hd + 2);
-  float M = repro::kNeg;
-  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, pr[s * (hd + 2) + hd]);
-  float den = 0.f;
-  for (int s = 0; s < nsplit; ++s)
-    den += expf(pr[s * (hd + 2) + hd] - M) * pr[s * (hd + 2) + hd + 1];
-  const float inv = 1.f / fmaxf(den, 1e-20f);
-  for (int d = threadIdx.x; d < hd; d += kThreads) {
-    float num = 0.f;
-    for (int s = 0; s < nsplit; ++s)
-      num += expf(pr[s * (hd + 2) + hd] - M) * pr[s * (hd + 2) + d];
-    out[row * hd + d] = repro::from_float<T>(num * inv);
-  }
-}
-
 template <typename T, int kL, int kC>
 int launch(const T* q, const T* k_pool, const T* v_pool, const int* table,
            const int* length, T* out, float* part, int B, int Kv, int G,
            int hd, int bs, int MB, int ns, int window, int nsplit, int eps,
            float scale, bool vec, cudaStream_t stream) {
-  constexpr int kRing = kStages * 2 * (8 / kC) * kC * 32;  // uint4 a warp
-  static_assert(kRing * 16 >= kG * kL * kC * 16 * 4, "wacc fits a ring");
-  const size_t smem = 16 * static_cast<size_t>(kWarps) * kRing +
-                      sizeof(float) * 2 * kWarps * kG + sizeof(int) * eps;
+  static_assert(ring_slots<kC>() >= kG * kL * kC * 4, "wacc fits a ring");
+  const size_t smem = smem_bytes<kC>() + sizeof(int) * eps;
   cudaError_t err = repro::attn::allow_smem<
       paged_decode_attention_kernel<T, kL, kC>>();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -377,19 +313,8 @@ int launch(const T* q, const T* k_pool, const T* v_pool, const int* table,
           ns, window, eps, scale, vec ? 1 : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * Kv * G);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, paged_combine_kernel<T>,
-                           static_cast<const float*>(part), out, hd, nsplit);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_combine<T>(part, out, B * Kv * G, hd,
+                                            nsplit, stream));
 }
 
 template <typename T>
@@ -398,27 +323,16 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
              int B, int Kv, int G, int hd, int bs, int MB, int ns, int window,
              int nsplit, int eps, float scale, cudaStream_t stream) {
   constexpr int kE = 16 / sizeof(T);
-  const int pieces = (hd + kE - 1) / kE;
   const bool vec = hd % kE == 0 &&
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pool) |
        reinterpret_cast<uintptr_t>(v_pool)) % 16 == 0;
-  auto go = [&](auto kl, auto kc) {
+  return with_lanes<T>(hd, [&](auto kl, auto kc) {
     return launch<T, decltype(kl)::value, decltype(kc)::value>(
         static_cast<const T*>(q), static_cast<const T*>(k_pool),
         static_cast<const T*>(v_pool), table, length, static_cast<T*>(out),
         part, B, Kv, G, hd, bs, MB, ns, window, nsplit, eps, scale, vec,
         stream);
-  };
-  using One = std::integral_constant<int, 1>;
-  if (pieces <= 8) return go(std::integral_constant<int, 8>{}, One{});
-  if (pieces <= 16) return go(std::integral_constant<int, 16>{}, One{});
-  if (pieces <= 32) return go(std::integral_constant<int, 32>{}, One{});
-  if constexpr (sizeof(T) == 4) {            // float32, hd up to 256
-    if (pieces <= 64)
-      return go(std::integral_constant<int, 32>{},
-                std::integral_constant<int, 2>{});
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 }  // namespace

@@ -27,14 +27,16 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import F, I, L, P, CudaKernel, raw_stream
+from repro_torch.kernels.build import (F, I, L, P, CudaKernel, raw_stream,
+                                      sm_count)
 
 NEG = -1e30
 
 KERNEL = CudaKernel("paged_decode_attention.cu", "repro_paged_decode_attention",
                     [I] + [P] * 7 + [I] * 10 + [F, P])
 DENSE_KERNEL = CudaKernel("decode_attention.cu", "repro_decode_attention",
-                          [I, P, P, P, P, P, I, I, I, I, I, L, L, L, I, F, P])
+                          [I] + [P] * 6 + [I] * 5 + [L] * 3 + [I] * 3
+                          + [F, P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -59,11 +61,23 @@ def paged_decode_attention_plain(q, k_pool, v_pool, table, length, *,
     return torch.einsum("bkgs,bksd->bkgd", p, vv.float()).to(q.dtype)
 
 
-# the paged kernel's split of the key range (csrc/paged_decode_attention.cu)
+# the decode kernels' split of the key range (csrc/paged_decode_attention.cu,
+# csrc/decode_attention.cu)
 PAGED_ROWS = 4             # query rows of a block: G goes in groups of 4
 PAGED_MIN_ENTRIES = 8      # table entries a split walks at least
 PAGED_MAX_ENTRIES = 4096   # the block's table slice in shared memory
-_SMS = {}
+DENSE_MIN_POSITIONS = 256  # cache positions a dense split walks at least
+
+
+def _splits(blocks: int, ns: int, least: int, most: int, sms: int):
+    """(nsplit, units per split) for ``ns`` walked units (table entries or
+    positions) over ``blocks`` blocks a split: enough splits that the grid
+    covers two blocks per SM, none walking fewer than ``least`` units (or
+    more than ``most``)."""
+    want = -(-2 * sms // blocks)
+    nsplit = max(1, min(want, ns // least), -(-ns // most))
+    eps = -(-ns // nsplit)
+    return -(-ns // eps), eps
 
 
 def paged_walk(MB: int, bs: int, window: int) -> int:
@@ -78,20 +92,19 @@ def paged_splits(B: int, Kv: int, G: int, ns: int, sms: int = 132):
     splits that the grid covers two blocks per SM, none walking fewer than
     ``PAGED_MIN_ENTRIES`` entries (or more than ``PAGED_MAX_ENTRIES``).
     From shapes only — the lengths stay on the device."""
-    blocks = B * Kv * -(-G // PAGED_ROWS)
-    want = -(-2 * sms // blocks)
-    nsplit = max(1, min(want, ns // PAGED_MIN_ENTRIES),
-                 -(-ns // PAGED_MAX_ENTRIES))
-    eps = -(-ns // nsplit)
-    return -(-ns // eps), eps
+    return _splits(B * Kv * -(-G // PAGED_ROWS), ns, PAGED_MIN_ENTRIES,
+                   PAGED_MAX_ENTRIES, sms)
 
 
-def _sm_count(dev) -> int:
-    n = _SMS.get(dev)
-    if n is None:
-        n = _SMS[dev] = torch.cuda.get_device_properties(dev) \
-            .multi_processor_count
-    return n
+def dense_splits(B: int, Kv: int, G: int, S: int, window: int,
+                 sms: int = 132):
+    """(nsplit, positions per split) of the dense kernel over an S-position
+    cache: it walks at most S positions, or ``window`` with a window, and
+    splits them like the paged kernel, none walking fewer than
+    ``DENSE_MIN_POSITIONS``.  From shapes only."""
+    ns = min(S, window) if window else S
+    return _splits(B * Kv * -(-G // PAGED_ROWS), max(ns, 1),
+                   DENSE_MIN_POSITIONS, max(ns, 1), sms)
 
 
 def paged_decode_attention_cuda(q, k_pool, v_pool, table, length, *,
@@ -125,7 +138,7 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, length, *,
             and length.is_contiguous()):
         raise ValueError("paged_decode_attention_cuda needs contiguous inputs")
     ns = paged_walk(MB, bs, window)
-    nsplit, eps = paged_splits(B, Kv, G, ns, _sm_count(dev))
+    nsplit, eps = paged_splits(B, Kv, G, ns, sm_count(dev))
     out = torch.empty_like(q)
     part = torch.empty((B * Kv * G * nsplit * (hd + 2),), dtype=torch.float32,
                        device=dev) if nsplit > 1 else None
@@ -176,18 +189,21 @@ def decode_attention_cuda(q, k, v, length, *, window: int = 0):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, length "
                          f"{tuple(length.shape)}")
-    if hd > 256 or G * hd > 4096:
-        raise ValueError(f"unsupported head shape G={G} hd={hd}")
+    if hd > 256:
+        raise ValueError(f"unsupported head dim {hd} (at most 256)")
     if not (q.is_contiguous() and length.is_contiguous()) \
             or k.stride() != v.stride() or k.stride(3) != 1:
         raise ValueError("decode_attention_cuda needs q and length "
                          "contiguous, and k, v with equal strides and a "
                          "contiguous head dim")
+    nsplit, eps = dense_splits(B, Kv, G, S, window, sm_count(q.device))
     out = torch.empty_like(q)
+    part = torch.empty((B * Kv * G * nsplit * (hd + 2),), dtype=torch.float32,
+                       device=q.device) if nsplit > 1 else None
     sb, sh, ss, _ = k.stride()
     DENSE_KERNEL.launch(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), length.data_ptr(), out.data_ptr(), B,
-                        Kv, G, hd, S, sb, sh, ss, int(window),
-                        1.0 / math.sqrt(hd),
-                        torch.cuda.current_stream(q.device).cuda_stream)
+                        v.data_ptr(), length.data_ptr(), out.data_ptr(),
+                        part if part is None else part.data_ptr(), B, Kv, G,
+                        hd, S, sb, sh, ss, int(window), nsplit, eps,
+                        1.0 / math.sqrt(hd), raw_stream(q))
     return out

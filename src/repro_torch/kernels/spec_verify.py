@@ -21,12 +21,36 @@ kernel's tie-split one-hots.  ``spec_verify_plain`` mirrors the JAX oracle
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.kernels.build import F, I, P, CudaKernel
+from repro_torch.kernels.build import F, I, P, CudaKernel, raw_stream, sm_count
 
 KERNEL = CudaKernel("spec_verify.cu", "repro_spec_verify",
-                    [P, P, P, P, P, P, P, P, I, I, I, F, P])
+                    [P] * 8 + [I] * 5 + [F, P])
+
+# the kernel's split of a row's vocabulary over a thread-block cluster
+# (csrc/spec_verify.cu)
+SPEC_MAX_SPLIT = 8         # portable cluster size
+SPEC_MIN_CHUNK = 2048      # vocabulary entries a block takes at least
+SPEC_STAGE_MAX = 12288     # largest chunk staged in shared memory
+SPEC_MAX_GROUPS = 4096     # the kernel's per-group arrival counters
+
+
+def spec_splits(rows: int, V: int, sms: int = 132):
+    """(nsplit, chunk) of the kernel for ``rows`` = G * (gamma + 1) rows of
+    V logits: a power of two of splits (at most ``SPEC_MAX_SPLIT``) so that
+    rows x splits covers about two blocks per SM, none taking fewer than
+    ``SPEC_MIN_CHUNK`` entries, and at least enough that a chunk fits
+    shared memory where 8 suffice; chunks are multiples of 4 entries.  From
+    shapes only."""
+    want = -(-2 * sms // max(rows, 1))
+    want = 1 << (want - 1).bit_length()
+    nsplit = min(SPEC_MAX_SPLIT, max(1, min(want, V // SPEC_MIN_CHUNK),
+                                     -(-V // SPEC_STAGE_MAX)))
+    chunk = -(-V // nsplit)
+    return nsplit, -(-chunk // 4) * 4
 
 
 def _probs(logits, temperature: float):
@@ -35,14 +59,6 @@ def _probs(logits, temperature: float):
         p = (logits >= logits.amax(-1, keepdim=True)).float()
         return p / p.sum(-1, keepdim=True)
     return torch.softmax(logits / temperature, dim=-1)
-
-
-def _finish(accept, resid_tok, argmax_tok, gamma: int, temperature: float):
-    """Per-row flags/tokens (G, gamma+1) -> (n_acc, next_token)."""
-    n_acc = torch.cumprod(accept[:, :gamma].int(), dim=1).sum(1)
-    pick = argmax_tok if temperature == 0.0 else resid_tok
-    nxt = pick.gather(1, n_acc.long()[:, None])[:, 0]
-    return n_acc.int(), nxt.int()
 
 
 def spec_verify_plain(target_logits, draft_logits, draft_tokens, u_acc, u_res,
@@ -67,7 +83,10 @@ def spec_verify_plain(target_logits, draft_logits, draft_tokens, u_acc, u_res,
     resid = torch.where(tot > 0, resid / torch.clamp(tot, min=1e-20), p)
     cdf = torch.cumsum(resid, dim=-1)
     sel = (cdf < u_res[..., None]).sum(-1).clamp(max=V - 1)
-    return _finish(accept, sel, tl.argmax(-1), gamma, temperature)
+    n_acc = torch.cumprod(accept[:, :gamma].int(), dim=1).sum(1)
+    pick = tl.argmax(-1) if temperature == 0.0 else sel
+    nxt = pick.gather(1, n_acc.long()[:, None])[:, 0]
+    return n_acc.int(), nxt.int()
 
 
 def spec_verify_cuda(target_logits, draft_logits, draft_tokens, u_acc, u_res,
@@ -94,13 +113,19 @@ def spec_verify_cuda(target_logits, draft_logits, draft_tokens, u_acc, u_res,
                          f"{tuple(u_acc.shape)}/{tuple(u_res.shape)}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("spec_verify_cuda needs contiguous inputs")
-    accept = torch.empty((G, R), dtype=torch.int32,
-                         device=target_logits.device)
-    resid_tok = torch.empty_like(accept)
-    argmax_tok = torch.empty_like(accept)
+    if G > SPEC_MAX_GROUPS or G * R > 65535 \
+            or not 0 <= temperature < math.inf:
+        raise ValueError(f"unsupported: G {G} (at most {SPEC_MAX_GROUPS}, "
+                         f"G * (gamma + 1) at most 65535), temperature "
+                         f"{temperature}")
+    nsplit, chunk = spec_splits(G * R, V,
+                                sm_count(target_logits.get_device()))
+    out = torch.empty((G * (R + 2),), dtype=torch.int32,
+                      device=target_logits.device)
+    n_acc, next_token = out[:G], out[G:2 * G]
     KERNEL.launch(target_logits.data_ptr(), draft_logits.data_ptr(),
                   draft_tokens.data_ptr(), u_acc.data_ptr(), u_res.data_ptr(),
-                  accept.data_ptr(), resid_tok.data_ptr(),
-                  argmax_tok.data_ptr(), G, gamma, V, float(temperature),
-                  torch.cuda.current_stream(target_logits.device).cuda_stream)
-    return _finish(accept, resid_tok, argmax_tok, gamma, temperature)
+                  out[2 * G:].data_ptr(), n_acc.data_ptr(),
+                  next_token.data_ptr(), G, gamma, V, nsplit, chunk,
+                  float(temperature), raw_stream(target_logits))
+    return n_acc, next_token

@@ -20,13 +20,13 @@ softmaxes in a second pass of the same call.
 """
 from __future__ import annotations
 
-import functools
 import math
 import struct
 
 import torch
 
-from repro_torch.kernels.build import F, P, PACKED, CudaKernel, raw_stream
+from repro_torch.kernels.build import (F, P, PACKED, CudaKernel, raw_stream,
+                                      sm_count)
 
 NEG = -1e30
 ROWS = 64           # query rows (G * N, packed) per block
@@ -48,11 +48,6 @@ def split_plan(blocks: int, key_tiles: int, n_sm: int) -> int:
     if 2 * blocks > n_sm:
         return 1
     return max(1, min(n_sm // blocks, key_tiles // MIN_SPLIT_TILES))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tree_verify_attention_plain(q, k, v, length, tree_mask, q_pos, *,
@@ -117,7 +112,7 @@ def tree_verify_attention_cuda(q, k, v, length, tree_mask, q_pos, *,
                          "length, mask and q_pos")
     out = torch.empty_like(q)
     splits = split_plan(B * Kv * -(-G * N // ROWS), -(-S // KEYS),
-                        _sm_count(q.get_device()))
+                        sm_count(q.get_device()))
     part = torch.empty(splits * B * Kv * G * N * (hd + 2),
                        dtype=torch.float32, device=q.device) \
         if splits > 1 else None

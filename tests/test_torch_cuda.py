@@ -11,7 +11,8 @@ differ in summation order; bfloat16 outputs round once); the SSD scan
 atol = rtol = 1e-4 in float32 (the JAX kernel sweep's: chunked sums of up
 to 256 products) and 2e-2 from bfloat16 inputs.  ``spec_verify``
 is exact at T = 0; at T = 1 with shared uniforms it is exact on every
-group without a near-tie (a uniform within 1e-6 of a cdf entry).
+group without a near-tie (a uniform within 1e-6 of a cdf entry or an
+accept ratio, recomputed in float64).
 """
 import numpy as np
 import pytest
@@ -269,6 +270,62 @@ def test_decode_attention_kernel(cuda, B, Kv, G, S, hd, dtype, window):
     assert _err(out, ref) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("S", [80, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 11, 64])
+def test_decode_attention_kernel_masks_by_selection(cuda, S, dtype, window):
+    """Every cache position outside a slot's visible range (at or past its
+    length, before the window) is NaN in the kernel's cache; the plain
+    version, which weights masked keys by zero, runs on the same cache with
+    those positions zeroed.  Equal outputs show the kernel never multiplies
+    a masked key by zero."""
+    B, Kv, G, hd = 6, 2, 3, 64
+    lengths = [1, 15, 16, 17, 40, S]
+    length = torch.as_tensor(lengths, dtype=torch.int32, device=cuda)
+    pos = torch.arange(S, device=cuda)[None, :]
+    ln = length.long()[:, None]
+    masked = pos >= ln
+    if window:
+        masked |= pos < ln - window
+    m = masked[:, None, :, None]             # broadcast over kv heads, hd
+    q = _rand(0, (B, Kv, G, hd), cuda, dtype)
+    k = _cache_view(1, B, Kv, S, hd, cuda, dtype)
+    v = _cache_view(2, B, Kv, S, hd, cuda, dtype)
+    kz, vz = (torch.where(m, 0.0, x.float()).to(dtype) for x in (k, v))
+    kn, vn = (torch.where(m, float("nan"), x.float()).to(dtype)
+              .permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+              for x in (k, v))
+    out = decode_attention_cuda(q, kn, vn, length, window=window)
+    ref = decode_attention_plain(q, kz, vz, length, window=window)
+    assert bool(torch.isfinite(out).all())
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("Kv,G,hd", [(3, 3, 64), (32, 1, 80), (2, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 11, 600])
+def test_decode_attention_kernel_split(cuda, Kv, G, hd, dtype, window):
+    """A 4096-position cache, which the kernel splits (the split count
+    from shapes alone): lengths on and beside the split boundaries, length
+    1 (every split but the first sees no key) and lengths above S."""
+    from repro_torch.kernels.decode_attention import dense_splits
+    S = 4096
+    nsplit, eps = dense_splits(8, Kv, G, S, window,
+                               torch.cuda.get_device_properties(cuda)
+                               .multi_processor_count)
+    assert window == 11 or nsplit > 1
+    edges = {1, eps - 1, eps, eps + 1, 2 * eps + 3, S - 1, S, S + 2}
+    lengths = sorted(x for x in edges if x >= 1)
+    B = len(lengths)
+    q = _rand(0, (B, Kv, G, hd), cuda, dtype)
+    k = _cache_view(1, B, Kv, S, hd, cuda, dtype)
+    v = _cache_view(2, B, Kv, S, hd, cuda, dtype)
+    length = torch.as_tensor(lengths, dtype=torch.int32, device=cuda)
+    out = decode_attention_cuda(q, k, v, length, window=window)
+    ref = decode_attention_plain(q, k, v, length, window=window)
+    assert _err(out, ref) <= TOL[dtype]
+
+
 def _plan():
     from repro_torch.core.tree_speculation import TreePlan, branching_for
     return TreePlan(branching_for(2, 4))
@@ -372,9 +429,14 @@ def test_tree_verify_attention_kernel_spans(cuda, span, S, dtype, window):
 
 
 @pytest.mark.parametrize("G,gamma,V", [(1, 1, 64), (3, 4, 1000),
-                                       (8, 4, 49152)])
+                                       (8, 4, 49152), (8, 4, 32000),
+                                       (3, 4, 49157), (2, 8, 4099),
+                                       (2, 2, 257216)])
 @pytest.mark.parametrize("temperature", [0.0, 1.0])
 def test_spec_verify_kernel(cuda, G, gamma, V, temperature):
+    """The serving shapes (V 49152, and 32000 on the hybrid path), ragged
+    vocabularies (rows not 16-byte aligned, a last chunk shorter than the
+    rest), gamma 8, and a vocabulary too large to stage in shared memory."""
     tl = _rand(0, (G, gamma + 1, V), cuda, scale=2.0)
     dl = tl[:, :gamma] + _rand(1, (G, gamma, V), cuda)
     rng = np.random.default_rng(2)
@@ -390,7 +452,132 @@ def test_spec_verify_kernel(cuda, G, gamma, V, temperature):
     if temperature == 0.0:
         assert torch.equal(n_k, n_p) and torch.equal(t_k, t_p)
     else:
-        assert int(((n_k != n_p) | (t_k != t_p)).sum()) <= max(1, G // 4)
+        bad = (n_k != n_p) | (t_k != t_p)
+        assert not bool((bad & ~_near_tie_groups(*args, temperature)).any())
+
+
+def _near_tie_groups(tl, dl, toks, u_acc, u_res, temperature, tol=1e-6):
+    """Per group: True where, recomputed in float64, a uniform lies within
+    ``tol`` of an accept ratio or of a residual cdf entry — where float32
+    rounding may legitimately decide either way."""
+    G, gamma, V = dl.shape
+    f = torch.float64
+    ql = torch.cat([dl.to(f), torch.zeros((G, 1, V), dtype=f,
+                                          device=dl.device)], 1)
+    p = torch.softmax(tl.to(f) / temperature, -1)
+    q = torch.softmax(ql / temperature, -1)
+    tk = torch.cat([toks.long(), torch.zeros((G, 1), dtype=torch.long,
+                                             device=dl.device)], 1)[..., None]
+    ratio = (p.gather(2, tk) / q.gather(2, tk).clamp(min=1e-20))[..., 0] \
+        .clamp(max=1.0)
+    bonus = (torch.arange(gamma + 1, device=dl.device) == gamma)[None, :,
+                                                                  None]
+    r = (p - torch.where(bonus, 0.0, 1.0) * q).clamp(min=0.0)
+    tot = r.sum(-1, keepdim=True)
+    cdf = torch.where(tot > 0, r / tot.clamp(min=1e-300), p).cumsum(-1)
+    near = ((cdf - u_res.to(f)[..., None]).abs() < tol).any(-1) \
+        | ((ratio - u_acc.to(f)).abs() < tol)
+    return near.any(-1)
+
+
+def _greedy_prefix_case(gamma, V, dev, seed=0):
+    """gamma + 1 groups of greedy drafts: group g's first g draft tokens
+    are the target's argmax (its draft logits peaked there), the rest the
+    draft's own argmax, which the target does not share; so at T = 0 group
+    g accepts exactly g tokens."""
+    G = gamma + 1
+    tl = _rand(seed, (G, gamma + 1, V), dev, scale=3.0)
+    dl = _rand(seed + 1, (G, gamma, V), dev, scale=3.0)
+    toks = dl.argmax(-1).to(torch.int32)
+    t_max = tl[:, :gamma].argmax(-1).to(torch.int32)
+    toks = torch.where(toks == t_max, (toks + 1) % V, toks)
+    for g in range(G):
+        toks[g, :g] = t_max[g, :g]
+        dl[g, torch.arange(gamma), toks[g].long()] = 100.0
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.random((2, G, gamma + 1)), dtype=torch.float32,
+                        device=dev)
+    return tl, dl.contiguous(), toks, u[0].contiguous(), u[1].contiguous()
+
+
+@pytest.mark.parametrize("gamma,V", [(4, 49152), (8, 32000), (3, 4099)])
+def test_spec_verify_kernel_every_prefix(cuda, gamma, V):
+    """Every n_acc from 0 to gamma occurs, at T = 0 exactly as the plain
+    version, the next token the target argmax of row n_acc."""
+    args = _greedy_prefix_case(gamma, V, cuda)
+    n_k, t_k = spec_verify_cuda(*args, temperature=0.0)
+    n_p, t_p = spec_verify_plain(*args, temperature=0.0)
+    assert n_k.tolist() == list(range(gamma + 1))
+    assert torch.equal(n_k, n_p) and torch.equal(t_k, t_p)
+    rows = args[0][torch.arange(gamma + 1), n_k.long()]
+    assert torch.equal(t_k.long(), rows.argmax(-1))
+
+
+@pytest.mark.parametrize("V", [49152, 32000, 4099])
+def test_spec_verify_kernel_ties_across_chunks(cuda, V):
+    """Exact ties at T = 0 on both sides of the kernel's chunk boundaries:
+    the tie counts (which set p[tok] and q[tok]) and the first argmax must
+    combine across the blocks of a row's cluster."""
+    from repro_torch.kernels.spec_verify import spec_splits
+    G, gamma = 8, 4
+    R = gamma + 1
+    nsplit, chunk = spec_splits(G * R, V, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert nsplit > 1
+    tl = _rand(0, (G, R, V), cuda)
+    dl = _rand(1, (G, gamma, V), cuda)
+    edges = [c * chunk + d for c in range(1, nsplit) for d in (-1, 0)]
+    edges = [e for e in edges if 0 <= e < V]
+    for g in range(G):
+        # group g ties at a rotating pair of boundary entries (and, for odd
+        # groups, one more in the last chunk)
+        tie = [edges[(g + j) % len(edges)] for j in range(2)]
+        if g % 2:
+            tie.append(V - 1)
+        tl[g, :, tie] = 10.0
+        dl[g, :, tie[: 1 + g % 3]] = 10.0
+    toks = torch.full((G, gamma), -1, dtype=torch.int32, device=cuda)
+    for g in range(G):
+        toks[g] = edges[g % len(edges)]          # sometimes a tied entry
+    u = torch.as_tensor(np.random.default_rng(0).random((2, G, R)),
+                        dtype=torch.float32, device=cuda)
+    args = (tl, dl, toks, u[0].contiguous(), u[1].contiguous())
+    n_k, t_k = spec_verify_cuda(*args, temperature=0.0)
+    n_p, t_p = spec_verify_plain(*args, temperature=0.0)
+    assert torch.equal(n_k, n_p) and torch.equal(t_k, t_p)
+
+
+def test_spec_verify_kernel_graph_replays(cuda):
+    """Three calls captured in one CUDA graph, replayed three times on new
+    inputs each: every replay equals the plain version (the per-group
+    arrival counters are back at 0 after every launch), and an eager call
+    afterwards too."""
+    gamma, V = 4, 49152
+    static = [tuple(t.clone() for t in _greedy_prefix_case(gamma, V, cuda,
+                                                           seed=s))
+              for s in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in static:
+            spec_verify_cuda(*a, temperature=0.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [spec_verify_cuda(*a, temperature=0.0) for a in static]
+    for rep in range(3):
+        for j, a in enumerate(static):
+            new = _greedy_prefix_case(gamma, V, cuda, seed=10 * rep + j)
+            for dst, src in zip(a, new):
+                dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, (n_k, t_k) in zip(static, outs):
+            n_p, t_p = spec_verify_plain(*a, temperature=0.0)
+            assert torch.equal(n_k, n_p) and torch.equal(t_k, t_p)
+    n_k, t_k = spec_verify_cuda(*static[0], temperature=0.0)
+    n_p, t_p = spec_verify_plain(*static[0], temperature=0.0)
+    assert torch.equal(n_k, n_p) and torch.equal(t_k, t_p)
 
 
 def test_dispatch_counts_launches(cuda):

@@ -25,12 +25,13 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_cuda, decode_attention_plain, paged_decode_attention_cuda,
-    paged_decode_attention_plain, paged_splits, paged_walk)
+    decode_attention_cuda, decode_attention_plain, dense_splits,
+    paged_decode_attention_cuda, paged_decode_attention_plain, paged_splits,
+    paged_walk)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.spec_verify import (  # noqa: E402
-    spec_verify_cuda, spec_verify_plain)
+    spec_splits, spec_verify_cuda, spec_verify_plain)
 from repro_torch.kernels.tree_attention import (  # noqa: E402
     KEYS, split_plan, tree_verify_attention_cuda, tree_verify_attention_plain)
 
@@ -271,6 +272,83 @@ def test_decode_attention_plain_window(window):
     out = tops.decode_attention(tq, tk, tv, _t(length), window=window)
     _close(out, jops.decode_attention(jq, jk, jv, jnp.asarray(length),
                                       window=window, bs=128), "float32")
+
+
+def test_dense_split_plan():
+    """The dense kernel's key split, from shapes only: one split at both
+    serving shapes (8 slots over an 80-position cache, smollm-135m heads
+    and zamba2's Kv 32, G 1) and with a short window; over a 4096-position
+    cache 11 splits of 373 positions for the smollm heads (264 blocks on
+    132 SMs) and 2 for zamba2's 256 blocks; none walks fewer than 256
+    positions."""
+    assert dense_splits(8, 3, 3, 80, 0, 132) == (1, 80)
+    assert dense_splits(8, 32, 1, 80, 0, 132) == (1, 80)
+    assert dense_splits(8, 3, 3, 4096, 0, 132) == (11, 373)
+    assert dense_splits(8, 32, 1, 4096, 0, 132) == (2, 2048)
+    assert dense_splits(8, 3, 3, 4096, 64, 132) == (1, 64)
+    assert dense_splits(8, 3, 3, 4096, 600, 132) == (2, 300)
+    assert dense_splits(64, 8, 4, 4096, 0, 132) == (1, 4096)
+    for B, Kv, G, S, w in ((1, 1, 9, 1000, 0), (2, 3, 4, 5000, 300),
+                           (5, 2, 1, 17, 0), (1, 1, 1, 0, 0)):
+        nsplit, eps = dense_splits(B, Kv, G, S, w, 132)
+        ns = max(min(S, w) if w else S, 1)
+        assert (nsplit - 1) * eps < ns <= nsplit * eps
+        assert nsplit == 1 or eps >= 256
+
+
+def _dense_split_model(q, k, v, length, window, nsplit, eps):
+    """A plain model of the dense kernel's split: each sequence's visible
+    range [lo, hi) (lo = max(length - window, 0), or 0 without a window;
+    hi = min(length, S)) is cut at lo + s * eps; each run makes an
+    unnormalised partial (output, max, sum) — an empty run has max -1e30
+    and sum 0 — and the partials merge rescaled to the largest max."""
+    B, Kv, G, hd = q.shape
+    S = k.shape[2]
+    out = torch.zeros((B, Kv, G, hd))
+    for b in range(B):
+        n = int(length[b])
+        lo, hi = (max(n - window, 0) if window else 0), min(n, S)
+        parts = []
+        for sp in range(nsplit):
+            a, e = min(lo + sp * eps, hi), min(lo + (sp + 1) * eps, hi)
+            if a >= e:
+                parts.append((torch.zeros((Kv, G, hd)),
+                              torch.full((Kv, G, 1), -1e30),
+                              torch.zeros((Kv, G, 1))))
+                continue
+            kk, vv = k[b, :, a:e].float(), v[b, :, a:e].float()
+            s = torch.einsum("kgd,knd->kgn", q[b].float(), kk) / hd ** 0.5
+            m = s.amax(-1, keepdim=True)
+            ex = torch.exp(s - m)
+            parts.append((torch.einsum("kgn,knd->kgd", ex, vv), m,
+                          ex.sum(-1, keepdim=True)))
+        M = torch.stack([m for _, m, _ in parts]).amax(0)
+        den = sum(l * torch.exp(m - M) for _, m, l in parts)
+        out[b] = sum(o * torch.exp(m - M) for o, m, _ in parts) \
+            / den.clamp(min=1e-20)
+    return out
+
+
+@pytest.mark.parametrize("nsplit,eps", [(1, 128), (3, 43), (9, 15),
+                                        (128, 1)])
+@pytest.mark.parametrize("window", [0, 11, 40])
+def test_dense_split_combine_model(nsplit, eps, window):
+    """Cutting the visible range into runs and merging the partial
+    softmaxes gives the unsplit answer, empty runs (length 1, windows)
+    included: the plain version and the JAX kernel (interpret mode), over
+    a 128-position cache read through the serving layout's strides."""
+    B, Kv, G, S, hd = 4, 2, 3, 128, 32
+    if window:
+        nsplit = -(-min(S, window) // eps)
+    jq, tq = _both(_np(0, (B, Kv, G, hd)), "float32")
+    jk, tk = _dense_kv(1, B, Kv, S, hd, "float32")
+    jv, tv = _dense_kv(2, B, Kv, S, hd, "float32")
+    length = np.array([1, 8, 47, S], np.int32)
+    out = _dense_split_model(tq, tk, tv, _t(length), window, nsplit, eps)
+    _close(out, decode_attention_plain(tq, tk, tv, _t(length),
+                                       window=window).numpy(), "float32")
+    _close(out, jops.decode_attention(jq, jk, jv, jnp.asarray(length),
+                                      window=window, bs=64), "float32")
 
 
 # ------------------------------------------------------------ tree verify
@@ -539,6 +617,151 @@ def test_spec_verify_plain_batched_vs_pallas(temperature):
         if (int(n_t[g]), int(t_t[g])) != (int(n_j[g]), int(t_j[g])):
             assert temperature > 0 and _near_tie(
                 tl[g], dl[g], toks[g], u_acc[g], u_res[g], temperature)
+
+
+def test_spec_split_plan():
+    """The spec-verify kernel's vocabulary split, from shapes only: 8 chunks
+    of 6144 at the serving shape (40 rows: 320 blocks on 132 SMs) and of
+    4000 at V 32000; one for a small vocabulary; enough that a chunk fits
+    shared memory when the rows alone fill the card; chunks are multiples
+    of 4 and cover V."""
+    assert spec_splits(40, 49152, 132) == (8, 6144)
+    assert spec_splits(40, 32000, 132) == (8, 4000)
+    assert spec_splits(40, 1000, 132) == (1, 1000)
+    assert spec_splits(320, 49152, 132) == (4, 12288)
+    assert spec_splits(6, 257216, 132) == (8, 32152)
+    assert spec_splits(18, 4099, 132) == (2, 2052)
+    for rows, V in ((1, 64), (2, 5), (40, 49157), (900, 151936),
+                    (40, 4097)):
+        nsplit, chunk = spec_splits(rows, V, 132)
+        assert 1 <= nsplit <= 8 and chunk % 4 == 0
+        assert (nsplit - 1) * chunk < V <= nsplit * chunk
+
+
+def _spec_split_model(tl, dl, toks, u_acc, u_res, temperature, nsplit):
+    """A plain model of the spec-verify kernel's split of one group: each
+    row's vocabulary is cut into ``nsplit`` chunks of a multiple of 4
+    entries; each chunk reduces to (max, first argmax, tie count at T = 0 or
+    sum of exp(x / T - max / T)) and the partials merge in chunk order; at
+    T > 0 each chunk's residual (or p) mass gives its offset, and the
+    chunks' counts of cdf entries below u_res (cdf unnormalised against
+    u_res times the total) sum to the sample."""
+    gamma, V = dl.shape
+    T = temperature
+    chunk = -(-(-(-V // nsplit)) // 4) * 4
+    bounds = [(min(c * chunk, V), min(c * chunk + chunk, V))
+              for c in range(nsplit)]
+
+    def merge(a, b):
+        M = max(a[0], b[0])
+        i = a[1] if a[0] > b[0] else b[1] if b[0] > a[0] else min(a[1], b[1])
+        if T == 0:
+            z = (a[2] if a[0] == M else 0.0) + (b[2] if b[0] == M else 0.0)
+        else:
+            z = sum(x[2] * torch.exp(x[0] / T - M / T) if x[2] > 0 else 0.0
+                    for x in (a, b))
+        return M, i, z
+
+    def reduce(x):
+        total = (torch.tensor(-np.inf), 2 ** 31 - 1, 0.0)
+        for c0, c1 in bounds:
+            seg = x[c0:c1]
+            if len(seg) == 0:
+                continue
+            m = seg.max()
+            z = (seg >= m).float().sum() if T == 0 \
+                else torch.exp(seg / T - m / T).sum()
+            total = merge(total, (m, c0 + int(seg.argmax()), z))
+        return total
+
+    flags, picks = [], []
+    for i in range(gamma + 1):
+        bonus = i == gamma
+        x = torch.from_numpy(tl[i])
+        y = torch.zeros(V) if bonus else torch.from_numpy(dl[i])
+        (pm, pi, pz), (qm, _, qz) = reduce(x), reduce(y)
+        tok = 0 if bonus else int(toks[i])
+        if T == 0:
+            p_tok = 1.0 / pz if x[tok] >= pm else 0.0
+            q_tok = 1.0 / qz if y[tok] >= qm else 0.0
+            picks.append(pi)
+        else:
+            p = torch.exp(x / T - pm / T) / pz
+            q = torch.zeros(V) if bonus else torch.exp(y / T - qm / T) / qz
+            p_tok, q_tok = float(p[tok]), float(q[tok])
+            r = torch.clamp(p - q, min=0.0)
+            tot = sum(float(r[c0:c1].sum()) for c0, c1 in bounds)
+            w = p if not tot > 0 else r
+            thr = float(u_res[i]) * (1.0 if not tot > 0 else tot)
+            off, below = 0.0, 0
+            for c0, c1 in bounds:
+                below += int(((off + torch.cumsum(w[c0:c1], 0)) < thr).sum())
+                off += float(w[c0:c1].sum())
+            picks.append(min(below, V - 1))
+        ratio = float(p_tok) / max(float(q_tok), 1e-20)
+        flags.append(not bonus and float(u_acc[i]) < min(ratio, 1.0))
+    n = 0
+    while n < gamma and flags[n]:
+        n += 1
+    return n, picks[n]
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+@pytest.mark.parametrize("gamma,V", [(4, 1000), (2, 4099)])
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_spec_split_model_vs_pallas(nsplit, gamma, V, temperature):
+    """The split model equals the plain version and the Pallas kernel
+    (interpret mode) on the JAX uniforms: exactly at T = 0, and at T = 1 on
+    every group without a near-tie (counted; at most one in four may
+    differ).  V 4099 is divided by neither 3 nor 8 chunks."""
+    near = 0
+    for seed in range(4):
+        tl, dl, toks = _spec_case(gamma, V, 10 * seed)
+        rng = jax.random.PRNGKey(seed)
+        u_acc, u_res = _jax_uniforms(rng, gamma)
+        got = _spec_split_model(tl, dl, toks, u_acc, u_res, temperature,
+                                nsplit)
+        n, t = jops.spec_verify(rng, jnp.asarray(tl), jnp.asarray(dl),
+                                jnp.asarray(toks), temperature=temperature)
+        for want in (_port(tl, dl, toks, u_acc, u_res, temperature),
+                     (int(n), int(t))):
+            if got != want:
+                tie = _near_tie(tl, dl, toks, u_acc, u_res, temperature)
+                assert temperature > 0 and tie, (seed, got, want)
+                near += 1
+    assert near <= 2, f"{near} near-tie disagreements of 8 comparisons"
+
+
+@pytest.mark.parametrize("nsplit", [3, 8])
+def test_spec_split_model_ties_across_chunks(nsplit):
+    """Exact ties at T = 0 on both sides of every chunk boundary: the tie
+    counts (which set p[tok] and q[tok], so the accept test) and the first
+    argmax combine across chunks, as in the plain version; n_acc as in the
+    Pallas kernel (interpret mode), whose next token is an inverse-CDF draw
+    among the tied maxima where the port's contract takes the first)."""
+    gamma, V = 4, 1000
+    chunk = -(-(-(-V // nsplit)) // 4) * 4
+    edges = [c * chunk + d for c in range(1, nsplit) for d in (-1, 0)
+             if c * chunk < V]
+    for seed in range(4):
+        tl, dl, toks = _spec_case(gamma, V, seed)
+        for i in range(gamma + 1):
+            tie = [edges[(seed + i + j) % len(edges)] for j in range(2)]
+            tl[i, tie] = 20.0
+            if i < gamma:
+                dl[i, tie[: 1 + (seed + i) % 2]] = 20.0
+                toks[i] = tie[(seed + i) % 2]
+        u = np.full((gamma + 1,), 0.75, np.float32)   # between 1/2 and 1
+        rng = jax.random.PRNGKey(seed)
+        u_acc, u_res = _jax_uniforms(rng, gamma)
+        got = _spec_split_model(tl, dl, toks, u, u, 0.0, nsplit)
+        assert got == _port(tl, dl, toks, u, u, 0.0)
+        assert got[1] == min(t for t in range(V) if tl[got[0], t] == 20.0)
+        got = _spec_split_model(tl, dl, toks, u_acc, u_res, 0.0, nsplit)
+        assert got == _port(tl, dl, toks, u_acc, u_res, 0.0)
+        n, _ = jops.spec_verify(rng, jnp.asarray(tl), jnp.asarray(dl),
+                                jnp.asarray(toks), temperature=0.0)
+        assert got[0] == int(n)
 
 
 # ------------------------------------------------------------ no fallback
