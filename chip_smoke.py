@@ -26,27 +26,38 @@ the first phase that fails:
    xLSTM scans; spec verify timed at T = 0 and T = 1 and at zamba2's
    32000-entry vocabulary; the SSD scan also at each recurrent edge's
    prompt prefill, a front-padded three-chunk prompt and with carried
-   random states;
-3. serve six paths at full width — granite-8b cloud, bfloat16, seeded
+   random states; the per-request phase's shapes too: dense decode at
+   batch 1 (smollm-135m and granite-8b heads) and tree verify at batch 1
+   with the 16-node (3, 2, 1) token tree, and paged decode at
+   granite-moe-1b-a400m's heads (Kv 8, G 2), each held and timed;
+3. serve seven paths at full width — granite-8b cloud, bfloat16, seeded
    random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
    SpeculativePolicy(0.6), T = 0: with the smollm-135m edge the default
    path (paged KV, linear lane), the tree lane (tree width 2, dense KV)
-   and the self lane (paged serving, exit layer 15); with the recurrent
-   edges mamba2-370m, xlstm-125m and zamba2-2.7b the linear lane (KV
-   layout auto, resolved to dense) — and check every request, the logits'
-   finiteness and that each kernel the path runs was launched during that
-   path's run (counts reset just before it, read just after); then time
-   the pieces of the smollm rounds and profile the linear and tree drains,
-   and time one round of each recurrent path;
+   and the self lane (paged serving, exit layer 15); with the
+   granite-moe-1b-a400m edge (32 experts, top 8) and the recurrent edges
+   mamba2-370m, xlstm-125m and zamba2-2.7b the linear lane (KV layout
+   auto: paged for moe, dense for the recurrent edges) — and check every
+   request, the logits' finiteness and that each kernel the path runs was
+   launched during that path's run (counts reset just before it, read just
+   after); then time the pieces of the smollm rounds and profile the
+   linear and tree drains, and time one round of the moe and each
+   recurrent path; after the smollm paths, the per-request phase with the
+   same models: ``CollaborativeEngine.serve_reference`` (threshold -1)
+   with each escalation and ``serve`` on two prompts, ``TreeSpecDecoder``
+   (3, 2, 1) and ``SelfSpecDecoder`` (exit layer 15) on one, 8 new tokens
+   each, its traces checked and its kernels' launches counted the same
+   way;
 4. serve each path again at float32, full width, cut depth (2 layers per
    model; xLSTM 4, zamba2 6 — one whole shared-attention group), plus the
-   mamba2 path with chunked prefill, once on the kernels
+   moe edge on the tree lane, the mamba2 path with chunked prefill and
+   the per-request phase (self exit layer 1), once on the kernels
    (``attn_backend="auto"``) and once on the plain versions (``"plain"``);
    the traces must agree, a divergence being excused (and reported) only
    where the plain model's top-2 logit gap is below 1e-4;
 5. print the card's name and power limit, a ``{"kernels": [...]}`` line
-   (launches summed over the six served paths) and last the result line
-   ``{"ok": true, "device": {...}}``.
+   (launches summed over the seven served paths and the per-request
+   phase) and last the result line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -188,13 +199,14 @@ def phase_build():
 
 
 # --------------------------------------------------------------- phase 2
-def _paged_inputs(dtype, gen, hd=64, MB=3, lengths=(15, 46)):
+def _paged_inputs(dtype, gen, hd=64, MB=3, lengths=(15, 46), Kv=3, G=3):
     """Serving-path shapes of the paged decode: 8 slots, smollm-135m heads
     (Kv 3, G 3, hd 64), 32-token blocks, 3-block tables (slot_len 80),
     lengths 15-45; ``hd`` 80 checks a head dim that is not a multiple of
-    32; ``MB`` and ``lengths`` make the long case."""
+    32; ``MB`` and ``lengths`` make the long case; ``Kv`` and ``G`` other
+    heads (granite-moe-1b-a400m: Kv 8, G 2)."""
     import torch
-    B, Kv, G, bs = 8, 3, 3, 32
+    B, bs = 8, 32
     NB = B * MB + 1
     dev = "cuda"
     q = torch.randn((B, Kv, G, hd), generator=gen, device=dev).to(dtype)
@@ -210,9 +222,11 @@ def _paged_inputs(dtype, gen, hd=64, MB=3, lengths=(15, 46)):
 # the long paged case: the serving heads over 128-block tables (4096
 # positions), lengths 3968-4096 — the kernel splits the key range
 PAGED_LONG = (128, (3968, 4097))
+# the moe path's edge ticks: granite-moe-1b-a400m heads (Kv 8, G 2, hd 64)
+PAGED_MOE = dict(MB=3, lengths=(15, 46), Kv=8, G=2)
 
 
-def paged_timing(K, gen, MB=3, lengths=(15, 46)):
+def paged_timing(K, gen, MB=3, lengths=(15, 46), Kv=3, G=3):
     """Kernel, plain and yardstick times of the bf16 paged decode (no
     window), per call and on the device, with the bound.  The yardstick is
     SDPA on the cache gathered through the table beforehand (contiguous,
@@ -221,7 +235,7 @@ def paged_timing(K, gen, MB=3, lengths=(15, 46)):
     import torch
     import torch.nn.functional as F
     q, kp, vp, table, length = _paged_inputs(torch.bfloat16, gen, 64, MB,
-                                             lengths)
+                                             lengths, Kv, G)
     B, Kv, G, hd = q.shape
     bs = kp.shape[1]
     kk = kp[table.long()].reshape(B, MB * bs, Kv, hd).permute(0, 2, 1, 3)
@@ -252,15 +266,18 @@ def paged_timing(K, gen, MB=3, lengths=(15, 46)):
 
 def check_paged(gen):
     """Paged decode against its plain version at the serving shape (head
-    dims 64 and 80) and the long one, float32 and bfloat16, windows 0 and
-    24; then timed at both in bfloat16."""
+    dims 64 and 80), the moe path's heads and the long shape, float32 and
+    bfloat16, windows 0 and 24; then timed at the serving, long and moe
+    shapes in bfloat16."""
     import torch
     from repro_torch.kernels import decode_attention as K
     rows = []
-    cases = [(hd, 3, (15, 46)) for hd in (64, 80)] + [(64, *PAGED_LONG)]
-    for (dtype, tol), (hd, MB, lengths) in itertools.product(
+    cases = [(hd, 3, (15, 46), 3, 3) for hd in (64, 80)] + \
+        [(64, *PAGED_LONG, 3, 3), (64, *PAGED_MOE.values())]
+    for (dtype, tol), (hd, MB, lengths, Kv, G) in itertools.product(
             ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)), cases):
-        q, kp, vp, table, length = _paged_inputs(dtype, gen, hd, MB, lengths)
+        q, kp, vp, table, length = _paged_inputs(dtype, gen, hd, MB, lengths,
+                                                 Kv, G)
         for window in (0, 24):
             out = K.paged_decode_attention_cuda(q, kp, vp, table, length,
                                                 window=window)
@@ -269,7 +286,8 @@ def check_paged(gen):
             torch.cuda.synchronize()
             err = max_err(out, ref)
             print(f"[kernel] paged_decode_attention {str(dtype)[6:]} hd={hd} "
-                  f"MB={MB} window={window}: max_abs_err={err:.3e} "
+                  f"Kv={Kv} G={G} MB={MB} window={window}: "
+                  f"max_abs_err={err:.3e} "
                   f"(tol {tol:g})", flush=True)
             check(err <= tol, f"paged_decode_attention {dtype} hd {hd} MB "
                               f"{MB} window {window}: error {err} > {tol}")
@@ -282,6 +300,8 @@ def check_paged(gen):
     row["long"] = {"shape": "(B,Kv,G,hd,bs,MB)=(8, 3, 3, 64, 32, "
                             f"{PAGED_LONG[0]})",
                    **paged_timing(K, gen, *PAGED_LONG)}
+    row["moe"] = {"shape": "(B,Kv,G,hd,bs,MB)=(8, 8, 2, 64, 32, 3)",
+                  **paged_timing(K, gen, **PAGED_MOE)}
     return row
 
 
@@ -513,17 +533,18 @@ def check_decode(gen):
     """Dense decode at the edge ticks of the tree path (8 slots, smollm-135m
     heads: Kv 3, G 3, hd 64) and of the hybrid path (zamba2-2.7b's shared
     attention: Kv 32, G 1, hd 80), slot_len 80 (16 + 24 + 2 * 16 + 8),
-    lengths 15-40, and over a 4096-position cache (lengths 3968-4096,
-    which the kernel splits); the cache read through strides as it lies.
-    Timed at the tree path's shape, then at the hybrid and long ones."""
+    lengths 15-40, over a 4096-position cache (lengths 3968-4096, which the
+    kernel splits), and at batch 1 with the per-request phase's heads
+    (smollm-135m and granite-8b: Kv 8, G 4, hd 128) over its 64-entry
+    caches; the cache read through strides as it lies.  Timed at the tree
+    path's shape, then at the hybrid, long and batch-1 ones."""
     import torch
     from repro_torch.kernels import decode_attention as K
-    B = 8
     errs = []
-    for (dtype, tol), (Kv, G, hd, S, lengths) in itertools.product(
+    for (dtype, tol), (Kv, G, hd, S, lengths, B) in itertools.product(
             ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)),
-            ((32, 1, 80, 80, (15, 41)), (3, 3, 64, 80, (15, 41)),
-             (3, 3, 64, 4096, (3968, 4097)))):
+            ((32, 1, 80, 80, (15, 41), 8), (3, 3, 64, 80, (15, 41), 8),
+             (3, 3, 64, 4096, (3968, 4097), 8)) + DECODE_B1):
         q = torch.randn((B, Kv, G, hd), generator=gen, device="cuda") \
             .to(dtype)
         k = _dense_view((B, Kv, S, hd), dtype, gen)
@@ -535,9 +556,9 @@ def check_decode(gen):
             ref = K.decode_attention_plain(q, k, v, length, window=window)
             torch.cuda.synchronize()
             err = max_err(out, ref)
-            print(f"[kernel] decode_attention {str(dtype)[6:]} (Kv,G,hd,S)="
-                  f"{(Kv, G, hd, S)} window={window}: max_abs_err={err:.3e} "
-                  f"(tol {tol:g})", flush=True)
+            print(f"[kernel] decode_attention {str(dtype)[6:]} (B,Kv,G,hd,S)="
+                  f"{(B, Kv, G, hd, S)} window={window}: "
+                  f"max_abs_err={err:.3e} (tol {tol:g})", flush=True)
             check(err <= tol, f"decode_attention {dtype} window {window}: "
                               f"error {err} > {tol}")
             errs.append(err)
@@ -548,6 +569,8 @@ def check_decode(gen):
     row.update(decode_timing(K, gen))
     for key, shape in DECODE_MORE:
         row[key] = decode_timing(K, gen, *shape)
+    for key, shape in zip(("b1_edge", "b1_cloud"), DECODE_B1):
+        row[key] = decode_timing(K, gen, *shape)
     return row
 
 
@@ -556,17 +579,20 @@ def check_decode(gen):
 # cache with the tree path's heads, which the kernel splits
 DECODE_MORE = (("hybrid", (32, 1, 80, 80, (15, 41))),
                ("long", (3, 3, 64, 4096, (3968, 4097))))
+# the per-request phase's batch-1 steps, (Kv, G, hd, S, lengths, B): the
+# smollm-135m edge and the granite-8b cloud over a 64-entry cache (a
+# SpecDecoder's max_seq for 16-token prompts and 8 new tokens)
+DECODE_B1 = ((3, 3, 64, 64, (15, 33), 1), (8, 4, 128, 64, (15, 33), 1))
 
 
-def decode_timing(K, gen, Kv=3, G=3, hd=64, S=80, lengths=(15, 41)):
+def decode_timing(K, gen, Kv=3, G=3, hd=64, S=80, lengths=(15, 41), B=8):
     """Kernel, plain and SDPA times of the dense decode at the tree path's
     edge ticks (8 slots, smollm-135m heads, S 80, lengths 15-40, bf16, no
-    window; or the heads, cache and lengths given), per call (kernel and
-    SDPA in turns) and on the device; SDPA over GQA-expanded K/V with the
-    same boolean mask."""
+    window; or the heads, cache, lengths and batch given), per call
+    (kernel and SDPA in turns) and on the device; SDPA over GQA-expanded
+    K/V with the same boolean mask."""
     import torch
     import torch.nn.functional as F
-    B = 8
     q = torch.randn((B, Kv, G, hd), generator=gen, device="cuda") \
         .to(torch.bfloat16)
     k = _dense_view((B, Kv, S, hd), torch.bfloat16, gen)
@@ -595,14 +621,36 @@ def decode_timing(K, gen, Kv=3, G=3, hd=64, S=80, lengths=(15, 41)):
             "bound_by": by, "library_ms": lib, "library_device_ms": lib_dev}
 
 
-def _tree_inputs(B, Kv, G, S, hd, lo, hi, dtype, gen, base=(16, 40)):
-    """Tree-verify inputs at one span of the 2-wide depth-4 plan: queries
-    for nodes [lo, hi), mask columns [0, hi), tree base drawn from ``base``
-    per slot (16-39: the prompt plus some decoded tokens), cache stored
-    (B, S, Kv, hd)."""
+def _token_tree():
+    """(ancestor mask, depths) of the per-request phase's tree: the
+    16-node ``TokenTree`` of branching (3, 2, 1), nodes in the order
+    ``build_tree`` appends them."""
+    import numpy as np
+    from repro_torch.core.tree_speculation import TokenTree
+    parent = [-1] + [0] * 3 + [1 + i // 2 for i in range(6)] + \
+        [4 + i for i in range(6)]
+    tree = TokenTree(np.zeros(16, np.int32), np.asarray(parent, np.int32),
+                     np.zeros((16, 1), np.float32))
+    return tree.attention_mask(), tree.depths()
+
+
+# the per-request tree verify: granite-8b heads at batch 1 over the
+# 176-entry cache of a TreeSpecDecoder (16 + 8 + 9 * 16 + 8), tree base
+# 15-39
+TREE_B1 = (1, 8, 4, 176, 128)
+
+
+def _tree_inputs(B, Kv, G, S, hd, lo, hi, dtype, gen, base=(16, 40),
+                 tree=None):
+    """Tree-verify inputs at one span of the 2-wide depth-4 plan (or of
+    ``tree`` = (mask, depths)): queries for nodes [lo, hi), mask columns
+    [0, hi), tree base drawn from ``base`` per slot (16-39: the prompt
+    plus some decoded tokens), cache stored (B, S, Kv, hd)."""
     import torch
     from repro_torch.core.tree_speculation import TreePlan, branching_for
-    plan = TreePlan(branching_for(2, 4))
+    if tree is None:
+        plan = TreePlan(branching_for(2, 4))
+        tree = (plan.mask, plan.depths)
     T = hi - lo
     q = torch.randn((B, T, Kv, G, hd), generator=gen, device="cuda") \
         .to(dtype).permute(0, 2, 3, 1, 4)
@@ -610,8 +658,8 @@ def _tree_inputs(B, Kv, G, S, hd, lo, hi, dtype, gen, base=(16, 40)):
     v = _dense_view((B, Kv, S, hd), dtype, gen)
     base = torch.randint(*base, (B,), generator=gen, device="cuda",
                          dtype=torch.int32)
-    mask = torch.as_tensor(plan.mask[lo:hi, :hi], device="cuda").contiguous()
-    depths = torch.as_tensor(plan.depths[lo:hi], device="cuda")
+    mask = torch.as_tensor(tree[0][lo:hi, :hi], device="cuda").contiguous()
+    depths = torch.as_tensor(tree[1][lo:hi], device="cuda")
     q_pos = (base[:, None] + depths).to(torch.int32).contiguous()
     return q, k, v, (base + lo).contiguous(), mask, q_pos
 
@@ -633,17 +681,20 @@ def _tree_visible(length, mask, S):
 TREE_LONG_S, TREE_LONG_BASE = 1024, (984, 1008)
 
 
-def _tree_timing(K, S, base, gen):
+def _tree_timing(K, S, base, gen, B=8, tree=None):
     """Kernel, plain and SDPA times of the cloud's one-shot verify (granite
-    heads, bf16) over an S-position cache, per call and on the device."""
+    heads, bf16) of B slots over an S-position cache, per call and on the
+    device; the 2-wide depth-4 plan, or ``tree`` = (mask, depths)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.tree_speculation import TreePlan, branching_for
-    plan = TreePlan(branching_for(2, 4))
-    B, Kv, G, hd = 8, 8, 4, 128
+    if tree is None:
+        plan = TreePlan(branching_for(2, 4))
+        tree = (plan.mask, plan.depths)
+    Kv, G, hd = 8, 4, 128
     q, k, v, length, mask, q_pos = _tree_inputs(B, Kv, G, S, hd, 0,
-                                                plan.n_pad, torch.bfloat16,
-                                                gen, base)
+                                                len(tree[1]), torch.bfloat16,
+                                                gen, base, tree)
     visible = _tree_visible(length, mask, S)                  # (B, N, S)
     qq, kk, vv, m = _gqa_sdpa_inputs(q.contiguous(), k, v, visible)
     ms, dev, lib, lib_dev = paired_ms(
@@ -672,8 +723,10 @@ def check_tree(gen):
     levels (smollm-135m heads, Kv 3, G 3, hd 64) and both models' one-shot
     verify (granite-8b heads, Kv 8, G 4, hd 128); and a long cache
     (S 1024, granite heads, a draft level and the one-shot verify), where
-    the key range is split across blocks.  Timed at the serving one-shot
-    verify and the long one."""
+    the key range is split across blocks; and at batch 1 the per-request
+    phase's 16-node (3, 2, 1) token tree (granite-8b and smollm-135m
+    heads, S 176).  Timed at the serving one-shot verify, the long one and
+    the batch-1 one."""
     import torch
     from repro_torch.core.tree_speculation import TreePlan, branching_for
     from repro_torch.kernels import tree_attention as K
@@ -686,10 +739,13 @@ def check_tree(gen):
          ((8, 8, 4, S, 128), 0, plan.n_pad, (16, 40))] + \
         [((8, 8, 4, TREE_LONG_S, 128), a, b, TREE_LONG_BASE)
          for a, b in (plan.levels[-1], (0, plan.n_pad))]
+    token_tree = _token_tree()
+    b1 = [(TREE_B1, 0, 16, (15, 40), token_tree),
+          ((1, 3, 3, 176, 64), 0, 16, (15, 40), token_tree)]
     errs = []
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for shape, lo, hi, base in cases:
-            args = _tree_inputs(*shape, lo, hi, dtype, gen, base)
+        for shape, lo, hi, base, tree in [c + (None,) for c in cases] + b1:
+            args = _tree_inputs(*shape, lo, hi, dtype, gen, base, tree)
             for window in (0, 24):
                 out = K.tree_verify_attention_cuda(*args, window=window)
                 ref = K.tree_verify_attention_plain(*args, window=window)
@@ -710,6 +766,10 @@ def check_tree(gen):
     row["long"] = {"shape": f"(B,Kv,G,N,S,hd)=(8, 8, 4, 16, {TREE_LONG_S}, "
                             "128)", **_tree_timing(K, TREE_LONG_S,
                                                    TREE_LONG_BASE, gen)}
+    row["b1_token_tree"] = {
+        "shape": f"(B,Kv,G,N,S,hd)=(1, 8, 4, 16, {TREE_B1[3]}, 128) "
+                 "TokenTree (3, 2, 1)",
+        **_tree_timing(K, TREE_B1[3], (15, 40), gen, B=1, tree=token_tree)}
     return row
 
 
@@ -881,6 +941,8 @@ PATHS = (
      ("tree_verify_attention", "decode_attention", "flash_attention")),
     ("self", "smollm-135m", {"spec_mode": "self", "spec_exit_layer": 15},
      ("paged_decode_attention", "flash_attention", "spec_verify")),
+    ("moe", "granite-moe-1b-a400m", {},
+     ("paged_decode_attention", "flash_attention", "spec_verify")),
     ("mamba2", "mamba2-370m", {}, RECURRENT_KERNELS),
     ("xlstm", "xlstm-125m", {}, RECURRENT_KERNELS),
     ("hybrid", "zamba2-2.7b", {}, RECURRENT_KERNELS + ("decode_attention",)),
@@ -888,7 +950,15 @@ PATHS = (
 # f32 parity depth per edge (edge layers, cloud layers): zamba2 keeps its
 # own shared_attn_every = 6 (one group), xLSTM reaches its sLSTM block 3
 PARITY_DEPTH = {"smollm-135m": (2, 2), "mamba2-370m": (2, 2),
-                "xlstm-125m": (4, 2), "zamba2-2.7b": (6, 2)}
+                "xlstm-125m": (4, 2), "zamba2-2.7b": (6, 2),
+                "granite-moe-1b-a400m": (2, 2)}
+# the per-request phase: new tokens per request, and the kernels it must
+# launch (serve_reference's prefills and batch-1 decode steps, the tree
+# verify, and the one-slot BatchedEngine's paged ticks and spec verify)
+PER_REQUEST_NEW = 8
+PER_REQUEST_KERNELS = ("flash_attention", "decode_attention",
+                       "tree_verify_attention", "paged_decode_attention",
+                       "spec_verify")
 
 
 def _engine(e_cfg, c_cfg, attn_backend="auto", **kw):
@@ -980,6 +1050,9 @@ def phase_serve():
         _check_finite(ep, cp, e_cfg, c_cfg, prompts, traces)
         if name == "self":            # the last path of the dense edge
             phase_breakdown(ep, cp, e_cfg, c_cfg, prompts)
+            for k, n in phase_per_request(ep, cp, e_cfg, c_cfg,
+                                          prompts).items():
+                total[k] += n
         if e_cfg.family != "dense":
             h, d, busy = _round_ms(_engine(e_cfg, c_cfg, **kw), ep, cp,
                                    prompts)
@@ -1178,16 +1251,162 @@ def phase_breakdown(ep, cp, e_cfg, c_cfg, prompts):
         _profile_drain(label, _engine(e_cfg, c_cfg, **kw), ep, cp, prompts, 8)
 
 
+def _per_request_runs(ep, cp, e_cfg, c_cfg, prompts, backend, exit_layer):
+    """The per-request paths on two prompts: ``CollaborativeEngine``'s
+    ``serve_reference`` with threshold -1 and each escalation (skeleton
+    length 4), its ``serve`` (a one-slot ``BatchedEngine``) on fresh
+    engines, and on the first prompt ``TreeSpecDecoder`` (3, 2, 1) and
+    ``SelfSpecDecoder`` (``exit_layer``), all at T = 0 on ``backend``.
+    Returns {name: [RequestTrace, ...]} and {name: seconds}."""
+    import torch
+    from repro_torch.core.engine import CollaborativeEngine
+    from repro_torch.core.policy import policy_from_legacy
+    from repro_torch.core.scheduler import RequestTrace
+    from repro_torch.core.self_speculative import SelfSpecDecoder
+    from repro_torch.core.tree_speculation import TreeSpecDecoder
+    from repro_torch.models import Model
+    edge, cloud = Model(e_cfg), Model(c_cfg)
+    N = PER_REQUEST_NEW
+    runs, secs = {}, {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        runs[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+
+    for esc in ("speculative", "skeleton", "cloud"):
+        def engine():
+            return CollaborativeEngine(
+                edge, cloud, gamma=4, temperature=0.0, skeleton_len=4,
+                policy=policy_from_legacy(esc, -1.0), attn_backend=backend)
+        ref, one_slot = engine(), engine()
+        timed(esc, lambda: [ref.serve_reference(ep, cp, p, N)
+                            for p in prompts[:2]])
+        timed(f"serve {esc}", lambda: [one_slot.serve(ep, cp, p, N)
+                                       for p in prompts[:2]])
+
+    def tree():
+        toks, st = TreeSpecDecoder(edge, cloud, branching=(3, 2, 1),
+                                   temperature=0.0,
+                                   attn_backend=backend).generate(
+            ep, cp, prompts[0], N)
+        return [RequestTrace("tree", edge_calls=st["draft_calls"],
+                             cloud_passes=st["target_passes"], tokens=toks)]
+
+    def self_spec():
+        toks, st = SelfSpecDecoder(edge, exit_layer=exit_layer, gamma=4,
+                                   temperature=0.0,
+                                   attn_backend=backend).generate(
+            ep, prompts[0], N)
+        return [RequestTrace("self", edge_calls=st.draft_calls,
+                             tokens=toks)]
+
+    timed("tree", tree)
+    timed("self", self_spec)
+    return runs, secs
+
+
+def phase_per_request(ep, cp, e_cfg, c_cfg, prompts):
+    """The per-request engine and decoders at full width (the dense edge
+    and the granite-8b cloud, bfloat16): each run's traces checked, the
+    logits finite over the served sequences, and the kernels of
+    ``PER_REQUEST_KERNELS`` launched (counts reset just before, read just
+    after).  Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    V = e_cfg.vocab_size
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    runs, secs = _per_request_runs(ep, cp, e_cfg, c_cfg, prompts, "auto",
+                                   exit_layer=15)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for name, traces in runs.items():
+        want = name.split()[-1]
+        for i, tr in enumerate(traces):
+            check(tr.path == want, f"per-request {name} request {i}: path "
+                                   f"{tr.path}, want {want}")
+            check(len(tr.tokens) == PER_REQUEST_NEW
+                  and all(0 <= t < V for t in tr.tokens),
+                  f"per-request {name} request {i}: tokens {tr.tokens}")
+        print(f"[per-request] {name}: {len(traces)} request(s) of "
+              f"{PER_REQUEST_NEW} new tokens in {secs[name]:.2f}s "
+              f"({len(traces) * PER_REQUEST_NEW / secs[name]:.1f} tok/s); "
+              f"edge calls {[tr.edge_calls for tr in traces]}, cloud passes "
+              f"{[tr.cloud_passes for tr in traces]}", flush=True)
+    for k in PER_REQUEST_KERNELS:
+        check(launches[k] > 0,
+              f"kernel {k} was not launched on the per-request phase")
+    print(f"[per-request] launches {launches}", flush=True)
+    _check_finite(ep, cp, e_cfg, c_cfg, prompts[:2], runs["speculative"])
+    return launches
+
+
+def _first_divergence(a_tokens, b_tokens) -> int:
+    return next(k for k, (x, y) in enumerate(zip(a_tokens, b_tokens))
+                if x != y)
+
+
+def _top2_gap(prompt, tokens, params, cfg) -> float:
+    """The plain model's top-2 logit gap at the token after ``prompt`` +
+    ``tokens``."""
+    import torch
+    from repro_torch.models import Model
+    seq = torch.as_tensor([list(prompt) + tokens], device="cuda")
+    logits, _ = Model(cfg).forward(params, {"tokens": seq},
+                                   attn_backend="plain")
+    top2 = logits[0, -1].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def parity_per_request(ep, cp, e_cfg, c_cfg, prompts):
+    """The per-request runs at float32 and cut depth, on the kernels and on
+    the plain versions: identical traces, a divergence excused only where
+    the model that chose the token has a plain top-2 gap below 1e-4 (the
+    cloud's greedy output on the speculative, cloud and tree runs and the
+    skeleton's first 4 tokens; the edge's after them and on the self
+    run)."""
+    runs = {b: _per_request_runs(ep, cp, e_cfg, c_cfg, prompts, b,
+                                 exit_layer=1)[0]
+            for b in ("auto", "plain")}
+    same = excused = 0
+    for name, traces in runs["auto"].items():
+        for i, (a, b) in enumerate(zip(traces, runs["plain"][name])):
+            if (a.tokens, a.path) == (b.tokens, b.path):
+                same += 1
+                continue
+            check(a.path == b.path, f"per-request {name} request {i}: path "
+                                    f"{a.path} vs plain {b.path}")
+            j = _first_divergence(a.tokens, b.tokens)
+            edge_chose = name == "self" or (name.endswith("skeleton")
+                                            and j >= 4)
+            params, cfg = (ep, e_cfg) if edge_chose else (cp, c_cfg)
+            gap = _top2_gap(prompts[i], b.tokens[:j], params, cfg)
+            print(f"[parity] per-request {name} request {i} diverges at "
+                  f"token {j}: plain top-2 gap {gap:.3e}", flush=True)
+            check(gap < GAP_TOL, f"per-request {name} request {i}: "
+                                 f"divergence at token {j} with a top-2 gap "
+                                 f"{gap} >= {GAP_TOL}")
+            excused += 1
+    print(f"[parity] per-request phase, float32 full-width "
+          f"({e_cfg.num_layers}-layer {e_cfg.name} + {c_cfg.num_layers}-layer "
+          f"granite-8b), kernels vs plain: {same}/{same + excused} traces "
+          f"identical, {excused} near-tie divergences", flush=True)
+
+
 # --------------------------------------------------------------- phase 4
 def phase_parity():
     """Every served path at float32, full width, cut depth
     (``PARITY_DEPTH``), on the kernels and on the plain versions — plus the
-    mamba2 path with ``prefill_chunk=8``, whose 15-entry prompts then
-    prefill in two pieces, so the scan kernel carries a state on the
-    served path."""
+    moe edge on the tree lane, the mamba2 path with ``prefill_chunk=8``,
+    whose 15-entry prompts then prefill in two pieces, so the scan kernel
+    carries a state on the served path, and the per-request phase."""
     import torch
     from repro_torch.models import Model
-    paths = list(PATHS) + [("mamba2 chunked", "mamba2-370m",
+    paths = list(PATHS) + [("moe tree", "granite-moe-1b-a400m",
+                            PATHS[1][2], ()),
+                           ("mamba2 chunked", "mamba2-370m",
                             {"prefill_chunk": 8}, ())]
     ep = cp = e_cfg = c_cfg = None
     for name, edge, kw, _ in paths:
@@ -1199,6 +1418,7 @@ def phase_parity():
         prompts = _prompts(e_cfg.vocab_size)
         if name == "self":
             kw = {**kw, "spec_exit_layer": 1}     # 2 layers: exit after 1
+            parity_per_request(ep, cp, e_cfg, c_cfg, prompts)
         runs = {}
         for backend in ("auto", "plain"):
             runs[backend] = _engine(e_cfg, c_cfg, backend, **kw).serve_batch(
@@ -1211,18 +1431,12 @@ def phase_parity():
             check(a.path == b.path and a.tokens != b.tokens,
                   f"{name} request {i}: kernel run {a.path}/{a.edge_calls} "
                   f"vs plain {b.path}/{b.edge_calls} with identical tokens")
-            j = next(k for k, (x, y) in enumerate(zip(a.tokens, b.tokens))
-                     if x != y)
+            j = _first_divergence(a.tokens, b.tokens)
             # the model that chose the diverging token: the edge for edge
             # output and on the self lane, else the cloud
             edge_chose = b.path == "edge" or name == "self"
             params, cfg = (ep, e_cfg) if edge_chose else (cp, c_cfg)
-            seq = torch.as_tensor([list(prompts[i]) + b.tokens[:j]],
-                                  device="cuda")
-            logits, _ = Model(cfg).forward(params, {"tokens": seq},
-                                           attn_backend="plain")
-            top2 = logits[0, -1].topk(2).values
-            gap = float(top2[0] - top2[1])
+            gap = _top2_gap(prompts[i], b.tokens[:j], params, cfg)
             print(f"[parity] {name} request {i} diverges at token {j}: "
                   f"plain top-2 gap {gap:.3e}", flush=True)
             check(gap < GAP_TOL, f"{name} request {i}: divergence at token "

@@ -4,10 +4,12 @@
 (and, for xLSTM, lists) of numpy arrays and builds the port's parameters on
 ``device``:
 
-* dense: ``{"embed", "blocks", "final_norm", "lm_head"?}`` with every
-  ``blocks`` leaf stacked on a leading layer axis ``L`` -> the port's
-  ``Transformer``.  A tied config has no ``lm_head`` leaf; an untied one
-  must carry it.
+* dense and moe: ``{"embed", "blocks", "final_norm", "lm_head"?}`` with
+  every ``blocks`` leaf stacked on a leading layer axis ``L`` -> the
+  port's ``Transformer``.  A tied config has no ``lm_head`` leaf; an
+  untied one must carry it.  A moe block's ``moe`` sub-tree (``router``
+  (L, d, E), ``w_gate``/``w_up`` (L, E, d, f), ``w_down`` (L, E, f, d))
+  stands where a dense block's ``mlp`` does.
 * ssm (mamba2): ``blocks`` stacked on ``L`` -> a ``ParamTree`` with one
   block per layer.
 * xlstm: ``blocks`` is already a list of per-layer dicts, mLSTM and sLSTM
@@ -17,9 +19,10 @@
 
 numpy has no bfloat16: the caller casts bfloat16 leaves to float32 before
 ``np.asarray`` (exact).  Each leaf gets the dtype the JAX package gives it:
-``cfg.param_dtype``, except the recurrent families' gate and norm leaves
-that JAX keeps in float32 whatever the config says (``ssm.F32_LEAVES``,
-``xlstm.F32_LEAVES``).  Tests call this; nothing on the serving path does.
+``cfg.param_dtype``, except the leaves that JAX keeps in float32 whatever
+the config says: the recurrent families' gate and norm leaves
+(``ssm.F32_LEAVES``, ``xlstm.F32_LEAVES``) and the moe router.  Tests call
+this; nothing on the serving path does.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from repro_torch.models.layers import ParamTree
 from repro_torch.models.transformer import Block, Transformer, dtype_of
 
 _F32_LEAVES = {"ssm": ssm.F32_LEAVES, "xlstm": xlstm.F32_LEAVES,
-               "hybrid": ssm.F32_LEAVES}
+               "hybrid": ssm.F32_LEAVES, "moe": ("router",)}
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda"):
@@ -76,10 +79,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda"):
         raise ValueError(f"tie_embeddings={cfg.tie_embeddings} but the "
                          f"pytree {'has' if 'lm_head' in tree else 'lacks'} "
                          "an lm_head")
+    ffn = "moe" if cfg.family == "moe" else "mlp"
     layers = [Block(t(blocks["attn_norm"][l]),
                     {k: t(v[l]) for k, v in blocks["attn"].items()},
                     t(blocks["mlp_norm"][l]),
-                    {k: t(v[l]) for k, v in blocks["mlp"].items()})
+                    **{ffn: {k: t(v[l], k) for k, v in blocks[ffn].items()}})
               for l in range(n)]
     head = t(tree["lm_head"]) if "lm_head" in tree else None
     return Transformer(cfg, t(tree["embed"]), layers, t(tree["final_norm"]),

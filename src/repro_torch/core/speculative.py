@@ -1,5 +1,5 @@
-"""Token-level mixture: speculative decoding (survey §2.4), the batched
-linear, tree and self lanes.
+"""Token-level mixture: speculative decoding (survey §2.4): the
+per-request ``SpecDecoder`` and the batched linear, tree and self lanes.
 
 Edge SLM drafts gamma tokens; cloud LLM verifies them in ONE parallel pass
 (modified rejection sampling, Leviathan et al. / survey §2.4.1).  The
@@ -10,11 +10,18 @@ KV caches roll back rejected tokens by resetting ``pos`` — stale entries
 are masked out and later overwritten; recurrent state (ssm / xlstm /
 hybrid) rolls back by a batched replay of each slot's accepted prefix from
 the round's snapshot (``SpecOps.commit``).  The per-request
-``SpecDecoder`` is a later slice of the port.
+``SpecDecoder`` (B = 1, one host round trip per draft token) snapshots the
+whole recurrent state instead and replays the accepted prefix with one
+extend from it.
+
+Invariant maintained by ``SpecDecoder.generate``: both caches contain
+``sequence[:-1]``; ``sequence[-1]`` ("last token") is pending.
 """
 from __future__ import annotations
 
 from typing import List
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -65,6 +72,209 @@ def speculative_sample(gen, target_logits, draft_logits, draft_tokens,
     resid = resid / torch.clamp(total, min=1e-20) if total > 0 else p[n_acc]
     nxt = int(torch.multinomial(resid, 1, generator=gen)[0])
     return n_acc, nxt
+
+
+def acceptance_rate_bound(p, q):
+    """Theoretical per-token acceptance probability: 1 - TV(p, q) =
+    sum min(p, q) over the last axis."""
+    return torch.minimum(p, q).sum(-1)
+
+
+@dataclasses.dataclass
+class SpecStats:
+    draft_calls: int = 0
+    target_passes: int = 0
+    replay_passes: int = 0
+    rounds: int = 0
+    accepted: List[int] = dataclasses.field(default_factory=list)
+    tokens_out: int = 0
+
+    @property
+    def mean_accepted(self) -> float:
+        return float(np.mean(self.accepted)) if self.accepted else 0.0
+
+    @property
+    def tokens_per_target_pass(self) -> float:
+        tp = self.target_passes + self.replay_passes
+        return self.tokens_out / tp if tp else 0.0
+
+    def summary(self) -> dict:
+        return {
+            "rounds": self.rounds,
+            "draft_calls": self.draft_calls,
+            "target_passes": self.target_passes,
+            "replay_passes": self.replay_passes,
+            "mean_accepted": self.mean_accepted,
+            "tokens_out": self.tokens_out,
+            "tokens_per_target_pass": self.tokens_per_target_pass,
+        }
+
+
+class AdaptiveGamma:
+    """PEARL/DISCO-style draft-length control: lengthen the draft when
+    acceptance is high, shorten when the target keeps rejecting."""
+
+    def __init__(self, gamma: int = 4, lo: int = 1, hi: int = 16,
+                 up: float = 0.85, down: float = 0.4):
+        self.gamma, self.lo, self.hi, self.up, self.down = \
+            gamma, lo, hi, up, down
+
+    def update(self, n_acc: int, gamma_used: int) -> int:
+        rate = n_acc / max(gamma_used, 1)
+        if rate >= self.up:
+            self.gamma = min(self.gamma + 1, self.hi)
+        elif rate <= self.down:
+            self.gamma = max(self.gamma - 1, self.lo)
+        return self.gamma
+
+
+def device_of(params) -> torch.device:
+    return next(params.parameters()).device
+
+
+def generator_for(params, gen=None) -> torch.Generator:
+    """``gen``, or a fresh generator seeded 0 on the parameters' device
+    (the JAX loops' default ``PRNGKey(0)``)."""
+    if gen is not None:
+        return gen
+    gen = torch.Generator(device=device_of(params))
+    gen.manual_seed(0)
+    return gen
+
+
+def prompt_tensor(prompt, device) -> torch.Tensor:
+    """A (S,) or (1, S) prompt as a (1, S) int32 tensor on ``device``."""
+    t = torch.as_tensor(np.asarray(prompt, np.int32), device=device)
+    return t.reshape(1, -1) if t.dim() == 1 else t
+
+
+class SpecDecoder:
+    """Edge-draft / cloud-verify decoding loop for ONE sequence (B = 1):
+    a host round trip per draft token, the JAX package's reference loop.
+
+    Each round snapshots both caches (``pos`` of a KV cache, the whole
+    state of a recurrent one), drafts gamma tokens plus one aligning step,
+    verifies them in ONE target extend, accepts through
+    ``speculative_sample`` (one-hot argmax at T = 0, as the reference), and
+    commits by rewinding ``pos`` or by replaying the accepted prefix from
+    the snapshot.  Random draws come from a ``torch.Generator``.
+    ``attn_backend`` goes to every model call ("auto": the Hopper kernels
+    on CUDA tensors)."""
+
+    def __init__(self, draft_model, target_model, *, gamma: int = 4,
+                 temperature: float = 1.0, adaptive: bool = False,
+                 attn_backend: str = "auto"):
+        self.draft = draft_model
+        self.target = target_model
+        self.gamma = gamma
+        self.temperature = temperature
+        self.adaptive = AdaptiveGamma(gamma) if adaptive else None
+        self.attn_backend = attn_backend
+
+    def _snapshot(self, model, cache):
+        if model.rewindable_cache:
+            return int(cache["pos"])
+        return dict(cache)        # recurrent steps build new state tensors
+
+    def _extend(self, model, params, tokens, cache):
+        return model.extend_step(params, tokens, cache,
+                                 attn_backend=self.attn_backend)[1]
+
+    def generate(self, draft_params, target_params, prompt, max_new: int,
+                 gen=None):
+        """prompt: (S,) or (1, S) ints.  Returns (tokens list, SpecStats)."""
+        dev = device_of(target_params)
+        gen = generator_for(target_params, gen)
+        prompt = prompt_tensor(prompt, dev)
+        if prompt.shape[0] != 1:
+            raise ValueError("SpecDecoder operates on B=1 sequences")
+        S = prompt.shape[1]
+        max_seq = S + max_new + 2 * max(self.gamma, 16) + 8
+        b = self.attn_backend
+        _, d_cache = self.draft.prefill(draft_params,
+                                        {"tokens": prompt[:, :-1]},
+                                        max_seq=max_seq, attn_backend=b)
+        _, t_cache = self.target.prefill(target_params,
+                                         {"tokens": prompt[:, :-1]},
+                                         max_seq=max_seq, attn_backend=b)
+        stats = SpecStats()
+        out: List[int] = []
+        last = prompt[:, -1:]                          # pending token (1, 1)
+        while len(out) < max_new:
+            gamma = self.adaptive.gamma if self.adaptive else self.gamma
+            d_snap = self._snapshot(self.draft, d_cache)
+            t_snap = self._snapshot(self.target, t_cache)
+
+            # ---- draft gamma tokens (+1 call to keep the cache aligned)
+            draft_tokens, draft_logits = [], []
+            tok = last
+            for _ in range(gamma):
+                lg, d_cache = self.draft.decode_step(draft_params, tok,
+                                                     d_cache, attn_backend=b)
+                stats.draft_calls += 1
+                nxt = next_tokens(lg, self.temperature, gen)
+                draft_logits.append(lg[0])
+                draft_tokens.append(int(nxt[0]))
+                tok = nxt[:, None]
+            _, d_cache = self.draft.decode_step(draft_params, tok, d_cache,
+                                                attn_backend=b)
+            stats.draft_calls += 1
+
+            # ---- verify in one target pass over [last, d_0..d_{gamma-1}]
+            drafted = torch.as_tensor(draft_tokens, dtype=torch.int32,
+                                      device=dev)
+            ver_in = torch.cat([last, drafted[None, :]], dim=1)
+            t_logits, t_cache = self.target.extend_step(
+                target_params, ver_in, t_cache, attn_backend=b)
+            stats.target_passes += 1
+            n_acc, next_tok = speculative_sample(
+                gen, t_logits[0], torch.stack(draft_logits), drafted,
+                temperature=self.temperature)
+
+            # ---- commit & resync
+            out.extend(draft_tokens[:n_acc] + [next_tok])
+            stats.rounds += 1
+            stats.accepted.append(n_acc)
+            if self.adaptive:
+                self.adaptive.update(n_acc, gamma)
+            acc = ver_in[:, :n_acc + 1]                # [last] + accepted
+            if self.target.rewindable_cache:
+                t_cache = self.target.rewind(t_cache, t_snap + n_acc + 1)
+            else:
+                t_cache = self._extend(self.target, target_params, acc,
+                                       t_snap)
+                stats.replay_passes += 1
+            if self.draft.rewindable_cache:
+                d_cache = self.draft.rewind(d_cache, d_snap + n_acc + 1)
+            else:
+                d_cache = self._extend(self.draft, draft_params, acc, d_snap)
+                stats.replay_passes += 1
+            last = torch.full((1, 1), next_tok, dtype=torch.int32,
+                              device=dev)
+        stats.tokens_out = len(out)
+        return out[:max_new], stats
+
+
+def autoregressive_baseline(model, params, prompt, max_new: int, gen=None,
+                            temperature: float = 1.0,
+                            attn_backend: str = "auto"):
+    """Plain target-only decoding (B = 1, a host round trip per token) —
+    the survey's cloud-only baseline.  Returns the token list."""
+    dev = device_of(params)
+    gen = generator_for(params, gen)
+    prompt = prompt_tensor(prompt, dev)
+    _, cache = model.prefill(params, {"tokens": prompt[:, :-1]},
+                             max_seq=prompt.shape[1] + max_new + 4,
+                             attn_backend=attn_backend)
+    tok = prompt[:, -1:]
+    out = []
+    for _ in range(max_new):
+        lg, cache = model.decode_step(params, tok, cache,
+                                      attn_backend=attn_backend)
+        nxt = next_tokens(lg, temperature, gen)
+        out.append(int(nxt[0]))
+        tok = nxt[:, None]
+    return out
 
 
 class BatchedSpecDecoder:

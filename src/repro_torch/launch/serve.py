@@ -5,11 +5,17 @@ surface picked by ``--policy`` (a ``core/policy.py::CollabPolicy``).
     PYTHONPATH=src python -m repro_torch.launch.serve --edge smollm-135m \
         --cloud granite-8b --requests 8
 
-Same flags and defaults as the JAX package's ``repro.launch.serve`` on the
-batched scheduler, plus ``--device`` (default ``cuda``: with no card it
-raises; ``--device cpu`` runs the plain PyTorch versions of the kernels on
-the CPU).  Not ported yet: ``--mesh``, ``--adapt*`` and ``--scheduler
-per-request``.
+Same flags and defaults as the JAX package's ``repro.launch.serve``, plus
+``--device`` (default ``cuda``: with no card it raises; ``--device cpu``
+runs the plain PyTorch versions of the kernels on the CPU).  Not ported
+yet: ``--adapt*``, and ``--mesh`` (sharded serving) is refused.
+
+``--scheduler per-request`` runs the one-at-a-time reference loop
+(``core/engine.py::CollaborativeEngine.serve_reference``: a host round
+trip per token, batch-1 dense decode and batch-1 speculative verify on
+the card) — the baseline the batched numbers are quoted against.  It
+honors only the threshold-family policies and refuses ``--arrival``,
+``--spec-mode tree|self`` and ``--mesh``, as the JAX launcher does.
 
 On CUDA the default path runs three hand-written Hopper kernels: the paged
 decode attention of every edge tick and draft step, the flash attention of
@@ -36,7 +42,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.policy import POLICIES, make_policy, policy_from_legacy
+from repro_torch.core.engine import CollaborativeEngine
+from repro_torch.core.policy import (POLICIES, ThresholdPolicy, make_policy,
+                                     policy_from_legacy)
 from repro_torch.core.scheduler import BatchedEngine
 from repro_torch.core.traffic import bursty_arrivals, poisson_arrivals, replay
 from repro_torch.data import SyntheticLM
@@ -107,8 +115,12 @@ def parse_args(argv=None):
     ap.add_argument("--escalation", default=None,
                     choices=["speculative", "cloud", "skeleton"],
                     help="DEPRECATED: legacy mode name; use --policy")
+    ap.add_argument("--scheduler", default="batched",
+                    choices=["batched", "per-request"],
+                    help="batched continuous-batching scheduler vs the "
+                         "one-request-at-a-time reference loop")
     ap.add_argument("--batch-size", type=int, default=8,
-                    help="scheduler slots")
+                    help="scheduler slots (batched scheduler only)")
     ap.add_argument("--tick-tokens", type=int, default=16,
                     help="decode steps per scheduler tick")
     ap.add_argument("--kv-layout", default="auto",
@@ -137,8 +149,32 @@ def parse_args(argv=None):
                     help="max prompt tokens prefilled per scheduler tick "
                          "(chunked prefill); 0 disables chunking, default "
                          "= --tick-tokens")
+    ap.add_argument("--mesh", default=None, metavar="AXES",
+                    help="sharded serving over local devices (not ported: "
+                         "the batched engine refuses it)")
     ap.add_argument("--reduced", action="store_true")
     return ap.parse_args(argv)
+
+
+def check_scheduler_args(args, policy) -> None:
+    """The per-request loop's refusals, as the JAX launcher's."""
+    if args.scheduler == "batched":
+        return
+    if not isinstance(policy, ThresholdPolicy):
+        # serve_reference cannot honor the assign/decide/feedback hooks, so
+        # running it would serve speculative@0.6 under this policy's name
+        raise SystemExit(
+            f"--scheduler per-request only honors the threshold-family "
+            f"policies; run --policy {policy.name} on --scheduler batched")
+    if args.arrival != "none":
+        raise SystemExit("--arrival needs --scheduler batched (the "
+                         "per-request loop has no admission queue)")
+    if args.mesh is not None:
+        raise SystemExit("--mesh needs --scheduler batched (the "
+                         "per-request loop is single-device)")
+    if args.spec_mode not in (None, "linear"):
+        raise SystemExit("--spec-mode tree/self needs --scheduler batched "
+                         "(the per-request loop only drafts linear tapes)")
 
 
 def main(argv=None):
@@ -147,6 +183,8 @@ def main(argv=None):
         raise RuntimeError("--device cuda (the default) needs a CUDA card; "
                            "pass --device cpu to run on the CPU")
     dev = torch.device(args.device)
+    policy = build_policy(args)
+    check_scheduler_args(args, policy)
     e_cfg = get_config(args.edge)
     c_cfg = get_config(args.cloud)
     if args.reduced:
@@ -165,27 +203,33 @@ def main(argv=None):
                for i in range(args.requests)]
     paths = {}
 
-    eng = BatchedEngine(edge, cloud, batch_size=args.batch_size,
-                        gamma=args.gamma, temperature=0.0,
-                        policy=build_policy(args),
-                        tick_tokens=args.tick_tokens,
-                        kv_layout=args.kv_layout,
-                        kv_block_size=args.kv_block_size,
-                        kv_blocks=args.kv_blocks, slo_ms=args.slo_ms,
-                        prefill_chunk=args.prefill_chunk,
-                        spec_mode=args.spec_mode,
-                        spec_tree_width=args.spec_tree_width,
-                        spec_exit_layer=args.spec_exit_layer)
     t0 = time.perf_counter()
-    if args.arrival != "none":
-        gen = (poisson_arrivals if args.arrival == "poisson"
-               else bursty_arrivals)
-        at = gen(args.arrival_rate, args.requests, seed=0)
-        traces = replay(eng, ep, cp, prompts, args.max_new, at)
+    if args.scheduler == "per-request":
+        eng = CollaborativeEngine(edge, cloud, gamma=args.gamma,
+                                  temperature=0.0, policy=policy)
+        traces = [eng.serve_reference(ep, cp, p, args.max_new)
+                  for p in prompts]
     else:
-        traces = eng.serve_batch(
-            ep, cp, prompts, args.max_new,
-            domains=[i % synth.n_domains for i in range(args.requests)])
+        eng = BatchedEngine(edge, cloud, batch_size=args.batch_size,
+                            gamma=args.gamma, temperature=0.0, policy=policy,
+                            tick_tokens=args.tick_tokens,
+                            kv_layout=args.kv_layout,
+                            kv_block_size=args.kv_block_size,
+                            kv_blocks=args.kv_blocks, slo_ms=args.slo_ms,
+                            prefill_chunk=args.prefill_chunk,
+                            spec_mode=args.spec_mode,
+                            spec_tree_width=args.spec_tree_width,
+                            spec_exit_layer=args.spec_exit_layer,
+                            mesh=args.mesh)
+        if args.arrival != "none":
+            gen = (poisson_arrivals if args.arrival == "poisson"
+                   else bursty_arrivals)
+            at = gen(args.arrival_rate, args.requests, seed=0)
+            traces = replay(eng, ep, cp, prompts, args.max_new, at)
+        else:
+            traces = eng.serve_batch(
+                ep, cp, prompts, args.max_new,
+                domains=[i % synth.n_domains for i in range(args.requests)])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -202,7 +246,8 @@ def main(argv=None):
     print(f"policy: {stats['policy']} "
           + " ".join(f"{k.removeprefix('policy_')}={v}"
                      for k, v in stats.items() if k.startswith("policy_")))
-    if any(c["member_rounds"] for c in stats["spec_lanes"].values()):
+    if stats.get("spec_lanes") and any(
+            c["member_rounds"] for c in stats["spec_lanes"].values()):
         print(f"spec: mode={stats['spec_mode']} "
               f"accept_rate={stats['spec_accept_rate']:.2f} "
               f"accepted_tokens_per_step="
@@ -225,19 +270,20 @@ def main(argv=None):
                   f"cow_forks={stats.get('kv_cow_forks', 0)} "
                   f"preemptions={stats.get('preemptions', 0)} "
                   f"swaps={stats.get('kv_swaps', 0)}")
-    unit = "virtual ms" if args.arrival != "none" else "ms"
-    print(f"latency ({unit}): "
-          f"ttft p50={stats['ttft_p50_ms']:.1f} "
-          f"p99={stats['ttft_p99_ms']:.1f} "
-          f"tpot p50={stats['tpot_p50_ms']:.2f} "
-          f"p99={stats['tpot_p99_ms']:.2f} "
-          f"makespan={stats['makespan_ms']:.0f} "
-          f"(swapped={stats['swapped_requests']} "
-          f"deferred={stats['deferred_admissions']})")
-    if args.slo_ms is not None:
-        print(f"slo: ttft<={args.slo_ms:.0f}ms "
-              f"attainment={stats['slo_attainment']:.2f} "
-              f"goodput={stats['goodput_slo']:.2f} req/s")
+    if "ttft_p50_ms" in stats:
+        unit = "virtual ms" if args.arrival != "none" else "ms"
+        print(f"latency ({unit}): "
+              f"ttft p50={stats['ttft_p50_ms']:.1f} "
+              f"p99={stats['ttft_p99_ms']:.1f} "
+              f"tpot p50={stats['tpot_p50_ms']:.2f} "
+              f"p99={stats['tpot_p99_ms']:.2f} "
+              f"makespan={stats['makespan_ms']:.0f} "
+              f"(swapped={stats['swapped_requests']} "
+              f"deferred={stats['deferred_admissions']})")
+        if args.slo_ms is not None:
+            print(f"slo: ttft<={args.slo_ms:.0f}ms "
+                  f"attainment={stats['slo_attainment']:.2f} "
+                  f"goodput={stats['goodput_slo']:.2f} req/s")
     return traces, stats
 
 

@@ -188,6 +188,59 @@ def mha(q, k, v, mask=None, softcap: float = 0.0):
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
+                bq: int = 512, bk: int = 512):
+    """Chunked attention with an online softmax over (bq, bk) blocks, the
+    twin of the JAX package's ``mha_chunked``: memory O(bq * bk) per step
+    instead of O(Sq * Sk).  Every block is computed, fully masked ones
+    included, with the -1e30 fill.
+
+    q: (B,Sq,H,hd); k/v: (B,Sk,Kv,hd).  Returns (B,Sq,H,hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    bq, bk = min(bq, Sq), min(bk, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"Sq {Sq} / Sk {Sk} must divide by bq {bq} / bk {bk}")
+    scale = 1.0 / math.sqrt(hd)
+    qb = q.reshape(B, Sq // bq, bq, Kv, G, hd).float()
+    kb = k.reshape(B, Sk // bk, bk, Kv, hd).float()
+    vb = v.reshape(B, Sk // bk, bk, Kv, hd).float()
+    ar_q = torch.arange(bq, device=q.device)
+    ar_k = torch.arange(bk, device=q.device)
+    outs = []
+    for iq in range(Sq // bq):
+        q_pos = iq * bq + ar_q
+        m_run = torch.full((B, Kv, G, bq), NEG, device=q.device)
+        l_run = torch.zeros((B, Kv, G, bq), device=q.device)
+        acc = torch.zeros((B, Kv, G, bq, hd), device=q.device)
+        for ik in range(Sk // bk):
+            k_pos = ik * bk + ar_k
+            s = torch.einsum("bqkgh,bskh->bkgqs", qb[:, iq], kb[:, ik]) * scale
+            msk = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
+            if causal:
+                msk = k_pos[None, :] <= q_pos[:, None]
+            if window:
+                msk = msk & (k_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(msk, s, NEG)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskh->bkgqh",
+                                                        p, vb[:, ik])
+            m_run = m_new
+        outs.append(acc / l_run.clamp(min=1e-20)[..., None])
+    out = torch.stack(outs, 1)                          # (B,nq,Kv,G,bq,hd)
+    return out.movedim(-2, 2).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# Sequence length from which the CPU / plain prefill attention runs
+# ``mha_chunked`` instead of materializing the (S, S) scores: the JAX
+# package's rule.  On CUDA the flash kernel runs at every length.
+CHUNKED_ATTN_THRESHOLD = 8192
+
+
 def _qkv(p, x, cfg):
     B, T, _ = x.shape
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -205,8 +258,8 @@ def attention_block(p, x, positions, cfg, *, causal: bool = True,
     as they lie — (B, H, S, hd) and (B, Kv, S, hd) views, GQA resolved in
     the kernel — and writes its output in (B, S, H, hd), so nothing is
     copied around it.  The CPU and ``backend="plain"`` materialize the
-    (S, S) mask and run ``mha``, as the JAX package does below its chunking
-    threshold."""
+    (S, S) mask and run ``mha`` below ``CHUNKED_ATTN_THRESHOLD`` and run
+    ``mha_chunked`` from it on, as the JAX package does."""
     B, S, d = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _qkv(p, x, cfg)
@@ -218,6 +271,8 @@ def attention_block(p, x, positions, cfg, *, causal: bool = True,
             else ops.flash_attention
         out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                  causal=causal, window=window).transpose(1, 2)
+    elif S >= CHUNKED_ATTN_THRESHOLD:
+        out = mha_chunked(q, k, v, causal=causal, window=window)
     else:
         mask = _attn_mask(positions, positions, causal=causal,
                           window=window) if causal or window else None

@@ -1,5 +1,5 @@
-"""Model facade over the ported families: dense, ssm (mamba2), xlstm and
-hybrid (zamba2).
+"""Model facade over the ported families: dense, moe, ssm (mamba2), xlstm
+and hybrid (zamba2).
 
     m = Model(cfg)
     params = m.init(seed=0)                       # on CUDA unless told
@@ -8,10 +8,10 @@ hybrid (zamba2).
     logits, cache = m.decode_step(params, token, cache)
 
 Same entry points as the JAX package's ``Model``.  Parameters are the
-``models.transformer.Transformer`` module for the dense family and a
-``layers.ParamTree`` for the recurrent ones.  ``attn_backend`` ("auto" |
-"kernel" | "plain") picks the kernels' or the plain path of every entry
-that reaches a kernel.  The moe, vlm and encdec families raise
+``models.transformer.Transformer`` module for the dense and moe families
+and a ``layers.ParamTree`` for the recurrent ones.  ``attn_backend``
+("auto" | "kernel" | "plain") picks the kernels' or the plain path of
+every entry that reaches a kernel.  The vlm and encdec families raise
 ``NotImplementedError`` naming their later slice.
 """
 from __future__ import annotations
@@ -23,8 +23,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, ssm, transformer, xlstm
 
-FAMILIES = {"dense": transformer, "ssm": ssm, "xlstm": xlstm,
-            "hybrid": hybrid}
+FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm,
+            "xlstm": xlstm, "hybrid": hybrid}
+# KV-cache decoders (``transformer``'s families): they page, rewind by
+# ``pos`` and take token trees
+KV_FAMILIES = transformer.FAMILIES
 
 
 class Model:
@@ -32,12 +35,12 @@ class Model:
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-                "PyTorch port serves the dense, ssm, xlstm and hybrid "
-                "families; moe, vlm and encdec are later slices")
+                "PyTorch port serves the dense, moe, ssm, xlstm and hybrid "
+                "families; vlm and encdec are later slices")
         self.cfg = cfg
         self._mod = FAMILIES[cfg.family]
         # families with attention: a sliding window, a K/V cache to size
-        self._attn = cfg.family in ("dense", "hybrid")
+        self._attn = cfg.family in KV_FAMILIES + ("hybrid",)
 
     # ---------------------------------------------------------------- init
     def init(self, seed: int = 0, device="cuda"):
@@ -79,7 +82,7 @@ class Model:
         linear-order.  The recurrent families' extends run the SSD-scan
         kernel on CUDA."""
         cfg = self.cfg
-        if cfg.family == "dense":
+        if cfg.family in KV_FAMILIES:
             return transformer.extend_step(params, tokens, cache, cfg,
                                            window=window,
                                            block_mask=block_mask,
@@ -102,8 +105,9 @@ class Model:
     def paged_kv(self) -> bool:
         """True if the cache is a pure self-attention KV cache that pages
         (shared block pool + block tables, see ``core/paged_cache.py``):
-        the dense family.  Recurrent state has no sequence axis to page."""
-        return self.cfg.family == "dense"
+        the dense and moe families.  Recurrent state has no sequence axis
+        to page."""
+        return self.cfg.family in KV_FAMILIES
 
     def _require_paged(self):
         if not self.paged_kv:
@@ -138,7 +142,7 @@ class Model:
         """True if the cache rolls back by resetting ``pos`` (KV caches);
         False for recurrent state, which rewinds by replaying the accepted
         prefix (``replay_step``)."""
-        return self.cfg.family == "dense"
+        return self.cfg.family in KV_FAMILIES
 
     def rewind(self, cache, new_pos):
         assert self.rewindable_cache

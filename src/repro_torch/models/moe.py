@@ -1,0 +1,118 @@
+"""Mixture-of-Experts sublayer (olmoe / granite-moe), the twin of the JAX
+package's ``models/moe.py``.
+
+Sort-based capacity dispatch (megablox-style, memory O(T*k + E*C*d)): the
+token-expert assignments are sorted by expert id with a STABLE sort, each
+expert takes its first ``C`` assignments in that order into an (E, C, d)
+buffer, the experts run as batched matrix products, and the outputs are
+gathered back and weighted by the renormalized gates in float32.  An
+assignment past an expert's capacity goes to the out-of-range slot
+``E*C`` and is dropped.  The router and the combine run in float32
+whatever the model's dtype; the router's weights are float32 too.
+
+No Pallas kernel covers this sublayer in the JAX package, so the expert
+products here are library matrix products.  Sharded (expert-parallel)
+dispatch is not ported: ``moe_apply`` is ``moe_block``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init
+
+
+def init_moe(gen, cfg, dtype, device="cuda"):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": dense_init(gen, (d, E), dtype=torch.float32, device=device),
+        "w_gate": dense_init(gen, (E, d, f), dtype=dtype, device=device),
+        "w_up": dense_init(gen, (E, d, f), dtype=dtype, device=device),
+        "w_down": dense_init(gen, (E, f, d), dtype=dtype, device=device),
+    }
+
+
+def capacity(tokens: int, cfg) -> int:
+    """Per-expert capacity: the dropless ``C = T`` up to 4096 tokens (top-k
+    indices are distinct per token, so one expert receives at most T
+    assignments), the Switch-style capacity factor above that, rounded up
+    to a multiple of 8."""
+    if tokens <= 4096:
+        return tokens
+    c = int(tokens * cfg.top_k / cfg.num_experts * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)
+
+
+def _route(p, xt, k: int):
+    """f32 router: (probs (T, E), renormalized gates (T, k), expert ids
+    (T, k)).  Ties in the top-k go to the lower expert index, as
+    ``jax.lax.top_k`` orders them (a stable descending sort)."""
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :k], idx[:, :k]
+    return probs, gate / gate.sum(-1, keepdim=True), idx
+
+
+def _experts(p, h):
+    """SwiGLU experts over a batch laid out (E, C, d) -> (E, C, d)."""
+    act = F.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(h, p["w_up"])
+    return torch.bmm(act, p["w_down"])
+
+
+def moe_block(p, x, cfg):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss () f32)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    probs, gate, expert_idx = _route(p, xt, k)
+
+    # ---- load-balance auxiliary loss (Switch-style)
+    me = probs.mean(0)
+    ce = torch.bincount(expert_idx.reshape(-1), minlength=E).float() / (T * k)
+    aux = cfg.router_aux_coef * E * (me * ce).sum()
+
+    # ---- dispatch: sort token-expert assignments by expert id (stable)
+    C = capacity(T, cfg)
+    e_flat = expert_idx.reshape(-1)                           # (T*k,)
+    order = torch.argsort(e_flat, stable=True)
+    sorted_e = e_flat[order]
+    counts = torch.bincount(e_flat, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(T * k, device=x.device) - starts[sorted_e]
+    keep = pos_in_e < C
+    dest = torch.where(keep, sorted_e * C + pos_in_e, E * C)  # E*C: dropped
+    src_tok = order // k
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[dest] = xt[src_tok]
+    out_e = _experts(p, buf[:E * C].reshape(E, C, d)).reshape(E * C, d)
+
+    # ---- combine in f32: each token sums its k weighted expert outputs
+    # in ascending expert order (the order of the sorted slots)
+    flat = torch.cat([out_e, out_e.new_zeros((1, d))])        # drop row = 0
+    contrib = flat[dest].float() * gate.reshape(-1)[order][:, None]
+    slot_of = torch.empty_like(order)
+    slot_of[order] = torch.arange(T * k, device=x.device)
+    slots = slot_of.reshape(T, k).sort(dim=-1).values         # by expert
+    combined = contrib[slots].sum(1)
+    return combined.reshape(B, S, d).to(x.dtype), aux
+
+
+def moe_apply(p, x, cfg):
+    """The serving and training entry: the sort-based dispatch (no mesh
+    branch in the port)."""
+    return moe_block(p, x, cfg)
+
+
+def moe_block_dense_fallback(p, x, cfg):
+    """Every token through every expert (O(E) FLOPs): the numerical oracle
+    for the sparse dispatch above.  Returns (out, 0.0)."""
+    B, S, d = x.shape
+    xt = x.reshape(-1, d)
+    probs, gate, expert_idx = _route(p, xt, cfg.top_k)
+    act = F.silu(torch.einsum("td,edf->tef", xt, p["w_gate"]))
+    act = act * torch.einsum("td,edf->tef", xt, p["w_up"])
+    out_e = torch.einsum("tef,efd->ted", act, p["w_down"])    # (T, E, d)
+    w = torch.zeros_like(probs).scatter(1, expert_idx, gate)
+    out = torch.einsum("ted,te->td", out_e.float(), w)
+    return out.reshape(B, S, d).to(x.dtype), torch.zeros((), device=x.device)

@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense family.
+"""Decoder-only transformer, dense and moe families.
 
 The parameters live in an ``nn.Module`` per model (``Transformer``), laid
 out as the JAX pytree: ``x @ w`` with ``w`` (in, out), one ``Block`` per
@@ -7,7 +7,11 @@ where JAX runs ``lax.scan``.  Caches are dicts of tensors shaped as the JAX
 package's (``k``/``v`` with the layer axis first); K/V tensors are written
 in place, and every step returns a NEW ``pos`` tensor.
 
-The moe and vlm families are later slices of the port.
+A moe layer carries a ``moe`` parameter dict (``router``, ``w_gate``,
+``w_up``, ``w_down``; ``models/moe.py``) where a dense one carries ``mlp``,
+and every entry point runs ``moe_apply`` in its place, as the JAX package
+does; ``forward`` returns the layers' summed auxiliary loss.  The vlm
+family is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -26,12 +31,18 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+FAMILIES = ("dense", "moe")
+
+
 def require_dense(cfg) -> None:
-    if cfg.family != "dense":
+    """Raise unless ``cfg`` is a dense or moe decoder, the two families
+    this module serves."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not a dense transformer: "
-            "this module serves the dense family (the recurrent families "
-            "have their own modules); moe and vlm are later slices")
+            f"family {cfg.family!r} ({cfg.name}) is not a dense or moe "
+            "transformer: this module serves those two families (the "
+            "recurrent families have their own modules); vlm is a later "
+            "slice")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -40,18 +51,24 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 class Block(nn.Module):
     """One transformer layer: ``attn_norm``, ``attn`` {wq, wk, wv, wo},
-    ``mlp_norm``, ``mlp`` {w_gate?, w_up, w_down}."""
+    ``mlp_norm`` and either ``mlp`` {w_gate?, w_up, w_down} (dense) or
+    ``moe`` {router, w_gate, w_up, w_down} (moe; the other is None)."""
 
-    def __init__(self, attn_norm, attn, mlp_norm, mlp):
+    def __init__(self, attn_norm, attn, mlp_norm, mlp=None, moe=None):
         super().__init__()
+        if (mlp is None) == (moe is None):
+            raise ValueError("a block carries exactly one of mlp and moe")
         self.attn_norm = _param(attn_norm)
         self.attn = nn.ParameterDict({k: _param(v) for k, v in attn.items()})
         self.mlp_norm = _param(mlp_norm)
-        self.mlp = nn.ParameterDict({k: _param(v) for k, v in mlp.items()})
+        self.mlp = None if mlp is None else \
+            nn.ParameterDict({k: _param(v) for k, v in mlp.items()})
+        self.moe = None if moe is None else \
+            nn.ParameterDict({k: _param(v) for k, v in moe.items()})
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense decoder: ``embed`` (V, d), ``blocks``,
+    """Parameters of a dense or moe decoder: ``embed`` (V, d), ``blocks``,
     ``final_norm`` and, when the head is untied, ``lm_head`` (V, d)."""
 
     def __init__(self, cfg, embed, blocks, final_norm, lm_head=None):
@@ -71,17 +88,23 @@ class Transformer(nn.Module):
 # ----------------------------------------------------------------- init
 def init_params(cfg, seed: int = 0, device="cuda") -> Transformer:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (same distributions as the JAX package's init, not the same draws)."""
+    (same distributions as the JAX package's init, not the same draws; a
+    moe router is float32 whatever ``cfg.param_dtype`` says, as there)."""
     require_dense(cfg)
     dtype = dtype_of(cfg.param_dtype)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d = cfg.d_model
+
+    def ffn():
+        if cfg.family == "moe":
+            return {"moe": MOE.init_moe(gen, cfg, dtype, device)}
+        return {"mlp": L.init_mlp(gen, cfg, dtype, device)}
+
     blocks = [Block(torch.zeros(d, dtype=dtype, device=device),
                     L.init_attention(gen, cfg, dtype, device),
-                    torch.zeros(d, dtype=dtype, device=device),
-                    L.init_mlp(gen, cfg, dtype, device))
+                    torch.zeros(d, dtype=dtype, device=device), **ffn())
               for _ in range(cfg.num_layers)]
     embed = L.init_embedding(gen, cfg.vocab_size, d, dtype, device)
     head = None if cfg.tie_embeddings else \
@@ -91,9 +114,17 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Transformer:
 
 
 # ----------------------------------------------------------------- blocks
+def _ffn(blk, h, cfg):
+    """The layer's feed-forward half on the normed residual: (out, aux
+    loss) — ``moe_apply`` for a moe block, the MLP (aux 0) otherwise."""
+    hn = L.rmsnorm(h, blk.mlp_norm, cfg.norm_eps)
+    if blk.moe is not None:
+        return MOE.moe_apply(blk.moe, hn, cfg)
+    return L.mlp_block(blk.mlp, hn, cfg.mlp_activation), None
+
+
 def _mlp(blk, h, cfg):
-    return L.mlp_block(blk.mlp, L.rmsnorm(h, blk.mlp_norm, cfg.norm_eps),
-                       cfg.mlp_activation)
+    return _ffn(blk, h, cfg)[0]
 
 
 def _logits(params, h, cfg):
@@ -105,29 +136,35 @@ def _logits(params, h, cfg):
 
 
 def _layers(params, h, positions, cfg, window, backend, collect=None):
-    """Full-sequence pass over every layer; yields each layer's (k, v)."""
+    """Full-sequence pass over every layer; appends each layer's (k, v) to
+    ``collect``.  Returns (h, summed aux loss () f32)."""
+    aux = torch.zeros((), device=h.device)
     for blk in params.blocks:
         a, kv = L.attention_block(blk.attn,
                                   L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
                                   positions, cfg, window=window,
                                   backend=backend)
         h = h + a
-        h = h + _mlp(blk, h, cfg)
+        m, a_l = _ffn(blk, h, cfg)
+        h = h + m
+        if a_l is not None:
+            aux = aux + a_l
         if collect is not None:
             collect.append(kv)
-    return h
+    return h, aux
 
 
 # ----------------------------------------------------------------- forward
 def forward(params, tokens, cfg, *, window: int = 0, backend: str = "auto"):
     """Scoring forward pass.  tokens: (B, S) int.  Returns (logits
-    (B, S, V) f32, aux_loss) — the dense family's aux loss is 0."""
+    (B, S, V) f32, aux_loss) — the moe layers' summed load-balance loss,
+    0 for the dense family."""
     L.check_backend(backend)
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
     positions = torch.arange(h.shape[1], device=h.device)
-    h = _layers(params, h, positions, cfg, window or cfg.sliding_window,
-                backend)
-    return _logits(params, h, cfg), torch.zeros((), device=h.device)
+    h, aux = _layers(params, h, positions, cfg, window or cfg.sliding_window,
+                     backend)
+    return _logits(params, h, cfg), aux
 
 
 # ----------------------------------------------------------------- cache
@@ -208,8 +245,8 @@ def prefill(params, tokens, cfg, *, max_seq: Optional[int] = None,
     max_seq = max(max_seq or S, S)
     positions = torch.arange(S, device=h.device)
     kvs = []
-    h = _layers(params, h, positions, cfg, window or cfg.sliding_window,
-                backend, kvs)
+    h, _ = _layers(params, h, positions, cfg, window or cfg.sliding_window,
+                   backend, kvs)
     logits = _logits(params, h[:, -1, :], cfg)
     cache = init_cache(cfg, B, max_seq, device=h.device)
     for l, (k, v) in enumerate(kvs):

@@ -646,3 +646,139 @@ def test_ssd_dispatch_counts_launches(cuda):
                                      False, False)
     ops.ssd_chunk_scan(q, k, v, la, li, chunk=8)
     assert ops.launch_counts()["ssd_chunk_scan"] == 1
+
+
+# ------------------------------------------------------------ slice 7
+# batch-1 dense decode of the per-request loops: smollm-135m and granite-8b
+# heads over the caches of serve_reference (28 entries) and SpecDecoder (64)
+@pytest.mark.parametrize("Kv,G,hd", [(3, 3, 64), (8, 4, 128)])
+@pytest.mark.parametrize("S", [28, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 11])
+def test_decode_attention_kernel_batch1(cuda, Kv, G, hd, S, dtype, window):
+    for n in (1, 15, S - 1, S):
+        q = _rand(n, (1, Kv, G, hd), cuda, dtype)
+        k = _cache_view(1, 1, Kv, S, hd, cuda, dtype)
+        v = _cache_view(2, 1, Kv, S, hd, cuda, dtype)
+        length = torch.full((1,), n, dtype=torch.int32, device=cuda)
+        out = decode_attention_cuda(q, k, v, length, window=window)
+        ref = decode_attention_plain(q, k, v, length, window=window)
+        assert _err(out, ref) <= TOL[dtype], n
+
+
+def _token_tree_mask():
+    """(mask, depths) of the 16-node TokenTree of branching (3, 2, 1), in
+    the order build_tree appends the nodes."""
+    from repro_torch.core.tree_speculation import TokenTree
+    parent = [-1] + [0] * 3 + [1 + i // 2 for i in range(6)] + \
+        [4 + i for i in range(6)]
+    tree = TokenTree(np.zeros(16, np.int32), np.asarray(parent, np.int32),
+                     np.zeros((16, 1), np.float32))
+    return tree.attention_mask(), tree.depths()
+
+
+@pytest.mark.parametrize("Kv,G,hd", [(8, 4, 128), (3, 3, 64)])
+@pytest.mark.parametrize("base", [15, 40, 160])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 8])
+def test_tree_verify_attention_kernel_token_tree_batch1(cuda, Kv, G, hd,
+                                                        base, dtype, window):
+    """TreeSpecDecoder's verify: one sequence, the (3, 2, 1) token tree
+    (16 nodes, C == N) over a 176-entry cache, RoPE positions base + depth."""
+    mask, depths = _token_tree_mask()
+    S, N = 176, 16
+    q = _rand(0, (1, N, Kv, G, hd), cuda, dtype).permute(0, 2, 3, 1, 4)
+    k = _cache_view(1, 1, Kv, S, hd, cuda, dtype)
+    v = _cache_view(2, 1, Kv, S, hd, cuda, dtype)
+    length = torch.full((1,), base, dtype=torch.int32, device=cuda)
+    q_pos = (base + torch.as_tensor(depths, device=cuda))[None] \
+        .to(torch.int32).contiguous()
+    mask = torch.as_tensor(mask, device=cuda)
+    out = tree_verify_attention_cuda(q, k, v, length, mask, q_pos,
+                                     window=window)
+    ref = tree_verify_attention_plain(q, k, v, length, mask, q_pos,
+                                      window=window)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 11])
+def test_paged_decode_kernel_moe_heads(cuda, dtype, window):
+    """granite-moe-1b-a400m's heads (Kv 8, G 2, hd 64) on the serving
+    pool: 8 slots, 32-token blocks, 3-block tables."""
+    B, Kv, G, bs, MB, hd = 8, 8, 2, 32, 3, 64
+    NB = B * MB + 1
+    q = _rand(0, (B, Kv, G, hd), cuda, dtype)
+    kp = _rand(1, (NB, bs, Kv, hd), cuda, dtype)
+    vp = _rand(2, (NB, bs, Kv, hd), cuda, dtype)
+    rng = np.random.default_rng(2)
+    table = torch.as_tensor(rng.permutation(np.arange(1, NB)).reshape(B, MB),
+                            dtype=torch.int32, device=cuda)
+    length = torch.as_tensor(rng.integers(1, MB * bs + 1, B),
+                             dtype=torch.int32, device=cuda)
+    out = paged_decode_attention_cuda(q, kp, vp, table, length,
+                                      window=window)
+    ref = paged_decode_attention_plain(q, kp, vp, table, length,
+                                       window=window)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("tokens", [1, 8, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_block_cuda_matches_cpu(cuda, tokens, dtype):
+    """One full-width granite-moe-1b-a400m layer's MoE block (32 experts,
+    top 8) on the card against its run on the CPU: the same dispatch,
+    library products on both devices (bf16: 2e-2, f32: 1e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import ParamTree
+    cfg = get_config("granite-moe-1b-a400m").replace(
+        param_dtype=str(dtype)[6:], activ_dtype=str(dtype)[6:])
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    p_cpu = ParamTree(MOE.init_moe(gen, cfg, dtype, "cpu"))
+    p_gpu = ParamTree({k: getattr(p_cpu, k).to(cuda)
+                       for k in ("router", "w_gate", "w_up", "w_down")})
+    x = _rand(3, (1, tokens, cfg.d_model), "cpu", dtype)
+    out_c, aux_c = MOE.moe_block(p_cpu, x, cfg)
+    out_g, aux_g = MOE.moe_block(p_gpu, x.to(cuda), cfg)
+    assert out_g.is_cuda and out_g.dtype == dtype
+    assert _err(out_g.cpu(), out_c) <= TOL[dtype]
+    assert abs(float(aux_g) - float(aux_c)) <= 1e-5
+
+
+def test_serve_reference_on_cuda_matches_plain(cuda):
+    """CollaborativeEngine.serve_reference at reduced f32 with seeded port
+    weights on the card: the kernels (flash prefill, batch-1 dense decode)
+    against attn_backend="plain", for the speculative, skeleton and cloud
+    outcomes, plus TreeSpecDecoder (the batch-1 tree verify kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CollaborativeEngine
+    from repro_torch.core.policy import policy_from_legacy
+    from repro_torch.core.tree_speculation import TreeSpecDecoder
+    from repro_torch.models import Model
+    e = get_config("smollm-135m").reduced()
+    c = get_config("granite-8b").reduced().replace(vocab_size=e.vocab_size)
+    edge, cloud = Model(e), Model(c)
+    ep, cp = edge.init(seed=0), cloud.init(seed=1)
+    prompts = [np.random.default_rng(i).integers(0, e.vocab_size, 12)
+               for i in range(2)]
+    runs = {}
+    for backend in ("auto", "plain"):
+        ops.reset_launch_counts()
+        out = []
+        for esc in ("speculative", "skeleton", "cloud"):
+            eng = CollaborativeEngine(edge, cloud, gamma=3, temperature=0.0,
+                                      skeleton_len=4, attn_backend=backend,
+                                      policy=policy_from_legacy(esc, -1.0))
+            out += [(tr.path, tr.tokens, tr.edge_calls, tr.cloud_passes)
+                    for tr in (eng.serve_reference(ep, cp, p, 8)
+                               for p in prompts)]
+        out.append(TreeSpecDecoder(edge, cloud, branching=(3, 2, 1),
+                                   temperature=0.0,
+                                   attn_backend=backend).generate(
+            ep, cp, prompts[0], 6))
+        runs[backend] = out, ops.launch_counts()
+    assert runs["auto"][0] == runs["plain"][0]
+    launched = runs["auto"][1]
+    for k in ("flash_attention", "decode_attention", "tree_verify_attention"):
+        assert launched[k] > 0 and runs["plain"][1][k] == 0, k

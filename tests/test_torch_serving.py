@@ -35,6 +35,17 @@ from repro_torch.core.scheduler import BatchedEngine as TEngine  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its host loops issue many
+    tiny ops, which threads only slow down when the test workers share
+    the CPU; the previous count is restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(get, edge="smollm-135m", cloud="granite-8b"):
     e, c = get(edge).reduced(), get(cloud).reduced()
     v = min(e.vocab_size, c.vocab_size)
