@@ -29,7 +29,14 @@ the first phase that fails:
    random states; the per-request phase's shapes too: dense decode at
    batch 1 (smollm-135m and granite-8b heads) and tree verify at batch 1
    with the 16-node (3, 2, 1) token tree, and paged decode at
-   granite-moe-1b-a400m's heads (Kv 8, G 2), each held and timed;
+   granite-moe-1b-a400m's heads (Kv 8, G 2), each held and timed; the
+   flash backward (the port's own kernel, ``csrc/flash_attention_bwd.cu``)
+   against autograd of the plain attention (dq, dk, dv and the forward's
+   log-sum-exp against ``logsumexp`` of the plain scores, float32 and
+   bfloat16, smollm-135m heads at S 64 and 256, granite-8b heads, zamba2's
+   hd 80 with G 1, a window, a ragged length), timed alone and, forward +
+   backward, against SDPA's forward + backward at the training shape and
+   at S 2048;
 3. serve seven paths at full width — granite-8b cloud, bfloat16, seeded
    random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
    SpeculativePolicy(0.6), T = 0: with the smollm-135m edge the default
@@ -47,7 +54,16 @@ the first phase that fails:
    with each escalation and ``serve`` on two prompts, ``TreeSpecDecoder``
    (3, 2, 1) and ``SelfSpecDecoder`` (exit layer 15) on one, 8 new tokens
    each, its traces checked and its kernels' launches counted the same
-   way;
+   way; then the learning half at full width: serve-time adaptation
+   (smollm-135m edge, granite-8b cloud, 3 drains of 8 new requests) with
+   ``--adapt distill`` behind cloud escalation (teacher top-k captured)
+   and ``--adapt lora`` on the speculative lane — at least one hot swap,
+   a finite loss, a swapped tree with the serving params' names, shapes,
+   dtypes and device, the backward kernel launched — and
+   ``launch/train.py`` on smollm-135m (batch 8, seq 256, 30 steps; plain
+   and ``--remat``), whose loss must fall; a profiled training step; and
+   one float32 train step through the kernels against the plain
+   attention (2 layers, full width);
 4. serve each path again at float32, full width, cut depth (2 layers per
    model; xLSTM 4, zamba2 6 — one whole shared-attention group), plus the
    moe edge on the tree lane, the mamba2 path with chunked prefill and
@@ -56,8 +72,9 @@ the first phase that fails:
    the traces must agree, a divergence being excused (and reported) only
    where the plain model's top-2 logit gap is below 1e-4;
 5. print the card's name and power limit, a ``{"kernels": [...]}`` line
-   (launches summed over the seven served paths and the per-request
-   phase) and last the result line ``{"ok": true, "device": {...}}``.
+   (launches summed over the seven served paths, the per-request phase,
+   the two adaptation paths and the two training runs) and last the
+   result line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -385,6 +402,141 @@ def check_flash(gen):
     row.update(_flash_timing(K, FLASH_SERVING[1], gen))
     row["long"] = {"shape": "(B,H,Kv,S,hd)=" + str(FLASH_LONG),
                    **_flash_timing(K, FLASH_LONG, gen)}
+    return row
+
+
+# flash backward cases (B, H, Kv, S, hd, window), all causal: smollm-135m
+# heads at S 64 and at the training shape S 256, granite-8b heads, zamba2's
+# head dim 80 with G 1, a window, a ragged length; the training shape and
+# granite-8b heads at S 2048 are timed.  Tolerance on max |kernel - plain|
+# over dq, dk, dv: BWD_TOL times max(1, max |plain|); the LSE against
+# logsumexp of the plain scores: 1e-5 float32, 1e-3 bfloat16 (the tile's
+# 2-ulp exp2), times max(1, max |LSE|)
+FLASH_BWD_CASES = ((8, 9, 3, 64, 64, 0), (8, 9, 3, 256, 64, 0),
+                   (2, 32, 8, 128, 128, 0), (2, 32, 32, 64, 80, 0),
+                   (8, 9, 3, 256, 64, 64), (4, 9, 3, 100, 64, 0))
+FLASH_BWD_TRAIN = (8, 9, 3, 256, 64)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+def _attn_grads(fn, q, k, v, dout, window=0):
+    import torch
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v, causal=True, window=window)
+    return torch.autograd.grad(out, (q, k, v), dout)
+
+
+def _lse_ref(q, k, window):
+    import torch
+    S, hd = q.shape[2], q.shape[3]
+    kk = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / hd ** 0.5
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = j <= i
+    if window:
+        mask = mask & (j > i - window)
+    return torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+
+
+def _flash_bwd_timing(K, shape, gen):
+    """The backward kernel alone (on the forward's saved output and LSE)
+    per call and on the device, and forward + backward of the kernels
+    (autograd through ``FlashAttention``) against SDPA forward + backward
+    on the same inputs, in turns; bf16, causal; bounds of both."""
+    import torch
+    import torch.nn.functional as F
+    B, H, Kv, S, hd = shape
+    bf = torch.bfloat16
+    q = _proj_view((B, H, S, hd), bf, gen)
+    k, v = (_proj_view((B, Kv, S, hd), bf, gen) for _ in range(2))
+    dout = _proj_view((B, H, S, hd), bf, gen)
+    with torch.no_grad():
+        out, lse = K.flash_attention_cuda(q, k, v, causal=True,
+                                          return_lse=True)
+    bwd = lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                             causal=True)
+    ms = time_ms(bwd)
+    dev = device_ms(bwd)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd_bwd():
+        o = K.flash_attention_kernel(qg, kg, vg, causal=True)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    fb, fb_dev, lib, lib_dev = paired_ms(fwd_bwd, sdpa_fwd_bwd)
+    plain = time_ms(lambda: _attn_grads(K.flash_attention_plain, q, k, v,
+                                        dout), reps=5 if S > 1024 else 20)
+    pairs = B * H * S * (S + 1) // 2          # visible (query, key) pairs
+    nb = 2 * (4 * B * H * S * hd + 4 * B * Kv * S * hd) + 4 * B * H * S
+    bnd, by = bound_ms(nb, 5 * 2 * pairs * hd, "bfloat16")
+    fb_bnd, fb_by = bound_ms(2 * (4 * B * H * S * hd + 4 * B * Kv * S * hd),
+                             7 * 2 * pairs * hd, "bfloat16")
+    print(f"[kernel] flash_attention_bwd timing (B,H,Kv,S,hd)={shape} "
+          f"bfloat16 causal: backward {ms:.4f} ms per call, {dev:.4f} ms on "
+          f"the device, bound {bnd:.6f} ms ({by}); forward + backward "
+          f"{fb:.4f} / {fb_dev:.4f} ms, SDPA forward + backward {lib:.4f} / "
+          f"{lib_dev:.4f} ms, bound {fb_bnd:.6f} ms ({fb_by}); plain "
+          f"forward + backward {plain:.4f} ms", flush=True)
+    return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None, "fwd_bwd_ms": fb,
+            "fwd_bwd_device_ms": fb_dev, "sdpa_fwd_bwd_ms": lib,
+            "sdpa_fwd_bwd_device_ms": lib_dev, "fwd_bwd_bound_ms": fb_bnd}
+
+
+def check_flash_bwd(gen):
+    """The backward kernel (through ``ops.flash_attention`` under grad:
+    the forward kernel with its LSE, then the backward kernel) against
+    autograd of the plain version, float32 and bfloat16, on strided views;
+    the LSE of both forward paths; then timed at the training shape and at
+    S 2048 against SDPA."""
+    import torch
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ops
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for B, H, Kv, S, hd, window in FLASH_BWD_CASES:
+            q = _proj_view((B, H, S, hd), dtype, gen)
+            k, v = (_proj_view((B, Kv, S, hd), dtype, gen) for _ in range(2))
+            dout = _proj_view((B, H, S, hd), dtype, gen)
+            got = _attn_grads(ops.flash_attention, q, k, v, dout, window)
+            ref = _attn_grads(K.flash_attention_plain, q, k, v, dout, window)
+            with torch.no_grad():
+                _, lse = K.flash_attention_cuda(q, k, v, causal=True,
+                                                window=window,
+                                                return_lse=True)
+            lref = _lse_ref(q, k, window)
+            torch.cuda.synchronize()
+            err = max(max_err(a, b) for a, b in zip(got, ref))
+            scale = max(1.0, max(float(r.float().abs().max()) for r in ref))
+            lerr = max_err(lse, lref)
+            lscale = max(1.0, float(lref.abs().max()))
+            print(f"[kernel] flash_attention_bwd {name} (B,H,Kv,S,hd)="
+                  f"{(B, H, Kv, S, hd)} window={window}: max_abs_err "
+                  f"{err:.3e} (tol {BWD_TOL[name]:g} x {scale:.2f}); LSE "
+                  f"{lerr:.3e} (tol {LSE_TOL[name]:g} x {lscale:.2f})",
+                  flush=True)
+            check(err <= BWD_TOL[name] * scale,
+                  f"flash_attention_bwd {name} {(B, H, Kv, S, hd)} window "
+                  f"{window}: error {err}")
+            check(lerr <= LSE_TOL[name] * lscale,
+                  f"flash LSE {name} {(B, H, Kv, S, hd)}: error {lerr}")
+            errs.append(err)
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/models/layers.py:192 (the gradient of "
+                       "attention_block's jnp attention; no TPU kernel)",
+           "max_abs_err": max(errs)}
+    row.update(_flash_bwd_timing(K, FLASH_BWD_TRAIN, gen))
+    row["long"] = {"shape": "(B,H,Kv,S,hd)=" + str(FLASH_LONG),
+                   **_flash_bwd_timing(K, FLASH_LONG, gen)}
     return row
 
 
@@ -901,7 +1053,8 @@ def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     return [check_paged(gen), check_flash(gen), check_spec_verify(gen),
-            check_tree(gen), check_decode(gen), check_ssd(gen)]
+            check_tree(gen), check_decode(gen), check_ssd(gen),
+            check_flash_bwd(gen)]
 
 
 # --------------------------------------------------------------- phase 3
@@ -1395,6 +1548,231 @@ def parity_per_request(ep, cp, e_cfg, c_cfg, prompts):
           f"identical, {excused} near-tie divergences", flush=True)
 
 
+# --------------------------------------------------------------- phase 3b
+# the learning paths at full width: serve-time adaptation (smollm-135m
+# edge, granite-8b cloud, bfloat16, batch 8, 16-token prompts, 24 new
+# tokens, ADAPT_DRAINS drains) — distill behind cloud escalation (teacher
+# top-k captured), lora on the default speculative lane — each with the
+# kernels it must launch, then the offline trainer
+ADAPT_PATHS = (
+    ("adapt distill", "threshold",
+     {"mode": "distill", "interval": 8, "topk": 8},
+     ("paged_decode_attention", "flash_attention", "flash_attention_bwd")),
+    ("adapt lora", "speculative", {"mode": "lora", "interval": 8},
+     ("paged_decode_attention", "flash_attention", "spec_verify",
+      "flash_attention_bwd")),
+)
+ADAPT_DRAINS = 3
+TRAIN_ARGS = ["--arch", "smollm-135m", "--steps", "30", "--batch", "8",
+              "--seq", "256"]
+
+
+def _adapt_path(name, policy, akw, kernels, ep, cp, e_cfg, c_cfg, prompts):
+    import math
+    import torch
+    from repro_torch.core.adaptation import AdaptationLoop
+    from repro_torch.core.policy import make_policy
+    from repro_torch.core.scheduler import BatchedEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.training import tree as T
+    loop = AdaptationLoop(**akw)
+    eng = BatchedEngine(Model(e_cfg), Model(c_cfg), batch_size=8, gamma=4,
+                        temperature=0.0,
+                        policy=make_policy(policy, threshold=0.6),
+                        adaptation=loop)
+    V = e_cfg.vocab_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    for d in range(ADAPT_DRAINS):
+        # new prompts each drain: repeats would be semantic-cache hits
+        traces = eng.serve_batch(ep, cp, prompts[8 * d:8 * d + 8], 24)
+        for i, tr in enumerate(traces):
+            check(tr.tokens is not None and len(tr.tokens) == 24
+                  and all(0 <= x < V for x in tr.tokens),
+                  f"{name} drain {d} request {i}: bad tokens")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = ops.launch_counts()
+    st = loop.stats()
+    paths = {}
+    for tr in traces:
+        paths[tr.path] = paths.get(tr.path, 0) + 1
+    check(st["swaps"] >= 1, f"{name}: no hot swap in {ADAPT_DRAINS} drains")
+    check(st["last_loss"] is not None and math.isfinite(st["last_loss"]),
+          f"{name}: last loss {st['last_loss']}")
+    for k in kernels:
+        check(launches[k] > 0, f"kernel {k} was not launched on the {name} "
+                               "path")
+    served = T.leaves(ep)
+    swapped = T.leaves(loop.latest)
+    check([n for n, _ in swapped] == [n for n, _ in served],
+          f"{name}: the swapped tree differs from the serving tree")
+    for (n, a), (_, b) in zip(swapped, served):
+        check((a.shape, a.dtype, a.device) == (b.shape, b.dtype, b.device)
+              and not a.requires_grad,
+              f"{name}: swapped {n} is {a.shape} {a.dtype} {a.device}")
+    if policy == "threshold":
+        check(all(r.teacher_values is not None
+                  for r in loop.store.records()),
+              f"{name}: a cloud completion carried no teacher top-k")
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    # one more update, timed: the batch from the store, the step, the merge
+    def update():
+        loop._pending = True
+        loop.maybe_update(loop.current(ep))
+    host, span = _host_device_ms(update, reps=3)
+    print(f"[learn] {name} path (smollm-135m edge, granite-8b cloud, "
+          f"{ADAPT_DRAINS} drains of 8 requests): "
+          f"{ADAPT_DRAINS * 8 / dt:.2f} req/s over {dt:.2f}s; last drain's "
+          f"paths {paths}; swaps "
+          f"{st['swaps']}, train steps {st['train_steps']}, last loss "
+          f"{st['last_loss']:.4f}, store {st['store_size']}; one update: "
+          f"host issue {host:.1f} ms, stream span {span:.1f} ms; "
+          f"max_memory_allocated {mem:.2f} GiB; launches {launches}",
+          flush=True)
+    return launches
+
+
+def _train_runs():
+    """``launch/train.py`` on full-width smollm-135m, plain and --remat."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import main as train_main
+    out = []
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = train_main(TRAIN_ARGS + (["--remat"] if remat else []))
+        launches = ops.launch_counts()
+        h = res["history"]
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        label = "--remat" if remat else "plain"
+        check(h[-1][1] < h[0][1], f"trainer {label}: loss {h[0][1]} at step "
+                                  f"{h[0][0]} -> {h[-1][1]} at {h[-1][0]}")
+        for k in ("flash_attention", "flash_attention_bwd"):
+            check(launches[k] > 0, f"kernel {k} was not launched by the "
+                                   f"trainer ({label})")
+        print(f"[learn] trainer {label} (smollm-135m, batch 8, seq 256, "
+              f"{res['steps']} steps): loss {h[0][1]:.4f} -> {h[-1][1]:.4f}; "
+              f"{res['seconds'] / res['steps'] * 1e3:.1f} ms/step, "
+              f"{res['tokens'] / res['seconds']:.0f} tokens/s; "
+              f"max_memory_allocated {mem:.2f} GiB; launches {launches}",
+              flush=True)
+        out.append(launches)
+    return out
+
+
+def _train_breakdown():
+    """Where a full-width training step goes (smollm-135m, bfloat16,
+    batch 8, seq 256, AdamW): host issue against stream span of one step,
+    and a profiler pass over 3 steps for the device's busy share and its
+    top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import batches
+    from repro_torch.models import Model
+    from repro_torch.training import AdamW, make_train_step
+    e_cfg, _ = _configs("smollm-135m")
+    m = Model(e_cfg)
+    p = m.init(seed=0, device="cuda")
+    opt = AdamW()
+    state = [p, opt.init(p)]
+    step = make_train_step(m, opt)
+    batch = next(batches(e_cfg, 8, 256, device="cuda"))
+
+    def one():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    host, span = _host_device_ms(one, reps=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(3):
+            one()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / 3
+    evs = prof.key_averages()
+
+    def self_dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(self_dev(e) for e in evs) / 1e3 / 3
+    top = sorted(evs, key=self_dev, reverse=True)[:8]
+    print(f"[breakdown] one train step (smollm-135m, batch 8, seq 256): host "
+          f"issue {host:.1f} ms, stream span {span:.1f} ms; profiled: wall "
+          f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}); "
+          "top device time per step: "
+          + "; ".join(f"{e.key[:50]} {self_dev(e) / 3e3:.2f} ms"
+                      for e in top), flush=True)
+
+
+def _train_step_parity():
+    """One train step at float32, full width, 2 layers: through the
+    kernels (flash forward and backward) against ``attn_backend="plain"``
+    (autograd through ``mha``).  Tolerances: loss 1e-5 and grad norm 1e-4
+    relative, the updated params 1e-5 absolute — the step's AdamW takes
+    eps = 1e-3 so that its first update g / (|g| + eps) is smooth in g (at
+    1e-8 it is sign(g), which float32 noise flips on gradients within
+    rounding of zero)."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.model import example_batch
+    from repro_torch.training import AdamW, make_train_step
+    from repro_torch.training import tree as T
+    e_cfg, _ = _configs("smollm-135m", (2, 2), "float32")
+    m = Model(e_cfg)
+    p = m.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    batch = example_batch(e_cfg, 8, 64, gen, device="cuda")
+    res = {}
+    for backend in ("auto", "plain"):
+        opt = AdamW(lr=1e-3, eps=1e-3)
+        step = make_train_step(
+            m, opt, donate=False,
+            loss_fn=lambda pp, b, be=backend: m.loss(pp, b, attn_backend=be))
+        res[backend] = step(p, opt.init(p), batch)
+    (pk, _, mk), (pp, _, mp) = res["auto"], res["plain"]
+    dl = abs(float(mk["loss"]) - float(mp["loss"]))
+    dn = abs(float(mk["grad_norm"]) - float(mp["grad_norm"]))
+    dp = max(max_err(a, b) for a, b in zip(T.tensors(pk), T.tensors(pp)))
+    print(f"[parity] one train step, float32 full-width 2-layer smollm-135m "
+          f"(batch 8, seq 64), kernels vs plain: loss "
+          f"{float(mk['loss']):.6f} (diff {dl:.2e}), grad norm "
+          f"{float(mk['grad_norm']):.4f} (diff {dn:.2e}), updated params max "
+          f"diff {dp:.2e}", flush=True)
+    check(dl <= 1e-5 * float(mp["loss"]), f"train-step loss diff {dl}")
+    check(dn <= 1e-4 * float(mp["grad_norm"]), f"grad norm diff {dn}")
+    check(dp <= 1e-5, f"updated params differ by {dp}")
+
+
+def phase_learn(total):
+    """The learning half on the card: both adaptation paths, the trainer
+    (plain and --remat), and the float32 train-step parity; adds every
+    path's launches to ``total``."""
+    import torch
+    e_cfg, c_cfg = _configs("smollm-135m")
+    ep, cp = _init(e_cfg, 0), _init(c_cfg, 1)
+    prompts = _prompts(e_cfg.vocab_size, 8 * ADAPT_DRAINS)
+    for name, policy, akw, kernels in ADAPT_PATHS:
+        for k, n in _adapt_path(name, policy, akw, kernels, ep, cp, e_cfg,
+                                c_cfg, prompts).items():
+            total[k] += n
+    del ep, cp
+    torch.cuda.empty_cache()
+    for launches in _train_runs():
+        for k, n in launches.items():
+            total[k] += n
+    torch.cuda.empty_cache()
+    _train_breakdown()
+    torch.cuda.empty_cache()
+    _train_step_parity()
+
+
 # --------------------------------------------------------------- phase 4
 def phase_parity():
     """Every served path at float32, full width, cut depth
@@ -1477,6 +1855,9 @@ def main() -> int:
         launches = phase_serve()
         print(f"[time] + serve and breakdown {time.perf_counter() - t0:.0f}s",
               flush=True)
+        phase_learn(launches)
+        print(f"[time] + adaptation and training "
+              f"{time.perf_counter() - t0:.0f}s", flush=True)
         phase_parity()
         print(f"[time] + parity {time.perf_counter() - t0:.0f}s", flush=True)
     except SmokeFailure as e:

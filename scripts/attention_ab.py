@@ -3,7 +3,7 @@
 compared on one card.
 
     python3 scripts/attention_ab.py [--src DIR] [--label NAME]
-                                    [--kernels flash,tree,paged,ssd,decode,spec]
+                                    [--kernels flash,tree,paged,ssd,decode,spec,bwd]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``)
 and times each selected kernel by ``chip_smoke.py``'s procedure — per call:
@@ -25,7 +25,10 @@ version of the wrappers takes:
   path's shared attention (Kv 32, G 1, hd 80) and a 4096-position cache,
   each with SDPA;
 * ``spec``: spec verify at the serving shape at T = 0 and T = 1, and at
-  the hybrid path's 32000-entry vocabulary.
+  the hybrid path's 32000-entry vocabulary;
+* ``bwd``: the flash backward alone at the training shape (smollm-135m
+  heads, B 8, S 256) and at granite-8b's heads over S 2048, with forward
+  + backward against SDPA's (``chip_smoke._flash_bwd_timing``).
 
 The helpers are this checkout's ``chip_smoke.py``; only the kernel
 modules come from ``DIR``.  Prints one JSON line.  Compare two versions
@@ -43,7 +46,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts this checkout's src on the path)
 
-ALL = ("flash", "tree", "paged", "ssd", "decode", "spec")
+ALL = ("flash", "tree", "paged", "ssd", "decode", "spec", "bwd")
 
 
 def _flash(res, gen):
@@ -100,6 +103,12 @@ def _spec(res, gen):
         res[f"spec_{key}"] = cs.spec_timing(K, gen, V, temperature)
 
 
+def _bwd(res, gen):
+    from repro_torch.kernels import flash_attention as K
+    res["bwd_train"] = cs._flash_bwd_timing(K, cs.FLASH_BWD_TRAIN, gen)
+    res["bwd_long"] = cs._flash_bwd_timing(K, cs.FLASH_LONG, gen)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -127,7 +136,7 @@ def main() -> int:
     gen.manual_seed(0)
     res = {"label": args.label, "device": torch.cuda.get_device_name(0)}
     steps = {"flash": _flash, "tree": _tree, "paged": _paged, "ssd": _ssd,
-             "decode": _decode, "spec": _spec}
+             "decode": _decode, "spec": _spec, "bwd": _bwd}
     for k in kernels:
         steps[k](res, gen)
     print(json.dumps(res), flush=True)

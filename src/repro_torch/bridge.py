@@ -1,4 +1,5 @@
-"""Parameter bridge: the JAX package's parameter pytree -> the port's module.
+"""Parameter bridge between the JAX package's parameter pytree and the
+port's modules, both ways.
 
 ``params_from_numpy`` takes a JAX parameter pytree given as nested dicts
 (and, for xLSTM, lists) of numpy arrays and builds the port's parameters on
@@ -23,15 +24,23 @@ numpy has no bfloat16: the caller casts bfloat16 leaves to float32 before
 the config says: the recurrent families' gate and norm leaves
 (``ssm.F32_LEAVES``, ``xlstm.F32_LEAVES``) and the moe router.  Tests call
 this; nothing on the serving path does.
+
+``params_to_numpy`` is the inverse: it rebuilds the JAX pytree (stacked
+leaves, float32 numpy arrays) from the port's parameters, so that
+checkpoints are written in the JAX layout and updated parameters compare
+leaf for leaf with JAX.  ``jax_layout`` names, for every JAX leaf path
+(``"blocks/attn/wq"``), its stacked axes and the port parameters that fill
+them; ``jax_ndims`` gives each port parameter the rank of its JAX leaf —
+the rank AdamW's decay rule reads, and LoRA's target rule.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models import ssm, xlstm
+from repro_torch.models import hybrid, ssm, xlstm
 from repro_torch.models.layers import ParamTree
 from repro_torch.models.transformer import Block, Transformer, dtype_of
 
@@ -88,3 +97,67 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda"):
     head = t(tree["lm_head"]) if "lm_head" in tree else None
     return Transformer(cfg, t(tree["embed"]), layers, t(tree["final_norm"]),
                        head)
+
+
+def config_of(params, cfg=None):
+    """``cfg`` if given, else the parameter module's own ``cfg`` (a
+    ``Transformer`` carries one; a ``ParamTree`` does not)."""
+    cfg = cfg if cfg is not None else getattr(params, "cfg", None)
+    if cfg is None:
+        raise ValueError("pass the parameters' cfg: the JAX layout of a "
+                         "parameter module depends on its config")
+    return cfg
+
+
+def jax_layout(params, cfg) -> Dict[str, Tuple[Tuple[int, ...], List[str]]]:
+    """JAX leaf path -> (its stacked axes, the port parameter names that
+    fill them in row-major order).  dense, moe and ssm stack ``blocks`` on
+    L; hybrid stacks ``mamba`` on (G, K); xLSTM's ``blocks`` is a list, so
+    its leaves are ``blocks/<i>/...`` and unstacked."""
+    stacks = {"blocks": (cfg.num_layers,)}
+    if cfg.family == "hybrid":
+        stacks = {"mamba": tuple(hybrid._dims(cfg))}
+    elif cfg.family == "xlstm":
+        stacks = {}
+    out: Dict[str, Tuple[Tuple[int, ...], List[str]]] = {}
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] in stacks:
+            path = "/".join([parts[0]] + parts[2:])
+            out.setdefault(path, (stacks[parts[0]], []))[1].append(name)
+        else:
+            out["/".join(parts)] = ((), [name])
+    for path, (stack, names) in out.items():
+        if len(names) != int(np.prod(stack)):
+            raise ValueError(f"{path}: {len(names)} parameters for stacked "
+                             f"axes {stack}")
+    return out
+
+
+def jax_ndims(params, cfg) -> Dict[str, int]:
+    """Port parameter name -> the rank of the JAX leaf it belongs to."""
+    named = dict(params.named_parameters())
+    return {n: len(stack) + named[n].dim()
+            for stack, names in jax_layout(params, cfg).values()
+            for n in names}
+
+
+def params_to_numpy(params, cfg) -> Dict[str, Any]:
+    """The JAX parameter pytree of the port's ``params``: nested dicts (and,
+    for xLSTM, a list of blocks) of float32 numpy arrays, stacked leaves
+    stacked as JAX stacks them.  The inverse of ``params_from_numpy``."""
+    named = dict(params.named_parameters())
+    tree: Dict[str, Any] = {}
+    for path, (stack, names) in jax_layout(params, cfg).items():
+        arrs = [named[n].detach().float().cpu().numpy() for n in names]
+        leaf = np.stack(arrs).reshape(stack + arrs[0].shape) if stack \
+            else arrs[0]
+        node = tree
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    if cfg.family == "xlstm":
+        tree["blocks"] = [tree["blocks"][str(i)]
+                          for i in range(len(tree["blocks"]))]
+    return tree

@@ -33,8 +33,15 @@ the PyTorch twin of the JAX package's ``core/scheduler.py``.
     self lane, each padded to ``batch_size``.  Tree and self groups run on
     dense side states (``Lane.dense_side``), whatever the serving layout.
 
+  * ADAPTATION (``adaptation=``, a ``core/adaptation.py::AdaptationLoop``):
+    every completion retires into its feedback store from ``_finish``; the
+    cloud passes emit top-k teacher logits when it asks for them, pulled
+    with the token tape; between ticks the loop may train and hand back
+    new edge weights, which the drain rebinds (``SequenceState.rebind``).
+    With ``adaptation=None`` serving is unchanged to the token.
+
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-``mesh=`` (sharded serving) and ``adaptation=`` (serve-time learning).
+``mesh=`` (sharded serving).
 """
 from __future__ import annotations
 
@@ -64,6 +71,10 @@ class RequestTrace:
     cloud_passes: int = 0
     uncertainty: float = 0.0
     tokens: Optional[List[int]] = None
+    # cloud top-k teacher logits for the emitted tokens, when the wave's
+    # cloud pass already paid for them: (values, indices) arrays of shape
+    # (len(tokens), k) — serve-time distillation supervision
+    teacher_topk: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
 
 # ---------------------------------------------------------------- requests
@@ -144,9 +155,6 @@ class BatchedEngine:
         if mesh is not None:
             raise NotImplementedError("mesh= (sharded serving) is a later "
                                       "slice of the port")
-        if adaptation is not None:
-            raise NotImplementedError("adaptation= (serve-time learning) is "
-                                      "a later slice of the port")
         self.policy = resolve_policy(policy, escalation, escalate_threshold)
         self.kv_layout = resolve_kv_layout(edge_model, cloud_model, kv_layout)
         self.kv_block_size = kv_block_size
@@ -176,6 +184,12 @@ class BatchedEngine:
                           attn_backend=attn_backend)
         self.cache = SemanticCache(threshold=cache_threshold) if use_cache \
             else None
+        # online adaptation (AdaptationLoop or None): completions feed its
+        # store from _finish, and the drain offers it a hot-swap point
+        # between ticks
+        self.adaptation = adaptation
+        if adaptation is not None:
+            adaptation.bind(edge_model)
         # speculation lane: engine kwarg > policy attribute > linear.  A
         # model family the requested lane cannot serve falls back to the
         # linear tape; stats()["spec_mode"] reports the effective mode
@@ -271,6 +285,10 @@ class BatchedEngine:
         """Drain the queue; returns {rid: RequestTrace} for this drain."""
         if not self._queue:
             return {}
+        # adaptation persists ACROSS drains: start from the last hot-swapped
+        # edge weights, not the caller's baseline
+        if self.adaptation is not None:
+            edge_params = self.adaptation.current(edge_params)
         clock = self.clock
         t0 = clock.now()
         for r in self._queue:
@@ -311,6 +329,15 @@ class BatchedEngine:
 
         while self._queue or self._swapped or any(s.req is not None
                                                   for s in slots):
+            # ---- online-adaptation hot-swap point, BETWEEN ticks: the new
+            # edge weights have the serving tree's structure, shapes and
+            # dtypes, so the in-flight caches stay valid; the work queued
+            # before the swap reads the old tensors
+            if self.adaptation is not None:
+                swapped_p = self.adaptation.maybe_update(edge_params)
+                if swapped_p is not None:
+                    edge_params = swapped_p
+                    state.rebind(edge_params)
             free = [b for b in range(B) if slots[b].req is None]
             wave: set = set()       # slots admitted/resumed this wave
             stalled = False
@@ -476,13 +503,19 @@ class BatchedEngine:
             if cloud_wave:
                 # cloud-assigned lane: one grouped batched cloud generation
                 t_cw = clock.now()
+                tk = self.adaptation.capture_topk \
+                    if self.adaptation is not None else 0
                 toks = self._group_generate(
                     self.cloud, cloud_params,
                     [q.prompt for q in cloud_wave],
-                    [q.max_new for q in cloud_wave])
-                for q, t in zip(cloud_wave, toks):
+                    [q.max_new for q in cloud_wave], topk=tk)
+                teach = [None] * len(cloud_wave)
+                if tk:
+                    toks, teach = toks
+                for q, t, th in zip(cloud_wave, toks, teach):
                     self._finish(results, q, RequestTrace(
-                        "cloud", cloud_passes=q.max_new, tokens=t),
+                        "cloud", cloud_passes=q.max_new, tokens=t,
+                        teacher_topk=th),
                         t_first=t_cw + clock.step_ms)
 
             # ---- advance chunked prefills: one detached chunk per job per
@@ -685,7 +718,15 @@ class BatchedEngine:
                  "ttft_ms": ttft, "e2e_ms": now - ev["submit_ms"],
                  "slo_ms": self.slo_ms, "slo_met": slo_met,
                  "prompt": req.prompt, "tokens": tr.tokens,
-                 "draft": req.draft, "domain": req.domain})
+                 "draft": req.draft, "teacher_topk": tr.teacher_topk,
+                 "domain": req.domain})
+            if self.adaptation is not None and tr.tokens:
+                self.adaptation.observe(
+                    prompt=req.prompt, tokens=tr.tokens, draft=req.draft,
+                    teacher_topk=tr.teacher_topk, domain=req.domain,
+                    sla="none" if self.slo_ms is None
+                    else ("met" if slo_met else "missed"),
+                    path=tr.path)
         if self.cache is not None and tr.tokens is not None \
                 and req.key is not None:
             self.cache.insert(req.key, tr.tokens)
@@ -704,12 +745,17 @@ class BatchedEngine:
 
     @hot_path
     def _group_generate(self, lane: Lane, params, prompts,
-                        max_news: List[int]):
+                        max_news: List[int], topk: int = 0):
         """Batched generation for an escalation group: per-request prefill,
         then ONE decode loop over the padded group and ONE batched pull of
-        the emitted tape.  Returns the per-request token lists."""
+        the emitted tape.  Returns the per-request token lists; with
+        ``topk > 0`` the loop also emits top-k teacher logits and the
+        return is ``(tokens, teachers)``, ``teachers[i]`` a (values,
+        indices) pair trimmed to request i's emitted length — they ride
+        the SAME pull."""
         if max(max_news) == 0:
-            return [[] for _ in prompts]
+            empty = [[] for _ in prompts]
+            return (empty, [None] * len(prompts)) if topk else empty
         n = pow2_steps(max(max_news), 1 << 30)
         G = self.batch_size                         # pad: stable shapes
         need = [len(p) - 1 + m for p, m in zip(prompts, max_news) if m > 0]
@@ -733,22 +779,38 @@ class BatchedEngine:
             params, state.caches, torch.as_tensor(tok_h, device=dev),
             torch.as_tensor(steps_h, device=dev),
             torch.zeros((G,), dtype=torch.float32, device=dev), self._gen,
-            -1, n_steps=n)
+            -1, n_steps=n, topk=topk)
         self.clock.on_steps(n)
         self._note_group(state)
-        toks_h, act_h = host_pull(outs[4], outs[5])
-        return [[int(t) for t, a in zip(toks_h[:, i], act_h[:, i]) if a]
-                for i in range(len(prompts))]
+        pulled = host_pull(*outs[4:])
+        toks_h, act_h = pulled[:2]
+        tokens = [[int(t) for t, a in zip(toks_h[:, i], act_h[:, i]) if a]
+                  for i in range(len(prompts))]
+        if not topk:
+            return tokens
+        # emissions are a True-prefix of the loop (budgets only count
+        # down), so request i's teacher rows are its first len(tokens)
+        tv_h, ti_h = pulled[2:]
+        return tokens, [(np.array(tv_h[:len(t), i]),
+                         np.array(ti_h[:len(t), i]))
+                        for i, t in enumerate(tokens)]
 
     def _cloud_escalate(self, edge_params, cloud_params, reqs, uncs):
-        """Grouped full-cloud regeneration."""
+        """Grouped full-cloud regeneration.  With an adaptation loop
+        attached, the SAME cloud pass also emits top-k teacher logits for
+        the rejected edge draft's distillation."""
+        tk = self.adaptation.capture_topk \
+            if self.adaptation is not None else 0
         toks = self._group_generate(self.cloud, cloud_params,
                                     [r.prompt for r in reqs],
-                                    [r.max_new for r in reqs])
+                                    [r.max_new for r in reqs], topk=tk)
+        teach = [None] * len(reqs)
+        if tk:
+            toks, teach = toks
         return [(r, RequestTrace("cloud", edge_calls=r.max_new,
                                  cloud_passes=r.max_new, uncertainty=u,
-                                 tokens=t))
-                for r, u, t in zip(reqs, uncs, toks)]
+                                 tokens=t, teacher_topk=th))
+                for r, u, t, th in zip(reqs, uncs, toks, teach)]
 
     def _skeleton_escalate(self, edge_params, cloud_params, reqs, uncs):
         """Grouped skeleton division: one batched cloud skeleton pass plus
@@ -840,4 +902,6 @@ class BatchedEngine:
                 if c["member_rounds"] else 0.0,
                 "spec_lanes": {self.spec_mode: dict(c)},
                 **self.policy.stats(), **self._kv_stats,
+                **({"adaptation": self.adaptation.stats()}
+                   if self.adaptation is not None else {}),
                 **latency_rollup(self._events, self.slo_ms)}

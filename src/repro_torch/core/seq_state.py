@@ -932,12 +932,17 @@ class Lane:
 
     @hot_path
     def chunk(self, params, caches, tok, steps_left, unc_sum, gen,
-              stop: int, n_steps: int):
+              stop: int, n_steps: int, topk: int = 0):
         """``n_steps`` decode steps over all slots.  Returns the advanced
         state plus per-step (token, active) tapes (n_steps, B) — all on the
         device; the caller pulls them in one batch.  A slot that emits
-        ``stop`` (-1 = never) keeps the token but zeroes its budget."""
-        toks, actives = [], []
+        ``stop`` (-1 = never) keeps the token but zeroes its budget.
+        ``topk > 0`` also returns each step's top-k logit values (f32) and
+        vocab indices (int32), (n_steps, B, topk): teacher supervision for
+        serve-time adaptation, pulled with the token tape in the SAME
+        batched pull.  ``topk=0`` returns exactly the tuple it always
+        has."""
+        toks, actives, tvals, tidx = [], [], [], []
         for _ in range(n_steps):
             lg, caches = self.ops.step(params, tok, caches)       # (B, V)
             active = steps_left > 0
@@ -947,9 +952,16 @@ class Lane:
                                      steps_left - active.to(torch.int32))
             toks.append(nxt)
             actives.append(active)
+            if topk:
+                tv, ti = torch.topk(lg.float(), topk, dim=-1)
+                tvals.append(tv)
+                tidx.append(ti.to(torch.int32))
             tok = nxt[:, None, None]
-        return (caches, tok, steps_left, unc_sum, torch.stack(toks),
-                torch.stack(actives))
+        out = (caches, tok, steps_left, unc_sum, torch.stack(toks),
+               torch.stack(actives))
+        if topk:
+            out += (torch.stack(tvals), torch.stack(tidx))
+        return out
 
     def make_state(self, params, batch: int, slot_len: int, *,
                    need_tokens: Optional[Sequence[int]] = None,

@@ -10,7 +10,8 @@ and ``build_all`` starts one ``nvcc`` per source, all at once.
 
 A wrapper launches through ``CudaKernel.launch``, which raises when the C
 function reports a CUDA error and counts the launch.  There is no fallback:
-a kernel that does not build or launch is an error.
+a kernel that does not build or launch is an error.  A wrapper whose kernel
+has no backward calls ``refuse_grad`` first.
 """
 from __future__ import annotations
 
@@ -138,6 +139,20 @@ def sm_count(dev) -> int:
         n = _SMS[dev] = torch.cuda.get_device_properties(dev) \
             .multi_processor_count
     return n
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad: a
+    kernel launched through ctypes is invisible to autograd, so a launch
+    there would silently cut the gradient of everything below it.  Only
+    the flash attention kernel has a backward
+    (``flash_attention.FlashAttention``)."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: it would detach the gradient.  Run it "
+            "under torch.no_grad() or on tensors that do not require grad")
 
 
 def raw_stream(t) -> int:

@@ -44,11 +44,20 @@
 // rows padded by one float against bank conflicts), one key per lane, each
 // warp 4 rows with the output columns in registers (any hd up to 256).
 // Masked keys are skipped, never weighted.
+//
+// Both paths optionally write each row's log-sum-exp of its scaled scores
+// (natural log, (B, H, Sq) float32) for the backward in
+// flash_attention_bwd.cu; a null pointer (inference, tree verify) writes
+// nothing.  The bf16 tile's row r of kv head kv is position r / G of head
+// kv * G + r % G, so the LSE goes to that head and position; pad rows
+// write nothing.  A row that sees no key (only under a window with
+// Sk < Sq) has no LSE: -inf, and an output of 0.
 #include "attn_tile.cuh"
 
 namespace {
 
 using repro::attn::bf16;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
 struct Args {
@@ -62,6 +71,7 @@ struct Args {
   int G, Sq, Sk, hd, causal, window, vec;
   float scale;
   int rows;                  // bf16: packed rows per block (16, 64, 128)
+  float* lse;                // (B, H, Sq) row log-sum-exp, or null
 };
 
 // ------------------------------------------------------- bf16, tensor cores
@@ -122,6 +132,10 @@ __global__ void __launch_bounds__(128 * kWG)
                         (gr / G) * a.os
                   : nullptr;
     inv[h] = 1.f / fmaxf(acc.l[h], 1e-20f);
+    // the 4 lanes of a row hold its max (log2 units) and, reduced, its sum
+    if (a.lse != nullptr && orow[h] != nullptr && (threadIdx.x & 3) == 0)
+      a.lse[(static_cast<long long>(b) * gridDim.y * G + kv * G + gr % G) *
+                a.Sq + gr / G] = (acc.m[h] + log2f(acc.l[h])) * kLn2;
   }
   const int hd = a.hd;
   const bool vec = a.vec;
@@ -249,6 +263,9 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = q0 + warp * kRowsPerWarp + r;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-20f);
+    if (a.lse != nullptr && lane == 0)
+      a.lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qpos] =
+          m[r] + logf(l[r]);
     float* orow = a.out + b * a.ob + h * a.oh + qpos * a.os;
 #pragma unroll
     for (int j = 0; j < kMaxHd / 32; ++j)
@@ -269,22 +286,23 @@ int launch_f32(const Args<float>& a, int B, int H, cudaStream_t stream) {
 template <typename T>
 Args<T> make_args(const void* q, const void* k, const void* v, void* out,
                   const long long (&st)[9], int G, int Sq, int Sk, int hd,
-                  int causal, int window, int vec, float scale) {
+                  int causal, int window, int vec, float scale, float* lse) {
   return Args<T>{static_cast<const T*>(q), static_cast<const T*>(k),
                  static_cast<const T*>(v), static_cast<T*>(out),
                  st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-                 st[8], G, Sq, Sk, hd, causal, window, vec, scale, 64};
+                 st[8], G, Sq, Sk, hd, causal, window, vec, scale, 64, lse};
 }
 
 }  // namespace
 
-// The launch arguments come packed as 22 int64 (one ctypes argument: the
+// The launch arguments come packed as 23 int64 (one ctypes argument: the
 // conversion of each ctypes argument costs host time on every call), in
 // this order: dtype (0 = float32, 1 = bfloat16), q, its strides
 // over (b, head, position), k, v, their shared strides over (b, kv head,
-// key), out, its strides, B, H, Kv, Sq, Sk, hd, causal, window.  q and out
-// are (B, H, Sq, hd), k and v (B, Kv, Sk, hd) with H % Kv == 0; every head
-// dim is contiguous.  Returns a cudaError_t as int.
+// key), out, its strides, B, H, Kv, Sq, Sk, hd, causal, window, lse (a
+// contiguous (B, H, Sq) float32 buffer, or 0 for none).  q and out are
+// (B, H, Sq, hd), k and v (B, Kv, Sk, hd) with H % Kv == 0; every head dim
+// is contiguous.  Returns a cudaError_t as int.
 REPRO_EXPORT int repro_flash_attention(const long long* p, float scale,
                                        void* stream) {
   const int dtype = static_cast<int>(p[0]);
@@ -298,20 +316,21 @@ REPRO_EXPORT int repro_flash_attention(const long long* p, float scale,
             Kv = static_cast<int>(p[16]), Sq = static_cast<int>(p[17]),
             Sk = static_cast<int>(p[18]), hd = static_cast<int>(p[19]),
             causal = static_cast<int>(p[20]), window = static_cast<int>(p[21]);
+  float* lse = reinterpret_cast<float*>(p[22]);
   if (hd < 1 || hd > 256 || Kv < 1 || H % Kv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const int G = H / Kv;
   if (dtype == 0)
     return launch_f32(make_args<float>(q, k, v, out, st, G, Sq, Sk, hd,
-                                       causal, window, 0, scale),
+                                       causal, window, 0, scale, lse),
                       B, H, s);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int vec = repro::attn::rows16({q, k, v, out}, {st[0], st[1], st[2],
                                        st[3], st[4], st[5], st[6], st[7],
                                        st[8]}, hd);
   const Args<bf16> a = make_args<bf16>(q, k, v, out, st, G, Sq, Sk, hd,
-                                       causal, window, vec, scale);
+                                       causal, window, vec, scale, lse);
   if (hd <= 64) return launch_tc<64>(a, B, Kv, s);
   if (hd <= 80) return launch_tc<80>(a, B, Kv, s);
   if (hd <= 128) return launch_tc<128>(a, B, Kv, s);

@@ -28,7 +28,7 @@ import math
 import torch
 
 from repro_torch.kernels.build import (F, I, L, P, CudaKernel, raw_stream,
-                                      sm_count)
+                                      refuse_grad, sm_count)
 
 NEG = -1e30
 
@@ -110,7 +110,9 @@ def dense_splits(B: int, Kv: int, G: int, S: int, window: int,
 def paged_decode_attention_cuda(q, k_pool, v_pool, table, length, *,
                                 window: int = 0):
     """Launch the Hopper kernel (same contract as the plain version).
-    Raises on anything the kernel does not take; never falls back."""
+    Raises on anything the kernel does not take (and under grad: it has no
+    backward); never falls back."""
+    refuse_grad("paged_decode_attention_cuda", q, k_pool, v_pool)
     B, Kv, G, hd = q.shape
     NB, bs, Kv2, hd2 = k_pool.shape
     MB = table.shape[1]
@@ -172,8 +174,9 @@ def decode_attention_plain(q, k, v, length, *, window: int = 0):
 def decode_attention_cuda(q, k, v, length, *, window: int = 0):
     """Launch the Hopper dense decode kernel (same contract as the plain
     version; q contiguous, k and v views with the head dim contiguous and
-    equal strides).  Raises on anything the kernel does not take; never
-    falls back."""
+    equal strides).  Raises on anything the kernel does not take (and under
+    grad: it has no backward); never falls back."""
+    refuse_grad("decode_attention_cuda", q, k, v)
     B, Kv, G, hd = q.shape
     S = k.shape[2]
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v, length)):

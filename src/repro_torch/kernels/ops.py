@@ -18,6 +18,13 @@ Ported kernels (TPU kernel they replace):
   decode_attention`` (dense caches)
 * ``ssd_chunk_scan`` — ``src/repro/kernels/ssd_scan.py::ssd_chunk_scan``
   (the chunked SSD / mLSTM scan, with a carried state)
+
+and one kernel of the port's own, ``flash_attention_bwd`` (the gradient of
+``flash_attention``; no TPU kernel stands behind it).  ``flash_attention``
+is differentiable on both devices: on CUDA under grad it runs the
+forward and backward kernels (``flash_attention.FlashAttention``), on the
+CPU autograd runs through the plain version.  The other kernels have no
+backward and raise under grad on CUDA.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ KERNELS = {"paged_decode_attention": _dec.KERNEL,
            "spec_verify": _verify.KERNEL,
            "tree_verify_attention": _tree.KERNEL,
            "decode_attention": _dec.DENSE_KERNEL,
-           "ssd_chunk_scan": _ssd.KERNEL}
+           "ssd_chunk_scan": _ssd.KERNEL,
+           "flash_attention_bwd": _flash.BWD_KERNEL}
 
 
 def reset_launch_counts() -> None:
@@ -68,8 +76,8 @@ def tree_verify_attention(q, k, v, length, tree_mask, q_pos, *, window=0):
 
 def flash_attention(q, k, v, *, causal=True, window=0):
     if q.is_cuda:
-        return _flash.flash_attention_cuda(q, k, v, causal=causal,
-                                           window=window)
+        return _flash.flash_attention_kernel(q, k, v, causal=causal,
+                                             window=window)
     return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
 
 

@@ -25,7 +25,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import F, I, P, CudaKernel, raw_stream, sm_count
+from repro_torch.kernels.build import (F, I, P, CudaKernel, raw_stream,
+                                      refuse_grad, sm_count)
 
 KERNEL = CudaKernel("spec_verify.cu", "repro_spec_verify",
                     [P] * 8 + [I] * 5 + [F, P])
@@ -92,7 +93,9 @@ def spec_verify_plain(target_logits, draft_logits, draft_tokens, u_acc, u_res,
 def spec_verify_cuda(target_logits, draft_logits, draft_tokens, u_acc, u_res,
                      *, temperature: float = 1.0):
     """Launch the Hopper kernel (same contract as the plain version).
-    Raises on anything the kernel does not take; never falls back."""
+    Raises on anything the kernel does not take (and under grad: it has no
+    backward); never falls back."""
+    refuse_grad("spec_verify_cuda", target_logits, draft_logits)
     G, gamma, V = draft_logits.shape
     R = gamma + 1
     ts = (target_logits, draft_logits, draft_tokens, u_acc, u_res)

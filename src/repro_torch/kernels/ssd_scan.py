@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import I, L, P, CudaKernel, raw_stream
+from repro_torch.kernels.build import (I, L, P, CudaKernel, raw_stream,
+                                      refuse_grad)
 
 NEG = -1e30
 
@@ -137,7 +138,11 @@ def ssd_chunk_scan_plain(q, k, v, log_a, log_i, *, chunk: int, state=None):
 
 def ssd_chunk_scan_cuda(q, k, v, log_a, log_i, *, chunk: int, state=None):
     """Launch the Hopper kernel (same contract as the plain version).
-    Raises on anything the kernel does not take; never falls back."""
+    Raises on anything the kernel does not take (and under grad: the scan
+    has no backward yet, so the recurrent families do not train on the
+    card); never falls back."""
+    refuse_grad("ssd_chunk_scan_cuda", q, k, v, log_a, log_i,
+                *(state if state is not None else ()))
     B, S, H, N = q.shape
     Pv = v.shape[-1]
     ins = (q, k, v, log_a, log_i) + (tuple(state) if state is not None

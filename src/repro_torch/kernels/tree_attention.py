@@ -26,7 +26,7 @@ import struct
 import torch
 
 from repro_torch.kernels.build import (F, P, PACKED, CudaKernel, raw_stream,
-                                      sm_count)
+                                      refuse_grad, sm_count)
 
 NEG = -1e30
 ROWS = 64           # query rows (G * N, packed) per block
@@ -80,7 +80,9 @@ def tree_verify_attention_cuda(q, k, v, length, tree_mask, q_pos, *,
     """Launch the Hopper kernel (same contract as the plain version; q, k, v
     may be strided views with a contiguous head dim, k and v with equal
     strides).  Returns a tensor laid out like ``q``.  Raises on anything
-    the kernel does not take; never falls back."""
+    the kernel does not take (and under grad: it has no backward); never
+    falls back."""
+    refuse_grad("tree_verify_attention_cuda", q, k, v)
     B, Kv, G, N, hd = q.shape
     S = k.shape[2]
     C = tree_mask.shape[1]

@@ -8,7 +8,20 @@ surface picked by ``--policy`` (a ``core/policy.py::CollabPolicy``).
 Same flags and defaults as the JAX package's ``repro.launch.serve``, plus
 ``--device`` (default ``cuda``: with no card it raises; ``--device cpu``
 runs the plain PyTorch versions of the kernels on the CPU).  Not ported
-yet: ``--adapt*``, and ``--mesh`` (sharded serving) is refused.
+yet: ``--mesh`` (sharded serving) is refused.
+
+Serve-time adaptation (batched scheduler): ``--adapt distill|lora``
+captures every completion's supervision triple (prompt, rejected edge
+draft, cloud-corrected continuation, and in distill mode the cloud's
+``--adapt-topk`` teacher logits, pulled with the token tape) into a
+``FeedbackStore``; every ``--adapt-interval`` completions a
+``core/adaptation.py::AdaptationLoop`` takes a step between scheduler ticks
+(forward KD on the full edge params, or LoRA adapter-only on the frozen
+base) and hot-swaps the edge weights.  On CUDA those steps run the flash
+kernel's hand-written backward.  ``--adapt-checkpoint PATH`` saves the
+learned artifact on exit (the LoRA adapters, or the distilled edge params
+in the JAX layout), restored by ``training/checkpoint.restore`` in either
+package.  Without ``--adapt`` serving is unchanged.
 
 ``--scheduler per-request`` runs the one-at-a-time reference loop
 (``core/engine.py::CollaborativeEngine.serve_reference``: a host round
@@ -42,6 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.adaptation import AdaptationLoop
 from repro_torch.core.engine import CollaborativeEngine
 from repro_torch.core.policy import (POLICIES, ThresholdPolicy, make_policy,
                                      policy_from_legacy)
@@ -149,6 +163,23 @@ def parse_args(argv=None):
                     help="max prompt tokens prefilled per scheduler tick "
                          "(chunked prefill); 0 disables chunking, default "
                          "= --tick-tokens")
+    ap.add_argument("--adapt", default=None, choices=["distill", "lora"],
+                    help="serve-time adaptation (batched scheduler): "
+                         "capture completion triples into a FeedbackStore "
+                         "and hot-swap background-trained edge weights "
+                         "(distill = forward KD on full params, lora = "
+                         "adapter-only on the frozen base)")
+    ap.add_argument("--adapt-interval", type=int, default=16,
+                    help="take an adaptation update every this many "
+                         "completions (0 = capture-only)")
+    ap.add_argument("--adapt-topk", type=int, default=8,
+                    help="teacher logits kept per cloud-generated token "
+                         "(distill mode; rides the wave's existing host "
+                         "pull)")
+    ap.add_argument("--adapt-checkpoint", default=None, metavar="PATH",
+                    help="persist the learned artifact on exit: the LoRA "
+                         "adapters (--adapt lora) or the distilled edge "
+                         "params (--adapt distill)")
     ap.add_argument("--mesh", default=None, metavar="AXES",
                     help="sharded serving over local devices (not ported: "
                          "the batched engine refuses it)")
@@ -175,6 +206,9 @@ def check_scheduler_args(args, policy) -> None:
     if args.spec_mode not in (None, "linear"):
         raise SystemExit("--spec-mode tree/self needs --scheduler batched "
                          "(the per-request loop only drafts linear tapes)")
+    if args.adapt is not None:
+        raise SystemExit("--adapt needs --scheduler batched (capture rides "
+                         "the batched scheduler's retirement path)")
 
 
 def main(argv=None):
@@ -210,6 +244,9 @@ def main(argv=None):
         traces = [eng.serve_reference(ep, cp, p, args.max_new)
                   for p in prompts]
     else:
+        adaptation = None if args.adapt is None else AdaptationLoop(
+            mode=args.adapt, interval=args.adapt_interval,
+            topk=args.adapt_topk)
         eng = BatchedEngine(edge, cloud, batch_size=args.batch_size,
                             gamma=args.gamma, temperature=0.0, policy=policy,
                             tick_tokens=args.tick_tokens,
@@ -220,7 +257,7 @@ def main(argv=None):
                             spec_mode=args.spec_mode,
                             spec_tree_width=args.spec_tree_width,
                             spec_exit_layer=args.spec_exit_layer,
-                            mesh=args.mesh)
+                            mesh=args.mesh, adaptation=adaptation)
         if args.arrival != "none":
             gen = (poisson_arrivals if args.arrival == "poisson"
                    else bursty_arrivals)
@@ -284,6 +321,27 @@ def main(argv=None):
             print(f"slo: ttft<={args.slo_ms:.0f}ms "
                   f"attainment={stats['slo_attainment']:.2f} "
                   f"goodput={stats['goodput_slo']:.2f} req/s")
+    if "adaptation" in stats:
+        a = stats["adaptation"]
+        loss = "n/a" if a["last_loss"] is None else f"{a['last_loss']:.4f}"
+        print(f"adapt: mode={a['mode']} observed={a['observed']} "
+              f"updates={a['updates']} steps={a['train_steps']} "
+              f"swaps={a['swaps']} loss={loss} "
+              f"store={a['store_size']}/{a['store_capacity']} "
+              f"(evicted={a['store_evicted']})")
+    if args.adapt_checkpoint is not None and "adaptation" in stats:
+        from repro_torch.training import checkpoint
+        artifact = adaptation.adapters if args.adapt == "lora" \
+            else adaptation.latest
+        if artifact is None:
+            print(f"adapt: nothing learned yet — skipping checkpoint "
+                  f"{args.adapt_checkpoint}")
+        else:
+            checkpoint.save(args.adapt_checkpoint, artifact,
+                            step=adaptation.steps, cfg=adaptation.model.cfg)
+            print(f"adapt: saved {args.adapt} artifact to "
+                  f"{args.adapt_checkpoint} (restore via "
+                  "training/checkpoint.restore)")
     return traces, stats
 
 

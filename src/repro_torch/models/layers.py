@@ -31,7 +31,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   paged_decode_attention_cuda,
                                                   paged_decode_attention_plain)
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.tree_attention import tree_verify_attention_cuda
 
 NEG = -1e30
@@ -257,7 +257,9 @@ def attention_block(p, x, positions, cfg, *, causal: bool = True,
     chip: the Hopper flash kernel runs at every length on the projections
     as they lie — (B, H, S, hd) and (B, Kv, S, hd) views, GQA resolved in
     the kernel — and writes its output in (B, S, H, hd), so nothing is
-    copied around it.  The CPU and ``backend="plain"`` materialize the
+    copied around it.  Under grad (training) the forward also keeps each
+    row's log-sum-exp and the hand-written backward kernel gives dQ, dK
+    and dV: training attention never leaves the kernels.  The CPU and ``backend="plain"`` materialize the
     (S, S) mask and run ``mha`` below ``CHUNKED_ATTN_THRESHOLD`` and run
     ``mha_chunked`` from it on, as the JAX package does."""
     B, S, d = x.shape
@@ -267,7 +269,7 @@ def attention_block(p, x, positions, cfg, *, causal: bool = True,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if backend == "kernel" or (backend == "auto" and x.is_cuda):
-        fn = flash_attention_cuda if backend == "kernel" \
+        fn = flash_attention_kernel if backend == "kernel" \
             else ops.flash_attention
         out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                  causal=causal, window=window).transpose(1, 2)

@@ -4,6 +4,7 @@ and hybrid (zamba2).
     m = Model(cfg)
     params = m.init(seed=0)                       # on CUDA unless told
     logits, aux = m.forward(params, {"tokens": tokens})
+    loss = m.loss(params, {"tokens": tokens, "labels": labels})
     logits, cache = m.prefill(params, {"tokens": tokens}, max_seq=...)
     logits, cache = m.decode_step(params, token, cache)
 
@@ -22,6 +23,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, ssm, transformer, xlstm
+
+
+def cross_entropy(logits, labels, ignore: int = -1):
+    """logits (B, S, V) f32; labels (B, S) int.  Mean over the labels that
+    are not ``ignore``."""
+    mask = labels != ignore
+    lab = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp(min=1)
 
 FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm,
             "xlstm": xlstm, "hybrid": hybrid}
@@ -50,10 +62,28 @@ class Model:
 
     # ---------------------------------------------------------------- fwd
     def forward(self, params, batch: Dict, *, window: int = 0,
-                attn_backend: str = "auto"):
+                remat: bool = False, attn_backend: str = "auto"):
+        """Teacher-forced pass: (logits (B, S, V) f32, aux loss).  Under
+        grad it trains: on CUDA the flash kernel runs forward and backward
+        (the other kernels have no backward and raise).  ``remat``
+        recomputes each block in the backward (the KV-cache families)."""
         kw = {"window": window} if self._attn else {}
+        if remat:
+            if self.cfg.family not in KV_FAMILIES:
+                raise NotImplementedError(
+                    f"remat is ported for the dense and moe families, not "
+                    f"{self.cfg.family!r}")
+            kw["remat"] = True
         return self._mod.forward(params, batch["tokens"], self.cfg,
                                  backend=attn_backend, **kw)
+
+    def loss(self, params, batch: Dict, *, window: int = 0,
+             remat: bool = False, attn_backend: str = "auto"):
+        """Next-token cross entropy of ``batch["labels"]`` (-1 ignored)
+        plus the moe auxiliary loss, as the JAX package's ``Model.loss``."""
+        logits, aux = self.forward(params, batch, window=window, remat=remat,
+                                   attn_backend=attn_backend)[:2]
+        return cross_entropy(logits[:, :-1, :], batch["labels"][:, 1:]) + aux
 
     def prefill(self, params, batch: Dict, *, max_seq: Optional[int] = None,
                 window: int = 0, attn_backend: str = "auto"):
@@ -165,3 +195,23 @@ class Model:
         kw = {"attn_backend": attn_backend} if self._attn else {}
         return self._mod.replay_step(params, tokens, cache, count, self.cfg,
                                      **kw)
+
+
+# ---------------------------------------------------------------- batches
+def example_batch(cfg: ModelConfig, batch: int, seq: int, gen=None,
+                  with_labels: bool = True, device="cuda") -> Dict:
+    """A random ``{"tokens", "labels"?}`` batch of int32 (batch, seq) on
+    ``device``, drawn from the ``torch.Generator`` ``gen`` (seed 0 on
+    ``device`` if None)."""
+    device = torch.device(device)
+    if gen is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=gen, device=device,
+                                   dtype=torch.int32)}
+    if with_labels:
+        out["labels"] = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                      generator=gen, device=device,
+                                      dtype=torch.int32)
+    return out

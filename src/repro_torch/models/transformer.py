@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -135,35 +136,50 @@ def _logits(params, h, cfg):
     return logits
 
 
-def _layers(params, h, positions, cfg, window, backend, collect=None):
+def _block(blk, h, positions, cfg, window, backend):
+    """One layer over the full sequence: (h, aux loss or None, (k, v))."""
+    a, kv = L.attention_block(blk.attn,
+                              L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
+                              positions, cfg, window=window, backend=backend)
+    h = h + a
+    m, a_l = _ffn(blk, h, cfg)
+    return h + m, a_l, kv
+
+
+def _layers(params, h, positions, cfg, window, backend, collect=None,
+            remat: bool = False):
     """Full-sequence pass over every layer; appends each layer's (k, v) to
-    ``collect``.  Returns (h, summed aux loss () f32)."""
+    ``collect``.  Returns (h, summed aux loss () f32).  ``remat`` recomputes
+    each block in the backward (``torch.utils.checkpoint``, non-reentrant)
+    instead of keeping its activations — JAX's ``jax.checkpoint`` per
+    block."""
     aux = torch.zeros((), device=h.device)
     for blk in params.blocks:
-        a, kv = L.attention_block(blk.attn,
-                                  L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
-                                  positions, cfg, window=window,
-                                  backend=backend)
-        h = h + a
-        m, a_l = _ffn(blk, h, cfg)
-        h = h + m
+        if remat:
+            h, a_l = checkpoint(
+                lambda x, b=blk: _block(b, x, positions, cfg, window,
+                                        backend)[:2], h, use_reentrant=False)
+        else:
+            h, a_l, kv = _block(blk, h, positions, cfg, window, backend)
+            if collect is not None:
+                collect.append(kv)
         if a_l is not None:
             aux = aux + a_l
-        if collect is not None:
-            collect.append(kv)
     return h, aux
 
 
 # ----------------------------------------------------------------- forward
-def forward(params, tokens, cfg, *, window: int = 0, backend: str = "auto"):
-    """Scoring forward pass.  tokens: (B, S) int.  Returns (logits
-    (B, S, V) f32, aux_loss) — the moe layers' summed load-balance loss,
-    0 for the dense family."""
+def forward(params, tokens, cfg, *, window: int = 0, backend: str = "auto",
+            remat: bool = False):
+    """Scoring / training forward pass.  tokens: (B, S) int.  Returns
+    (logits (B, S, V) f32, aux_loss) — the moe layers' summed load-balance
+    loss, 0 for the dense family.  ``remat``: recompute each block in the
+    backward."""
     L.check_backend(backend)
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
     positions = torch.arange(h.shape[1], device=h.device)
     h, aux = _layers(params, h, positions, cfg, window or cfg.sliding_window,
-                     backend)
+                     backend, remat=remat)
     return _logits(params, h, cfg), aux
 
 

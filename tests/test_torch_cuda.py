@@ -782,3 +782,259 @@ def test_serve_reference_on_cuda_matches_plain(cuda):
     launched = runs["auto"][1]
     for k in ("flash_attention", "decode_attention", "tree_verify_attention"):
         assert launched[k] > 0 and runs["plain"][1][k] == 0, k
+
+
+# ------------------------------------------------------ flash backward
+# Gradients are held against autograd through ``flash_attention_plain`` on
+# the same inputs.  Tolerance on max |kernel - plain| / max(1, max |plain|):
+# float32 1e-4 (sums over up to 2 * 100 key and query rows in another
+# order), bfloat16 2e-2 (the forward rounds its output, and the gradients,
+# once to bfloat16).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_err(a, b):
+    return _err(a, b) / max(1.0, float(b.float().abs().max()))
+
+
+def _attn_grads(fn, q, k, v, dout, **kw):
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v, **kw)
+    out.backward(dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def _bwd_inputs(B, H, Kv, Sq, Sk, hd, dev, dtype):
+    q = _proj_view(0, B, Sq, H, hd, dev, dtype)
+    k = _proj_view(1, B, Sk, Kv, hd, dev, dtype)
+    v = _proj_view(2, B, Sk, Kv, hd, dev, dtype)
+    dout = _proj_view(3, B, Sq, H, hd, dev, dtype)
+    return q, k, v, dout
+
+
+# (B, H, Kv, Sq, Sk, hd): smollm-135m heads at the training shape's tiles,
+# granite-8b heads, zamba2's hd 80 with G 1, a one-kv-head GQA, hd 256, a
+# ragged length, and a cross-length (Sq != Sk) full attention
+BWD_SHAPES = [(2, 9, 3, 64, 64, 64), (1, 32, 8, 40, 40, 128),
+              (1, 4, 4, 33, 33, 80), (2, 4, 1, 100, 100, 32),
+              (1, 2, 2, 70, 70, 256), (2, 6, 3, 97, 97, 64)]
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Sk,hd", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 17),
+                                           (False, 0), (False, 9)])
+def test_flash_attention_backward_kernel(cuda, B, H, Kv, Sq, Sk, hd, dtype,
+                                         causal, window):
+    """ops.flash_attention under grad: the forward kernel with its LSE and
+    the backward kernel, on strided (B, S, heads, hd) views; dq, dk and dv
+    come laid out like q, k and v and match the plain autograd."""
+    from repro_torch.kernels.flash_attention import BWD_KERNEL
+    q, k, v, dout = _bwd_inputs(B, H, Kv, Sq, Sk, hd, cuda, dtype)
+    n0 = BWD_KERNEL.launches
+    got = _attn_grads(ops.flash_attention, q, k, v, dout, causal=causal,
+                      window=window)
+    ref = _attn_grads(flash_attention_plain, q, k, v, dout, causal=causal,
+                      window=window)
+    assert BWD_KERNEL.launches == n0 + 1
+    assert _err(got[0], ref[0]) <= TOL[dtype]
+    for g, r, x in zip(got[1:], ref[1:], (q, k, v)):
+        assert g.stride() == x.stride() and g.dtype == dtype
+        assert _rel_err(g, r) <= BWD_TOL[dtype]
+
+
+def test_flash_attention_backward_cross_length(cuda):
+    """Sq != Sk, full attention (the kernels' ragged edges on both axes)."""
+    q, k, v, dout = _bwd_inputs(1, 4, 2, 40, 72, 64, cuda, torch.float32)
+    got = _attn_grads(ops.flash_attention, q, k, v, dout, causal=False)
+    ref = _attn_grads(flash_attention_plain, q, k, v, dout, causal=False)
+    for g, r in zip(got, ref):
+        assert _rel_err(g, r) <= BWD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(cuda, dtype):
+    q, k, v, dout = _bwd_inputs(2, 9, 3, 256, 256, 64, cuda, dtype)
+    a = _attn_grads(ops.flash_attention, q, k, v, dout)
+    b = _attn_grads(ops.flash_attention, q, k, v, dout)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_attention_backward_expanded_dout(cuda):
+    """A gradient that is an expanded scalar (out.sum()) reaches the
+    kernel made contiguous."""
+    q, k, v, _ = _bwd_inputs(1, 4, 2, 48, 48, 64, cuda, torch.float32)
+    grads = []
+    for fn in (ops.flash_attention, flash_attention_plain):
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        (fn(qq, kk, vv, causal=True) * 1.0).sum().backward()
+        grads.append((qq.grad, kk.grad, vv.grad))
+    for g, r in zip(*grads):
+        assert _rel_err(g, r) <= BWD_TOL[torch.float32]
+
+
+def test_flash_attention_backward_under_checkpoint(cuda):
+    """torch.utils.checkpoint (use_reentrant=False) through the autograd
+    Function recomputes the forward kernel and gives the same gradients."""
+    from torch.utils.checkpoint import checkpoint
+    q, k, v, dout = _bwd_inputs(2, 9, 3, 64, 64, 64, cuda, torch.bfloat16)
+    w = _rand(4, (64, 64), cuda, torch.bfloat16, 0.1)
+
+    def f(q, k, v):
+        return ops.flash_attention(q @ w, k, v, causal=True)
+
+    grads = []
+    for remat in (False, True):
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = checkpoint(f, qq, kk, vv, use_reentrant=False) if remat \
+            else f(qq, kk, vv)
+        out.backward(dout)
+        grads.append((qq.grad, kk.grad, vv.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 21),
+                                           (False, 0)])
+@pytest.mark.parametrize("H,Kv,S,hd", [(9, 3, 200, 64), (32, 8, 16, 128),
+                                       (32, 32, 15, 80)])
+def test_flash_attention_lse(cuda, dtype, causal, window, H, Kv, S, hd):
+    """Both forward paths (float32 CUDA cores, bfloat16 wgmma tile with
+    rows packed over the G heads) write each row's log-sum-exp of its
+    scaled scores: logsumexp of the plain scores in float32 (atol 1e-5
+    float32, 1e-3 bfloat16: the tile's exp2 is the 2-ulp approximation);
+    the output equals the launch without LSE bit for bit."""
+    B = 2
+    q = _proj_view(0, B, S, H, hd, cuda, dtype)
+    k = _proj_view(1, B, S, Kv, hd, cuda, dtype)
+    v = _proj_view(2, B, S, Kv, hd, cuda, dtype)
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        return_lse=True)
+        out0 = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert torch.equal(out, out0)
+    kk = k.float().repeat_interleave(H // Kv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / hd ** 0.5
+    i = torch.arange(S, device=cuda)[:, None]
+    j = torch.arange(S, device=cuda)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=cuda)
+    if causal:
+        mask = j <= i
+    if window:
+        mask = mask & (j > i - window)
+    ref = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    assert _err(lse, ref) <= tol * max(1.0, float(ref.abs().max()))
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """Every ctypes kernel without a backward raises under grad instead of
+    silently detaching the gradient; under no_grad, and on tensors that do
+    not require grad, it runs."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_cuda
+    q = _rand(0, (1, 2, 1, 64), cuda).requires_grad_(True)
+    kc = _rand(1, (1, 2, 8, 64), cuda)
+    length = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    pool = _rand(2, (2, 8, 2, 64), cuda)
+    table = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    qt = _rand(3, (1, 2, 1, 2, 64), cuda).requires_grad_(True)
+    tl = _rand(4, (1, 3, 64), cuda).requires_grad_(True)
+    dl = _rand(5, (1, 2, 64), cuda)
+    toks = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    u = torch.full((1, 3), 0.5, device=cuda)
+    sq = _rand(6, (1, 16, 2, 64), cuda).requires_grad_(True)
+    sv = _rand(7, (1, 16, 2, 64), cuda)
+    la = -torch.rand((1, 16, 2), device=cuda)
+    calls = {
+        "decode_attention_cuda": lambda: decode_attention_cuda(
+            q, kc, kc, length),
+        "paged_decode_attention_cuda": lambda: paged_decode_attention_cuda(
+            q, pool, pool, table, length),
+        "tree_verify_attention_cuda": lambda: tree_verify_attention_cuda(
+            qt, kc, kc, length, torch.eye(2, dtype=torch.bool, device=cuda),
+            torch.full((1, 2), 7, dtype=torch.int32, device=cuda)),
+        "spec_verify_cuda": lambda: spec_verify_cuda(tl, dl, toks, u, u),
+        "ssd_chunk_scan_cuda": lambda: ssd_chunk_scan_cuda(
+            sq, sq, sv, la, torch.zeros_like(la), chunk=8),
+        "flash_attention_cuda": lambda: flash_attention_cuda(q, kc, kc),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_model_loss_trains_through_the_flash_kernels(cuda, remat):
+    """Model.loss under grad on the card: every layer's attention runs the
+    flash kernel forward and backward (never ``mha``), and the loss and
+    gradients match ``attn_backend="plain"`` (autograd through ``mha``) at
+    float32 (loss 1e-5, gradients 1e-4 of max(1, max |plain|))."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import example_batch
+    from repro_torch.training import tree as T
+    cfg = get_config("smollm-135m").replace(num_layers=2, vocab_size=512,
+                                            param_dtype="float32",
+                                            activ_dtype="float32")
+    m = Model(cfg)
+    p = m.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = example_batch(cfg, 4, 48, gen, device="cuda")
+    res = {}
+    for backend in ("auto", "plain"):
+        tp = T.replace(p, [t.detach().requires_grad_(True)
+                           for t in T.tensors(p)])
+        ops.reset_launch_counts()
+        loss = m.loss(tp, batch, remat=remat and backend == "auto",
+                      attn_backend=backend)
+        grads = torch.autograd.grad(loss, T.tensors(tp))
+        res[backend] = (loss.detach(), grads, ops.launch_counts())
+    (lk, gk, ck), (lp, gp, cp) = res["auto"], res["plain"]
+    L = cfg.num_layers
+    assert ck["flash_attention"] == (2 * L if remat else L)
+    assert ck["flash_attention_bwd"] == L
+    assert cp["flash_attention"] == cp["flash_attention_bwd"] == 0
+    assert abs(float(lk) - float(lp)) <= 1e-5 * float(lp)
+    for a, b in zip(gk, gp):
+        assert _rel_err(a, b) <= 1e-4
+
+
+def test_adaptation_swaps_on_the_card(cuda):
+    """A distill AdaptationLoop on the card (reduced pair, bfloat16): the
+    update trains through the flash backward and swaps in a tree with the
+    serving params' names, shapes, dtypes and device."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptation import AdaptationLoop
+    from repro_torch.core.policy import ThresholdPolicy
+    from repro_torch.core.scheduler import BatchedEngine
+    from repro_torch.models import Model
+    from repro_torch.training import tree as T
+    e = get_config("smollm-135m").reduced().replace(param_dtype="bfloat16",
+                                                    activ_dtype="bfloat16")
+    c = get_config("granite-8b").reduced().replace(
+        vocab_size=e.vocab_size, param_dtype="bfloat16",
+        activ_dtype="bfloat16")
+    em, cm = Model(e), Model(c)
+    ep, cp = em.init(seed=0, device="cuda"), cm.init(seed=1, device="cuda")
+    loop = AdaptationLoop(mode="distill", interval=4, batch_size=4,
+                          seq_len=16, topk=4)
+    eng = BatchedEngine(em, cm, batch_size=4, temperature=0.0,
+                        policy=ThresholdPolicy(0.0), use_cache=False,
+                        adaptation=loop)
+    prompts = [np.arange(8, dtype=np.int32) * (i + 1) % e.vocab_size
+               for i in range(4)]
+    ops.reset_launch_counts()
+    for _ in range(2):
+        eng.serve_batch(ep, cp, prompts, 5)
+    torch.cuda.synchronize()
+    assert loop.swaps == 1 and ops.launch_counts()["flash_attention_bwd"] > 0
+    assert np.isfinite(loop.stats()["last_loss"])
+    for (n, a), (m_, b) in zip(T.leaves(loop.latest), T.leaves(ep)):
+        assert n == m_ and (a.shape, a.dtype, a.device) == \
+            (b.shape, b.dtype, b.device)
