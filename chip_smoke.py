@@ -10,7 +10,9 @@ the first phase that fails:
 1. build the port's CUDA kernels from the checkout's sources (one ``nvcc``
    per source, in parallel), print the build time and the tensor-core
    instructions (``HGMMA``/``HMMA``, from ``cuobjdump -sass``) of the flash,
-   tree and SSD-scan libraries, which must not be 0;
+   tree, SSD-scan and flash-backward libraries, which must not be 0, and
+   each backward kernel's registers and local (spill) bytes (``cuobjdump
+   -res-usage``);
 2. hold each kernel against its plain PyTorch version at the serving
    paths' shapes, in float32 and bfloat16, with the tolerances printed, and
    time every kernel per call (CUDA events around one wrapper call, median
@@ -33,10 +35,10 @@ the first phase that fails:
    flash backward (the port's own kernel, ``csrc/flash_attention_bwd.cu``)
    against autograd of the plain attention (dq, dk, dv and the forward's
    log-sum-exp against ``logsumexp`` of the plain scores, float32 and
-   bfloat16, smollm-135m heads at S 64 and 256, granite-8b heads, zamba2's
-   hd 80 with G 1, a window, a ragged length), timed alone and, forward +
-   backward, against SDPA's forward + backward at the training shape and
-   at S 2048;
+   bfloat16, smollm-135m heads at S 64 and 256, granite-8b heads at S 128
+   and 130, zamba2's hd 80 with G 1, a window, a ragged length), timed
+   alone against SDPA's backward alone and, forward + backward, against
+   SDPA's forward + backward at the training shape and at S 2048;
 3. serve seven paths at full width — granite-8b cloud, bfloat16, seeded
    random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
    SpeculativePolicy(0.6), T = 0: with the smollm-135m edge the default
@@ -61,7 +63,8 @@ the first phase that fails:
    a finite loss, a swapped tree with the serving params' names, shapes,
    dtypes and device, the backward kernel launched — and
    ``launch/train.py`` on smollm-135m (batch 8, seq 256, 30 steps; plain
-   and ``--remat``), whose loss must fall; a profiled training step; and
+   and ``--remat``), whose loss must fall and whose every backward launch
+   must take the wgmma route; a profiled training step; and
    one float32 train step through the kernels against the plain
    attention (2 layers, full width);
 4. serve each path again at float32, full width, cut depth (2 layers per
@@ -73,7 +76,8 @@ the first phase that fails:
    where the plain model's top-2 logit gap is below 1e-4;
 5. print the card's name and power limit, a ``{"kernels": [...]}`` line
    (launches summed over the seven served paths, the per-request phase,
-   the two adaptation paths and the two training runs) and last the
+   the two adaptation paths and the two training runs; the backward's
+   also per route) and last the
    result line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -126,19 +130,22 @@ def time_ms(fn, reps: int = 30, warm: int = 5) -> float:
     return statistics.median(ts)
 
 
-def device_ms(fn, n: int = 20, reps: int = 10) -> float:
+def device_ms(fn, n: int = 20, reps: int = 10, stream=None) -> float:
     """Device time of one call of ``fn`` in ms, host launch cost excluded:
     ``n`` calls captured in a CUDA graph, CUDA events around each replay
-    (median of ``reps`` replays after a warm-up), divided by ``n``."""
+    (median of ``reps`` replays after a warm-up), divided by ``n``.
+    ``stream``: warm up and capture on it (an autograd backward runs on
+    its forward's stream, so that forward must have run there)."""
     import torch
-    side = torch.cuda.Stream()
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="relaxed"):
         for _ in range(n):
             fn()
     graph.replay()
@@ -156,10 +163,11 @@ def device_ms(fn, n: int = 20, reps: int = 10) -> float:
     return statistics.median(ts)
 
 
-def paired_ms(kernel, library, reps: int = 60):
+def paired_ms(kernel, library, reps: int = 60, library_stream=None):
     """Per-call ms of ``kernel`` and ``library`` as ``time_ms`` measures
     them, but timed in turns (kernel, library, kernel, ...) so that both
-    medians see the same host, and their device ms."""
+    medians see the same host, and their device ms (``library``'s captured
+    on ``library_stream``, see ``device_ms``)."""
     import torch
     for _ in range(5):
         kernel()
@@ -176,7 +184,8 @@ def paired_ms(kernel, library, reps: int = 60):
             b.synchronize()
             t.append(a.elapsed_time(b))
     return (statistics.median(ts[0]), device_ms(kernel),
-            statistics.median(ts[1]), device_ms(library))
+            statistics.median(ts[1]), device_ms(library,
+                                                stream=library_stream))
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str):
@@ -199,13 +208,13 @@ def phase_build():
     dt = time.perf_counter() - t
     print(f"[build] {len(libs)} kernel libraries in {dt:.1f}s: "
           + ", ".join(p.name for p in libs.values()), flush=True)
-    # the redesigned attention kernels and the SSD scan must run their bf16
-    # products on the tensor cores: count wgmma (HGMMA) and mma.sync (HMMA)
-    # instructions
+    # the redesigned attention kernels, the flash backward and the SSD scan
+    # must run their bf16 products on the tensor cores: count wgmma (HGMMA)
+    # and mma.sync (HMMA) instructions
     from repro_torch.kernels.build import nvcc
     dump = Path(nvcc()).with_name("cuobjdump")
     for src in ("flash_attention.cu", "tree_verify_attention.cu",
-                "ssd_scan.cu"):
+                "ssd_scan.cu", "flash_attention_bwd.cu"):
         sass = subprocess.run([str(dump), "-sass", str(libs[src])],
                               capture_output=True, text=True, check=False)
         n_wg, n_mma = sass.stdout.count("HGMMA"), sass.stdout.count("HMMA")
@@ -213,6 +222,44 @@ def phase_build():
               f"(cuobjdump -sass)", flush=True)
         check(n_wg + n_mma > 0, f"{src}: no tensor-core instruction in its "
                                 f"SASS (cuobjdump rc {sass.returncode})")
+    # registers and local (spill) bytes of each backward kernel
+    res = subprocess.run([str(dump), "-res-usage",
+                          str(libs["flash_attention_bwd.cu"])],
+                         capture_output=True, text=True, check=False)
+
+    def demangle(names):
+        filt = subprocess.run([str(dump.with_name("cu++filt"))],
+                              input="\n".join(names), capture_output=True,
+                              text=True, check=False)
+        out = filt.stdout.splitlines()
+        return out if len(out) == len(names) else names
+
+    for name, usage in _res_usage(res.stdout, demangle):
+        print(f"[build] flash_attention_bwd.cu {name}: {usage} "
+              f"(cuobjdump -res-usage)", flush=True)
+
+
+def _res_usage(text, demangle):
+    """(kernel, "REG:n STACK:n SHARED:n LOCAL:n") pairs from ``cuobjdump
+    -res-usage``, each name demangled (``demangle``: list of mangled names
+    -> list of names) and cut to the kernel and its template arguments
+    (``grads_tc_kernel<128>``)."""
+    import re
+    pairs, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        elif name and "REG:" in line:
+            pairs.append((name, " ".join(
+                f for f in line.split()
+                if f.split(":")[0] in ("REG", "STACK", "SHARED", "LOCAL"))))
+            name = None
+    out = []
+    for full, (_, usage) in zip(demangle([n for n, _ in pairs]), pairs):
+        k = re.search(r"\w+_kernel(<[^>]*>)?", full)
+        out.append((k.group(0) if k else full, usage))
+    return out
 
 
 # --------------------------------------------------------------- phase 2
@@ -406,15 +453,17 @@ def check_flash(gen):
 
 
 # flash backward cases (B, H, Kv, S, hd, window), all causal: smollm-135m
-# heads at S 64 and at the training shape S 256, granite-8b heads, zamba2's
-# head dim 80 with G 1, a window, a ragged length; the training shape and
+# heads at S 64 and at the training shape S 256, granite-8b heads (also at
+# a ragged 130, whose packed rows straddle the tiles), zamba2's head dim 80
+# with G 1, a window, a ragged length; the training shape and
 # granite-8b heads at S 2048 are timed.  Tolerance on max |kernel - plain|
 # over dq, dk, dv: BWD_TOL times max(1, max |plain|); the LSE against
 # logsumexp of the plain scores: 1e-5 float32, 1e-3 bfloat16 (the tile's
 # 2-ulp exp2), times max(1, max |LSE|)
 FLASH_BWD_CASES = ((8, 9, 3, 64, 64, 0), (8, 9, 3, 256, 64, 0),
                    (2, 32, 8, 128, 128, 0), (2, 32, 32, 64, 80, 0),
-                   (8, 9, 3, 256, 64, 64), (4, 9, 3, 100, 64, 0))
+                   (8, 9, 3, 256, 64, 64), (4, 9, 3, 100, 64, 0),
+                   (2, 32, 8, 130, 128, 0))
 FLASH_BWD_TRAIN = (8, 9, 3, 256, 64)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
@@ -442,9 +491,11 @@ def _lse_ref(q, k, window):
 
 def _flash_bwd_timing(K, shape, gen):
     """The backward kernel alone (on the forward's saved output and LSE)
-    per call and on the device, and forward + backward of the kernels
-    (autograd through ``FlashAttention``) against SDPA forward + backward
-    on the same inputs, in turns; bf16, causal; bounds of both."""
+    against SDPA's backward alone (``torch.autograd.grad`` of one SDPA
+    forward, its graph retained), in turns, per call and on the device;
+    forward + backward of the kernels (autograd through ``FlashAttention``)
+    against SDPA forward + backward on the same inputs, in turns; bf16,
+    causal; bounds of both."""
     import torch
     import torch.nn.functional as F
     B, H, Kv, S, hd = shape
@@ -455,11 +506,21 @@ def _flash_bwd_timing(K, shape, gen):
     with torch.no_grad():
         out, lse = K.flash_attention_cuda(q, k, v, causal=True,
                                           return_lse=True)
-    bwd = lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
-                                             causal=True)
-    ms = time_ms(bwd)
-    dev = device_ms(bwd)
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    # SDPA's forward on the stream its backward is captured on
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(side)
+    ms, dev, lib, lib_dev = paired_ms(
+        lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                           causal=True),
+        lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), dout,
+                                    retain_graph=True),
+        library_stream=side)
+    del o_sdpa
 
     def fwd_bwd():
         o = K.flash_attention_kernel(qg, kg, vg, causal=True)
@@ -470,7 +531,7 @@ def _flash_bwd_timing(K, shape, gen):
                                            enable_gqa=True)
         return torch.autograd.grad(o, (qg, kg, vg), dout)
 
-    fb, fb_dev, lib, lib_dev = paired_ms(fwd_bwd, sdpa_fwd_bwd)
+    fb, fb_dev, fb_lib, fb_lib_dev = paired_ms(fwd_bwd, sdpa_fwd_bwd)
     plain = time_ms(lambda: _attn_grads(K.flash_attention_plain, q, k, v,
                                         dout), reps=5 if S > 1024 else 20)
     pairs = B * H * S * (S + 1) // 2          # visible (query, key) pairs
@@ -480,14 +541,16 @@ def _flash_bwd_timing(K, shape, gen):
                              7 * 2 * pairs * hd, "bfloat16")
     print(f"[kernel] flash_attention_bwd timing (B,H,Kv,S,hd)={shape} "
           f"bfloat16 causal: backward {ms:.4f} ms per call, {dev:.4f} ms on "
-          f"the device, bound {bnd:.6f} ms ({by}); forward + backward "
-          f"{fb:.4f} / {fb_dev:.4f} ms, SDPA forward + backward {lib:.4f} / "
-          f"{lib_dev:.4f} ms, bound {fb_bnd:.6f} ms ({fb_by}); plain "
+          f"the device, SDPA backward {lib:.4f} / {lib_dev:.4f} ms, bound "
+          f"{bnd:.6f} ms ({by}); forward + backward {fb:.4f} / "
+          f"{fb_dev:.4f} ms, SDPA forward + backward {fb_lib:.4f} / "
+          f"{fb_lib_dev:.4f} ms, bound {fb_bnd:.6f} ms ({fb_by}); plain "
           f"forward + backward {plain:.4f} ms", flush=True)
     return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
-            "bound_by": by, "library_ms": None, "fwd_bwd_ms": fb,
-            "fwd_bwd_device_ms": fb_dev, "sdpa_fwd_bwd_ms": lib,
-            "sdpa_fwd_bwd_device_ms": lib_dev, "fwd_bwd_bound_ms": fb_bnd}
+            "bound_by": by, "library_ms": lib, "library_device_ms": lib_dev,
+            "fwd_bwd_ms": fb, "fwd_bwd_device_ms": fb_dev,
+            "sdpa_fwd_bwd_ms": fb_lib, "sdpa_fwd_bwd_device_ms": fb_lib_dev,
+            "fwd_bwd_bound_ms": fb_bnd}
 
 
 def check_flash_bwd(gen):
@@ -1140,7 +1203,7 @@ def _init(cfg, seed):
 def phase_serve():
     import torch
     from repro_torch.kernels import ops
-    total = {name: 0 for name in ops.KERNELS}
+    total = dict.fromkeys(ops.launch_counts(), 0)
     ep = cp = e_cfg = c_cfg = None
     for name, edge, kw, kernels in PATHS:
         e_new, c_new = _configs(edge)
@@ -1656,6 +1719,10 @@ def _train_runs():
         for k in ("flash_attention", "flash_attention_bwd"):
             check(launches[k] > 0, f"kernel {k} was not launched by the "
                                    f"trainer ({label})")
+        # bf16 smollm-135m (hd 64): every backward on the wgmma route
+        check(launches["flash_attention_bwd/wgmma"]
+              == launches["flash_attention_bwd"],
+              f"trainer ({label}): backward routes {launches}")
         print(f"[learn] trainer {label} (smollm-135m, batch 8, seq 256, "
               f"{res['steps']} steps): loss {h[0][1]:.4f} -> {h[-1][1]:.4f}; "
               f"{res['seconds'] / res['steps'] * 1e3:.1f} ms/step, "
@@ -1865,6 +1932,10 @@ def main() -> int:
         return 1
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        routes = {key.split("/")[1]: n for key, n in launches.items()
+                  if key.startswith(k["name"] + "/")}
+        if routes:
+            k["launches_by_route"] = routes
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False)

@@ -27,12 +27,15 @@ version of the wrappers takes:
 * ``spec``: spec verify at the serving shape at T = 0 and T = 1, and at
   the hybrid path's 32000-entry vocabulary;
 * ``bwd``: the flash backward alone at the training shape (smollm-135m
-  heads, B 8, S 256) and at granite-8b's heads over S 2048, with forward
-  + backward against SDPA's (``chip_smoke._flash_bwd_timing``).
+  heads, B 8, S 256) and at granite-8b's heads over S 2048, against
+  SDPA's backward alone, with forward + backward against SDPA's
+  (``chip_smoke._flash_bwd_timing``), and the device ms of each of its
+  kernels (``torch.profiler``).
 
 The helpers are this checkout's ``chip_smoke.py``; only the kernel
-modules come from ``DIR``.  Prints one JSON line.  Compare two versions
-within one run on the card, in turns: A, B, B, A.
+modules come from ``DIR``.  Prints one JSON line, last (the timing
+helpers print their own lines before it).  Compare two versions within
+one run on the card, in turns: A, B, B, A.
 """
 from __future__ import annotations
 
@@ -103,10 +106,47 @@ def _spec(res, gen):
         res[f"spec_{key}"] = cs.spec_timing(K, gen, V, temperature)
 
 
+def kernel_split(fn, n: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel that ``fn`` launches, by
+    kernel name (``torch.profiler`` over ``n`` calls after one warm-up)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            m = re.search(r"(\w+_kernel)(<[^>]*>)?", e.key)
+            key = m.group(0) if m else e.key[:60]
+            out[key] = out.get(key, 0.0) + t / 1e3 / n
+    return out
+
+
 def _bwd(res, gen):
+    import torch
     from repro_torch.kernels import flash_attention as K
-    res["bwd_train"] = cs._flash_bwd_timing(K, cs.FLASH_BWD_TRAIN, gen)
-    res["bwd_long"] = cs._flash_bwd_timing(K, cs.FLASH_LONG, gen)
+    for name, shape in (("train", cs.FLASH_BWD_TRAIN),
+                        ("long", cs.FLASH_LONG)):
+        row = cs._flash_bwd_timing(K, shape, gen)
+        B, H, Kv, S, hd = shape
+        q = cs._proj_view((B, H, S, hd), torch.bfloat16, gen)
+        k, v = (cs._proj_view((B, Kv, S, hd), torch.bfloat16, gen)
+                for _ in range(2))
+        dout = cs._proj_view((B, H, S, hd), torch.bfloat16, gen)
+        with torch.no_grad():
+            out, lse = K.flash_attention_cuda(q, k, v, causal=True,
+                                              return_lse=True)
+        row["kernels_device_ms"] = kernel_split(
+            lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                               causal=True))
+        res[f"bwd_{name}"] = row
 
 
 def main() -> int:

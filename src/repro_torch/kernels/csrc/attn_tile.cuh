@@ -1,5 +1,7 @@
 // The tensor-core attention tile shared by the bf16 flash-prefill and
-// tree-verify kernels (sm_90a).
+// tree-verify kernels (sm_90a); the flash backward
+// (flash_attention_bwd.cu) builds its products from the same copies and
+// wgmma primitives (qk_issue, pv_issue).
 //
 // A block of kWG warpgroups (128 threads each) owns a tile of 64 * kWG
 // query rows: rows of one kv head, packed over its G query heads (GQA) and
@@ -178,7 +180,9 @@ __device__ __forceinline__ void fence_regs(float (&a)[N][4]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
   "%30, %31}"
 
-// d[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory
+// d[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory;
+// kAcc = 0: d = A B (d's old values are not read)
+template <int kAcc = 1>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
                                              uint64_t db) {
   asm volatile(
@@ -186,7 +190,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : REPRO_F32(d)
-      : "l"(da), "l"(db), "n"(1));
+      : "l"(da), "l"(db), "n"(kAcc));
 }
 // d[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
@@ -215,38 +219,50 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[2][4],
 #undef REPRO_F32
 #undef REPRO_F4
 
+// Issue s = A B^T over the head dim without waiting (the first k-step
+// overwrites s, so it need not be zeroed; zeroing it in registers would
+// make ptxas wait on a product issued just before): A the 64 rows at
+// ``a``, B the 64 rows at ``b``, both K-major in shared memory.  The
+// caller fences before and commits after.
+template <int kD>
+__device__ __forceinline__ void qk_issue(float (&s)[8][4], const bf16* a,
+                                         const bf16* b) {
+  constexpr uint32_t kSbo = Tile<kD>::kCh * 128;   // next 8 rows
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {            // two core columns each
+    const uint64_t da = desc(a + kk * 128, 128, kSbo);
+    const uint64_t db = desc(b + kk * 128, 128, kSbo);
+    if (kk == 0)
+      wgmma_ss_n64<0>(s, da, db);
+    else
+      wgmma_ss_n64(s, da, db);
+  }
+}
+
 // s = Q K^T for one 64-key tile and this warpgroup's 64 rows of the Q
-// tile (s zeroed here).
+// tile.
 template <int kD>
 __device__ __forceinline__ void qk_product(float (&s)[8][4], const bf16* qs,
                                            const bf16* ks) {
-  constexpr uint32_t kSbo = Tile<kD>::kCh * 128;   // next 8 rows
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  qs += (threadIdx.x >> 7) * 64 * kD;               // this warpgroup's rows
   wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)              // two core columns each
-    wgmma_ss_n64(s, desc(qs + kk * 128, 128, kSbo),
-                 desc(ks + kk * 128, 128, kSbo));
+  qk_issue<kD>(s, qs + (threadIdx.x >> 7) * 64 * kD, ks);  // own rows
   wg_commit();
   wg_wait0();
   fence_regs(s);
 }
 
-// o += (p[0] + p[1]) V for one 64-key tile; p[i][kk] is the A fragment of
-// keys [16 kk, 16 kk + 16).
-template <int kD>
-__device__ __forceinline__ void pv_product(float (&o)[kD / 8][4],
-                                           const uint32_t (&p)[2][4][4],
-                                           const bf16* vs) {
+// Issue o += (p[0] + ... + p[kN - 1]) V for one 64-key tile without
+// waiting; p[i][kk] is the A fragment of keys [16 kk, 16 kk + 16), V the
+// 64 x kD tile at ``vs``, MN-major.  The caller fences before and commits
+// after.
+template <int kD, int kN>
+__device__ __forceinline__ void pv_issue(float (&o)[kD / 8][4],
+                                         const uint32_t (&p)[kN][4][4],
+                                         const bf16* vs) {
   constexpr int kCh = Tile<kD>::kCh;
   constexpr uint32_t kLbo = kCh * 128;              // next 8 keys
-  wg_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < kN; ++i) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const bf16* vk = vs + 2 * kk * kCh * 64;      // key group 2 kk
@@ -260,6 +276,16 @@ __device__ __forceinline__ void pv_product(float (&o)[kD / 8][4],
                      desc(vk + 2 * c * 64, kLbo, 128));
     }
   }
+}
+
+// o += (p[0] + p[1]) V for one 64-key tile; p[i][kk] is the A fragment of
+// keys [16 kk, 16 kk + 16).
+template <int kD>
+__device__ __forceinline__ void pv_product(float (&o)[kD / 8][4],
+                                           const uint32_t (&p)[2][4][4],
+                                           const bf16* vs) {
+  wg_fence();
+  pv_issue<kD, 2>(o, p, vs);
   wg_commit();
   wg_wait0();
   fence_regs(o);

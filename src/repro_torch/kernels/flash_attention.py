@@ -23,11 +23,24 @@ kernel writing each row's log-sum-exp as well and whose backward is the
 hand-written ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_cuda``);
 otherwise the forward-only launch.  The plain backward is autograd through
 ``flash_attention_plain``.
+
+The backward has two routes, chosen by ``flash_bwd_plan`` from the dtype
+and the head dim alone: ``wgmma`` (bfloat16 with hd <= 128 — every
+attention family the port trains) runs its products on the tensor cores
+over 64-row query tiles packed over a kv head's G query heads and 64-key
+tiles; ``cuda_cores`` (float32, the exact parity path, and bfloat16 with
+hd 144-256) runs them in float32 on the CUDA cores over 32-row per-head
+query tiles and 32-key tiles.  The plan also gives the tiles each block
+walks (the causal limit and the window bound them), as the kernels walk
+them.  A route is never taken on a failure: the kernel raises.  The
+``launch_counts`` of ``ops`` report the backward's launches per route.
 """
 from __future__ import annotations
 
+import functools
 import math
 import struct
+from dataclasses import dataclass
 
 import torch
 
@@ -41,7 +54,10 @@ KERNEL = CudaKernel("flash_attention.cu", "repro_flash_attention",
 BWD_KERNEL = CudaKernel("flash_attention_bwd.cu", "repro_flash_attention_bwd",
                         [PACKED, F, P])
 _ARGS = struct.Struct("23q")     # the C entry's packed int64 arguments
-_BWD_ARGS = struct.Struct("43q")
+_BWD_ARGS = struct.Struct("44q")
+BWD_ROUTES = ("cuda_cores", "wgmma")     # the C entry's route numbers
+# launches of the backward kernel per route (BWD_KERNEL.launches counts all)
+BWD_ROUTE_LAUNCHES = dict.fromkeys(BWD_ROUTES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,6 +81,69 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     s = torch.where(mask, s, NEG)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the backward kernel tiles one call: ``route``, the rows of a
+    query tile and the keys of a key tile (``tile``), and ``pack`` query
+    heads per tile row set (a kv head's G heads on ``wgmma``, where packed
+    row r is position r // G of head kv * G + r % G; 1 on ``cuda_cores``,
+    whose query tiles belong to one head).  Tiles count per (kv head, or
+    head on ``cuda_cores``, sequence)."""
+    route: str
+    tile: int
+    pack: int
+    Sq: int
+    Sk: int
+    causal: bool
+    window: int
+
+    @property
+    def n_query_tiles(self) -> int:
+        return -(-self.pack * self.Sq // self.tile)
+
+    @property
+    def n_key_tiles(self) -> int:
+        return -(-self.Sk // self.tile)
+
+    def query_tiles(self, kt: int) -> range:
+        """The query tiles that can see a key of key tile ``kt``: those
+        its dK/dV block walks (on ``wgmma`` its two warpgroups taking
+        alternate tiles)."""
+        k0 = kt * self.tile
+        k_last = min(k0 + self.tile, self.Sk) - 1
+        p_begin = k0 if self.causal else 0
+        p_end = min(k_last + self.window, self.Sq) if self.window \
+            else self.Sq
+        if p_end <= p_begin:
+            return range(0)
+        return range(p_begin * self.pack // self.tile,
+                     -(-p_end * self.pack // self.tile))
+
+    def key_tiles(self, qt: int) -> range:
+        """The key tiles that a row of query tile ``qt`` can see (the
+        forward's bounds): a dQ block walks those of its rows (on
+        ``wgmma`` two query tiles, the union of theirs)."""
+        r0 = qt * self.tile
+        p_first = r0 // self.pack
+        p_last = (min(r0 + self.tile, self.pack * self.Sq) - 1) // self.pack
+        k_begin = max(p_first - self.window + 1, 0) if self.window else 0
+        k_end = min(p_last + 1, self.Sk) if self.causal else self.Sk
+        first = k_begin // self.tile
+        if k_end <= first * self.tile:
+            return range(0)
+        return range(first, -(-k_end // self.tile))
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_plan(dtype, hd: int, G: int, Sq: int, Sk: int, causal: bool,
+                   window: int) -> BwdPlan:
+    """The backward's plan from shapes alone: the ``wgmma`` route for
+    bfloat16 with hd <= 128, else ``cuda_cores``."""
+    if dtype == torch.bfloat16 and hd <= 128:
+        return BwdPlan("wgmma", 64, G, Sq, Sk, bool(causal), int(window))
+    return BwdPlan("cuda_cores", 32, 1, Sq, Sk, bool(causal), int(window))
 
 
 def _check(q, k, v):
@@ -118,7 +197,8 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
     return_lse=True)``) for the output gradient ``dout``.  q, out and dout
     (B, H, Sq, hd), k and v (B, Kv, Sk, hd) may be strided views with a
     contiguous head dim; dq, dk and dv come laid out like q, k and v.
-    Raises on anything the kernel does not take; never falls back."""
+    The route is ``flash_bwd_plan``'s.  Raises on anything the kernel does
+    not take; never falls back."""
     _check(q, k, v)
     B, H, Sq, hd = q.shape
     Kv, Sk = k.shape[1], k.shape[2]
@@ -142,10 +222,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
     args = [_DTYPES[q.dtype]]
     for t in ins + (dq, dk, dv):
         args += [t.data_ptr(), *t.stride()[:3]]
+    route = flash_bwd_plan(q.dtype, hd, H // Kv, Sq, Sk, bool(causal),
+                           int(window)).route
     args += [lse.data_ptr(), delta.data_ptr(), B, H, Kv, Sq, Sk, hd,
-             int(bool(causal)), int(window)]
+             int(bool(causal)), int(window), BWD_ROUTES.index(route)]
     BWD_KERNEL.launch(_BWD_ARGS.pack(*args), 1.0 / math.sqrt(hd),
                       raw_stream(q))
+    BWD_ROUTE_LAUNCHES[route] += 1
     return dq, dk, dv
 
 

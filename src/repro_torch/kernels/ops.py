@@ -24,7 +24,9 @@ and one kernel of the port's own, ``flash_attention_bwd`` (the gradient of
 is differentiable on both devices: on CUDA under grad it runs the
 forward and backward kernels (``flash_attention.FlashAttention``), on the
 CPU autograd runs through the plain version.  The other kernels have no
-backward and raise under grad on CUDA.
+backward and raise under grad on CUDA.  ``launch_counts`` also reports the
+backward's launches per route (``flash_attention_bwd/wgmma`` and
+``flash_attention_bwd/cuda_cores``).
 """
 from __future__ import annotations
 
@@ -46,10 +48,15 @@ KERNELS = {"paged_decode_attention": _dec.KERNEL,
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    for route in _flash.BWD_ROUTE_LAUNCHES:
+        _flash.BWD_ROUTE_LAUNCHES[route] = 0
 
 
 def launch_counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
+    counts = {name: k.launches for name, k in KERNELS.items()}
+    for route, n in _flash.BWD_ROUTE_LAUNCHES.items():
+        counts[f"flash_attention_bwd/{route}"] = n
+    return counts
 
 
 def paged_decode_attention(q, k_pool, v_pool, table, length, *, window=0):

@@ -843,6 +843,56 @@ def test_flash_attention_backward_kernel(cuda, B, H, Kv, Sq, Sk, hd, dtype,
         assert _rel_err(g, r) <= BWD_TOL[dtype]
 
 
+# (B, H, Kv, Sq, Sk, hd) of the wgmma route's walks: packed rows that
+# straddle 64-row tiles and the causal and window bands — the training
+# shape (G 3), granite-8b heads over a ragged S (G 4), one kv head of G 8,
+# zamba2's hd 80 with G 1 —, Sq != Sk both ways, and hd 100, whose rows
+# take the element copies (no 16-byte alignment)
+BWD_WALK_SHAPES = [(8, 9, 3, 256, 256, 64), (2, 32, 8, 130, 130, 128),
+                   (1, 8, 1, 75, 75, 64), (1, 4, 4, 150, 150, 80),
+                   (1, 12, 4, 40, 72, 64), (1, 12, 4, 100, 72, 64),
+                   (1, 4, 2, 70, 70, 100)]
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Sk,hd", BWD_WALK_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0), (False, 33)])
+def test_flash_attention_backward_packed_tiles(cuda, B, H, Kv, Sq, Sk, hd,
+                                               dtype, causal, window):
+    """As test_flash_attention_backward_kernel, on the walks whose packed
+    query tiles straddle positions and masks (every row sees a key)."""
+    q, k, v, dout = _bwd_inputs(B, H, Kv, Sq, Sk, hd, cuda, dtype)
+    got = _attn_grads(ops.flash_attention, q, k, v, dout, causal=causal,
+                      window=window)
+    ref = _attn_grads(flash_attention_plain, q, k, v, dout, causal=causal,
+                      window=window)
+    for g, r, x in zip(got[1:], ref[1:], (q, k, v)):
+        assert g.stride() == x.stride() and g.dtype == dtype
+        assert _rel_err(g, r) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 80, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores"), (torch.bfloat16, 256, "cuda_cores")])
+def test_flash_attention_backward_route(cuda, dtype, hd, route):
+    """bfloat16 with hd <= 128 launches the wgmma route, float32 and
+    bfloat16 hd 256 the CUDA-core route: one launch, counted per route in
+    ``ops.launch_counts()``."""
+    q, k, v, dout = _bwd_inputs(1, 4, 2, 48, 48, hd, cuda, dtype)
+    ops.reset_launch_counts()
+    got = _attn_grads(ops.flash_attention, q, k, v, dout)
+    ref = _attn_grads(flash_attention_plain, q, k, v, dout)
+    counts = ops.launch_counts()
+    other = {"wgmma": "cuda_cores", "cuda_cores": "wgmma"}[route]
+    assert counts["flash_attention_bwd"] == 1
+    assert counts[f"flash_attention_bwd/{route}"] == 1
+    assert counts[f"flash_attention_bwd/{other}"] == 0
+    for g, r in zip(got[1:], ref[1:]):
+        assert _rel_err(g, r) <= BWD_TOL[dtype]
+
+
 def test_flash_attention_backward_cross_length(cuda):
     """Sq != Sk, full attention (the kernels' ragged edges on both axes)."""
     q, k, v, dout = _bwd_inputs(1, 4, 2, 40, 72, 64, cuda, torch.float32)

@@ -8,7 +8,8 @@ the JAX layout.  Inputs come from numpy seeds and go to both frameworks.
 Tolerances (float32, sums in another order): losses 1e-5; gradients
 rtol 1e-4 / atol 1e-5; one AdamW step on the SAME gradients 1e-6; a
 five-step training run's loss history 1e-4; adapter and merge results
-1e-5; flash attention gradients 1e-5.
+1e-5; flash attention gradients 1e-5 (the plain autograd and the tiled
+model of the backward kernel's walk).
 """
 import numpy as np
 import pytest
@@ -36,8 +37,8 @@ from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.data.pipeline import batches as tbatches  # noqa: E402
 from repro_torch.data.pipeline import client_divergence as tdiv  # noqa: E402
 from repro_torch.data.pipeline import dirichlet_clients as tdir  # noqa: E402
-from repro_torch.kernels.flash_attention import \
-    flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_plain, flash_bwd_plan)
 from repro_torch.models import Model as TModel  # noqa: E402
 from repro_torch.models.model import example_batch  # noqa: E402
 from repro_torch.training import checkpoint as tck  # noqa: E402
@@ -400,6 +401,176 @@ def test_flash_attention_plain_grad_matches_jax_ref(causal, window, G):
     tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
     out = flash_attention_plain(tq, tk, tv, causal=causal, window=window)
     tg = torch.autograd.grad((out * _t(dout)).sum(), (tq, tk, tv))
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                   rtol=1e-5)
+
+
+# ------------------------------------------------- flash backward's walk
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 80, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 256, "cuda_cores"), (torch.bfloat16, 144, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores")])
+def test_flash_bwd_plan_route(dtype, hd, route):
+    """The route follows the dtype and the head dim alone: wgmma for
+    bfloat16 with hd <= 128 (64-row query tiles packed over the G heads,
+    64-key tiles), the CUDA cores otherwise (32-row per-head tiles)."""
+    for G, S, causal, window in ((1, 16, True, 0), (4, 2048, False, 9)):
+        plan = flash_bwd_plan(dtype, hd, G, S, S, causal, window)
+        assert plan.route == route
+        assert (plan.tile, plan.pack) == ((64, G) if route == "wgmma"
+                                          else (32, 1))
+
+
+def test_flash_bwd_plan_tile_counts():
+    """Tiles at the training shape (smollm-135m heads: G 3, S 256, hd 64)
+    and at granite-8b's heads over S 2048 (G 4, hd 128), causal: per (kv
+    head, sequence), the dK/dV blocks walk 12 + 9 + 6 + 3 and 128 + 124 +
+    ... + 4 query tiles, the dQ blocks 1 to 4 and 1 to 32 key tiles."""
+    train = flash_bwd_plan(torch.bfloat16, 64, 3, 256, 256, True, 0)
+    assert (train.n_query_tiles, train.n_key_tiles) == (12, 4)
+    assert [len(train.query_tiles(kt)) for kt in range(4)] == [12, 9, 6, 3]
+    assert [train.key_tiles(qt) for qt in (0, 2, 3, 11)] == \
+        [range(0, 1), range(0, 1), range(0, 2), range(0, 4)]
+    long = flash_bwd_plan(torch.bfloat16, 128, 4, 2048, 2048, True, 0)
+    assert (long.n_query_tiles, long.n_key_tiles) == (128, 32)
+    assert [len(long.query_tiles(kt)) for kt in range(32)] == \
+        list(range(128, 0, -4))
+    assert [len(long.key_tiles(qt)) for qt in range(128)] == \
+        [qt // 4 + 1 for qt in range(128)]
+    f32 = flash_bwd_plan(torch.float32, 64, 3, 256, 256, True, 0)
+    assert (f32.n_query_tiles, f32.n_key_tiles) == (8, 8)
+
+
+def _visible(Sq, Sk, causal, window):
+    i = np.arange(Sq)[:, None]
+    j = np.arange(Sk)[None, :]
+    vis = np.ones((Sq, Sk), bool)
+    if causal:
+        vis = j <= i
+    if window:
+        vis = vis & (j > i - window)
+    return vis
+
+
+# (G, Sq, Sk, causal, window): the kv head's G query heads packed into
+# 64-row tiles that straddle positions (G 3), bands of the causal
+# diagonal and of a window, ragged lengths, Sq != Sk with and without
+# causality; every row sees a key
+WALK_CASES = [(1, 130, 130, True, 0), (3, 100, 100, True, 0),
+              (4, 75, 75, True, 17), (3, 90, 90, False, 0),
+              (8, 40, 40, True, 0), (3, 70, 70, False, 23),
+              (4, 40, 72, True, 0), (3, 72, 40, True, 0),
+              (1, 50, 90, False, 0), (3, 92, 64, True, 30)]
+
+
+@pytest.mark.parametrize("G,Sq,Sk,causal,window", WALK_CASES)
+def test_flash_bwd_plan_bounds(G, Sq, Sk, causal, window):
+    """With packed rows (row r = position r // G), every (query tile, key
+    tile) pair holding a visible (row, key) is walked by the dK/dV block of
+    its key tile and the dQ block of its query tile, and the first and
+    last tile of each walk hold one: the bounds skip only masked tiles and
+    are tight at both ends.  On the CUDA-core route too (per-head tiles)."""
+    vis = _visible(Sq, Sk, causal, window)
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = flash_bwd_plan(dtype, 64, G, Sq, Sk, causal, window)
+        t, pack = plan.tile, plan.pack
+        packed = np.repeat(vis, pack, axis=0)            # row r: pos r // pack
+
+        def seen(qt, kt):
+            return packed[qt * t:(qt + 1) * t, kt * t:(kt + 1) * t].any()
+
+        for kt in range(plan.n_key_tiles):
+            walk = plan.query_tiles(kt)
+            assert all(qt in walk for qt in range(plan.n_query_tiles)
+                       if seen(qt, kt))
+            if len(walk):
+                assert seen(walk[0], kt) and seen(walk[-1], kt)
+        for qt in range(plan.n_query_tiles):
+            walk = plan.key_tiles(qt)
+            assert all(kt in walk for kt in range(plan.n_key_tiles)
+                       if seen(qt, kt))
+            assert len(walk) and seen(qt, walk[0]) and seen(qt, walk[-1])
+
+
+def _tiled_bwd(q, k, v, dout, causal, window):
+    """A plain model of the wgmma backward (csrc/flash_attention_bwd.cu):
+    the forward's LSE and D = rowsum(dO o O), then the dK/dV blocks (per
+    key tile, the packed query tiles of ``query_tiles``) and the dQ walks
+    (per packed query tile, the key tiles of ``key_tiles``; a dQ block of
+    two tiles walks their union, whose extra tiles are masked), each tile
+    recomputing P = exp(scale S - LSE) and dS = P o (dP - D), exact zeros
+    where masked.  float32 on the CPU."""
+    B, H, Sq, hd = q.shape
+    Kv, Sk = k.shape[1], k.shape[2]
+    G = H // Kv
+    plan = flash_bwd_plan(torch.bfloat16, hd, G, Sq, Sk, causal, window)
+    assert plan.route == "wgmma"
+    t, scale = plan.tile, hd ** -0.5
+    vis = torch.from_numpy(_visible(Sq, Sk, causal, window))
+    kk = k.repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kk) * scale
+    lse = torch.logsumexp(s.masked_fill(~vis, float("-inf")), dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.exp(s - lse[..., None])
+                       * vis, v.repeat_interleave(G, dim=1))
+    delta = (dout * out).sum(-1)
+
+    def pack(x):             # (B, H, Sq, ...) -> (B, Kv, G Sq, ...)
+        x = x.reshape(B, Kv, G, Sq, -1).transpose(2, 3)
+        return x.reshape(B, Kv, Sq * G, -1)
+
+    qp, gp = pack(q), pack(dout)
+    lp, dp_ = pack(lse[..., None])[..., 0], pack(delta[..., None])[..., 0]
+    pos = torch.arange(G * Sq) // G
+
+    def tile(qt, kt):
+        rows = slice(qt * t, min(qt * t + t, G * Sq))
+        keys = slice(kt * t, min(kt * t + t, Sk))
+        m = vis[pos[rows]][:, keys]
+        sc = torch.einsum("bkrd,bkjd->bkrj", qp[:, :, rows],
+                          k[:, :, keys]) * scale
+        p = torch.where(m, torch.exp(sc - lp[:, :, rows, None]), 0.0)
+        dp = torch.einsum("bkrd,bkjd->bkrj", gp[:, :, rows], v[:, :, keys])
+        ds = torch.where(m, p * (dp - dp_[:, :, rows, None]), 0.0)
+        return rows, keys, p, ds
+
+    dq, dk, dv = torch.zeros_like(qp), torch.zeros_like(k), \
+        torch.zeros_like(v)
+    for kt in range(plan.n_key_tiles):
+        for qt in plan.query_tiles(kt):
+            rows, keys, p, ds = tile(qt, kt)
+            dv[:, :, keys] += torch.einsum("bkrj,bkrd->bkjd", p,
+                                           gp[:, :, rows])
+            dk[:, :, keys] += torch.einsum("bkrj,bkrd->bkjd", ds,
+                                           qp[:, :, rows]) * scale
+    for qt in range(plan.n_query_tiles):
+        for kt in plan.key_tiles(qt):
+            rows, keys, p, ds = tile(qt, kt)
+            dq[:, :, rows] += torch.einsum("bkrj,bkjd->bkrd", ds,
+                                           k[:, :, keys]) * scale
+    dq = dq.reshape(B, Kv, Sq, G, hd).transpose(2, 3).reshape(B, H, Sq, hd)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("G,Sq,Sk,causal,window", WALK_CASES)
+def test_flash_bwd_tiled_model_matches_jax(G, Sq, Sk, causal, window):
+    """The tiled model of the backward kernel's walk vs jax.grad of the
+    JAX oracle (``flash_attention_ref`` over the repeated kv heads)."""
+    B, Kv, hd = 2, 2, 16
+    rng = np.random.default_rng(G * 1000 + Sq + Sk + window)
+    q, dout = (rng.standard_normal((B, Kv * G, Sq, hd)).astype(np.float32)
+               for _ in range(2))
+    k, v = (rng.standard_normal((B, Kv, Sk, hd)).astype(np.float32)
+            for _ in range(2))
+
+    def jf(q, k, v):
+        out = flash_attention_ref(q, jnp.repeat(k, G, 1), jnp.repeat(v, G, 1),
+                                  causal=causal, window=window)
+        return jnp.sum(out * dout)
+
+    jg = jax.grad(jf, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tg = _tiled_bwd(*(_t(x) for x in (q, k, v, dout)), causal, window)
     for a, b in zip(tg, jg):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
                                    rtol=1e-5)
