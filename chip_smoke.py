@@ -11,8 +11,8 @@ the first phase that fails:
    per source, in parallel), print the build time and the tensor-core
    instructions (``HGMMA``/``HMMA``, from ``cuobjdump -sass``) of the flash,
    tree, SSD-scan and flash-backward libraries, which must not be 0, and
-   each backward kernel's registers and local (spill) bytes (``cuobjdump
-   -res-usage``);
+   the registers and local (spill) bytes of each kernel of the two
+   backward libraries (flash and SSD scan; ``cuobjdump -res-usage``);
 2. hold each kernel against its plain PyTorch version at the serving
    paths' shapes, in float32 and bfloat16, with the tolerances printed, and
    time every kernel per call (CUDA events around one wrapper call, median
@@ -38,7 +38,13 @@ the first phase that fails:
    bfloat16, smollm-135m heads at S 64 and 256, granite-8b heads at S 128
    and 130, zamba2's hd 80 with G 1, a window, a ragged length), timed
    alone against SDPA's backward alone and, forward + backward, against
-   SDPA's forward + backward at the training shape and at S 2048;
+   SDPA's forward + backward at the training shape and at S 2048; the
+   SSD-scan backward (``csrc/ssd_scan_bwd.cu``) against autograd of the
+   plain scan through each caller's form of the outputs (float32 and
+   bfloat16, the trainer's mamba2-370m, xlstm-125m and zamba2-2.7b shapes
+   at batch 8 and seq 256, front-padded ragged lengths, 2048-token
+   prompts), bit-identical across two runs, and timed alone against the
+   plain autograd's backward alone;
 3. serve seven paths at full width — granite-8b cloud, bfloat16, seeded
    random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
    SpeculativePolicy(0.6), T = 0: with the smollm-135m edge the default
@@ -64,9 +70,15 @@ the first phase that fails:
    dtypes and device, the backward kernel launched — and
    ``launch/train.py`` on smollm-135m (batch 8, seq 256, 30 steps; plain
    and ``--remat``), whose loss must fall and whose every backward launch
-   must take the wgmma route; a profiled training step; and
-   one float32 train step through the kernels against the plain
-   attention (2 layers, full width);
+   must take the wgmma route; ``launch/train.py`` on granite-moe-1b-a400m,
+   mamba2-370m, xlstm-125m and zamba2-2.7b (batch 8 — halved while it
+   does not fit, the cut printed —, seq 256, 10 steps) and mamba2-370m
+   with ``--remat``, each loss falling and every scan and attention layer
+   launching its forward and backward kernels in every step; a profiled
+   training step of smollm-135m and of mamba2-370m; and one float32 train
+   step through the kernels against
+   the plain versions (2 layers, full width: smollm-135m, mamba2-370m,
+   xlstm-125m);
 4. serve each path again at float32, full width, cut depth (2 layers per
    model; xLSTM 4, zamba2 6 — one whole shared-attention group), plus the
    moe edge on the tree lane, the mamba2 path with chunked prefill and
@@ -76,8 +88,8 @@ the first phase that fails:
    where the plain model's top-2 logit gap is below 1e-4;
 5. print the card's name and power limit, a ``{"kernels": [...]}`` line
    (launches summed over the seven served paths, the per-request phase,
-   the two adaptation paths and the two training runs; the backward's
-   also per route) and last the
+   the two adaptation paths and the seven training runs; the flash
+   backward's also per route) and last the
    result line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -223,10 +235,6 @@ def phase_build():
         check(n_wg + n_mma > 0, f"{src}: no tensor-core instruction in its "
                                 f"SASS (cuobjdump rc {sass.returncode})")
     # registers and local (spill) bytes of each backward kernel
-    res = subprocess.run([str(dump), "-res-usage",
-                          str(libs["flash_attention_bwd.cu"])],
-                         capture_output=True, text=True, check=False)
-
     def demangle(names):
         filt = subprocess.run([str(dump.with_name("cu++filt"))],
                               input="\n".join(names), capture_output=True,
@@ -234,9 +242,12 @@ def phase_build():
         out = filt.stdout.splitlines()
         return out if len(out) == len(names) else names
 
-    for name, usage in _res_usage(res.stdout, demangle):
-        print(f"[build] flash_attention_bwd.cu {name}: {usage} "
-              f"(cuobjdump -res-usage)", flush=True)
+    for src in ("flash_attention_bwd.cu", "ssd_scan_bwd.cu"):
+        res = subprocess.run([str(dump), "-res-usage", str(libs[src])],
+                             capture_output=True, text=True, check=False)
+        for name, usage in _res_usage(res.stdout, demangle):
+            print(f"[build] {src} {name}: {usage} (cuobjdump -res-usage)",
+                  flush=True)
 
 
 def _res_usage(text, demangle):
@@ -1111,13 +1122,172 @@ def ssd_timing(K, case, gen):
             "bound_by": by}
 
 
+# the SSD-scan backward (the port's own kernel, csrc/ssd_scan_bwd.cu) at the
+# trainer's shapes (batch 8, seq 256: mamba2-370m, xlstm-125m, zamba2-2.7b),
+# front-padded ragged lengths and the 2048-token prompts: (label, B, S, H,
+# N, P, chunk, q/k head-broadcast, the caller's form of the outputs).  Held
+# against autograd of the plain scan through that form, float32 and
+# bfloat16: max |kernel - plain| over dq, dk, dv, dlog_a, dlog_i within
+# BWD_TOL x max(1, max |plain|); the training rows and the long ones timed
+SSD_BWD_TRAIN = (("mamba2-370m", 8, 256, 32, 128, 64, 256, True, "mamba"),
+                 ("xlstm-125m", 8, 256, 4, 384, 384, 128, False, "mlstm"),
+                 ("zamba2-2.7b", 8, 256, 80, 64, 64, 128, True, "mamba"))
+SSD_BWD_MORE = (("mamba2-370m ragged", 2, 300, 32, 128, 64, 256, True,
+                 "mamba"),
+                ("xlstm-125m ragged", 2, 200, 4, 384, 384, 128, False,
+                 "mlstm"))
+SSD_BWD_LONG = (("mamba2-370m long", 1, 2048, 32, 128, 64, 256, True,
+                 "mamba"),
+                ("xlstm-125m long", 1, 2048, 4, 384, 384, 128, False,
+                 "mlstm"))
+
+
+def _ssd_form(y, den, m, form):
+    """The callers' forms of the scan's outputs: mamba2's y * exp(m),
+    mLSTM's y / max(|den|, exp(-m))."""
+    import torch
+    if form == "mamba":
+        return y * torch.exp(m)[..., None]
+    return y / torch.maximum(den.abs(), torch.exp(-m))[..., None]
+
+
+def _ssd_leaves(case, dtype, gen):
+    """The scan's inputs as leaves that require grad (q and k head-broadcast
+    views where the model makes them), and the weights R of the scalar loss
+    sum(R * form(y, den, m))."""
+    import torch
+    label, B, S, H, N, P, chunk, bc, form = case
+    q, k, v, la, li, _ = _ssd_inputs(B, S, H, N, P, dtype, gen, bc, False)
+    R = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    return [t.detach().requires_grad_(True) for t in (q, k, v, la, li)], R
+
+
+def _ssd_loss(fn, leaves, R, chunk, form):
+    y, den, m, _ = fn(*leaves, chunk=chunk)
+    return (R * _ssd_form(y, den, m, form)).sum()
+
+
+def _ssd_bwd_cost(B, S, H, N, P, chunk, el, broadcast):
+    """(bytes, operations) of the backward: each input read once (q, k, v,
+    the gates, the row log-max, the saved chunk states, dy, dden), each
+    output written once (dq, dk per head, dv, dlog_a, dlog_i); per real
+    chunk row the masked intra-chunk products (scores, dy v^T, W^T dy,
+    D^T q, D k: 6 N + 4 P per visible pair) and the carry products (8 N P;
+    4 N P in a first chunk, which has no carried-in state)."""
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+    ops = 0
+    for c in range(nc):
+        r = Q - (pad if c == 0 else 0)
+        ops += r * (r + 1) // 2 * (6 * N + 4 * P) \
+            + r * (4 if c == 0 else 8) * N * P
+    hq = 1 if broadcast else H
+    nbytes = (2 * B * S * hq * N * el + B * S * H * P * el
+              + 3 * B * S * H * 4 + B * H * (nc * (N * P + N + 1) + 1) * 4
+              + B * S * H * (P + 1) * 4
+              + 2 * B * S * H * N * el + B * S * H * P * el
+              + 2 * B * S * H * 4)
+    return nbytes, ops * B * H
+
+
+def _ssd_bwd_timing(K, case, gen):
+    """The backward kernel alone (on the forward's saved state) per call and
+    on the device, the plain autograd's backward alone (its graph
+    retained), bfloat16, with the bound."""
+    import torch
+    label, B, S, H, N, P, chunk, bc, form = case
+    leaves, R = _ssd_leaves(case, torch.bfloat16, gen)
+    q, k, v, la, li = (t.detach() for t in leaves)
+    with torch.no_grad():
+        y, den, m, fin, saved = K._forward(q, k, v, la, li, chunk, None,
+                                           save=True)
+    yl, dl = y.requires_grad_(True), den.requires_grad_(True)
+    dy, dden = torch.autograd.grad(
+        (R * _ssd_form(yl, dl, m, form)).sum(), (yl, dl), allow_unused=True)
+
+    def bwd():
+        return K.ssd_chunk_scan_bwd_cuda(q, k, v, la, li, m, saved, fin[2],
+                                         dy, dden, chunk=chunk, fresh=True)
+
+    reps = 10 if S > 1024 else 20
+    ms, dev = time_ms(bwd, reps=reps), device_ms(bwd)
+    loss = _ssd_loss(K.ssd_chunk_scan_plain, leaves, R, chunk, form)
+    plain = time_ms(lambda: torch.autograd.grad(loss, leaves,
+                                                retain_graph=True),
+                    reps=reps, warm=2)
+    del loss
+    bnd, by = bound_ms(*_ssd_bwd_cost(B, S, H, N, P, chunk, 2, bc),
+                       "bfloat16")
+    print(f"[kernel] ssd_chunk_scan_bwd timing {label} (B,S,H,N,P,chunk)="
+          f"{(B, S, H, N, P, chunk)} bfloat16: {ms:.4f} ms per call, "
+          f"{dev:.4f} ms on the device; plain autograd backward "
+          f"{plain:.4f} ms; bound {bnd:.6f} ms ({by})", flush=True)
+    return {"shape": f"{label} (B,S,H,N,P,chunk)={(B, S, H, N, P, chunk)}",
+            "ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by}
+
+
+def check_ssd_bwd(gen):
+    """The SSD-scan backward (through ``ops.ssd_chunk_scan`` under grad: the
+    forward kernel with its chunk states saved, then the backward kernel)
+    against autograd of the plain scan, both through the caller's form,
+    float32 and bfloat16; bit-identical across two runs; then timed.  No
+    single PyTorch call computes it: no library yardstick."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as K
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for case in SSD_BWD_TRAIN + SSD_BWD_MORE + SSD_BWD_LONG:
+            label, B, S, H, N, P, chunk, bc, form = case
+            leaves, R = _ssd_leaves(case, dtype, gen)
+            got = torch.autograd.grad(
+                _ssd_loss(ops.ssd_chunk_scan, leaves, R, chunk, form),
+                leaves)
+            ref = torch.autograd.grad(
+                _ssd_loss(K.ssd_chunk_scan_plain, leaves, R, chunk, form),
+                leaves)
+            torch.cuda.synchronize()
+            rel = max(max_err(a, b) / max(1.0, float(b.float().abs().max()))
+                      for a, b in zip(got, ref))
+            err = max(max_err(a, b) for a, b in zip(got, ref))
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            print(f"[kernel] ssd_chunk_scan_bwd {name} {label} (B,S,H,N,P,"
+                  f"chunk)={(B, S, H, N, P, chunk)} {form} form: max_abs_err "
+                  f"{err:.3e}, relative to max(1, max |plain|) {rel:.3e} "
+                  f"(tol {BWD_TOL[name]:g})", flush=True)
+            check(finite and rel <= BWD_TOL[name],
+                  f"ssd_chunk_scan_bwd {name} {label}: relative error {rel}")
+            errs.append(err)
+            if dtype == torch.bfloat16 and label == "xlstm-125m":
+                again = torch.autograd.grad(
+                    _ssd_loss(ops.ssd_chunk_scan, leaves, R, chunk, form),
+                    leaves)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      "ssd_chunk_scan_bwd: two runs differ")
+                print("[kernel] ssd_chunk_scan_bwd bfloat16 xlstm-125m: two "
+                      "runs bit-identical", flush=True)
+    row = {"name": "ssd_chunk_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+           "replaces": "src/repro/models/ssm.py:43 (the gradient of "
+                       "gla_chunked's jnp scan; no TPU kernel)",
+           "max_abs_err": max(errs), "library_ms": None}
+    rows = [_ssd_bwd_timing(K, case, gen) for case in SSD_BWD_TRAIN]
+    row.update(rows[0])
+    row["other_training_shapes"] = rows[1:]
+    row["long"] = [_ssd_bwd_timing(K, case, gen) for case in SSD_BWD_LONG]
+    return row
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     return [check_paged(gen), check_flash(gen), check_spec_verify(gen),
             check_tree(gen), check_decode(gen), check_ssd(gen),
-            check_flash_bwd(gen)]
+            check_flash_bwd(gen), check_ssd_bwd(gen)]
 
 
 # --------------------------------------------------------------- phase 3
@@ -1733,21 +1903,97 @@ def _train_runs():
     return out
 
 
-def _train_breakdown():
-    """Where a full-width training step goes (smollm-135m, bfloat16,
-    batch 8, seq 256, AdamW): host issue against stream span of one step,
-    and a profiler pass over 3 steps for the device's busy share and its
-    top kernels."""
+# the trainer on every other family the port serves, at full width: the
+# moe, ssm, xlstm and hybrid families, batch 8, seq 256, FAMILY_STEPS steps
+# (a batch that does not fit in the card's memory is halved until it does,
+# and the cut printed), then mamba2-370m once more with --remat.  Each
+# run's loss must fall, and every step must launch the scan kernel forward
+# and backward once per scan layer (the forward twice with --remat), so no
+# plain scan ran under grad, and the flash kernels once per attention layer
+FAMILY_TRAIN = (("granite-moe-1b-a400m", False), ("mamba2-370m", False),
+                ("xlstm-125m", False), ("zamba2-2.7b", False),
+                ("mamba2-370m", True))
+FAMILY_STEPS = 10
+
+
+def _layer_counts(cfg):
+    """(scan layers, attention layers) of one forward of ``cfg``."""
+    from repro_torch.models.xlstm import is_slstm
+    L = cfg.num_layers
+    return {"dense": (0, L), "moe": (0, L), "ssm": (L, 0),
+            "xlstm": (sum(not is_slstm(cfg, l) for l in range(L)), 0),
+            "hybrid": (L, L // max(1, cfg.shared_attn_every))}[cfg.family]
+
+
+def _family_train_runs():
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import main as train_main
+    out = []
+    for arch, remat in FAMILY_TRAIN:
+        batch = 8
+        while True:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            try:
+                res = train_main(["--arch", arch, "--steps",
+                                  str(FAMILY_STEPS), "--batch", str(batch),
+                                  "--seq", "256"]
+                                 + (["--remat"] if remat else []))
+                break
+            except torch.cuda.OutOfMemoryError:
+                check(batch > 1, f"trainer {arch}: batch 1 does not fit")
+                print(f"[learn] trainer {arch}: batch {batch} does not fit "
+                      f"in the card's memory; cut to {batch // 2}",
+                      flush=True)
+                batch //= 2
+        launches = ops.launch_counts()
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        h, steps = res["history"], res["steps"]
+        n_scan, n_attn = _layer_counts(get_config(arch))
+        fwd = 2 if remat else 1
+        label = f"{arch}{' --remat' if remat else ''}"
+        check(h[-1][1] < h[0][1], f"trainer {label}: loss {h[0][1]} at step "
+                                  f"{h[0][0]} -> {h[-1][1]} at {h[-1][0]}")
+        check(launches["ssd_chunk_scan"] == fwd * n_scan * steps
+              and launches["ssd_chunk_scan_bwd"] == n_scan * steps,
+              f"trainer {label}: scan launches {launches} for {n_scan} scan "
+              f"layers x {steps} steps")
+        check(launches["flash_attention"] == fwd * n_attn * steps
+              and launches["flash_attention_bwd"] == n_attn * steps,
+              f"trainer {label}: flash launches {launches} for {n_attn} "
+              f"attention layers x {steps} steps")
+        print(f"[learn] trainer {label} (batch {batch}, seq 256, {steps} "
+              f"steps): loss {h[0][1]:.4f} -> {h[-1][1]:.4f}; "
+              f"{res['seconds'] / steps * 1e3:.1f} ms/step, "
+              f"{res['tokens'] / res['seconds']:.0f} tokens/s; "
+              f"max_memory_allocated {mem:.2f} GiB; launches {launches}",
+              flush=True)
+        del res
+        out.append(launches)
+    return out
+
+
+def _train_breakdown(arch="smollm-135m"):
+    """Where a full-width training step of ``arch`` goes (bfloat16, batch 8,
+    seq 256, AdamW): host issue against stream span of one step, and a
+    profiler pass over 3 steps for the device's busy share and its top
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import batches
     from repro_torch.models import Model
     from repro_torch.training import AdamW, make_train_step
-    e_cfg, _ = _configs("smollm-135m")
+    e_cfg, _ = _configs(arch)
     m = Model(e_cfg)
     p = m.init(seed=0, device="cuda")
     opt = AdamW()
-    state = [p, opt.init(p)]
+    state = [p, opt.init(p, e_cfg)]
     step = make_train_step(m, opt)
     batch = next(batches(e_cfg, 8, 256, device="cuda"))
 
@@ -1769,7 +2015,7 @@ def _train_breakdown():
 
     busy = sum(self_dev(e) for e in evs) / 1e3 / 3
     top = sorted(evs, key=self_dev, reverse=True)[:8]
-    print(f"[breakdown] one train step (smollm-135m, batch 8, seq 256): host "
+    print(f"[breakdown] one train step ({arch}, batch 8, seq 256): host "
           f"issue {host:.1f} ms, stream span {span:.1f} ms; profiled: wall "
           f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}); "
           "top device time per step: "
@@ -1777,20 +2023,20 @@ def _train_breakdown():
                       for e in top), flush=True)
 
 
-def _train_step_parity():
+def _train_step_parity(arch="smollm-135m"):
     """One train step at float32, full width, 2 layers: through the
-    kernels (flash forward and backward) against ``attn_backend="plain"``
-    (autograd through ``mha``).  Tolerances: loss 1e-5 and grad norm 1e-4
-    relative, the updated params 1e-5 absolute — the step's AdamW takes
-    eps = 1e-3 so that its first update g / (|g| + eps) is smooth in g (at
-    1e-8 it is sign(g), which float32 noise flips on gradients within
-    rounding of zero)."""
+    kernels (flash, or the SSD scan, forward and backward) against
+    ``attn_backend="plain"`` (autograd through ``mha`` or the plain scan).
+    Tolerances: loss 1e-5 and grad norm 1e-4 relative, the updated params
+    1e-5 absolute — the step's AdamW takes eps = 1e-3 so that its first
+    update g / (|g| + eps) is smooth in g (at 1e-8 it is sign(g), which
+    float32 noise flips on gradients within rounding of zero)."""
     import torch
     from repro_torch.models import Model
     from repro_torch.models.model import example_batch
     from repro_torch.training import AdamW, make_train_step
     from repro_torch.training import tree as T
-    e_cfg, _ = _configs("smollm-135m", (2, 2), "float32")
+    e_cfg, _ = _configs(arch, (2, 2), "float32")
     m = Model(e_cfg)
     p = m.init(seed=0, device="cuda")
     gen = torch.Generator(device="cuda")
@@ -1802,12 +2048,12 @@ def _train_step_parity():
         step = make_train_step(
             m, opt, donate=False,
             loss_fn=lambda pp, b, be=backend: m.loss(pp, b, attn_backend=be))
-        res[backend] = step(p, opt.init(p), batch)
+        res[backend] = step(p, opt.init(p, e_cfg), batch)
     (pk, _, mk), (pp, _, mp) = res["auto"], res["plain"]
     dl = abs(float(mk["loss"]) - float(mp["loss"]))
     dn = abs(float(mk["grad_norm"]) - float(mp["grad_norm"]))
     dp = max(max_err(a, b) for a, b in zip(T.tensors(pk), T.tensors(pp)))
-    print(f"[parity] one train step, float32 full-width 2-layer smollm-135m "
+    print(f"[parity] one train step, float32 full-width 2-layer {arch} "
           f"(batch 8, seq 64), kernels vs plain: loss "
           f"{float(mk['loss']):.6f} (diff {dl:.2e}), grad norm "
           f"{float(mk['grad_norm']):.4f} (diff {dn:.2e}), updated params max "
@@ -1819,8 +2065,9 @@ def _train_step_parity():
 
 def phase_learn(total):
     """The learning half on the card: both adaptation paths, the trainer
-    (plain and --remat), and the float32 train-step parity; adds every
-    path's launches to ``total``."""
+    (smollm-135m plain and --remat, then every other served family), and
+    the float32 train-step parities; adds every path's launches to
+    ``total``."""
     import torch
     e_cfg, c_cfg = _configs("smollm-135m")
     ep, cp = _init(e_cfg, 0), _init(c_cfg, 1)
@@ -1831,13 +2078,15 @@ def phase_learn(total):
             total[k] += n
     del ep, cp
     torch.cuda.empty_cache()
-    for launches in _train_runs():
+    for launches in _train_runs() + _family_train_runs():
         for k, n in launches.items():
             total[k] += n
+    for arch in ("smollm-135m", "mamba2-370m"):
+        torch.cuda.empty_cache()
+        _train_breakdown(arch)
     torch.cuda.empty_cache()
-    _train_breakdown()
-    torch.cuda.empty_cache()
-    _train_step_parity()
+    for arch in ("smollm-135m", "mamba2-370m", "xlstm-125m"):
+        _train_step_parity(arch)
 
 
 # --------------------------------------------------------------- phase 4

@@ -3,7 +3,7 @@
 compared on one card.
 
     python3 scripts/attention_ab.py [--src DIR] [--label NAME]
-                                    [--kernels flash,tree,paged,ssd,decode,spec,bwd]
+                                    [--kernels flash,tree,paged,ssd,decode,spec,bwd,ssdbwd]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``)
 and times each selected kernel by ``chip_smoke.py``'s procedure — per call:
@@ -30,7 +30,11 @@ version of the wrappers takes:
   heads, B 8, S 256) and at granite-8b's heads over S 2048, against
   SDPA's backward alone, with forward + backward against SDPA's
   (``chip_smoke._flash_bwd_timing``), and the device ms of each of its
-  kernels (``torch.profiler``).
+  kernels (``torch.profiler``);
+* ``ssdbwd``: the SSD-scan backward alone at the trainer's shapes
+  (mamba2-370m, xlstm-125m, zamba2-2.7b at batch 8, seq 256) and the
+  2048-token prompts, beside the plain autograd's backward alone
+  (``chip_smoke._ssd_bwd_timing``).
 
 The helpers are this checkout's ``chip_smoke.py``; only the kernel
 modules come from ``DIR``.  Prints one JSON line, last (the timing
@@ -49,7 +53,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts this checkout's src on the path)
 
-ALL = ("flash", "tree", "paged", "ssd", "decode", "spec", "bwd")
+ALL = ("flash", "tree", "paged", "ssd", "decode", "spec", "bwd", "ssdbwd")
 
 
 def _flash(res, gen):
@@ -90,6 +94,12 @@ def _ssd(res, gen):
     from repro_torch.kernels import ssd_scan as K
     for case in cs.SSD_ROWS + cs.SSD_LONG:
         res[f"ssd {case[0]}"] = cs.ssd_timing(K, case, gen)
+
+
+def _ssdbwd(res, gen):
+    from repro_torch.kernels import ssd_scan as K
+    for case in cs.SSD_BWD_TRAIN + cs.SSD_BWD_LONG:
+        res[f"ssdbwd {case[0]}"] = cs._ssd_bwd_timing(K, case, gen)
 
 
 def _decode(res, gen):
@@ -176,7 +186,8 @@ def main() -> int:
     gen.manual_seed(0)
     res = {"label": args.label, "device": torch.cuda.get_device_name(0)}
     steps = {"flash": _flash, "tree": _tree, "paged": _paged, "ssd": _ssd,
-             "decode": _decode, "spec": _spec, "bwd": _bwd}
+             "decode": _decode, "spec": _spec, "bwd": _bwd,
+             "ssdbwd": _ssdbwd}
     for k in kernels:
         steps[k](res, gen)
     print(json.dumps(res), flush=True)

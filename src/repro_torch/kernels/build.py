@@ -144,9 +144,10 @@ def sm_count(dev) -> int:
 def refuse_grad(name: str, *tensors) -> None:
     """Raise when grad mode is on and any of ``tensors`` requires grad: a
     kernel launched through ctypes is invisible to autograd, so a launch
-    there would silently cut the gradient of everything below it.  Only
-    the flash attention kernel has a backward
-    (``flash_attention.FlashAttention``)."""
+    there would silently cut the gradient of everything below it.  The
+    flash attention and SSD-scan kernels have backward kernels and train
+    through ``flash_attention.FlashAttention`` and
+    ``ssd_scan.SSDChunkScan``; the serving-only kernels call this."""
     import torch
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):

@@ -44,7 +44,10 @@
 //   cores, in the JAX package's order of operations.  expf, no fast math.
 // q and k are read through strides, so mamba2's one B/C projection shared by
 // all heads goes in as a stride-0 view (the head lives in the base address).
-// Only the first P tile writes den, m and the final n and M.
+// Only the first P tile writes den, m and the final n and M.  For training,
+// an optional output receives each chunk's carried-in state (S~, n~, M) as
+// the chunk starts, which the backward (ssd_scan_bwd.cu) reads instead of
+// recomputing the forward; the serving path passes null and skips it.
 //
 // The first row and key tiles of a chunk are copied by cp.async while the
 // gates are computed; a chunk of at most 32 rows (every serving prefill)
@@ -67,12 +70,13 @@
 #include <type_traits>
 
 #include "attn_tile.cuh"
+#include "ssd_gates.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = repro::ssd::kThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPT = 64;                      // value columns per block
 
@@ -160,45 +164,6 @@ __device__ __forceinline__ uint32_t split2(float x, float y, uint32_t& lo) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// a[lo, hi) (hi - lo <= 16) scanned in place by one thread, in order, the
-// running sum in a register: a[i] = a[i - 1] + a[i], as the sequential
-// scan adds.
-__device__ __forceinline__ void scan16(float* a, int lo, int hi) {
-  float v[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) v[i] = lo + i < hi ? a[lo + i] : 0.f;
-#pragma unroll
-  for (int i = 1; i < 16; ++i) {
-    v[i] = v[i - 1] + v[i];
-    if (lo + i < hi) a[lo + i] = v[i];
-  }
-}
-
-// Inclusive cumsum of a[0, n) in place, in the order the JAX package's
-// cumsum takes on the CPU and the plain version mirrors (kernels/
-// ssd_scan.py::cumsum_blocked): sequential 16-long blocks (one thread each,
-// in parallel), then the block totals summed the same way and added back.
-// All threads call it; it ends with a barrier.  scratch: n / 8 + 32 floats.
-__device__ void cumsum_blocked(float* a, int n, float* scratch) {
-  constexpr int kB = 16;
-  if (n <= kB) {
-    if (threadIdx.x == 0) scan16(a, 0, n);
-    __syncthreads();
-    return;
-  }
-  const int nb = (n + kB - 1) / kB;
-  for (int b = threadIdx.x; b < nb; b += kThreads) {
-    const int hi = min(b * kB + kB, n);
-    scan16(a, b * kB, hi);
-    scratch[b] = a[hi - 1];
-  }
-  __syncthreads();
-  cumsum_blocked(scratch, nb, scratch + nb);
-  for (int i = kB + threadIdx.x; i < n; i += kThreads)
-    a[i] += scratch[i / kB - 1];
-  __syncthreads();
-}
-
 // w[j] = max over i <= j of (lg[i] - La[i]): a warp-shuffle prefix max per
 // 256 entries, the warps' totals from shared memory.  max is exact, so any
 // order gives the sequential scan's values.  Ends with a barrier.
@@ -244,7 +209,7 @@ __device__ __forceinline__ void gates_warp(
     lg[j] = l;
   }
   __syncwarp();
-  if (j < 2 && j * 16 < Q) scan16(La, j * 16, min(j * 16 + 16, Q));
+  if (j < 2 && j * 16 < Q) repro::ssd::scan16(La, j * 16, min(j * 16 + 16, Q));
   __syncwarp();
   float a = j < Q ? La[j] : 0.f;
   if (j >= 16 && j < Q) a += La[15];         // block 0's total, added back
@@ -503,7 +468,8 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_scan_kernel(
     const float* __restrict__ m0, float* __restrict__ y,
     float* __restrict__ den, float* __restrict__ mo,
     float* __restrict__ S_out, float* __restrict__ n_out,
-    float* __restrict__ m_out, int S, int H, int N, int P, int Q, int pad,
+    float* __restrict__ m_out, float* __restrict__ Sc, float* __restrict__ ncs,
+    float* __restrict__ Mcs, int S, int H, int N, int P, int Q, int pad,
     int vec_qk, int vec_v) {
   using C = Cfg<T>;
   constexpr int kR = C::kR, kLdW = C::kLdW;
@@ -560,6 +526,18 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_scan_kernel(
     // a fresh state is zero in the first chunk: no carried-in term
     const bool carried = c > 0 || S0 != nullptr;
     __syncthreads();                         // previous chunk fully consumed
+    if (Sc != nullptr) {         // the carried-in state, for the backward
+      float* dst = Sc + ((bh * nc + c) * P + p0) * N;       // [p][n]
+      for (int i = tid; i < pw * N; i += kThreads) {
+        const int p = i / N, n = i - p * N;
+        dst[i] = Ss[sidx(n, p)];
+      }
+      if (first_tile) {
+        for (int n = tid; n < N; n += kThreads)
+          ncs[(bh * nc + c) * N + n] = ns[n];
+        if (tid == 0) Mcs[bh * nc + c] = M;
+      }
+    }
     // row tile 0's q and key tile 0's k, v in flight beside the gates
     stage(qt, ldq, Np, rows16(0), q + qb, qs.s, 0, t0, Q, N, vec_qk);
     stage(kt, ldq, Np, rows16(0), k + kb, ks.s, 0, t0, Q, N, vec_qk);
@@ -577,7 +555,7 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_scan_kernel(
         lg[j] = t >= 0 ? li[lib + t * lis.s] : repro::kNeg;
       }
       __syncthreads();
-      cumsum_blocked(La, Q, scratch);
+      repro::ssd::cumsum_blocked(La, Q, scratch);
       prefix_max(lg, La, wmx, Q, wtot);
       const float la_sum = La[Q - 1];
       const float m_new = la_sum + fmaxf(M, wmx[Q - 1]);
@@ -733,8 +711,9 @@ int launch(const void* q, Strides3 qs, const void* k, Strides3 ks,
            const void* v, Strides3 vs, const float* la, Strides3 las,
            const float* li, Strides3 lis, const float* S0, const float* n0,
            const float* m0, float* y, float* den, float* m, float* S_out,
-           float* n_out, float* m_out, int B, int S, int H, int N, int P,
-           int Q, int pad, cudaStream_t stream) {
+           float* n_out, float* m_out, float* Sc, float* ncs, float* Mcs,
+           int B, int S, int H, int N, int P, int Q, int pad,
+           cudaStream_t stream) {
   using C = Cfg<T>;
   constexpr int kE = 16 / sizeof(T);
   const Layout L(N, Q, sizeof(T), C::kR, C::kSkew);
@@ -753,7 +732,7 @@ int launch(const void* q, Strides3 qs, const void* k, Strides3 ks,
   ssd_chunk_scan_kernel<T><<<grid, kThreads, L.bytes, stream>>>(
       static_cast<const T*>(q), qs, static_cast<const T*>(k), ks,
       static_cast<const T*>(v), vs, la, las, li, lis, S0, n0, m0, y, den, m,
-      S_out, n_out, m_out, S, H, N, P, Q, pad, vec_qk ? 1 : 0,
+      S_out, n_out, m_out, Sc, ncs, Mcs, S, H, N, P, Q, pad, vec_qk ? 1 : 0,
       vec_v ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
@@ -765,7 +744,10 @@ int launch(const void* q, Strides3 qs, const void* k, Strides3 ks,
 // with element strides over (b, position, head) and the last dim contiguous.
 // S0 / n0 / m0: the carried state (B, H, N, P), (B, H, N), (B, H), contiguous,
 // or all null for a fresh one.  Outputs (contiguous float32): y (B, S, H, P),
-// den and m (B, S, H), S_out, n_out, m_out shaped as the state.  Q is the
+// den and m (B, S, H), S_out, n_out, m_out shaped as the state.  Sc / ncs /
+// Mcs: null, or each chunk's carried-in state, saved for the backward
+// (ssd_scan_bwd.cu): Sc (B, H, nc, P, N) — transposed, P-major —, ncs
+// (B, H, nc, N) and Mcs (B, H, nc), nc = (S + pad) / Q.  Q is the
 // chunk length and pad = (-S) mod Q the front padding.  Returns a cudaError_t
 // as int (cudaErrorInvalidValue also when the tiles of N do not fit in a
 // block's shared memory).
@@ -776,8 +758,9 @@ REPRO_EXPORT int repro_ssd_chunk_scan(
     const float* la, long long la_sb, long long la_ss, long long la_sh,
     const float* li, long long li_sb, long long li_ss, long long li_sh,
     const float* S0, const float* n0, const float* m0, float* y, float* den,
-    float* m, float* S_out, float* n_out, float* m_out, int B, int S, int H,
-    int N, int P, int Q, int pad, void* stream) {
+    float* m, float* S_out, float* n_out, float* m_out, float* Sc, float* ncs,
+    float* Mcs, int B, int S, int H, int N, int P, int Q, int pad,
+    void* stream) {
   if (Q < 1 || S < 1 || N < 1 || P < 1 || pad < 0 || (S + pad) % Q != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides3 qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
@@ -785,10 +768,11 @@ REPRO_EXPORT int repro_ssd_chunk_scan(
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, qs, k, ks, v, vs, la, las, li, lis, S0, n0, m0, y,
-                         den, m, S_out, n_out, m_out, B, S, H, N, P, Q, pad,
-                         s);
+                         den, m, S_out, n_out, m_out, Sc, ncs, Mcs, B, S, H, N,
+                         P, Q, pad, s);
   if (dtype == 1)
     return launch<bf16>(q, qs, k, ks, v, vs, la, las, li, lis, S0, n0, m0, y,
-                        den, m, S_out, n_out, m_out, B, S, H, N, P, Q, pad, s);
+                        den, m, S_out, n_out, m_out, Sc, ncs, Mcs, B, S, H, N,
+                        P, Q, pad, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

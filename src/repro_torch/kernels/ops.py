@@ -19,14 +19,16 @@ Ported kernels (TPU kernel they replace):
 * ``ssd_chunk_scan`` — ``src/repro/kernels/ssd_scan.py::ssd_chunk_scan``
   (the chunked SSD / mLSTM scan, with a carried state)
 
-and one kernel of the port's own, ``flash_attention_bwd`` (the gradient of
-``flash_attention``; no TPU kernel stands behind it).  ``flash_attention``
-is differentiable on both devices: on CUDA under grad it runs the
-forward and backward kernels (``flash_attention.FlashAttention``), on the
-CPU autograd runs through the plain version.  The other kernels have no
-backward and raise under grad on CUDA.  ``launch_counts`` also reports the
-backward's launches per route (``flash_attention_bwd/wgmma`` and
-``flash_attention_bwd/cuda_cores``).
+and two kernels of the port's own, with no TPU kernel behind them:
+``flash_attention_bwd`` (the gradient of ``flash_attention``) and
+``ssd_chunk_scan_bwd`` (the gradient of ``ssd_chunk_scan``).  Those two
+scans are differentiable on both devices: on CUDA under grad they run the
+forward and backward kernels (``flash_attention.FlashAttention``,
+``ssd_scan.SSDChunkScan``), on the CPU autograd runs through the plain
+version.  The other four kernels (the decode, tree-verify and
+spec-verify kernels, serving only) have no backward and raise under grad
+on CUDA.  ``launch_counts`` also reports the flash backward's launches per
+route (``flash_attention_bwd/wgmma`` and ``flash_attention_bwd/cuda_cores``).
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ KERNELS = {"paged_decode_attention": _dec.KERNEL,
            "tree_verify_attention": _tree.KERNEL,
            "decode_attention": _dec.DENSE_KERNEL,
            "ssd_chunk_scan": _ssd.KERNEL,
-           "flash_attention_bwd": _flash.BWD_KERNEL}
+           "flash_attention_bwd": _flash.BWD_KERNEL,
+           "ssd_chunk_scan_bwd": _ssd.BWD_KERNEL}
 
 
 def reset_launch_counts() -> None:
@@ -101,7 +104,7 @@ def spec_verify(target_logits, draft_logits, draft_tokens, u_acc, u_res, *,
 
 def ssd_chunk_scan(q, k, v, log_a, log_i, *, chunk, state=None):
     if q.is_cuda:
-        return _ssd.ssd_chunk_scan_cuda(q, k, v, log_a, log_i, chunk=chunk,
-                                        state=state)
+        return _ssd.ssd_chunk_scan_kernel(q, k, v, log_a, log_i, chunk=chunk,
+                                          state=state)
     return _ssd.ssd_chunk_scan_plain(q, k, v, log_a, log_i, chunk=chunk,
                                      state=state)

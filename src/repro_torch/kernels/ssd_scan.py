@@ -24,6 +24,13 @@ its own indexing and returns the state.  The CUDA source is
 ``csrc/ssd_scan.cu``; its header comment says what bounds it on the H100
 and how the design answers that.  ``ssd_chunk_scan_plain`` mirrors
 ``gla_chunked`` operation for operation.
+
+The scan trains on the card: ``SSDChunkScan`` runs the forward kernel with
+each chunk's carried-in state saved, and the port's own backward kernel
+``csrc/ssd_scan_bwd.cu`` (no TPU kernel stands behind it: the JAX package
+differentiates the jnp ``gla_chunked``).  ``ssd_chunk_scan_bwd_plain`` is
+that kernel's model, a plain walk of the chunks in reverse; on the card the
+kernel is held against autograd of ``ssd_chunk_scan_plain``.
 """
 from __future__ import annotations
 
@@ -35,7 +42,10 @@ from repro_torch.kernels.build import (I, L, P, CudaKernel, raw_stream,
 NEG = -1e30
 
 KERNEL = CudaKernel("ssd_scan.cu", "repro_ssd_chunk_scan",
-                    [I] + [P, L, L, L] * 5 + [P] * 9 + [I] * 7 + [P])
+                    [I] + [P, L, L, L] * 5 + [P] * 12 + [I] * 7 + [P])
+BWD_KERNEL = CudaKernel("ssd_scan_bwd.cu", "repro_ssd_chunk_scan_bwd",
+                        [I] + [P, L, L, L] * 5 + [P] * 5 + [I] + [P] * 11
+                        + [I] * 7 + [P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CUMSUM_BLOCK = 16
@@ -69,8 +79,12 @@ def cumsum_blocked(x, dim: int):
     return inner.reshape(*x.shape[:-1], -1)[..., :n].movedim(-1, dim)
 
 
-def ssd_chunk_scan_plain(q, k, v, log_a, log_i, *, chunk: int, state=None):
-    """The chunked scan in plain PyTorch (see the module docstring)."""
+def ssd_chunk_scan_plain(q, k, v, log_a, log_i, *, chunk: int, state=None,
+                         chunk_states: bool = False):
+    """The chunked scan in plain PyTorch (see the module docstring).
+    ``chunk_states``: also return each chunk's carried-in state ``(S
+    (B, nc, H, N, P), n (B, nc, H, N), M (B, nc, H))``, what the backward
+    (``ssd_chunk_scan_bwd_plain``) reads."""
     B, S, H, N = q.shape
     Pv = v.shape[-1]
     Q = min(chunk, S)
@@ -99,16 +113,20 @@ def ssd_chunk_scan_plain(q, k, v, log_a, log_i, *, chunk: int, state=None):
     else:
         St, nt, M = (x.float() for x in state)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
-    ys, dens, ms = [], [], []
+    ys, dens, ms, carried = [], [], [], []
     for c in range(nc):
         q_c, k_c, v_c, la_c, li_c = qc[c], kc[c], vc[c], lac[c], lic[c]
+        carried.append((St, nt, M))
         La = cumsum_blocked(la_c, 1)                    # (B, Q, H) inclusive
         w = torch.cummax(li_c - La, 1).values
         m = La + torch.maximum(M[:, None, :], w)        # per-row log max
         # ---- intra-chunk
         c_log = (La[:, :, None, :] - La[:, None, :, :]
                  + li_c[:, None, :, :] - m[:, :, None, :])    # (B, j, s, H)
-        cmat = torch.where(tri[None, :, :, None], torch.exp(c_log), 0.0)
+        # masked before the exp, not after: a masked (s > j) entry may be
+        # +inf there (a pad row's m is -1e30), and autograd's 0 * inf
+        # would turn every gradient NaN; the values are the same
+        cmat = torch.exp(torch.where(tri[None, :, :, None], c_log, NEG))
         scores = torch.einsum("bjhn,bshn->bjsh", q_c, k_c)
         y = torch.einsum("bjsh,bshp->bjhp", scores * cmat, v_c)
         den = (scores * cmat).sum(2)
@@ -133,16 +151,107 @@ def ssd_chunk_scan_plain(q, k, v, log_a, log_i, *, chunk: int, state=None):
         x = torch.stack(xs, 1)
         return x.reshape((B, nc * Q) + x.shape[3:])[:, pad:]
 
-    return from_chunks(ys), from_chunks(dens), from_chunks(ms), (St, nt, M)
+    out = (from_chunks(ys), from_chunks(dens), from_chunks(ms), (St, nt, M))
+    if chunk_states:
+        out += (tuple(torch.stack(x, 1) for x in zip(*carried)),)
+    return out
+
+
+def ssd_chunk_scan_bwd_plain(q, k, v, log_a, log_i, m, chunk_states,
+                             final_m, dy, dden, *, chunk: int):
+    """Gradients ``(dq, dk, dv, dlog_a, dlog_i)`` (float32, shaped as the
+    inputs; q and k per head, so a head-broadcast view's gradient is their
+    sum over heads) of the scan whose forward gave the row log-max ``m``,
+    ``chunk_states`` (``ssd_chunk_scan_plain(..., chunk_states=True)``) and
+    the final log-max ``final_m``, for the gradients ``dy`` of ``y_num`` and
+    ``dden`` of ``den`` (None: zero).  The stabilisers are held constant
+    (``SSDChunkScan`` says why that is exact).  A plain walk of the chunks
+    in reverse carrying dS (N, P) and dn (N): the model of the backward
+    kernel ``csrc/ssd_scan_bwd.cu``, whose header gives the formulas."""
+    B, S, H, N = q.shape
+    Pv = v.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    q, k, v, dy = q.float(), k.float(), v.float(), dy.float()
+    log_a, log_i, m = log_a.float(), log_i.float(), m.float()
+    dden = torch.zeros_like(log_a) if dden is None else dden.float()
+
+    def pf(x, fill=0.0):
+        return torch.cat([x.new_full((B, pad) + x.shape[2:], fill), x], 1)
+
+    if pad:
+        q, k, v, dy, log_a, m, dden = (pf(x) for x in
+                                       (q, k, v, dy, log_a, m, dden))
+        log_i = pf(log_i, NEG)
+    nc = (S + pad) // Q
+    real = torch.arange(S + pad, device=q.device) >= pad
+
+    def to_chunks(x):                                  # (nc, B, Q, ...)
+        return x.reshape((B, nc, Q) + x.shape[2:]).transpose(0, 1)
+
+    qc, kc, vc, dyc = (to_chunks(x) for x in (q, k, v, dy))
+    lac, lic, mc, ddc = (to_chunks(x) for x in (log_a, log_i, m, dden))
+    Sc, ncs, Mc = (x.float() for x in chunk_states)
+    dS = q.new_zeros((B, H, N, Pv))          # the final state: no gradient
+    dn = q.new_zeros((B, H, N))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
+    grads = [None] * nc
+    for c in reversed(range(nc)):
+        q_c, k_c, v_c, dy_c = qc[c], kc[c], vc[c], dyc[c]
+        li_c, m_c, dd_c = lic[c], mc[c], ddc[c]
+        row = real[c * Q:(c + 1) * Q][None, :, None]          # (1, Q, 1)
+        La = cumsum_blocked(lac[c], 1)
+        M = Mc[:, c]
+        m_new = Mc[:, c + 1] if c + 1 < nc else final_m.float()
+        la_sum = La[:, -1]
+        cmat = torch.where(tri[None, :, :, None] & row[..., None],
+                           torch.exp(La[:, :, None] - La[:, None]
+                                     + li_c[:, None] - m_c[:, :, None]), 0.0)
+        coef = torch.where(row, torch.exp(La + M[:, None] - m_c), 0.0)
+        z = torch.where(row, torch.exp(la_sum[:, None] - La + li_c
+                                       - m_new[:, None]), 0.0)
+        scale = torch.exp(torch.clamp(la_sum + M - m_new, max=0.0))
+        W = torch.einsum("bjhn,bshn->bjsh", q_c, k_c) * cmat
+        D = (torch.einsum("bjhp,bshp->bjsh", dy_c, v_c)
+             + dd_c[:, :, None, :]) * cmat
+        dv = torch.einsum("bjsh,bjhp->bshp", W, dy_c) + z[..., None] * \
+            torch.einsum("bshn,bhnp->bshp", k_c, dS)
+        dk = torch.einsum("bjsh,bjhn->bshn", D, q_c) + z[..., None] * (
+            torch.einsum("bshp,bhnp->bshn", v_c, dS) + dn[:, None])
+        dq = torch.einsum("bjsh,bshn->bjhn", D, k_c) + coef[..., None] * (
+            torch.einsum("bjhp,bhnp->bjhn", dy_c, Sc[:, c])
+            + dd_c[..., None] * ncs[:, c][:, None])
+        dli = (k_c * dk).sum(-1)
+        dLa = (q_c * dq).sum(-1) - dli
+        if c + 1 < nc:           # the carry out scales with exp(la_sum)
+            dLa[:, -1] += (dS * Sc[:, c + 1]).sum((-2, -1)) \
+                + (dn * ncs[:, c + 1]).sum(-1)
+        grads[c] = (dq, dk, dv, dLa.flip(1).cumsum(1).flip(1), dli)
+        dS = scale[..., None, None] * dS + torch.einsum(
+            "bjhn,bjhp->bhnp", q_c, coef[..., None] * dy_c)
+        dn = scale[..., None] * dn + torch.einsum("bjhn,bjh->bhn", q_c,
+                                                  coef * dd_c)
+    return tuple(torch.cat(g, 1)[:, pad:] for g in zip(*grads))
 
 
 def ssd_chunk_scan_cuda(q, k, v, log_a, log_i, *, chunk: int, state=None):
-    """Launch the Hopper kernel (same contract as the plain version).
-    Raises on anything the kernel does not take (and under grad: the scan
-    has no backward yet, so the recurrent families do not train on the
-    card); never falls back."""
+    """Launch the Hopper kernel (same contract as the plain version), the
+    forward alone.  Raises on anything the kernel does not take, and under
+    grad (a ctypes launch would detach the gradient: ``ssd_chunk_scan_kernel``
+    is the differentiable entry); never falls back."""
     refuse_grad("ssd_chunk_scan_cuda", q, k, v, log_a, log_i,
                 *(state if state is not None else ()))
+    return _forward(q, k, v, log_a, log_i, chunk, state, save=False)[:4]
+
+
+def _strided(t):
+    return (t.data_ptr(), *t.stride()[:3])
+
+
+def _forward(q, k, v, log_a, log_i, chunk, state, save):
+    """The forward launch: ``(y, den, m, (S, n, M), saved)``, ``saved``
+    each chunk's carried-in state ``(S (B, H, nc, P, N), n (B, H, nc, N), M
+    (B, H, nc))`` when ``save``, else None."""
     B, S, H, N = q.shape
     Pv = v.shape[-1]
     ins = (q, k, v, log_a, log_i) + (tuple(state) if state is not None
@@ -184,15 +293,123 @@ def ssd_chunk_scan_cuda(q, k, v, log_a, log_i, *, chunk: int, state=None):
     S_out = torch.empty((B, H, N, Pv), **f32)
     n_out = torch.empty((B, H, N), **f32)
     m_out = torch.empty((B, H), **f32)
-
-    def strided(t):
-        return (t.data_ptr(), *t.stride()[:3])
-
+    nc = (S + pad) // Q
+    saved = (torch.empty((B, H, nc, Pv, N), **f32),
+             torch.empty((B, H, nc, N), **f32),
+             torch.empty((B, H, nc), **f32)) if save else None
     st = (None, None, None) if state is None else \
         tuple(t.data_ptr() for t in state)
-    KERNEL.launch(_DTYPES[q.dtype], *strided(q), *strided(k), *strided(v),
-                  *strided(log_a), *strided(log_i), *st, y.data_ptr(),
-                  den.data_ptr(), m.data_ptr(), S_out.data_ptr(),
-                  n_out.data_ptr(), m_out.data_ptr(), B, S, H, N, Pv, Q,
-                  pad, raw_stream(q))
-    return y, den, m, (S_out, n_out, m_out)
+    sv = (None, None, None) if saved is None else \
+        tuple(t.data_ptr() for t in saved)
+    KERNEL.launch(_DTYPES[q.dtype], *_strided(q), *_strided(k),
+                  *_strided(v), *_strided(log_a), *_strided(log_i), *st,
+                  y.data_ptr(), den.data_ptr(), m.data_ptr(),
+                  S_out.data_ptr(), n_out.data_ptr(), m_out.data_ptr(), *sv,
+                  B, S, H, N, Pv, Q, pad, raw_stream(q))
+    return y, den, m, (S_out, n_out, m_out), saved
+
+
+def ssd_chunk_scan_bwd_cuda(q, k, v, log_a, log_i, m, saved, final_m, dy,
+                            dden, *, chunk: int, fresh: bool):
+    """Launch the Hopper backward: ``(dq, dk, dv, dlog_a, dlog_i)`` of the
+    scan whose forward (``_forward(..., save=True)``) gave ``m``, ``saved``
+    and the final log-max ``final_m``, for the gradients ``dy`` of y_num and
+    ``dden`` of den (None: zero).  ``fresh``: the forward started from a
+    zero state.  dq, dk, dv come dense in the input type (a head-broadcast
+    q or k gets its per-head gradient), the gate gradients float32.
+    Raises on anything the kernel does not take; never falls back."""
+    B, S, H, N = q.shape
+    Pv = v.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dy = dy.float().contiguous()
+    if dy.shape != (B, S, H, Pv):
+        raise ValueError(f"dy {tuple(dy.shape)} does not match y "
+                         f"{(B, S, H, Pv)}")
+    if dden is not None:
+        dden = dden.float().contiguous()
+        if dden.shape != (B, S, H):
+            raise ValueError(f"dden {tuple(dden.shape)} does not match den "
+                             f"{(B, S, H)}")
+    want = ((B, H, nc, Pv, N), (B, H, nc, N), (B, H, nc))
+    if tuple(tuple(t.shape) for t in saved) != want or \
+            m.shape != (B, S, H) or final_m.shape != (B, H) or not all(
+                t.is_contiguous() and t.dtype == torch.float32
+                and t.device == dev for t in (m, final_m) + tuple(saved)):
+        raise ValueError("the saved forward state does not match the scan")
+    ntiles = -(-Pv // 64)
+    dq_part = torch.empty((ntiles, B, S, H, N), **f32)
+    dk_part = torch.empty((ntiles, B, S, H, N), **f32)
+    dLa_part = torch.empty((ntiles, B, S, H), **f32)
+    dli_part = torch.empty((ntiles, B, S, H), **f32)
+    dq = torch.empty((B, S, H, N), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, S, H, N), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, S, H, Pv), dtype=q.dtype, device=dev)
+    dla = torch.empty((B, S, H), **f32)
+    dli = torch.empty((B, S, H), **f32)
+    BWD_KERNEL.launch(_DTYPES[q.dtype], *_strided(q), *_strided(k),
+                      *_strided(v), *_strided(log_a), *_strided(log_i),
+                      m.data_ptr(), *(t.data_ptr() for t in saved),
+                      final_m.data_ptr(), int(bool(fresh)), dy.data_ptr(),
+                      None if dden is None else dden.data_ptr(),
+                      dv.data_ptr(), dq_part.data_ptr(), dk_part.data_ptr(),
+                      dLa_part.data_ptr(), dli_part.data_ptr(), dq.data_ptr(),
+                      dk.data_ptr(), dla.data_ptr(), dli.data_ptr(), B, S, H,
+                      N, Pv, Q, pad, raw_stream(q))
+    return dq, dk, dv, dla, dli
+
+
+class SSDChunkScan(torch.autograd.Function):
+    """The differentiable scan on the card: the forward kernel with each
+    chunk's carried-in state saved, the backward kernel for the gradients
+    of q, k, v, log_a and log_i.  The row log-max ``m`` and the final state
+    are not differentiable.
+
+    Holding the stabilisers (m, the carried M and the next chunk's m_new)
+    constant gives the exact gradient for both callers, because each uses
+    the outputs only in a form that does not change with them: mamba2
+    (``models/ssm.py::mamba2_forward``) takes ``y_num * exp(m)``, the
+    unstabilised Y; mLSTM (``models/xlstm.py::_mlstm_out``) takes ``y_num /
+    max(|den|, exp(-m))``, which equals Y / max(|D|, 1) for the
+    unstabilised Y and D.  Inside the scan each stabilised quantity is its
+    unstabilised one times exp(-constant), and the carry's clamp
+    ``min(la_sum + M - m_new, 0)`` never binds (m_new >= la_sum + M).  The
+    JAX package's autodiff takes the m path through max / cummax, where it
+    cancels to rounding.  A carried-in state that requires grad is
+    refused (``ssd_chunk_scan_kernel``): no training path passes one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_a, log_i, chunk, state):
+        y, den, m, fin, saved = _forward(q, k, v, log_a, log_i, chunk,
+                                         state, save=True)
+        ctx.save_for_backward(q, k, v, log_a, log_i, m, *saved, fin[2])
+        ctx.chunk, ctx.fresh = chunk, state is None
+        ctx.mark_non_differentiable(m, *fin)
+        return (y, den, m) + fin
+
+    @staticmethod
+    def backward(ctx, dy, dden, *_):
+        q, k, v, log_a, log_i, m, S_c, n_c, M_c, final_m = ctx.saved_tensors
+        grads = ssd_chunk_scan_bwd_cuda(q, k, v, log_a, log_i, m,
+                                        (S_c, n_c, M_c), final_m, dy, dden,
+                                        chunk=ctx.chunk, fresh=ctx.fresh)
+        return grads + (None, None)
+
+
+def ssd_chunk_scan_kernel(q, k, v, log_a, log_i, *, chunk: int, state=None):
+    """The model's CUDA entry: ``SSDChunkScan`` (forward and backward
+    kernels) when grad mode is on and q, k, v or a gate requires grad, else
+    the forward-only launch.  A carried state that requires grad raises."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, log_a, log_i)):
+        if state is not None and any(t.requires_grad for t in state):
+            raise RuntimeError("ssd_chunk_scan: a carried-in state that "
+                               "requires grad has no backward")
+        y, den, m, *fin = SSDChunkScan.apply(q, k, v, log_a, log_i,
+                                             int(chunk), state)
+        return y, den, m, tuple(fin)
+    return ssd_chunk_scan_cuda(q, k, v, log_a, log_i, chunk=chunk,
+                               state=state)

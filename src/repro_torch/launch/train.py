@@ -7,10 +7,14 @@
 Seeded random init (seed 0), AdamW with a cosine schedule (warm-up a tenth
 of the steps) on the ``SyntheticLM`` stream of ``data/pipeline.batches``.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
-cpu`` trains on the CPU (``--reduced`` keeps that small).  On CUDA the
-attention runs the flash kernel forward and backward; the recurrent
-families' scan kernel has no backward yet, so they train on the CPU only.
-``--remat`` recomputes each block in the backward (dense and moe).
+cpu`` trains on the CPU (``--reduced`` keeps that small).  ``--arch`` takes
+every family the port serves (dense, moe, ssm, xlstm, hybrid).  On CUDA the
+attention runs the flash kernel forward and backward, and the recurrent
+families' chunked scan the SSD-scan kernel forward and backward.
+``--remat`` recomputes each block in the backward (each group for the
+hybrid), every family.  The step updates the parameters and the AdamW
+moments in place (the port's buffer donation, ``train(donate=True)``), so
+one copy of each lives on the card.
 ``--save PATH`` writes the trained params in the JAX layout.  ``--mesh``
 (sharded training) is not ported (ROADMAP A.8).
 """
@@ -73,7 +77,7 @@ def main(argv=None):
     it = batches(cfg, args.batch, args.seq, device=dev)
     t0 = time.perf_counter()
     res = train(model, params, it, steps=args.steps, opt=opt,
-                remat=args.remat)
+                remat=args.remat, donate=True)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

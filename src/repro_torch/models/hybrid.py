@@ -66,39 +66,59 @@ def _logits(params, h, cfg):
                                              cfg.norm_eps))
 
 
-def _groups(params, h, states, cfg, mamba_fn, attend):
-    """The backbone: per group, K mamba layers (``mamba_fn(p, h, layer
+def _group(params, h, g, states, cfg, mamba_fn, attend):
+    """Group ``g`` of the backbone: K mamba layers (``mamba_fn(p, h, layer
     state or None)``) then the shared block, whose attention is
-    ``attend(attn params, normed h, group index)``.  Returns (h, new mamba
-    states, per-group attention extras)."""
-    G, K = _dims(cfg)
+    ``attend(attn params, normed h, group index)``.  Returns (h, the mamba
+    layers' new states, the attention's extra)."""
+    _, K = _dims(cfg)
     shared = params.shared
+    new = []
+    for l in range(g * K, (g + 1) * K):
+        out, st = mamba_fn(params.mamba[l], h,
+                           None if states is None else states[l])
+        h = h + out
+        new.append(st)
+    a, extra = attend(shared["attn"],
+                      L.rmsnorm(h, shared["attn_norm"], cfg.norm_eps), g)
+    h = h + a
+    return h + _mlp(shared, h, cfg), new, extra
+
+
+def _groups(params, h, states, cfg, mamba_fn, attend):
+    """Every group in order (``_group``).  Returns (h, new mamba states,
+    per-group attention extras)."""
+    G, _ = _dims(cfg)
     new, extras = [], []
     for g in range(G):
-        for l in range(g * K, (g + 1) * K):
-            out, st = mamba_fn(params.mamba[l], h,
-                               None if states is None else states[l])
-            h = h + out
-            new.append(st)
-        a, extra = attend(shared["attn"],
-                          L.rmsnorm(h, shared["attn_norm"], cfg.norm_eps), g)
-        h = h + a
-        h = h + _mlp(shared, h, cfg)
+        h, st, extra = _group(params, h, g, states, cfg, mamba_fn, attend)
+        new += st
         extras.append(extra)
     return h, new, extras
 
 
-def forward(params, tokens, cfg, *, window: int = 0, backend: str = "auto"):
-    """Scoring pass. tokens (B,S) -> (logits (B,S,V) f32, aux loss 0)."""
+def forward(params, tokens, cfg, *, window: int = 0, backend: str = "auto",
+            remat: bool = False, collect_hidden: bool = False):
+    """Scoring / training pass. tokens (B,S) -> (logits (B,S,V) f32, aux
+    loss 0), and every group's output (G, B, S, d) if ``collect_hidden``
+    (the JAX package stacks per group).  ``remat``: recompute each group
+    in the backward."""
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
     positions = torch.arange(h.shape[1], device=h.device)
     win = window or cfg.sliding_window
-    h, _, _ = _groups(
-        params, h, None, cfg,
-        lambda p, hh, st: S.mamba2_forward(p, hh, cfg, backend=backend),
-        lambda p, x, g: L.attention_block(p, x, positions, cfg, window=win,
-                                          backend=backend))
-    return _logits(params, h, cfg), torch.zeros((), device=h.device)
+    G, _ = _dims(cfg)
+
+    def group(g):
+        return lambda x: _group(
+            params, x, g, None, cfg,
+            lambda p, hh, st: S.mamba2_forward(p, hh, cfg, backend=backend),
+            lambda p, xx, gg: L.attention_block(
+                p, xx, positions, cfg, window=win, backend=backend))[0]
+
+    h, hs = S.run_layers([group(g) for g in range(G)], h, remat=remat,
+                         collect_hidden=collect_hidden)
+    out = (_logits(params, h, cfg), torch.zeros((), device=h.device))
+    return out + (hs,) if collect_hidden else out
 
 
 # ----------------------------------------------------------------- cache

@@ -62,20 +62,19 @@ class Model:
 
     # ---------------------------------------------------------------- fwd
     def forward(self, params, batch: Dict, *, window: int = 0,
-                remat: bool = False, attn_backend: str = "auto"):
-        """Teacher-forced pass: (logits (B, S, V) f32, aux loss).  Under
-        grad it trains: on CUDA the flash kernel runs forward and backward
-        (the other kernels have no backward and raise).  ``remat``
-        recomputes each block in the backward (the KV-cache families)."""
+                remat: bool = False, collect_hidden: bool = False,
+                attn_backend: str = "auto"):
+        """Teacher-forced pass: (logits (B, S, V) f32, aux loss), plus the
+        per-layer hidden states (L, B, S, d) — per group for the hybrid,
+        as the JAX package stacks them — if ``collect_hidden``.  Under
+        grad it trains: on CUDA the flash and SSD-scan kernels run forward
+        and backward (the serving-only kernels have no backward and raise).
+        ``remat`` recomputes each block (each group for the hybrid) in the
+        backward, every family."""
         kw = {"window": window} if self._attn else {}
-        if remat:
-            if self.cfg.family not in KV_FAMILIES:
-                raise NotImplementedError(
-                    f"remat is ported for the dense and moe families, not "
-                    f"{self.cfg.family!r}")
-            kw["remat"] = True
         return self._mod.forward(params, batch["tokens"], self.cfg,
-                                 backend=attn_backend, **kw)
+                                 backend=attn_backend, remat=remat,
+                                 collect_hidden=collect_hidden, **kw)
 
     def loss(self, params, batch: Dict, *, window: int = 0,
              remat: bool = False, attn_backend: str = "auto"):

@@ -25,9 +25,10 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssd_scan import (ssd_chunk_scan_cuda,
+from repro_torch.kernels.ssd_scan import (ssd_chunk_scan_kernel,
                                           ssd_chunk_scan_plain)
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import dtype_of
@@ -97,7 +98,7 @@ def gla_chunked(q, k, v, log_a, log_i, *, chunk: int,
     if backend == "plain":
         fn = ssd_chunk_scan_plain
     elif backend == "kernel":
-        fn = ssd_chunk_scan_cuda
+        fn = ssd_chunk_scan_kernel
     else:
         fn = ops.ssd_chunk_scan
     y, den, m, st = fn(q, k, v, log_a.float(), log_i.float(), chunk=chunk,
@@ -278,13 +279,32 @@ def _logits(params, h, cfg):
                                              cfg.norm_eps))
 
 
-def forward(params, tokens, cfg, *, backend: str = "auto"):
-    """Scoring pass. tokens (B,S) -> (logits (B,S,V) f32, aux loss 0)."""
+def run_layers(fns, h, *, remat: bool = False, collect_hidden: bool = False):
+    """Apply the residual-stream layers ``fns`` (each h -> h) in order.
+    ``remat`` recomputes each one in the backward (``torch.utils.
+    checkpoint``, non-reentrant) instead of keeping its activations — the
+    JAX package's ``jax.checkpoint`` per block.  Returns (h, the stacked
+    output of every layer (L, B, S, d) if ``collect_hidden`` else None)."""
+    hs = []
+    for fn in fns:
+        h = checkpoint(fn, h, use_reentrant=False) if remat else fn(h)
+        if collect_hidden:
+            hs.append(h)
+    return h, torch.stack(hs) if collect_hidden else None
+
+
+def forward(params, tokens, cfg, *, backend: str = "auto",
+            remat: bool = False, collect_hidden: bool = False):
+    """Scoring / training pass. tokens (B,S) -> (logits (B,S,V) f32, aux
+    loss 0), and every block's output (L, B, S, d) if ``collect_hidden``.
+    ``remat``: recompute each block in the backward."""
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
-    for p in params.blocks:
-        out, _st = mamba2_forward(p, h, cfg, backend=backend)
-        h = h + out
-    return _logits(params, h, cfg), torch.zeros((), device=h.device)
+    h, hs = run_layers(
+        [lambda x, p=p: x + mamba2_forward(p, x, cfg, backend=backend)[0]
+         for p in params.blocks], h, remat=remat,
+        collect_hidden=collect_hidden)
+    out = (_logits(params, h, cfg), torch.zeros((), device=h.device))
+    return out + (hs,) if collect_hidden else out
 
 
 def _run_cached(params, tokens, states, cfg, block_fn):

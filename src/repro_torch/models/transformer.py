@@ -147,12 +147,12 @@ def _block(blk, h, positions, cfg, window, backend):
 
 
 def _layers(params, h, positions, cfg, window, backend, collect=None,
-            remat: bool = False):
+            remat: bool = False, hidden=None):
     """Full-sequence pass over every layer; appends each layer's (k, v) to
-    ``collect``.  Returns (h, summed aux loss () f32).  ``remat`` recomputes
-    each block in the backward (``torch.utils.checkpoint``, non-reentrant)
-    instead of keeping its activations — JAX's ``jax.checkpoint`` per
-    block."""
+    ``collect`` and its output to ``hidden``.  Returns (h, summed aux loss
+    () f32).  ``remat`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    activations — JAX's ``jax.checkpoint`` per block."""
     aux = torch.zeros((), device=h.device)
     for blk in params.blocks:
         if remat:
@@ -163,6 +163,8 @@ def _layers(params, h, positions, cfg, window, backend, collect=None,
             h, a_l, kv = _block(blk, h, positions, cfg, window, backend)
             if collect is not None:
                 collect.append(kv)
+        if hidden is not None:
+            hidden.append(h)
         if a_l is not None:
             aux = aux + a_l
     return h, aux
@@ -170,17 +172,20 @@ def _layers(params, h, positions, cfg, window, backend, collect=None,
 
 # ----------------------------------------------------------------- forward
 def forward(params, tokens, cfg, *, window: int = 0, backend: str = "auto",
-            remat: bool = False):
+            remat: bool = False, collect_hidden: bool = False):
     """Scoring / training forward pass.  tokens: (B, S) int.  Returns
     (logits (B, S, V) f32, aux_loss) — the moe layers' summed load-balance
-    loss, 0 for the dense family.  ``remat``: recompute each block in the
+    loss, 0 for the dense family — and every layer's output (L, B, S, d)
+    if ``collect_hidden``.  ``remat``: recompute each block in the
     backward."""
     L.check_backend(backend)
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
     positions = torch.arange(h.shape[1], device=h.device)
+    hidden = [] if collect_hidden else None
     h, aux = _layers(params, h, positions, cfg, window or cfg.sliding_window,
-                     backend, remat=remat)
-    return _logits(params, h, cfg), aux
+                     backend, remat=remat, hidden=hidden)
+    out = (_logits(params, h, cfg), aux)
+    return out + (torch.stack(hidden),) if collect_hidden else out
 
 
 # ----------------------------------------------------------------- cache

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import (GLAState, gla_chunked, gla_step,
-                                    init_gla_state, replay)
+                                    init_gla_state, replay, run_layers)
 from repro_torch.models.transformer import dtype_of
 
 NEG = -1e30
@@ -235,11 +235,23 @@ def _layers(params, h, states, cfg, backend):
     return h, new
 
 
-def forward(params, tokens, cfg, *, backend: str = "auto"):
-    """Scoring pass. tokens (B,S) -> (logits (B,S,V) f32, aux loss 0)."""
+def forward(params, tokens, cfg, *, backend: str = "auto",
+            remat: bool = False, collect_hidden: bool = False):
+    """Scoring / training pass. tokens (B,S) -> (logits (B,S,V) f32, aux
+    loss 0), and every block's output (L, B, S, d) if ``collect_hidden``.
+    ``remat``: recompute each m/sLSTM block in the backward.  sLSTM's
+    per-token loop has no kernel: autograd sees it as it is."""
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
-    h, _ = _layers(params, h, None, cfg, backend)
-    return _logits(params, h, cfg), torch.zeros((), device=h.device)
+
+    def block(l, p):
+        if is_slstm(cfg, l):
+            return lambda x: slstm_forward(p, x, cfg)[0]
+        return lambda x: mlstm_forward(p, x, cfg, backend=backend)[0]
+
+    h, hs = run_layers([block(l, p) for l, p in enumerate(params.blocks)],
+                       h, remat=remat, collect_hidden=collect_hidden)
+    out = (_logits(params, h, cfg), torch.zeros((), device=h.device))
+    return out + (hs,) if collect_hidden else out
 
 
 def prefill(params, tokens, cfg, *, backend: str = "auto"):

@@ -16,7 +16,12 @@ of tensors (LoRA adapters) already has the JAX ranks.
 
 All of ``update`` stays on the device: the global norm, the clip scale
 and the new parameters are tensors; the step and the learning rate are
-host numbers, so no value is pulled to the host.
+host numbers, so no value is pulled to the host.  It walks the leaves in
+groups of at most ``GROUP_ELEMS`` elements, so its float32 temporaries
+(the cast gradients, the bias-corrected moments, the step) exist for one
+group at a time: a 2.3e9-parameter model's update fits beside its
+moments on one 80 GB card.  Every element's arithmetic is the same as in
+one pass over all leaves.
 """
 from __future__ import annotations
 
@@ -28,6 +33,21 @@ import torch
 from torch import nn
 
 from repro_torch.training import tree as T
+
+GROUP_ELEMS = 1 << 26      # elements of the leaves updated together
+
+
+def _groups(tensors, cap: int):
+    """Consecutive index groups of ``tensors`` holding at most ``cap``
+    elements each (a larger leaf alone)."""
+    out, cur, n = [], [], 0
+    for i, t in enumerate(tensors):
+        if cur and n + t.numel() > cap:
+            out.append(cur)
+            cur, n = [], 0
+        cur.append(i)
+        n += t.numel()
+    return out + [cur] if cur else out
 
 
 class AdamWState(NamedTuple):
@@ -69,40 +89,54 @@ class AdamW:
         everything returned is new and the inputs stay valid."""
         step = state.step + 1
         ps = T.tensors(params)
-        g32 = [g.float() for g in grads]
-        gnorm = torch.stack(torch._foreach_norm(g32)).square().sum().sqrt()
-        if self.grad_clip:
-            scale = torch.clamp(self.grad_clip / gnorm.clamp(min=1e-9),
-                                max=1.0)
-            g32 = torch._foreach_mul(g32, scale)
+        groups = _groups(ps, GROUP_ELEMS)
+        norms = []
+        for idx in groups:
+            norms += torch._foreach_norm([grads[i].float() for i in idx])
+        gnorm = torch.stack(norms).square().sum().sqrt()
+        scale = torch.clamp(self.grad_clip / gnorm.clamp(min=1e-9),
+                            max=1.0) if self.grad_clip else None
         lr = self.lr * (float(self.schedule(step)) if self.schedule else 1.0)
-        if inplace:
-            m, v = state.m, state.v
-            torch._foreach_mul_(m, self.b1)
-            torch._foreach_mul_(v, self.b2)
-        else:
-            m = torch._foreach_mul(state.m, self.b1)
-            v = torch._foreach_mul(state.v, self.b2)
-        torch._foreach_add_(m, g32, alpha=1 - self.b1)
-        torch._foreach_addcmul_(v, g32, g32, value=1 - self.b2)
-        mh = torch._foreach_div(m, 1 - self.b1 ** step)
-        den = torch._foreach_sqrt(torch._foreach_div(v, 1 - self.b2 ** step))
-        torch._foreach_add_(den, self.eps)
-        delta = torch._foreach_div(mh, den)
-        p32 = [p.float() for p in ps]
-        if self.weight_decay:
-            idx = [i for i, d in enumerate(state.decay) if d]
-            if idx:
-                torch._foreach_add_([delta[i] for i in idx],
-                                    [p32[i] for i in idx],
-                                    alpha=self.weight_decay)
-        new = torch._foreach_add(p32, delta, alpha=-lr)
-        new = [n.to(p.dtype) for n, p in zip(new, ps)]
-        if inplace:
-            torch._foreach_copy_(ps, new)
-            out = params
-        else:
-            out = T.replace(params, new)
+        m_all, v_all, new_all = [None] * len(ps), [None] * len(ps), []
+        for idx in groups:
+            g32 = [grads[i].float() for i in idx]
+            if scale is not None:
+                g32 = torch._foreach_mul(g32, scale)
+            m = [state.m[i] for i in idx]
+            v = [state.v[i] for i in idx]
+            if inplace:
+                torch._foreach_mul_(m, self.b1)
+                torch._foreach_mul_(v, self.b2)
+            else:
+                m = torch._foreach_mul(m, self.b1)
+                v = torch._foreach_mul(v, self.b2)
+            torch._foreach_add_(m, g32, alpha=1 - self.b1)
+            torch._foreach_addcmul_(v, g32, g32, value=1 - self.b2)
+            del g32
+            mh = torch._foreach_div(m, 1 - self.b1 ** step)
+            den = torch._foreach_sqrt(torch._foreach_div(v,
+                                                         1 - self.b2 ** step))
+            torch._foreach_add_(den, self.eps)
+            delta = torch._foreach_div(mh, den)
+            del mh, den
+            p32 = [ps[i].float() for i in idx]
+            if self.weight_decay:
+                dec = [j for j, i in enumerate(idx) if state.decay[i]]
+                if dec:
+                    torch._foreach_add_([delta[j] for j in dec],
+                                        [p32[j] for j in dec],
+                                        alpha=self.weight_decay)
+            new = torch._foreach_add(p32, delta, alpha=-lr)
+            del p32, delta
+            new = [n.to(ps[i].dtype) for n, i in zip(new, idx)]
+            if inplace:
+                torch._foreach_copy_([ps[i] for i in idx], new)
+            else:
+                new_all += new
+            for j, i in enumerate(idx):
+                m_all[i], v_all[i] = m[j], v[j]
+        out = params if inplace else T.replace(params, new_all)
+        m, v = m_all, v_all
         return out, AdamWState(m, v, step, state.decay), gnorm
 
 

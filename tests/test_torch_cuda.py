@@ -1088,3 +1088,166 @@ def test_adaptation_swaps_on_the_card(cuda):
     for (n, a), (m_, b) in zip(T.leaves(loop.latest), T.leaves(ep)):
         assert n == m_ and (a.shape, a.dtype, a.device) == \
             (b.shape, b.dtype, b.device)
+
+
+# ------------------------------------------------------------ slice 10
+# the SSD-scan backward (csrc/ssd_scan_bwd.cu) against autograd of the plain
+# scan, through each caller's form of the outputs: mamba2's y * exp(m),
+# mLSTM's y / max(|den|, exp(-m)).  (B, S, H, N, P, chunk, q/k head-
+# broadcast, form): the training shapes of mamba2-370m, xlstm-125m and
+# zamba2-2.7b (batch 8, seq 256), front-padded ragged lengths (one with a
+# partial 64-column P tile), and the 2048-token prompts.  Tolerance on each
+# of dq, dk, dv, dlog_a, dlog_i: max |kernel - plain| <= SSD_BWD_TOL x
+# max(1, max |plain|) (float32: sums in another order; bfloat16: the
+# forward's split-bf16 products and the bf16 gradients' rounding)
+SSD_BWD_SHAPES = [(8, 256, 32, 128, 64, 256, True, "mamba"),
+                  (8, 256, 4, 384, 384, 128, False, "mlstm"),
+                  (8, 256, 80, 64, 64, 128, True, "mamba"),
+                  (2, 300, 4, 64, 96, 128, False, "mlstm"),
+                  (2, 77, 3, 16, 64, 32, True, "mamba"),
+                  (3, 40, 2, 32, 64, 64, False, "mlstm"),
+                  (1, 2048, 32, 128, 64, 256, True, "mamba"),
+                  (1, 2048, 4, 384, 384, 128, False, "mlstm")]
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _ssd_bwd_case(B, S, H, N, P, bc, dev, dtype, seed=0):
+    """Leaves (q, k as (B, S, 1 or H, N), v, log_a, log_i) and the weights
+    R of the scalar loss sum(R * form(y, den, m))."""
+    hq = 1 if bc else H
+    leaves = (_rand(seed, (B, S, hq, N), dev, dtype),
+              _rand(seed + 1, (B, S, hq, N), dev, dtype),
+              _rand(seed + 2, (B, S, H, P), dev, dtype),
+              -torch.nn.functional.softplus(_rand(seed + 3, (B, S, H), dev)),
+              _rand(seed + 4, (B, S, H), dev, scale=0.5))
+    return leaves, _rand(seed + 5, (B, S, H, P), dev)
+
+
+def _ssd_form(y, den, m, form):
+    if form == "mamba":
+        return y * torch.exp(m)[..., None]
+    return y / torch.maximum(den.abs(), torch.exp(-m))[..., None]
+
+
+def _ssd_grads(fn, leaves, R, chunk, form):
+    q, k, v, la, li = (t.detach().requires_grad_(True) for t in leaves)
+    B, S, H, _ = v.shape
+    N = q.shape[-1]
+    y, den, m, _ = fn(q.expand(B, S, H, N), k.expand(B, S, H, N), v, la, li,
+                      chunk=chunk)
+    loss = (R * _ssd_form(y, den, m, form)).sum()
+    return torch.autograd.grad(loss, (q, k, v, la, li))
+
+
+@pytest.mark.parametrize("B,S,H,N,P,chunk,bc,form", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_scan_bwd_matches_plain_autograd(cuda, B, S, H, N, P,
+                                                   chunk, bc, form, dtype):
+    leaves, R = _ssd_bwd_case(B, S, H, N, P, bc, cuda, dtype)
+    got = _ssd_grads(ops.ssd_chunk_scan, leaves, R, chunk, form)
+    ref = _ssd_grads(ssd_chunk_scan_plain, leaves, R, chunk, form)
+    for name, a, b in zip(("q", "k", "v", "log_a", "log_i"), got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= SSD_BWD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("B,S,H,N,P,chunk,bc,form", SSD_BWD_SHAPES[1:5])
+def test_ssd_chunk_scan_bwd_is_deterministic(cuda, B, S, H, N, P, chunk, bc,
+                                             form):
+    """Two runs give the same bits: every sum over P tiles is taken in a
+    fixed order, with no float atomics."""
+    leaves, R = _ssd_bwd_case(B, S, H, N, P, bc, cuda, torch.bfloat16)
+    a = _ssd_grads(ops.ssd_chunk_scan, leaves, R, chunk, form)
+    b = _ssd_grads(ops.ssd_chunk_scan, leaves, R, chunk, form)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_ssd_forward_saves_the_chunk_states(cuda):
+    """The training forward (states saved for the backward) gives the
+    serving forward's outputs bit for bit, and its saved carried-in states
+    are the plain scan's."""
+    from repro_torch.kernels.ssd_scan import _forward
+    B, S, H, N, P, chunk = 2, 300, 3, 32, 96, 64
+    q, k, v, la, li, st = _ssd_inputs(B, S, H, N, P, cuda, torch.float32,
+                                      True, False)
+    y, den, m, fin, saved = _forward(q, k, v, la, li, chunk, st, save=True)
+    out = ssd_chunk_scan_cuda(q, k, v, la, li, chunk=chunk, state=st)
+    for a, b in zip((y, den, m) + fin, out[:3] + out[3]):
+        assert torch.equal(a, b)
+    ref = ssd_chunk_scan_plain(q, k, v, la, li, chunk=chunk, state=st,
+                               chunk_states=True)[4]
+    Sc, nc, Mc = saved
+    for a, b in ((Sc.permute(0, 2, 1, 4, 3), ref[0]),
+                 (nc.transpose(1, 2), ref[1]), (Mc.transpose(1, 2), ref[2])):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_bwd_counts_launches_and_never_runs_plain(cuda):
+    """Under grad on the card the scan launches the forward and backward
+    kernels once each per call; a carried-in state that requires grad
+    raises."""
+    leaves, R = _ssd_bwd_case(2, 40, 2, 16, 64, False, cuda, torch.float32)
+    ops.reset_launch_counts()
+    _ssd_grads(ops.ssd_chunk_scan, leaves, R, 16, "mlstm")
+    c = ops.launch_counts()
+    assert c["ssd_chunk_scan"] == 1 and c["ssd_chunk_scan_bwd"] == 1
+    q, k, v, la, li = (t.requires_grad_(True) for t in leaves)
+    st = (torch.zeros((2, 2, 16, 64), device=cuda, requires_grad=True),
+          torch.zeros((2, 2, 16), device=cuda),
+          torch.full((2, 2), -1e30, device=cuda))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.ssd_chunk_scan(q, k, v, la, li, chunk=16, state=st)
+
+
+# every family trains on the kernels: Model.loss and its gradients against
+# attn_backend="plain" at float32 (reduced widths, 2 layers, a ragged 44
+# tokens over chunks of 8: loss 1e-5, gradients 1e-4 of max(1, max
+# |plain|)), remat the same bits as no remat, and the launches: the scan
+# forward and backward once per scan layer (the forward twice with remat),
+# the flash backward once per attention layer
+TRAIN_FAMILIES = {"moe": "granite-moe-1b-a400m", "ssm": "mamba2-370m",
+                  "xlstm": "xlstm-125m", "hybrid": "zamba2-2.7b"}
+
+
+@pytest.mark.parametrize("family", list(TRAIN_FAMILIES))
+def test_model_loss_trains_on_the_kernels(cuda, family):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import example_batch
+    from repro_torch.models.xlstm import is_slstm
+    from repro_torch.training import tree as T
+    cfg = get_config(TRAIN_FAMILIES[family]).reduced().replace(
+        param_dtype="float32", activ_dtype="float32")
+    L = cfg.num_layers
+    n_scan = {"moe": 0, "ssm": L, "hybrid": L,
+              "xlstm": sum(not is_slstm(cfg, l) for l in range(L))}[family]
+    n_attn = {"moe": L, "ssm": 0, "xlstm": 0,
+              "hybrid": L // max(1, cfg.shared_attn_every)}[family]
+    m = Model(cfg)
+    p = m.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = example_batch(cfg, 4, 44, gen, device="cuda")
+    res = {}
+    for backend, remat in (("auto", False), ("auto", True),
+                           ("plain", False)):
+        tp = T.replace(p, [t.detach().requires_grad_(True)
+                           for t in T.tensors(p)])
+        ops.reset_launch_counts()
+        loss = m.loss(tp, batch, remat=remat, attn_backend=backend)
+        grads = torch.autograd.grad(loss, T.tensors(tp))
+        res[backend, remat] = (loss.detach(), grads, ops.launch_counts())
+    (lk, gk, ck), (lr, gr, cr), (lp, gp, cp) = (
+        res["auto", False], res["auto", True], res["plain", False])
+    assert ck["ssd_chunk_scan"] == ck["ssd_chunk_scan_bwd"] == n_scan
+    assert cr["ssd_chunk_scan"] == 2 * n_scan
+    assert cr["ssd_chunk_scan_bwd"] == n_scan
+    assert ck["flash_attention_bwd"] == cr["flash_attention_bwd"] == n_attn
+    assert all(n == 0 for n in cp.values())
+    assert abs(float(lk) - float(lp)) <= 1e-5 * float(lp)
+    for a, b in zip(gk, gp):
+        assert _rel_err(a, b) <= 1e-4
+    assert torch.equal(lk, lr)
+    for a, b in zip(gk, gr):
+        assert torch.equal(a, b)

@@ -791,3 +791,30 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             torch.ones((1,), dtype=torch.int32),
             torch.ones((2, 2), dtype=torch.bool),
             torch.ones((1, 2), dtype=torch.int32))
+
+
+def test_serving_kernels_refuse_grad():
+    """The four serving-only kernels (paged and dense decode, tree verify,
+    spec verify) have no backward: under grad their wrappers raise before
+    anything else (here on CPU tensors), rather than detach the gradient."""
+    q = torch.zeros((1, 2, 1, 8), requires_grad=True)
+    kv = torch.zeros((1, 4, 2, 8))
+    length = torch.full((1,), 4, dtype=torch.int32)
+    logits = torch.zeros((1, 3, 16), requires_grad=True)
+    calls = {
+        "paged_decode_attention_cuda": lambda: paged_decode_attention_cuda(
+            q, kv, kv, torch.zeros((1, 1), dtype=torch.int32), length),
+        "decode_attention_cuda": lambda: decode_attention_cuda(
+            q, kv, kv, length),
+        "tree_verify_attention_cuda": lambda: tree_verify_attention_cuda(
+            q[:, :, None], kv, kv, length,
+            torch.ones((1, 1), dtype=torch.bool),
+            torch.zeros((1, 1), dtype=torch.int32)),
+        "spec_verify_cuda": lambda: spec_verify_cuda(
+            logits, logits.detach()[:, :2], torch.zeros((1, 2),
+                                                        dtype=torch.int32),
+            torch.zeros((1, 2)), torch.zeros((1,))),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()

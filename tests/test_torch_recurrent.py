@@ -25,7 +25,8 @@ from repro.models import xlstm as JX  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.core.seq_state import SpecOps  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_chunk_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_chunk_scan_bwd_plain, ssd_chunk_scan_kernel, ssd_chunk_scan_plain)
 from repro_torch.models import Model as TModel  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
@@ -134,6 +135,107 @@ def test_ssd_dispatch_and_no_fallback():
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         ssd_chunk_scan_cuda(*args, chunk=4)
+
+
+# ssd_chunk_scan_bwd_plain (the backward kernel's model) against jax.grad of
+# the JAX package's gla_chunked composed with each caller's form of the
+# outputs, sum(R * form(y, den, m)): mamba2's y * exp(m) and mLSTM's
+# y / max(|den|, exp(-m)).  (B, S, H, N, P, chunk, q/k head-broadcast, form,
+# the JAX side's chunk): several chunks, head-broadcast q/k, Q = S < chunk,
+# and front-padded ragged lengths.  JAX's own gradient is NaN at a
+# front-padded length (its masked decay entries overflow before the mask),
+# so a ragged case takes its reference at a chunk length that divides S:
+# both forms do not depend on the chunk length.  Tolerance: max |port -
+# JAX| <= 1e-5 x max(1, max |JAX|) per gradient (float32, the stabilisers'
+# path cancelling to rounding on the JAX side)
+SSD_BWD_CASES = [(2, 32, 2, 4, 3, 8, True, "mamba", 8),
+                 (1, 5, 2, 4, 3, 8, False, "mlstm", 8),
+                 (2, 27, 2, 4, 3, 8, False, "mlstm", 9),
+                 (1, 21, 3, 5, 7, 4, True, "mamba", 7)]
+
+
+@pytest.mark.parametrize("B,S,H,N,P,chunk,bc,form,jchunk", SSD_BWD_CASES)
+def test_ssd_bwd_plain_matches_jax(B, S, H, N, P, chunk, bc, form, jchunk):
+    hq = 1 if bc else H
+    q, k = _np(0, (B, S, hq, N)), _np(1, (B, S, hq, N))
+    v = _np(2, (B, S, H, P))
+    la, li = _gates(3, (B, S, H))
+    R = _np(5, (B, S, H, P))
+
+    def jform(y, den, m):
+        if form == "mamba":
+            return y * jnp.exp(m)[..., None]
+        return y / jnp.maximum(jnp.abs(den), jnp.exp(-m))[..., None]
+
+    def jloss(q, k, v, la, li):
+        y, den, m, _ = JS.gla_chunked(
+            jnp.broadcast_to(q, (B, S, H, N)),
+            jnp.broadcast_to(k, (B, S, H, N)), v, la, li, chunk=jchunk)
+        return jnp.sum(R * jform(y, den, m))
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(q, k, v, la, li)
+    tq, tk = _t(q).expand(B, S, H, N), _t(k).expand(B, S, H, N)
+    tv, tla, tli = _t(v), _t(la), _t(li)
+    y, den, m, fin, saved = ssd_chunk_scan_plain(
+        tq, tk, tv, tla, tli, chunk=chunk, chunk_states=True)
+    y, den = y.requires_grad_(True), den.requires_grad_(True)
+    if form == "mamba":
+        out = y * torch.exp(m)[..., None]
+    else:
+        out = y / torch.maximum(den.abs(), torch.exp(-m))[..., None]
+    dy, dden = torch.autograd.grad((_t(R) * out).sum(), (y, den),
+                                   allow_unused=True)
+    got = list(ssd_chunk_scan_bwd_plain(tq, tk, tv, tla, tli, m, saved,
+                                        fin[2], dy, dden, chunk=chunk))
+    if bc:                                   # the expand's backward
+        got[0], got[1] = (g.sum(2, keepdim=True) for g in got[:2])
+    for name, a, b in zip(("q", "k", "v", "log_a", "log_i"), got, ref):
+        b = np.asarray(b)
+        assert a.shape == b.shape, name
+        err = float(np.abs(a.numpy() - b).max())
+        assert err <= 1e-5 * max(1.0, float(np.abs(b).max())), (name, err)
+
+
+def test_ssd_scan_refuses_a_state_that_requires_grad():
+    """No backward flows into a carried-in state: under grad the
+    differentiable entry raises before any launch (here on CPU tensors,
+    the check precedes the device's)."""
+    B, S, H, N, P = 1, 6, 2, 4, 8
+    q = _t(_np(0, (B, S, H, N))).requires_grad_(True)
+    k, v = _t(_np(1, (B, S, H, N))), _t(_np(2, (B, S, H, P)))
+    la, li = map(_t, _gates(3, (B, S, H)))
+    st = (torch.zeros((B, H, N, P), requires_grad=True),
+          torch.zeros((B, H, N)), torch.full((B, H), -1e30))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ssd_chunk_scan_kernel(q, k, v, la, li, chunk=4, state=st)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk_scan_kernel(q, k, v, la, li, chunk=4, state=st)
+
+
+def test_plain_scan_gradients_are_finite_at_a_front_pad():
+    """Autograd through the plain scan (its stabiliser path included) at a
+    front-padded length gives finite gradients equal to its backward
+    model's (the pad rows' masked decay entries are masked before the
+    exp)."""
+    B, S, H, N, P, chunk = 2, 13, 2, 4, 3, 8
+    leaves = [_t(_np(0, (B, S, H, N))), _t(_np(1, (B, S, H, N))),
+              _t(_np(2, (B, S, H, P))), *map(_t, _gates(3, (B, S, H)))]
+    leaves = [x.requires_grad_(True) for x in leaves]
+    y, den, m, fin, saved = ssd_chunk_scan_plain(*leaves, chunk=chunk,
+                                                 chunk_states=True)
+    out = y / torch.maximum(den.abs(), torch.exp(-m))[..., None]
+    R = _t(_np(5, (B, S, H, P)))
+    got = torch.autograd.grad((R * out).sum(), leaves)
+    yl, dl = y.detach().requires_grad_(True), den.detach().requires_grad_(True)
+    o2 = yl / torch.maximum(dl.abs(), torch.exp(-m.detach()))[..., None]
+    dy, dden = torch.autograd.grad((R * o2).sum(), (yl, dl))
+    ref = ssd_chunk_scan_bwd_plain(*(x.detach() for x in leaves),
+                                   m.detach(), [x.detach() for x in saved],
+                                   fin[2].detach(), dy, dden, chunk=chunk)
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
 
 
 def test_gla_step():
