@@ -1167,13 +1167,18 @@ def _ssd_loss(fn, leaves, R, chunk, form):
     return (R * _ssd_form(y, den, m, form)).sum()
 
 
-def _ssd_bwd_cost(B, S, H, N, P, chunk, el, broadcast):
-    """(bytes, operations) of the backward: each input read once (q, k, v,
-    the gates, the row log-max, the saved chunk states, dy, dden), each
-    output written once (dq, dk per head, dv, dlog_a, dlog_i); per real
-    chunk row the masked intra-chunk products (scores, dy v^T, W^T dy,
-    D^T q, D k: 6 N + 4 P per visible pair) and the carry products (8 N P;
-    4 N P in a first chunk, which has no carried-in state)."""
+def _ssd_bwd_cost(B, S, H, N, P, chunk, el, broadcast, dden):
+    """(bytes, operations) of the backward of a scan that started from a
+    zero state, as the kernel is launched here (``fresh``): each input the
+    result needs read once (q, k, v, the gates, the row log-max, dy, dden
+    where the caller's form passes it, each chunk's carried-in log-max but
+    the first's and the final one, the saved S~ of each chunk that carries a
+    state in and its n~ where dden is passed), each output written once (dq,
+    dk per head, dv, dlog_a, dlog_i); per real chunk row the masked
+    intra-chunk products (scores, dy v^T, W^T dy, D^T q, D k: 6 N + 4 P per
+    visible pair) and the carry products, k dS and v dS^T (4 N P) where a
+    later chunk carries a gradient in, dy S~ and q^T (co o dy) (4 N P) where
+    the chunk carries a state in."""
     Q = min(chunk, S)
     pad = (-S) % Q
     nc = (S + pad) // Q
@@ -1181,14 +1186,34 @@ def _ssd_bwd_cost(B, S, H, N, P, chunk, el, broadcast):
     for c in range(nc):
         r = Q - (pad if c == 0 else 0)
         ops += r * (r + 1) // 2 * (6 * N + 4 * P) \
-            + r * (4 if c == 0 else 8) * N * P
+            + r * ((4 if c + 1 < nc else 0) + (4 if c > 0 else 0)) * N * P
     hq = 1 if broadcast else H
+    saved = (nc - 1) * (N * P + (N if dden else 0)) + nc
     nbytes = (2 * B * S * hq * N * el + B * S * H * P * el
-              + 3 * B * S * H * 4 + B * H * (nc * (N * P + N + 1) + 1) * 4
-              + B * S * H * (P + 1) * 4
+              + 3 * B * S * H * 4 + B * H * saved * 4
+              + B * S * H * (P + (1 if dden else 0)) * 4
               + 2 * B * S * H * N * el + B * S * H * P * el
               + 2 * B * S * H * 4)
     return nbytes, ops * B * H
+
+
+def _ssd_bwd_split_ops(B, S, H, N, P, chunk):
+    """Operations as the mma route runs them, its split products counted
+    (a product with one float32 operand twice, with two three times):
+    per visible pair the scores once (2 N), dy v^T twice in each of the
+    two passes (8 P), W^T dy three times (6 P), D^T q and D k twice each
+    (8 N); per chunk row the carry k dS and v dS^T twice each (8 N P,
+    where a later chunk carries a gradient in), dy S~ and q^T (co o dy)
+    three times each (12 N P, where the chunk carries a state in)."""
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+    ops = 0
+    for c in range(nc):
+        r = Q - (pad if c == 0 else 0)
+        ops += r * (r + 1) // 2 * (10 * N + 14 * P) \
+            + r * ((8 if c + 1 < nc else 0) + (12 if c > 0 else 0)) * N * P
+    return ops * B * H
 
 
 def _ssd_bwd_timing(K, case, gen):
@@ -1217,12 +1242,17 @@ def _ssd_bwd_timing(K, case, gen):
                                                 retain_graph=True),
                     reps=reps, warm=2)
     del loss
-    bnd, by = bound_ms(*_ssd_bwd_cost(B, S, H, N, P, chunk, 2, bc),
-                       "bfloat16")
+    nbytes, ops = _ssd_bwd_cost(B, S, H, N, P, chunk, 2, bc,
+                                dden is not None)
+    bnd, by = bound_ms(nbytes, ops, "bfloat16")
+    split = _ssd_bwd_split_ops(B, S, H, N, P, chunk)
     print(f"[kernel] ssd_chunk_scan_bwd timing {label} (B,S,H,N,P,chunk)="
           f"{(B, S, H, N, P, chunk)} bfloat16: {ms:.4f} ms per call, "
           f"{dev:.4f} ms on the device; plain autograd backward "
-          f"{plain:.4f} ms; bound {bnd:.6f} ms ({by})", flush=True)
+          f"{plain:.4f} ms; bound {bnd:.6f} ms ({by}; {nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e9:.3f} G operations counted once = "
+          f"{ops / dev / 1e9:.1f} TFLOP/s, {split / 1e9:.3f} G as the mma "
+          f"route runs them = {split / dev / 1e9:.1f} TFLOP/s)", flush=True)
     return {"shape": f"{label} (B,S,H,N,P,chunk)={(B, S, H, N, P, chunk)}",
             "ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bnd,
             "bound_by": by}
@@ -1230,22 +1260,33 @@ def _ssd_bwd_timing(K, case, gen):
 
 def check_ssd_bwd(gen):
     """The SSD-scan backward (through ``ops.ssd_chunk_scan`` under grad: the
-    forward kernel with its chunk states saved, then the backward kernel)
-    against autograd of the plain scan, both through the caller's form,
-    float32 and bfloat16; bit-identical across two runs; then timed.  No
-    single PyTorch call computes it: no library yardstick."""
+    forward kernel with its chunk states saved, then the backward kernel on
+    ``ssd_bwd_plan``'s route: ``mma`` for bfloat16, ``cuda_cores`` for
+    float32) against autograd of the plain scan, both through the caller's
+    form, float32 and bfloat16; each bf16 case bit-identical across two
+    runs; then timed.  No single PyTorch call computes it: no library
+    yardstick."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as K
     errs = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
+        want = "mma" if dtype == torch.bfloat16 else "cuda_cores"
         for case in SSD_BWD_TRAIN + SSD_BWD_MORE + SSD_BWD_LONG:
             label, B, S, H, N, P, chunk, bc, form = case
+            plan = K.ssd_bwd_plan(dtype, N, P, min(chunk, S))
+            check(plan.route == want, f"ssd_chunk_scan_bwd {name} {label}: "
+                                      f"plan {plan}")
             leaves, R = _ssd_leaves(case, dtype, gen)
+            ops.reset_launch_counts()
             got = torch.autograd.grad(
                 _ssd_loss(ops.ssd_chunk_scan, leaves, R, chunk, form),
                 leaves)
+            routes = ops.launch_counts()
+            check(routes[f"ssd_chunk_scan_bwd/{want}"] == 1
+                  and routes["ssd_chunk_scan_bwd"] == 1,
+                  f"ssd_chunk_scan_bwd {name} {label}: launches {routes}")
             ref = torch.autograd.grad(
                 _ssd_loss(K.ssd_chunk_scan_plain, leaves, R, chunk, form),
                 leaves)
@@ -1255,20 +1296,22 @@ def check_ssd_bwd(gen):
             err = max(max_err(a, b) for a, b in zip(got, ref))
             finite = all(bool(torch.isfinite(a).all()) for a in got)
             print(f"[kernel] ssd_chunk_scan_bwd {name} {label} (B,S,H,N,P,"
-                  f"chunk)={(B, S, H, N, P, chunk)} {form} form: max_abs_err "
+                  f"chunk)={(B, S, H, N, P, chunk)} {form} form, route "
+                  f"{plan.route} (rows {plan.rows}, stages {plan.stages}, "
+                  f"{plan.smem} bytes of shared memory): max_abs_err "
                   f"{err:.3e}, relative to max(1, max |plain|) {rel:.3e} "
                   f"(tol {BWD_TOL[name]:g})", flush=True)
             check(finite and rel <= BWD_TOL[name],
                   f"ssd_chunk_scan_bwd {name} {label}: relative error {rel}")
             errs.append(err)
-            if dtype == torch.bfloat16 and label == "xlstm-125m":
+            if dtype == torch.bfloat16:
                 again = torch.autograd.grad(
                     _ssd_loss(ops.ssd_chunk_scan, leaves, R, chunk, form),
                     leaves)
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                      "ssd_chunk_scan_bwd: two runs differ")
-                print("[kernel] ssd_chunk_scan_bwd bfloat16 xlstm-125m: two "
-                      "runs bit-identical", flush=True)
+                      f"ssd_chunk_scan_bwd {label}: two runs differ")
+                print(f"[kernel] ssd_chunk_scan_bwd bfloat16 {label}: two "
+                      f"runs bit-identical", flush=True)
     row = {"name": "ssd_chunk_scan_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
            "replaces": "src/repro/models/ssm.py:43 (the gradient of "
@@ -1964,6 +2007,10 @@ def _family_train_runs():
               and launches["ssd_chunk_scan_bwd"] == n_scan * steps,
               f"trainer {label}: scan launches {launches} for {n_scan} scan "
               f"layers x {steps} steps")
+        # bf16 trainers: every scan backward on the tensor-core route
+        check(launches["ssd_chunk_scan_bwd/mma"]
+              == launches["ssd_chunk_scan_bwd"],
+              f"trainer {label}: scan backward routes {launches}")
         check(launches["flash_attention"] == fwd * n_attn * steps
               and launches["flash_attention_bwd"] == n_attn * steps,
               f"trainer {label}: flash launches {launches} for {n_attn} "

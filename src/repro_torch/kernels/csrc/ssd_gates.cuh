@@ -7,7 +7,8 @@
 namespace repro {
 namespace ssd {
 
-constexpr int kThreads = 256;                // both kernels' block size
+constexpr int kThreads = 256;   // the kernels' block size (the backward's
+                                // mma route: 256 or 512 threads, kT)
 
 // a[lo, hi) (hi - lo <= 16) scanned in place by one thread, in order, the
 // running sum in a register: a[i] = a[i - 1] + a[i], as the sequential
@@ -27,7 +28,9 @@ __device__ __forceinline__ void scan16(float* a, int lo, int hi) {
 // cumsum takes on the CPU and the plain version mirrors (kernels/
 // ssd_scan.py::cumsum_blocked): sequential 16-long blocks (one thread each,
 // in parallel), then the block totals summed the same way and added back.
-// All threads call it; it ends with a barrier.  scratch: n / 8 + 32 floats.
+// All kT threads of the block call it; it ends with a barrier.  scratch:
+// n / 8 + 32 floats.
+template <int kT = kThreads>
 __device__ void cumsum_blocked(float* a, int n, float* scratch) {
   constexpr int kB = 16;
   if (n <= kB) {
@@ -36,14 +39,14 @@ __device__ void cumsum_blocked(float* a, int n, float* scratch) {
     return;
   }
   const int nb = (n + kB - 1) / kB;
-  for (int b = threadIdx.x; b < nb; b += kThreads) {
+  for (int b = threadIdx.x; b < nb; b += kT) {
     const int hi = min(b * kB + kB, n);
     scan16(a, b * kB, hi);
     scratch[b] = a[hi - 1];
   }
   __syncthreads();
-  cumsum_blocked(scratch, nb, scratch + nb);
-  for (int i = kB + threadIdx.x; i < n; i += kThreads)
+  cumsum_blocked<kT>(scratch, nb, scratch + nb);
+  for (int i = kB + threadIdx.x; i < n; i += kT)
     a[i] += scratch[i / kB - 1];
   __syncthreads();
 }

@@ -36,7 +36,8 @@
 //   + k^T (v o z) while k and v are staged: k and v are read once per row
 //   tile, and the state once per chunk.
 // * bf16 inputs run every product on the tensor cores (mma.sync m16n8k16,
-//   f32 accumulators; operands by ldmatrix from skewed shared-memory rows).
+//   f32 accumulators; operands by ldmatrix from skewed shared-memory rows;
+//   the helpers are ssd_mma.cuh's, shared with the backward).
 //   q k^T is bf16 x bf16, exact products.  The products with an f32 operand
 //   (W v, q S, k^T (v o z)) split it into a bf16 head and the bf16 of its
 //   remainder and multiply both, which keeps about 16 bits of it.  f32
@@ -69,12 +70,16 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "attn_tile.cuh"
-#include "ssd_gates.cuh"
+#include "ssd_mma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using repro::ssd::ldsm_x4;
+using repro::ssd::ldsm_x4_t;
+using repro::ssd::mma;
+using repro::ssd::split2;
+using repro::ssd::stage;
 
 constexpr int kThreads = repro::ssd::kThreads;
 constexpr int kWarps = kThreads / 32;
@@ -129,39 +134,6 @@ struct Layout {
 // four lanes) fall in distinct banks.
 __device__ __forceinline__ int sidx(int n, int p) {
   return n * kPT + (p ^ ((n << 2) & 24));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(repro::attn::smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(repro::attn::smem_u32(p))
-      : "memory");
-}
-// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// (x, y) as a bf16 pair (the head), and the bf16 pair of the remainder
-__device__ __forceinline__ uint32_t split2(float x, float y, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // w[j] = max over i <= j of (lg[i] - La[i]): a warp-shuffle prefix max per
@@ -230,36 +202,6 @@ __device__ __forceinline__ void gates_warp(
     mr[j] = mj;
     zc[j] = expf(la_sum - a + l - m_new);
     co[j] = expf(a + M - mj);
-  }
-}
-
-// Rows [j0, j0 + nrows) of a (Q, width) operand of the chunk starting at
-// position t0 into dst (row stride ld, wpad columns): row j is position
-// t0 + j; rows past the chunk or in the front pad and columns past width
-// are zero.  vec (aligned base and row stride, width a multiple of 16
-// bytes): asynchronous 16-byte copies, zero-filled where out of range —
-// the caller commits, waits and synchronises; otherwise element copies.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, int ld, int wpad, int nrows,
-                                      const T* __restrict__ src,
-                                      long long rs, int j0, int t0, int Q,
-                                      int width, bool vec) {
-  constexpr int kE = 16 / sizeof(T);
-  const int nc = wpad / kE;
-  for (int i = threadIdx.x; i < nrows * nc; i += kThreads) {
-    const int r = i / nc, c = (i - r * nc) * kE;
-    const int j = j0 + r, t = t0 + j;
-    const bool row_ok = j < Q && t >= 0;
-    T* d = dst + r * ld + c;
-    if (vec) {
-      const bool in = row_ok && c < width;
-      repro::attn::cp_async16(d, in ? src + t * rs + c : src, in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kE; ++e)
-        d[e] = row_ok && c + e < width ? src[t * rs + c + e]
-                                       : repro::from_float<T>(0.f);
-    }
   }
 }
 

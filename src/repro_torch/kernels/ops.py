@@ -27,8 +27,9 @@ forward and backward kernels (``flash_attention.FlashAttention``,
 ``ssd_scan.SSDChunkScan``), on the CPU autograd runs through the plain
 version.  The other four kernels (the decode, tree-verify and
 spec-verify kernels, serving only) have no backward and raise under grad
-on CUDA.  ``launch_counts`` also reports the flash backward's launches per
-route (``flash_attention_bwd/wgmma`` and ``flash_attention_bwd/cuda_cores``).
+on CUDA.  ``launch_counts`` also reports the two backwards' launches per
+route (``flash_attention_bwd/wgmma`` and ``.../cuda_cores``;
+``ssd_chunk_scan_bwd/mma`` and ``.../cuda_cores``).
 """
 from __future__ import annotations
 
@@ -51,14 +52,17 @@ KERNELS = {"paged_decode_attention": _dec.KERNEL,
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
-    for route in _flash.BWD_ROUTE_LAUNCHES:
-        _flash.BWD_ROUTE_LAUNCHES[route] = 0
+    for routes in (_flash.BWD_ROUTE_LAUNCHES, _ssd.BWD_ROUTE_LAUNCHES):
+        for route in routes:
+            routes[route] = 0
 
 
 def launch_counts() -> dict:
     counts = {name: k.launches for name, k in KERNELS.items()}
     for route, n in _flash.BWD_ROUTE_LAUNCHES.items():
         counts[f"flash_attention_bwd/{route}"] = n
+    for route, n in _ssd.BWD_ROUTE_LAUNCHES.items():
+        counts[f"ssd_chunk_scan_bwd/{route}"] = n
     return counts
 
 

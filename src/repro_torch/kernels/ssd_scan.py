@@ -34,6 +34,9 @@ kernel is held against autograd of ``ssd_chunk_scan_plain``.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from repro_torch.kernels.build import (I, L, P, CudaKernel, raw_stream,
@@ -46,9 +49,84 @@ KERNEL = CudaKernel("ssd_scan.cu", "repro_ssd_chunk_scan",
 BWD_KERNEL = CudaKernel("ssd_scan_bwd.cu", "repro_ssd_chunk_scan_bwd",
                         [I] + [P, L, L, L] * 5 + [P] * 5 + [I] + [P] * 11
                         + [I] * 7 + [P])
+# the backward's shared-memory layouts as the launches use them: (route
+# code, rows, N, Q) -> bytes; the card tests hold ``ssd_bwd_plan``'s host
+# copy of them against it
+BWD_SMEM = CudaKernel("ssd_scan_bwd.cu", "repro_ssd_chunk_scan_bwd_smem",
+                      [I] * 4)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CUMSUM_BLOCK = 16
+
+# The backward's routes (``ssd_bwd_plan``) and their launches since the last
+# ``ops.reset_launch_counts``.
+BWD_ROUTES = ("mma", "cuda_cores")
+BWD_ROUTE_LAUNCHES = {route: 0 for route in BWD_ROUTES}
+SMEM_LIMIT = 232448             # an H100 block's opt-in shared memory
+_P_TILE = 64                    # value columns per block
+_WARPS = 8
+# the tensor-core route's two tilings, in the order the plan tries them:
+# (rows, stages, largest N)
+MMA_TILINGS = ((64, 2, 128), (32, 1, 384))
+
+
+@dataclasses.dataclass(frozen=True)
+class SSDBwdPlan:
+    """The backward's route from shapes alone: ``mma`` (bf16 on the tensor
+    cores, ``rows`` a row / key tile, ``stages`` buffers of the operand a
+    tile loop streams: one of ``MMA_TILINGS``) or ``cuda_cores`` (float32
+    FMAs; ``rows`` 32 or 16, ``stages`` 1); ``smem`` the dynamic shared
+    memory of its main kernel, mirroring the layouts of
+    ``csrc/ssd_scan_bwd.cu`` (``BWD_SMEM``)."""
+    route: str
+    rows: int
+    stages: int
+    smem: int
+
+    def kind(self, dtype) -> int:
+        """The C launcher's route code (``repro_ssd_chunk_scan_bwd``)."""
+        if self.route == "cuda_cores":
+            return _DTYPES[dtype]
+        return 2 if self.rows == 64 else 3
+
+
+def _mma_smem(N: int, Q: int, rows: int, stages: int) -> int:
+    """``MmaLayout(N, Q, rows, stages, warps).bytes``, with the warps
+    ``kMmaWarps<rows>``: 16 at 64 rows, 8 at 32."""
+    warps = 16 if rows == 64 else 8
+    wps = warps // (rows // 16)
+    Np = -(-N // (16 * wps)) * 16 * wps
+    nq = -(-Q // rows)
+    return (Np * (_P_TILE + 4) * 4 + Np * 4
+            + 2 * nq * rows * (_P_TILE + 8) * 2
+            + (stages + 1) * rows * (Np + 8) * 2
+            + stages * rows * (_P_TILE + 8) * 2
+            + 4 * rows * (rows + 8) * 2
+            + (7 * Q + Q // 8 + 32 + warps + rows * wps) * 4)
+
+
+def _cuda_cores_smem(N: int, Q: int, rows: int) -> int:
+    """``Layout(N, Q, rows).bytes`` of the CUDA-core kernel."""
+    ldn, ldp = N | 1, _P_TILE + 1
+    return (N * ldp * 4 + N * 4 + 3 * rows * ldn * 4 + 3 * rows * ldp * 4
+            + 2 * rows * (rows + 1) * 4
+            + (7 * Q + Q // 8 + 32 + _WARPS) * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_bwd_plan(dtype, N: int, P: int, Q: int) -> SSDBwdPlan:
+    """The backward's plan for state width N, value width P (the kernel
+    takes it in 64-column tiles, each the same work) and chunk length Q:
+    bf16 on the tensor cores, 64-row tiles with two stages where N <= 128,
+    else 32-row tiles with one (N <= 384), the first that fits in shared
+    memory; float32, and bf16 that fits neither, on the CUDA cores."""
+    if dtype == torch.bfloat16:
+        for rows, stages, max_n in MMA_TILINGS:
+            smem = _mma_smem(N, Q, rows, stages)
+            if N <= max_n and smem <= SMEM_LIMIT:
+                return SSDBwdPlan("mma", rows, stages, smem)
+    rows = 32 if _cuda_cores_smem(N, Q, 32) <= SMEM_LIMIT else 16
+    return SSDBwdPlan("cuda_cores", rows, 1, _cuda_cores_smem(N, Q, rows))
 
 
 def _running_sum(x):
@@ -316,7 +394,8 @@ def ssd_chunk_scan_bwd_cuda(q, k, v, log_a, log_i, m, saved, final_m, dy,
     and the final log-max ``final_m``, for the gradients ``dy`` of y_num and
     ``dden`` of den (None: zero).  ``fresh``: the forward started from a
     zero state.  dq, dk, dv come dense in the input type (a head-broadcast
-    q or k gets its per-head gradient), the gate gradients float32.
+    q or k gets its per-head gradient), the gate gradients float32.  The
+    route is ``ssd_bwd_plan``'s: a bf16 call that cannot take it raises.
     Raises on anything the kernel does not take; never falls back."""
     B, S, H, N = q.shape
     Pv = v.shape[-1]
@@ -340,25 +419,32 @@ def ssd_chunk_scan_bwd_cuda(q, k, v, log_a, log_i, m, saved, final_m, dy,
                 t.is_contiguous() and t.dtype == torch.float32
                 and t.device == dev for t in (m, final_m) + tuple(saved)):
         raise ValueError("the saved forward state does not match the scan")
-    ntiles = -(-Pv // 64)
-    dq_part = torch.empty((ntiles, B, S, H, N), **f32)
-    dk_part = torch.empty((ntiles, B, S, H, N), **f32)
-    dLa_part = torch.empty((ntiles, B, S, H), **f32)
-    dli_part = torch.empty((ntiles, B, S, H), **f32)
+    plan = ssd_bwd_plan(q.dtype, N, Pv, Q)
+    if plan.smem > SMEM_LIMIT:
+        raise ValueError(f"ssd_chunk_scan_bwd: no route fits N {N}, chunk "
+                         f"{Q} in a block's shared memory ({plan})")
+    ntiles = -(-Pv // _P_TILE)
+    # partials: every CUDA-core launch, and the mma route's P tiles
+    parts = (torch.empty((ntiles, B, S, H, N), **f32),
+             torch.empty((ntiles, B, S, H, N), **f32),
+             torch.empty((ntiles, B, S, H), **f32),
+             torch.empty((ntiles, B, S, H), **f32)) \
+        if plan.route == "cuda_cores" or ntiles > 1 else (None,) * 4
     dq = torch.empty((B, S, H, N), dtype=q.dtype, device=dev)
     dk = torch.empty((B, S, H, N), dtype=q.dtype, device=dev)
     dv = torch.empty((B, S, H, Pv), dtype=q.dtype, device=dev)
     dla = torch.empty((B, S, H), **f32)
     dli = torch.empty((B, S, H), **f32)
-    BWD_KERNEL.launch(_DTYPES[q.dtype], *_strided(q), *_strided(k),
+    BWD_KERNEL.launch(plan.kind(q.dtype), *_strided(q), *_strided(k),
                       *_strided(v), *_strided(log_a), *_strided(log_i),
                       m.data_ptr(), *(t.data_ptr() for t in saved),
                       final_m.data_ptr(), int(bool(fresh)), dy.data_ptr(),
                       None if dden is None else dden.data_ptr(),
-                      dv.data_ptr(), dq_part.data_ptr(), dk_part.data_ptr(),
-                      dLa_part.data_ptr(), dli_part.data_ptr(), dq.data_ptr(),
-                      dk.data_ptr(), dla.data_ptr(), dli.data_ptr(), B, S, H,
-                      N, Pv, Q, pad, raw_stream(q))
+                      dv.data_ptr(),
+                      *(None if t is None else t.data_ptr() for t in parts),
+                      dq.data_ptr(), dk.data_ptr(), dla.data_ptr(),
+                      dli.data_ptr(), B, S, H, N, Pv, Q, pad, raw_stream(q))
+    BWD_ROUTE_LAUNCHES[plan.route] += 1
     return dq, dk, dv, dla, dli
 
 

@@ -85,7 +85,7 @@ def main(argv=None):
     print(f"{args.steps} steps in {dt:.2f}s ({dt / args.steps * 1e3:.1f} "
           f"ms/step, {tokens / dt:.0f} tokens/s)")
     if args.save:
-        save(args.save, res["params"], step=args.steps)
+        save(args.save, res["params"], step=args.steps, cfg=cfg)
         print(f"saved to {args.save}")
     return {"history": res["history"], "params": res["params"],
             "seconds": dt, "steps": args.steps, "tokens": tokens}

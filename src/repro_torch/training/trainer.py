@@ -34,6 +34,15 @@ def make_train_step(model, opt: AdamW, *, loss_fn: Optional[Callable] = None,
         train_p = T.replace(params, [t.detach().requires_grad_(True)
                                      for t in T.tensors(params)])
         leaves = T.tensors(train_p)
+        if not leaves:
+            # an empty tree (LoRA on an edge with no attention matrices):
+            # JAX's update of it moves nothing, counts the step and reports
+            # sqrt of an empty sum, 0
+            with torch.no_grad():
+                loss = _loss(params, batch)
+            gnorm = loss.new_zeros((), dtype=torch.float32)
+            return params, opt_state._replace(step=opt_state.step + 1), {
+                "loss": loss, "grad_norm": gnorm}
         with torch.enable_grad():
             loss = _loss(train_p, batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)

@@ -1201,6 +1201,72 @@ def test_ssd_bwd_counts_launches_and_never_runs_plain(cuda):
         ops.ssd_chunk_scan(q, k, v, la, li, chunk=16, state=st)
 
 
+@pytest.mark.parametrize("B,S,H,N,P,chunk,bc,form", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_runs_the_planned_route(cuda, B, S, H, N, P, chunk, bc,
+                                        form, dtype):
+    """Each backward launch takes ``ssd_bwd_plan``'s route: the tensor
+    cores (``mma``) for bf16 at every shape here, the CUDA cores for
+    float32; the route counter and the kernel's own counter agree."""
+    from repro_torch.kernels.ssd_scan import ssd_bwd_plan
+    want = "mma" if dtype == torch.bfloat16 else "cuda_cores"
+    assert ssd_bwd_plan(dtype, N, P, min(chunk, S)).route == want
+    leaves, R = _ssd_bwd_case(B, S, H, N, P, bc, cuda, dtype)
+    ops.reset_launch_counts()
+    _ssd_grads(ops.ssd_chunk_scan, leaves, R, chunk, form)
+    c = ops.launch_counts()
+    assert c["ssd_chunk_scan_bwd"] == c[f"ssd_chunk_scan_bwd/{want}"] == 1
+    assert sum(c[f"ssd_chunk_scan_bwd/{r}"] for r in ("mma", "cuda_cores")) \
+        == 1
+
+
+# bf16 shapes whose plan is not the trainers': a chunk too long for the
+# 64-row tiling (N 128, Q 512: 32-row tiles, one stage) and one too long
+# for either (Q 1024: the CUDA cores, 32-row tiles; a state wider than 384,
+# the other way past the tilings, is one the forward does not take in
+# bf16), with the (route, rows) the plan must give; same tolerance as
+# SSD_BWD_SHAPES
+SSD_BWD_OTHER_ROUTES = [((2, 600, 2, 128, 64, 512, True, "mamba"),
+                         ("mma", 32)),
+                        ((1, 1100, 2, 128, 64, 1024, True, "mamba"),
+                         ("cuda_cores", 32))]
+
+
+@pytest.mark.parametrize("shape,route", SSD_BWD_OTHER_ROUTES)
+def test_ssd_bwd_other_routes_match_plain_autograd(cuda, shape, route):
+    """Every route the plan can give bf16 runs on the card and meets the
+    tolerance: the two the trainers take are above, these the others."""
+    from repro_torch.kernels.ssd_scan import ssd_bwd_plan
+    B, S, H, N, P, chunk, bc, form = shape
+    plan = ssd_bwd_plan(torch.bfloat16, N, P, min(chunk, S))
+    assert (plan.route, plan.rows) == route
+    leaves, R = _ssd_bwd_case(B, S, H, N, P, bc, cuda, torch.bfloat16)
+    ops.reset_launch_counts()
+    got = _ssd_grads(ops.ssd_chunk_scan, leaves, R, chunk, form)
+    c = ops.launch_counts()
+    assert c["ssd_chunk_scan_bwd"] == c[f"ssd_chunk_scan_bwd/{route[0]}"] \
+        == 1
+    ref = _ssd_grads(ssd_chunk_scan_plain, leaves, R, chunk, form)
+    for name, a, b in zip(("q", "k", "v", "log_a", "log_i"), got, ref):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= SSD_BWD_TOL[torch.bfloat16], name
+
+
+def test_ssd_bwd_plan_smem_is_the_launchers(cuda):
+    """``ssd_bwd_plan``'s host copy of the shared-memory layouts gives the
+    bytes the C launcher computes, for every tiling of each route over the
+    state widths and chunk lengths the kernels take."""
+    from repro_torch.kernels import ssd_scan as K
+    smem = K.BWD_SMEM.load()
+    for N in (16, 64, 96, 128, 256, 384, 448):
+        for Q in (32, 64, 128, 256, 512):
+            for rows, stages, _ in K.MMA_TILINGS:
+                assert K._mma_smem(N, Q, rows, stages) == smem(
+                    2 if rows == 64 else 3, rows, N, Q), (N, Q, rows)
+            for rows in (32, 16):
+                assert K._cuda_cores_smem(N, Q, rows) == smem(0, rows, N, Q)
+
+
 # every family trains on the kernels: Model.loss and its gradients against
 # attn_backend="plain" at float32 (reduced widths, 2 layers, a ragged 44
 # tokens over chunks of 8: loss 1e-5, gradients 1e-4 of max(1, max
