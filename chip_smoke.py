@@ -44,7 +44,18 @@ the first phase that fails:
    bfloat16, the trainer's mamba2-370m, xlstm-125m and zamba2-2.7b shapes
    at batch 8 and seq 256, front-padded ragged lengths, 2048-token
    prompts), bit-identical across two runs, and timed alone against the
-   plain autograd's backward alone;
+   plain autograd's backward alone; then the stub-input families' reads
+   (``check_stub_family_shapes``): the flash forward and backward with
+   ``prefix_len`` at paligemma-3b's prefill (8 heads on one kv head, hd
+   256, 256 + 16 rows) and training shape (512 rows), non-causal at
+   whisper-small's encoder (1500 frames) and cross attention (16 and 256
+   decoder rows against 1500), the dense decode at paligemma's decode
+   shape and as whisper's 1500-row cross attention, the paged decode at
+   paligemma's heads (also at its paged extend: one row per new token),
+   and the tree verify at both families' 4-token linear extends (a causal
+   block mask), each held against its plain version (float32 and
+   bfloat16) and timed against SDPA (given the same boolean mask) with
+   bounds from the visible pairs;
 3. serve seven paths at full width — granite-8b cloud, bfloat16, seeded
    random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
    SpeculativePolicy(0.6), T = 0: with the smollm-135m edge the default
@@ -73,22 +84,41 @@ the first phase that fails:
    must take the wgmma route; ``launch/train.py`` on granite-moe-1b-a400m,
    mamba2-370m, xlstm-125m and zamba2-2.7b (batch 8 — halved while it
    does not fit, the cut printed —, seq 256, 10 steps) and mamba2-370m
-   with ``--remat``, each loss falling and every scan and attention layer
+   with ``--remat``, then whisper-small (batch 8, seq 256) and
+   paligemma-3b (batch 8, seq 512: 256 image rows + 256 text tokens),
+   each loss falling and every scan and attention layer
    launching its forward and backward kernels in every step; a profiled
    training step of smollm-135m and of mamba2-370m; and one float32 train
    step through the kernels against
    the plain versions (2 layers, full width: smollm-135m, mamba2-370m,
-   xlstm-125m);
+   xlstm-125m); between serving and learning the stub-input families
+   through the ``Model`` API at full width (bfloat16, batch 8, seeded
+   random weights, random-normal stub inputs; the serving engine does not
+   serve them): whisper-small (``[encdec]``: frames (8, 1500, 768)) and
+   paligemma-3b (``[vlm]``: embeds (8, 256, 2048)) each prefill a
+   16-token prompt, take 24 greedy decode steps and one 4-token extend,
+   with ms per token, host issue against device busy, peak memory and
+   exact launch counts (the flash kernel on every prefill read and the
+   extend's cross attention, the dense decode kernel on every decode
+   read, the tree-verify kernel on the extend's self attention under a
+   causal block mask); paligemma also a text-only paged extend + 8 paged
+   decode steps (the paged-decode kernel on every read) and split
+   inference at k = 9 (identity bit-equal to the unsplit
+   forward; an int8 boundary's wire bytes and logit error);
 4. serve each path again at float32, full width, cut depth (2 layers per
    model; xLSTM 4, zamba2 6 — one whole shared-attention group), plus the
    moe edge on the tree lane, the mamba2 path with chunked prefill and
    the per-request phase (self exit layer 1), once on the kernels
    (``attn_backend="auto"``) and once on the plain versions (``"plain"``);
    the traces must agree, a divergence being excused (and reported) only
-   where the plain model's top-2 logit gap is below 1e-4;
+   where the plain model's top-2 logit gap is below 1e-4; then whisper-small
+   and paligemma-3b at float32, full width, 2 layers (and a 2-layer
+   encoder): the Model-API run on the kernels against the plain versions
+   teacher-forced on its tokens (logits within 1e-4) and one train step;
 5. print the card's name and power limit, a ``{"kernels": [...]}`` line
    (launches summed over the seven served paths, the per-request phase,
-   the two adaptation paths and the seven training runs; the flash
+   the encdec and vlm paths, the two adaptation paths and the nine
+   training runs; the flash
    backward's also per route) and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -301,7 +331,7 @@ PAGED_LONG = (128, (3968, 4097))
 PAGED_MOE = dict(MB=3, lengths=(15, 46), Kv=8, G=2)
 
 
-def paged_timing(K, gen, MB=3, lengths=(15, 46), Kv=3, G=3):
+def paged_timing(K, gen, MB=3, lengths=(15, 46), Kv=3, G=3, hd=64):
     """Kernel, plain and yardstick times of the bf16 paged decode (no
     window), per call and on the device, with the bound.  The yardstick is
     SDPA on the cache gathered through the table beforehand (contiguous,
@@ -309,7 +339,7 @@ def paged_timing(K, gen, MB=3, lengths=(15, 46), Kv=3, G=3):
     not a PyTorch call computing the paged read itself."""
     import torch
     import torch.nn.functional as F
-    q, kp, vp, table, length = _paged_inputs(torch.bfloat16, gen, 64, MB,
+    q, kp, vp, table, length = _paged_inputs(torch.bfloat16, gen, hd, MB,
                                              lengths, Kv, G)
     B, Kv, G, hd = q.shape
     bs = kp.shape[1]
@@ -480,10 +510,11 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
 
-def _attn_grads(fn, q, k, v, dout, window=0):
+def _attn_grads(fn, q, k, v, dout, causal=True, **kw):
+    """(dq, dk, dv) of ``fn(q, k, v, causal=causal, **kw)`` for ``dout``."""
     import torch
     q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out = fn(q, k, v, causal=True, window=window)
+    out = fn(q, k, v, causal=causal, **kw)
     return torch.autograd.grad(out, (q, k, v), dout)
 
 
@@ -580,8 +611,10 @@ def check_flash_bwd(gen):
             q = _proj_view((B, H, S, hd), dtype, gen)
             k, v = (_proj_view((B, Kv, S, hd), dtype, gen) for _ in range(2))
             dout = _proj_view((B, H, S, hd), dtype, gen)
-            got = _attn_grads(ops.flash_attention, q, k, v, dout, window)
-            ref = _attn_grads(K.flash_attention_plain, q, k, v, dout, window)
+            got = _attn_grads(ops.flash_attention, q, k, v, dout,
+                              window=window)
+            ref = _attn_grads(K.flash_attention_plain, q, k, v, dout,
+                              window=window)
             with torch.no_grad():
                 _, lse = K.flash_attention_cuda(q, k, v, causal=True,
                                                 window=window,
@@ -907,17 +940,18 @@ def _tree_visible(length, mask, S):
 TREE_LONG_S, TREE_LONG_BASE = 1024, (984, 1008)
 
 
-def _tree_timing(K, S, base, gen, B=8, tree=None):
+def _tree_timing(K, S, base, gen, B=8, tree=None, heads=(8, 4, 128)):
     """Kernel, plain and SDPA times of the cloud's one-shot verify (granite
-    heads, bf16) of B slots over an S-position cache, per call and on the
-    device; the 2-wide depth-4 plan, or ``tree`` = (mask, depths)."""
+    heads (Kv, G, hd), or ``heads``, bf16) of B slots over an S-position
+    cache, per call and on the device; the 2-wide depth-4 plan, or
+    ``tree`` = (mask, depths)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.tree_speculation import TreePlan, branching_for
     if tree is None:
         plan = TreePlan(branching_for(2, 4))
         tree = (plan.mask, plan.depths)
-    Kv, G, hd = 8, 4, 128
+    Kv, G, hd = heads
     q, k, v, length, mask, q_pos = _tree_inputs(B, Kv, G, S, hd, 0,
                                                 len(tree[1]), torch.bfloat16,
                                                 gen, base, tree)
@@ -1328,9 +1362,275 @@ def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return [check_paged(gen), check_flash(gen), check_spec_verify(gen),
+    rows = [check_paged(gen), check_flash(gen), check_spec_verify(gen),
             check_tree(gen), check_decode(gen), check_ssd(gen),
             check_flash_bwd(gen), check_ssd_bwd(gen)]
+    check_stub_family_shapes(gen, {r["name"]: r for r in rows})
+    return rows
+
+
+# ------------------------------------------------------------- phase 2b
+# The stub-input families' attention (paligemma-3b: vlm, whisper-small:
+# encdec), (label, B, H, Kv, Sq, Sk, hd, causal, prefix): paligemma's
+# prefill (8 heads on one kv head, hd 256, the 256-row image prefix and 16
+# text tokens, prefix-LM), whisper's encoder over 1500 frames and its
+# cross attention from a 16-token prompt (non-causal, Sq != Sk); the
+# backward also at the trainers' shapes (paligemma seq 512, whisper's 256
+# decoder rows against the encoder)
+STUB_FLASH = (("prefix", 8, 8, 1, 272, 272, 256, True, 256),
+              ("encoder", 8, 12, 12, 1500, 1500, 64, False, 0),
+              ("cross", 8, 12, 12, 16, 1500, 64, False, 0))
+STUB_FLASH_BWD = STUB_FLASH + (
+    ("prefix_train", 8, 8, 1, 512, 512, 256, True, 256),
+    ("cross_train", 8, 12, 12, 256, 1500, 64, False, 0))
+# dense decode, (label, Kv, G, hd, S, lengths): whisper's cross attention
+# (every row's length the 1500 encoder rows) and paligemma's decode over
+# the 256 + 16-row prompt and 24 new tokens; paged decode at paligemma's
+# heads over the serving shape's 3-block tables
+STUB_DECODE = (("cross", 12, 1, 64, 1500, (1500, 1501)),
+               ("vlm", 1, 8, 256, 320, (272, 301)))
+PAGED_VLM = dict(MB=3, lengths=(15, 46), Kv=1, G=8, hd=256)
+# the 4-token linear extends of the [encdec] and [vlm] paths on the
+# tree-verify kernel under a causal (4, 4) block mask, (label, B, Kv, G, S,
+# hd, length): whisper's decoder cache (16 prompt + 24 decoded of 48) and
+# paligemma's (256 + 16 + 24 of 304)
+STUB_EXTEND = (("encdec", 8, 12, 1, 48, 64, 40),
+               ("vlm", 8, 1, 8, 304, 256, 296))
+# the vlm paged extend of the 16-token prompt: one paged-decode row per new
+# token, (B, T, bs, MB)
+PAGED_VLM_EXTEND = (8, 16, 32, 2)
+
+
+def _visible(Sq, Sk, causal, prefix):
+    """(Sq, Sk) bool: key j visible to query i (the kernels' mask)."""
+    import torch
+    i = torch.arange(Sq, device="cuda")[:, None]
+    j = torch.arange(Sk, device="cuda")[None, :]
+    if not causal:
+        return torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    return (j <= i) | (j < prefix)
+
+
+def _stub_flash_inputs(case, dtype, gen):
+    _, B, H, Kv, Sq, Sk, hd, _, _ = case
+    q, dout = (_proj_view((B, H, Sq, hd), dtype, gen) for _ in range(2))
+    k, v = (_proj_view((B, Kv, Sk, hd), dtype, gen) for _ in range(2))
+    return q, k, v, dout
+
+
+def _stub_flash_timing(K, case, gen):
+    """Forward (kernel against SDPA on the same inputs, SDPA given the
+    same boolean mask where there is a prefix) and backward (the kernel
+    alone against SDPA's backward alone, then forward + backward of both)
+    at one stub-family shape, bf16; bounds from the visible pairs."""
+    import torch
+    import torch.nn.functional as F
+    label, B, H, Kv, Sq, Sk, hd, causal, prefix = case
+    q, k, v, dout = _stub_flash_inputs(case, torch.bfloat16, gen)
+    vis = _visible(Sq, Sk, causal, prefix)
+    mask = vis if causal else None
+    kw = dict(causal=causal, prefix_len=prefix)
+    pairs = int(vis.sum()) * B * H
+    fwd_bytes = 2 * (2 * B * H * Sq * hd + 2 * B * Kv * Sk * hd)
+    out = {"shape": f"(B,H,Kv,Sq,Sk,hd)={(B, H, Kv, Sq, Sk, hd)} causal="
+                    f"{causal} prefix={prefix}"}
+    ms, dev, lib, lib_dev = paired_ms(
+        lambda: K.flash_attention_cuda(q, k, v, **kw),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               enable_gqa=True))
+    plain = time_ms(lambda: K.flash_attention_plain(q, k, v, **kw), reps=10)
+    bnd, by = bound_ms(fwd_bytes, 4 * pairs * hd, "bfloat16")
+    out["forward"] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
+                      "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+                      "library_device_ms": lib_dev}
+    with torch.no_grad():
+        o, lse = K.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(side)
+    bms, bdev, blib, blib_dev = paired_ms(
+        lambda: K.flash_attention_bwd_cuda(q, k, v, o, lse, dout, **kw),
+        lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), dout,
+                                    retain_graph=True),
+        library_stream=side)
+    del o_sdpa
+    def sdpa(a, b, c, **_):
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                              enable_gqa=True)
+
+    fb, fb_dev, fb_lib, fb_lib_dev = paired_ms(
+        lambda: _attn_grads(K.flash_attention_kernel, qg, kg, vg, dout,
+                            **kw),
+        lambda: _attn_grads(sdpa, qg, kg, vg, dout))
+    bplain = time_ms(lambda: _attn_grads(K.flash_attention_plain, q, k, v,
+                                         dout, **kw), reps=5)
+    nb = 2 * (4 * B * H * Sq * hd + 4 * B * Kv * Sk * hd) + 4 * B * H * Sq
+    bbnd, bby = bound_ms(nb, 5 * 2 * pairs * hd, "bfloat16")
+    out["backward"] = {"ms": bms, "device_ms": bdev, "plain_ms": bplain,
+                       "bound_ms": bbnd, "bound_by": bby, "library_ms": blib,
+                       "library_device_ms": blib_dev, "fwd_bwd_ms": fb,
+                       "fwd_bwd_device_ms": fb_dev, "sdpa_fwd_bwd_ms": fb_lib,
+                       "sdpa_fwd_bwd_device_ms": fb_lib_dev,
+                       "route": K.flash_bwd_plan(torch.bfloat16, hd, H // Kv,
+                                                 Sq, Sk, causal, 0,
+                                                 prefix).route}
+    f, b = out["forward"], out["backward"]
+    print(f"[kernel] stub-family flash timing {label} {out['shape']} "
+          f"bfloat16: forward {f['ms']:.4f} ms per call, {f['device_ms']:.4f}"
+          f" ms on the device, SDPA {f['library_ms']:.4f} / "
+          f"{f['library_device_ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, "
+          f"bound {f['bound_ms']:.6f} ms ({f['bound_by']}); backward "
+          f"({b['route']}) {b['ms']:.4f} / {b['device_ms']:.4f} ms, SDPA "
+          f"backward {b['library_ms']:.4f} / {b['library_device_ms']:.4f} ms,"
+          f" bound {b['bound_ms']:.6f} ms ({b['bound_by']}); forward + "
+          f"backward {fb:.4f} / {fb_dev:.4f} ms, SDPA {fb_lib:.4f} / "
+          f"{fb_lib_dev:.4f} ms; plain forward + backward {bplain:.4f} ms",
+          flush=True)
+    return out
+
+
+def check_stub_family_shapes(gen, rows):
+    """The flash forward and backward with ``prefix_len``, non-causal with
+    Sq != Sk and at hd 256, and the dense and paged decode at paligemma's
+    heads and whisper's 1500-row cross attention, each against its plain
+    version (float32 and bfloat16, the tolerances of the rows above) and
+    timed; the timings go into the rows of ``flash_attention``,
+    ``flash_attention_bwd``, ``decode_attention`` and
+    ``paged_decode_attention``."""
+    import torch
+    from repro_torch.kernels import decode_attention as D
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ops
+    ferr, berr = [], []
+    for case in STUB_FLASH_BWD:
+        label, B, H, Kv, Sq, Sk, hd, causal, prefix = case
+        kw = dict(causal=causal, prefix_len=prefix)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            name = str(dtype)[6:]
+            q, k, v, dout = _stub_flash_inputs(case, dtype, gen)
+            if case in STUB_FLASH:
+                err = max_err(K.flash_attention_cuda(q, k, v, **kw),
+                              K.flash_attention_plain(q, k, v, **kw))
+                print(f"[kernel] flash_attention {name} {label} (B,H,Kv,Sq,"
+                      f"Sk,hd)={(B, H, Kv, Sq, Sk, hd)} causal={causal} "
+                      f"prefix={prefix}: max_abs_err={err:.3e} (tol {tol:g})",
+                      flush=True)
+                check(err <= tol, f"flash_attention {name} {label}: error "
+                                  f"{err}")
+                ferr.append(err)
+            got = _attn_grads(ops.flash_attention, q, k, v, dout, **kw)
+            ref = _attn_grads(K.flash_attention_plain, q, k, v, dout, **kw)
+            err = max(max_err(a, b) for a, b in zip(got, ref))
+            scale = max(1.0, max(float(r.float().abs().max()) for r in ref))
+            print(f"[kernel] flash_attention_bwd {name} {label} (B,H,Kv,Sq,"
+                  f"Sk,hd)={(B, H, Kv, Sq, Sk, hd)} causal={causal} prefix="
+                  f"{prefix}: max_abs_err {err:.3e} (tol {BWD_TOL[name]:g} x "
+                  f"{scale:.2f})", flush=True)
+            check(err <= BWD_TOL[name] * scale,
+                  f"flash_attention_bwd {name} {label}: error {err}")
+            berr.append(err)
+            del got, ref, q, k, v, dout
+    for case in STUB_FLASH_BWD:
+        t = _stub_flash_timing(K, case, gen)
+        if case in STUB_FLASH:
+            rows["flash_attention"][case[0]] = {"shape": t["shape"],
+                                                **t["forward"]}
+        rows["flash_attention_bwd"][case[0]] = {"shape": t["shape"],
+                                                **t["backward"]}
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], *ferr)
+    rows["flash_attention_bwd"]["max_abs_err"] = max(
+        rows["flash_attention_bwd"]["max_abs_err"], *berr)
+    derr = []
+    for (dtype, tol), (label, Kv, G, hd, S, lengths) in itertools.product(
+            ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)), STUB_DECODE):
+        q = torch.randn((8, Kv, G, hd), generator=gen, device="cuda") \
+            .to(dtype)
+        k, v = (_dense_view((8, Kv, S, hd), dtype, gen) for _ in range(2))
+        length = torch.randint(*lengths, (8,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        err = max_err(D.decode_attention_cuda(q, k, v, length),
+                      D.decode_attention_plain(q, k, v, length))
+        print(f"[kernel] decode_attention {str(dtype)[6:]} {label} (B,Kv,G,"
+              f"hd,S)={(8, Kv, G, hd, S)}: max_abs_err={err:.3e} (tol "
+              f"{tol:g})", flush=True)
+        check(err <= tol, f"decode_attention {dtype} {label}: error {err}")
+        derr.append(err)
+    for label, (Kv, G, hd, S, lengths) in ((c[0], c[1:]) for c in
+                                           STUB_DECODE):
+        rows["decode_attention"][label] = decode_timing(D, gen, Kv, G, hd, S,
+                                                        lengths)
+    rows["decode_attention"]["max_abs_err"] = max(
+        rows["decode_attention"]["max_abs_err"], *derr)
+    perr = []
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q, kp, vp, table, length = _paged_inputs(
+            dtype, gen, PAGED_VLM["hd"], PAGED_VLM["MB"],
+            PAGED_VLM["lengths"], PAGED_VLM["Kv"], PAGED_VLM["G"])
+        err = max_err(D.paged_decode_attention_cuda(q, kp, vp, table, length),
+                      D.paged_decode_attention_plain(q, kp, vp, table,
+                                                     length))
+        print(f"[kernel] paged_decode_attention {str(dtype)[6:]} vlm hd=256 "
+              f"Kv=1 G=8 MB=3: max_abs_err={err:.3e} (tol {tol:g})",
+              flush=True)
+        check(err <= tol, f"paged_decode_attention {dtype} vlm: error {err}")
+        perr.append(err)
+        B, T, bs, MB = PAGED_VLM_EXTEND
+        q, kp, vp, table, _ = _paged_inputs(dtype, gen, 256, MB, (1, 2), 1,
+                                            8)
+        q = torch.randn((B * T, 1, 8, 256), generator=gen,
+                        device="cuda").to(dtype)
+        table = table.repeat_interleave(T, 0)
+        length = torch.arange(1, T + 1, dtype=torch.int32,
+                              device="cuda").repeat(B)
+        err = max_err(D.paged_decode_attention_cuda(q, kp, vp, table, length),
+                      D.paged_decode_attention_plain(q, kp, vp, table,
+                                                     length))
+        print(f"[kernel] paged_decode_attention {str(dtype)[6:]} vlm paged "
+              f"extend (B*T,Kv,G,hd,bs,MB)={(B * T, 1, 8, 256, bs, MB)}: "
+              f"max_abs_err={err:.3e} (tol {tol:g})", flush=True)
+        check(err <= tol, f"paged_decode_attention {dtype} vlm extend: "
+                          f"error {err}")
+        perr.append(err)
+    rows["paged_decode_attention"]["vlm"] = {
+        "shape": "(B,Kv,G,hd,bs,MB)=(8, 1, 8, 256, 32, 3)",
+        **paged_timing(D, gen, **PAGED_VLM)}
+    rows["paged_decode_attention"]["max_abs_err"] = max(
+        rows["paged_decode_attention"]["max_abs_err"], *perr)
+    check_stub_extends(gen, rows["tree_verify_attention"])
+
+
+def check_stub_extends(gen, row):
+    """The tree-verify kernel at the [encdec] and [vlm] paths' 4-token
+    linear extends (``STUB_EXTEND``, a causal block mask) against its
+    plain version, float32 and bfloat16, and timed; into ``row``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import tree_attention as K
+    tree = (np.tril(np.ones((4, 4), bool)), np.arange(4))
+    errs = []
+    for (dtype, tol), (label, B, Kv, G, S, hd, n) in itertools.product(
+            ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)), STUB_EXTEND):
+        args = _tree_inputs(B, Kv, G, S, hd, 0, 4, dtype, gen, (n, n + 1),
+                            tree)
+        err = max_err(K.tree_verify_attention_cuda(*args),
+                      K.tree_verify_attention_plain(*args))
+        print(f"[kernel] tree_verify_attention {str(dtype)[6:]} {label} "
+              f"linear extend (B,Kv,G,N,S,hd)={(B, Kv, G, 4, S, hd)}: "
+              f"max_abs_err={err:.3e} (tol {tol:g})", flush=True)
+        check(err <= tol, f"tree_verify_attention {dtype} {label} extend: "
+                          f"error {err}")
+        errs.append(err)
+    for label, B, Kv, G, S, hd, n in STUB_EXTEND:
+        row[f"{label}_extend"] = {
+            "shape": f"(B,Kv,G,N,S,hd)={(B, Kv, G, 4, S, hd)} causal (4, 4)",
+            **_tree_timing(K, S, (n, n + 1), gen, B=B, tree=tree,
+                           heads=(Kv, G, hd))}
+    row["max_abs_err"] = max(row["max_abs_err"], *errs)
 
 
 # --------------------------------------------------------------- phase 3
@@ -1955,15 +2255,20 @@ def _train_runs():
 # plain scan ran under grad, and the flash kernels once per attention layer
 FAMILY_TRAIN = (("granite-moe-1b-a400m", False), ("mamba2-370m", False),
                 ("xlstm-125m", False), ("zamba2-2.7b", False),
-                ("mamba2-370m", True))
+                ("mamba2-370m", True), ("whisper-small", False),
+                ("paligemma-3b", False))
 FAMILY_STEPS = 10
+# rows per batch row where it is not 256: paligemma-3b's 256 image rows +
+# 256 text tokens
+FAMILY_SEQ = {"paligemma-3b": 512}
 
 
 def _layer_counts(cfg):
-    """(scan layers, attention layers) of one forward of ``cfg``."""
+    """(scan layers, attention reads) of one forward of ``cfg``."""
     from repro_torch.models.xlstm import is_slstm
     L = cfg.num_layers
-    return {"dense": (0, L), "moe": (0, L), "ssm": (L, 0),
+    return {"dense": (0, L), "moe": (0, L), "vlm": (0, L), "ssm": (L, 0),
+            "encdec": (0, cfg.encoder_layers + 2 * L),
             "xlstm": (sum(not is_slstm(cfg, l) for l in range(L)), 0),
             "hybrid": (L, L // max(1, cfg.shared_attn_every))}[cfg.family]
 
@@ -1986,7 +2291,7 @@ def _family_train_runs():
             try:
                 res = train_main(["--arch", arch, "--steps",
                                   str(FAMILY_STEPS), "--batch", str(batch),
-                                  "--seq", "256"]
+                                  "--seq", str(FAMILY_SEQ.get(arch, 256))]
                                  + (["--remat"] if remat else []))
                 break
             except torch.cuda.OutOfMemoryError:
@@ -2015,7 +2320,8 @@ def _family_train_runs():
               and launches["flash_attention_bwd"] == n_attn * steps,
               f"trainer {label}: flash launches {launches} for {n_attn} "
               f"attention layers x {steps} steps")
-        print(f"[learn] trainer {label} (batch {batch}, seq 256, {steps} "
+        print(f"[learn] trainer {label} (batch {batch}, seq "
+              f"{FAMILY_SEQ.get(arch, 256)}, {steps} "
               f"steps): loss {h[0][1]:.4f} -> {h[-1][1]:.4f}; "
               f"{res['seconds'] / steps * 1e3:.1f} ms/step, "
               f"{res['tokens'] / res['seconds']:.0f} tokens/s; "
@@ -2024,6 +2330,193 @@ def _family_train_runs():
         del res
         out.append(launches)
     return out
+
+
+# --------------------------------------------------------------- phase 3b
+# The stub-input families through the Model API at full width, bfloat16,
+# batch 8, seeded random weights and random-normal stub inputs (the
+# serving engine prefills with tokens alone and does not serve them, as in
+# the JAX package): a 16-token prompt, STUB_NEW greedy decode steps and one
+# 4-token extend; for paligemma-3b also a text-only paged extend + 8 paged
+# decode steps and split inference at k = 9 with an int8 boundary
+STUB_NEW = 24
+STUB_PROMPT = 16
+
+
+def _self_dev(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _step_breakdown(fn, reps=5):
+    """(host issue ms, stream span ms, device busy ms) of one call of
+    ``fn``: ``_host_device_ms``, then a profiler pass for the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    host, span = _host_device_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return host, span, sum(_self_dev(e) for e in prof.key_averages()) \
+        / 1e3 / reps
+
+
+def _stub_run(m, p, batch, label):
+    """Prefill, STUB_NEW greedy decode steps and one 4-token extend of the
+    last four tokens, each timed on the host clock around a synchronise;
+    the logits are checked finite and shaped.  Returns (the greedy tokens
+    (B, STUB_NEW), (prefill, decode, extend) seconds)."""
+    import torch
+    V = m.cfg.vocab_size
+    B = batch["tokens"].shape[0]
+    sync = torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    lg, cache = m.prefill(p, batch, max_seq=batch["tokens"].shape[1]
+                          + (m.cfg.num_image_tokens if "embeds" in batch
+                             else 0) + STUB_NEW + 8)
+    sync()
+    t1 = time.perf_counter()
+    toks = []
+    for _ in range(STUB_NEW):
+        check(lg.shape == (B, V) and bool(torch.isfinite(lg).all()),
+              f"{label}: logits {tuple(lg.shape)} not finite (B, V)")
+        tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        toks.append(tok)
+        lg, cache = m.decode_step(p, tok, cache)
+    sync()
+    t2 = time.perf_counter()
+    ext, cache = m.extend_step(p, torch.cat(toks[-4:], 1), cache)
+    sync()
+    t3 = time.perf_counter()
+    check(ext.shape == (B, 4, V) and bool(torch.isfinite(ext).all()),
+          f"{label}: extend logits not finite (B, 4, V)")
+    toks = torch.cat(toks, 1)
+    check(bool(((toks >= 0) & (toks < V)).all()), f"{label}: bad token")
+    return toks, (t1 - t0, t2 - t1, t3 - t2)
+
+
+def _stub_family(arch, stub_shape):
+    """One stub-input family's Model-API path at full width; returns the
+    run's kernel launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    cfg = get_config(arch)
+    m = Model(cfg)
+    p = _init(cfg, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B = 8
+    key = "frames" if cfg.family == "encdec" else "embeds"
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, STUB_PROMPT),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             key: torch.randn((B,) + stub_shape, generator=gen,
+                              device="cuda").to(torch.bfloat16)}
+    _stub_run(m, p, batch, arch)                  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    toks, (tp, td, te) = _stub_run(m, p, batch, arch)
+    launches = ops.launch_counts()
+    L = cfg.num_layers
+    # the extend's self attention reads the tree-verify kernel under a
+    # causal block mask
+    if cfg.family == "encdec":
+        # encoder + decoder self + cross (prefill), cross (extend); every
+        # decode read, self and cross, on the dense decode kernel
+        want = {"flash_attention": cfg.encoder_layers + 3 * L,
+                "decode_attention": STUB_NEW * 2 * L,
+                "tree_verify_attention": L}
+    else:
+        want = {"flash_attention": L, "decode_attention": STUB_NEW * L,
+                "tree_verify_attention": L}
+    for k, n in want.items():
+        check(launches[k] == n, f"[{cfg.family}] {k}: {launches[k]} "
+                                f"launches, want {n}")
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    tok = toks[:, -1:]
+    _, cache = m.prefill(p, batch, max_seq=400)
+    host, span, busy = _step_breakdown(
+        lambda: m.decode_step(p, tok, cache))
+    print(f"[{cfg.family}] {arch} (batch {B}, {STUB_PROMPT}-token prompt, "
+          f"{key} {tuple(batch[key].shape)}, bfloat16): prefill {tp * 1e3:.1f}"
+          f" ms; {STUB_NEW} greedy decode steps {td / STUB_NEW * 1e3:.2f} ms "
+          f"per step ({B * STUB_NEW / td:.0f} tokens/s, "
+          f"{td / STUB_NEW / B * 1e3:.3f} ms per token); 4-token extend "
+          f"{te * 1e3:.1f} ms; one decode step: host issue {host:.2f} ms, "
+          f"stream span {span:.2f} ms, device busy {busy:.2f} ms; "
+          f"max_memory_allocated {mem:.2f} GiB; launches {launches}",
+          flush=True)
+    if cfg.family == "vlm":
+        launches = _vlm_paged_and_split(m, p, batch, launches)
+    del p, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _vlm_paged_and_split(m, p, batch, launches):
+    """paligemma-3b: a text-only paged extend of the prompt and 8 paged
+    decode steps (the paged-decode kernel at hd 256, Kv 1, G 8), then
+    split inference at k = 9 — identity (bit-equal to the unsplit forward)
+    and an int8 boundary (its wire bytes and logit error)."""
+    import torch
+    from repro_torch.core.compression import Int8Quantizer
+    from repro_torch.core.partition import split_inference
+    from repro_torch.kernels import ops
+    cfg = m.cfg
+    B, bs, MB = 8, 32, 2
+    ops.reset_launch_counts()
+    pc = m.init_paged_cache(B * MB + 1, bs, B, MB, device="cuda")
+    pc["table"] = torch.arange(1, B * MB + 1, device="cuda",
+                               dtype=torch.int32).reshape(B, MB)
+    lg, pc = m.paged_extend_step(p, batch["tokens"], pc)
+    lg = lg[:, -1]
+    for _ in range(8):
+        lg, pc = m.paged_decode_step(
+            p, torch.argmax(lg, -1).to(torch.int32)[:, None], pc)
+    torch.cuda.synchronize()
+    paged = ops.launch_counts()
+    # the extend reads one paged-decode row per new token: one launch a
+    # layer, then one a layer for each decode step
+    check(paged["paged_decode_attention"] == 9 * cfg.num_layers,
+          f"[vlm] paged extend + decode launches {paged}")
+    check(bool(torch.isfinite(lg).all()), "[vlm] paged logits not finite")
+    ops.reset_launch_counts()
+    full = m.forward(p, batch)[0]
+    ident, w_id = split_inference(m, p, batch, 9)
+    check(torch.equal(ident, full), "[vlm] identity split differs from the "
+                                    "unsplit forward")
+    del ident
+    lg8, w8 = split_inference(m, p, batch, 9, Int8Quantizer())
+    err = float((lg8 - full).abs().max())
+    rel = float((lg8 - full).norm() / full.norm())
+    split = ops.launch_counts()
+    check(rel < 0.05, f"[vlm] int8 split relative logit error {rel}")
+    check(split["flash_attention"] == 3 * cfg.num_layers,
+          f"[vlm] split launches {split}")
+    print(f"[vlm] paged: text-only extend of {STUB_PROMPT} tokens + 8 paged "
+          f"decode steps, launches {paged}; split inference at k = 9: "
+          f"identity bit-equal to the unsplit forward ({w_id} wire bytes), "
+          f"int8 {w8} wire bytes, max |logit - unsplit| {err:.4f}, relative "
+          f"error {rel:.5f}", flush=True)
+    del full, lg8
+    out = dict(launches)
+    for d in (paged, split):
+        for k, n in d.items():
+            out[k] += n
+    return out
+
+
+def phase_stub_families(total):
+    """The [encdec] and [vlm] paths (whisper-small, paligemma-3b); adds
+    their launches to ``total``."""
+    for arch, shape in (("whisper-small", (1500, 768)),
+                        ("paligemma-3b", (256, 2048))):
+        for k, n in _stub_family(arch, shape).items():
+            total[k] += n
 
 
 def _train_breakdown(arch="smollm-135m"):
@@ -2070,7 +2563,7 @@ def _train_breakdown(arch="smollm-135m"):
                       for e in top), flush=True)
 
 
-def _train_step_parity(arch="smollm-135m"):
+def _train_step_parity(arch="smollm-135m", cfg=None):
     """One train step at float32, full width, 2 layers: through the
     kernels (flash, or the SSD scan, forward and backward) against
     ``attn_backend="plain"`` (autograd through ``mha`` or the plain scan).
@@ -2083,7 +2576,7 @@ def _train_step_parity(arch="smollm-135m"):
     from repro_torch.models.model import example_batch
     from repro_torch.training import AdamW, make_train_step
     from repro_torch.training import tree as T
-    e_cfg, _ = _configs(arch, (2, 2), "float32")
+    e_cfg = cfg if cfg is not None else _configs(arch, (2, 2), "float32")[0]
     m = Model(e_cfg)
     p = m.init(seed=0, device="cuda")
     gen = torch.Generator(device="cuda")
@@ -2134,6 +2627,62 @@ def phase_learn(total):
     torch.cuda.empty_cache()
     for arch in ("smollm-135m", "mamba2-370m", "xlstm-125m"):
         _train_step_parity(arch)
+
+
+def _stub_parity(arch):
+    """A stub-input family at float32, full width, 2 layers (and a 2-layer
+    encoder), batch 8: the greedy run of ``_stub_run`` on the kernels,
+    then the plain versions teacher-forced on the same tokens — every
+    step's logits within 1e-4, every greedy token the plain argmax unless
+    the plain top-2 gap is below GAP_TOL — and one train step's loss,
+    gradient norm and updated parameters (``_train_step_parity``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import example_batch
+    cfg = get_config(arch).replace(num_layers=2, param_dtype="float32",
+                                   activ_dtype="float32")
+    if cfg.family == "encdec":
+        cfg = cfg.replace(encoder_layers=2)
+    m = Model(cfg)
+    p = m.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = example_batch(cfg, 8, cfg.num_image_tokens + STUB_PROMPT, gen,
+                          with_labels=False, device="cuda")
+    steps = {}
+    for backend in ("auto", "plain"):
+        lg, cache = m.prefill(p, batch, max_seq=400, attn_backend=backend)
+        out = [lg]
+        toks = steps["auto"][1] if backend == "plain" else []
+        for i in range(STUB_NEW):
+            if backend == "auto":
+                toks.append(torch.argmax(lg, -1).to(torch.int32)[:, None])
+            lg, cache = m.decode_step(p, toks[i], cache,
+                                      attn_backend=backend)
+            out.append(lg)
+        ext, _ = m.extend_step(p, torch.cat(toks[-4:], 1), cache,
+                               attn_backend=backend)
+        steps[backend] = (out + [ext[:, j] for j in range(4)], toks)
+    err = max(max_err(a, b) for a, b in zip(steps["auto"][0],
+                                             steps["plain"][0]))
+    near = 0
+    for i, tok in enumerate(steps["auto"][1]):
+        pl = steps["plain"][0][i]
+        same = torch.argmax(pl, -1).to(torch.int32) == tok[:, 0]
+        if not bool(same.all()):
+            top2 = pl[~same].topk(2, dim=-1).values
+            gap = float((top2[:, 0] - top2[:, 1]).max())
+            check(gap < GAP_TOL, f"{arch} parity: greedy token {i} differs "
+                                 f"with a plain top-2 gap {gap}")
+            near += int((~same).sum())
+    print(f"[parity] {arch} float32 full-width 2-layer Model API (batch 8, "
+          f"prefill + {STUB_NEW} greedy decode steps + a 4-token extend), "
+          f"kernels vs plain teacher-forced: max |logit diff| {err:.2e}, "
+          f"{near} near-tie token differences", flush=True)
+    check(err <= 1e-4, f"{arch} parity: logits differ by {err}")
+    del p, steps
+    torch.cuda.empty_cache()
+    _train_step_parity(arch, cfg)
 
 
 # --------------------------------------------------------------- phase 4
@@ -2190,6 +2739,8 @@ def phase_parity():
               f"{excused} near-tie divergences", flush=True)
     del ep, cp
     torch.cuda.empty_cache()
+    for arch in ("whisper-small", "paligemma-3b"):
+        _stub_parity(arch)
 
 
 def main() -> int:
@@ -2217,6 +2768,9 @@ def main() -> int:
               flush=True)
         launches = phase_serve()
         print(f"[time] + serve and breakdown {time.perf_counter() - t0:.0f}s",
+              flush=True)
+        phase_stub_families(launches)
+        print(f"[time] + encdec and vlm {time.perf_counter() - t0:.0f}s",
               flush=True)
         phase_learn(launches)
         print(f"[time] + adaptation and training "

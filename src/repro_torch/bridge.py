@@ -5,7 +5,7 @@ port's modules, both ways.
 (and, for xLSTM, lists) of numpy arrays and builds the port's parameters on
 ``device``:
 
-* dense and moe: ``{"embed", "blocks", "final_norm", "lm_head"?}`` with
+* dense, moe and vlm: ``{"embed", "blocks", "final_norm", "lm_head"?}`` with
   every ``blocks`` leaf stacked on a leading layer axis ``L`` -> the
   port's ``Transformer``.  A tied config has no ``lm_head`` leaf; an
   untied one must carry it.  A moe block's ``moe`` sub-tree (``router``
@@ -17,6 +17,10 @@ port's modules, both ways.
   mixed.
 * hybrid (zamba2): ``mamba`` stacked on (G, K) -> one block per layer
   ``g * K + k``, beside the one ``shared`` attention+MLP block.
+* encdec (whisper): ``encoder`` and ``decoder`` stacked on their layer
+  counts -> the port's ``EncDec`` with one block per layer, beside
+  ``enc_pos``, ``dec_pos``, ``embed``, ``enc_norm_w/b`` and
+  ``final_norm_w/b``.
 
 numpy has no bfloat16: the caller casts bfloat16 leaves to float32 before
 ``np.asarray`` (exact).  Each leaf gets the dtype the JAX package gives it:
@@ -40,7 +44,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models import hybrid, ssm, xlstm
+from repro_torch.models import encdec, hybrid, ssm, xlstm
 from repro_torch.models.layers import ParamTree
 from repro_torch.models.transformer import Block, Transformer, dtype_of
 
@@ -71,6 +75,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda"):
         return ParamTree({"embed": t(tree["embed"]),
                           "blocks": [convert(b) for b in tree["blocks"]],
                           "final_norm": t(tree["final_norm"])})
+    if cfg.family == "encdec":
+        n = {"encoder": cfg.encoder_layers, "decoder": cfg.num_layers}
+        return encdec.EncDec(cfg, {
+            k: [convert(v, (l,)) for l in range(n[k])] if k in n
+            else t(v) for k, v in tree.items()})
     if cfg.family == "hybrid":
         G, K = np.asarray(tree["mamba"]["A_log"]).shape[:2]
         return ParamTree({"embed": t(tree["embed"]),
@@ -111,11 +120,15 @@ def config_of(params, cfg=None):
 
 def jax_layout(params, cfg) -> Dict[str, Tuple[Tuple[int, ...], List[str]]]:
     """JAX leaf path -> (its stacked axes, the port parameter names that
-    fill them in row-major order).  dense, moe and ssm stack ``blocks`` on
-    L; hybrid stacks ``mamba`` on (G, K); xLSTM's ``blocks`` is a list, so
-    its leaves are ``blocks/<i>/...`` and unstacked."""
+    fill them in row-major order).  dense, moe, vlm and ssm stack
+    ``blocks`` on L; hybrid stacks ``mamba`` on (G, K); encdec stacks
+    ``encoder`` and ``decoder`` on their layer counts; xLSTM's ``blocks``
+    is a list, so its leaves are ``blocks/<i>/...`` and unstacked."""
     stacks = {"blocks": (cfg.num_layers,)}
-    if cfg.family == "hybrid":
+    if cfg.family == "encdec":
+        stacks = {"encoder": (cfg.encoder_layers,),
+                  "decoder": (cfg.num_layers,)}
+    elif cfg.family == "hybrid":
         stacks = {"mamba": tuple(hybrid._dims(cfg))}
     elif cfg.family == "xlstm":
         stacks = {}
@@ -142,22 +155,58 @@ def jax_ndims(params, cfg) -> Dict[str, int]:
             for n in names}
 
 
-def params_to_numpy(params, cfg) -> Dict[str, Any]:
-    """The JAX parameter pytree of the port's ``params``: nested dicts (and,
-    for xLSTM, a list of blocks) of float32 numpy arrays, stacked leaves
-    stacked as JAX stacks them.  The inverse of ``params_from_numpy``."""
+def _layout_tree(params, cfg, leaf):
+    """The JAX pytree of ``params`` with ``leaf(tensors, stack)`` at each
+    path (its port parameters in row-major order, its stacked axes)."""
     named = dict(params.named_parameters())
     tree: Dict[str, Any] = {}
     for path, (stack, names) in jax_layout(params, cfg).items():
-        arrs = [named[n].detach().float().cpu().numpy() for n in names]
-        leaf = np.stack(arrs).reshape(stack + arrs[0].shape) if stack \
-            else arrs[0]
         node = tree
         keys = path.split("/")
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = leaf
+        node[keys[-1]] = leaf([named[n] for n in names], stack)
     if cfg.family == "xlstm":
         tree["blocks"] = [tree["blocks"][str(i)]
                           for i in range(len(tree["blocks"]))]
     return tree
+
+
+def jax_tree(params, cfg=None) -> Dict[str, Any]:
+    """The JAX parameter pytree of the port's ``params`` as tensors: nested
+    dicts (and, for xLSTM, a list of blocks), stacked leaves stacked as JAX
+    stacks them, on the parameters' device in their dtypes.  What a
+    function of the JAX package computes over a stacked leaf (one
+    threshold across every layer, a rank >= 2 test that takes in the
+    (L, d) norms) the port computes over this tree."""
+    return _layout_tree(params, config_of(params, cfg), lambda ts, stack: (
+        torch.stack(ts).reshape(stack + ts[0].shape) if stack else ts[0]))
+
+
+def from_jax_tree(params, tree, cfg=None):
+    """``params`` (a parameter module) with every parameter taken from its
+    slice of ``tree``, a JAX-layout tree of tensors shaped as
+    ``jax_tree(params)``'s: the inverse of ``jax_tree``."""
+    from repro_torch.training import tree as T
+    cfg = config_of(params, cfg)
+    new = {}
+    for path, (stack, names) in jax_layout(params, cfg).items():
+        leaf = tree
+        for k in path.split("/"):
+            leaf = leaf[int(k)] if isinstance(leaf, list) else leaf[k]
+        parts = leaf.reshape((-1,) + tuple(leaf.shape[len(stack):])) \
+            if stack else leaf[None]
+        new.update(zip(names, parts))
+    return T.replace(params, [new[n] for n, _ in T.leaves(params)])
+
+
+def params_to_numpy(params, cfg) -> Dict[str, Any]:
+    """The JAX parameter pytree of the port's ``params``: nested dicts (and,
+    for xLSTM, a list of blocks) of float32 numpy arrays, stacked leaves
+    stacked as JAX stacks them.  The inverse of ``params_from_numpy``."""
+    def leaf(ts, stack):
+        arrs = [t.detach().float().cpu().numpy() for t in ts]
+        return np.stack(arrs).reshape(stack + arrs[0].shape) if stack \
+            else arrs[0]
+
+    return _layout_tree(params, cfg, leaf)

@@ -177,6 +177,27 @@ class ModelConfig:
         return self.replace(**kw)
 
 
+# families whose model reads a stub input beside the tokens: the batch key
+STUB_INPUTS = {"vlm": "embeds", "encdec": "frames"}
+
+
+def stub_input(cfg: ModelConfig):
+    """(batch key, rows) of the family's stub input: vlm ``embeds``
+    (num_image_tokens rows), encdec ``frames`` (encoder_seq rows), each row
+    d_model wide; (None, 0) for the other families."""
+    key = STUB_INPUTS.get(cfg.family)
+    rows = {"vlm": cfg.num_image_tokens,
+            "encdec": cfg.encoder_seq}.get(cfg.family, 0)
+    return key, rows
+
+
+def text_len(cfg: ModelConfig, seq: int) -> int:
+    """Text tokens of a ``seq``-row batch: vlm's max(seq - P, 8) (its P
+    image rows come first), ``seq`` for every other family."""
+    return max(seq - cfg.num_image_tokens, 8) if cfg.family == "vlm" \
+        else seq
+
+
 # ----------------------------------------------------------------------
 # Assigned input shapes (global, before sharding).
 @dataclass(frozen=True)

@@ -8,9 +8,10 @@ Two pieces:
 * training: LayerSkip-style auxiliary exit loss so intermediate layers
   produce usable logits (weight grows with depth).
 
-The families are those ``Model`` serves; the vlm and encdec branches of the
-JAX package (the prefix slice, the layernorm head) wait for those families'
-slice (ROADMAP A.5).
+Every family ``Model`` serves: the encdec head applies the decoder's final
+layernorm (``final_norm_w/b``), every other family's its final rmsnorm,
+and the vlm LayerSkip loss slices the image-prefix rows off, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -23,24 +24,21 @@ from repro_torch.models import layers as L
 from repro_torch.models.model import cross_entropy
 
 
-def _ported(model):
-    if model.cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"early exit for the {model.cfg.family} family waits for that "
-            "family's slice of the port (ROADMAP A.5)")
-
-
 def exit_logits(model, params, hidden_per_layer, layers: Sequence[int]):
     """hidden_per_layer: (L, B, S, d) from ``forward(collect_hidden=True)``.
-    Applies the final norm and the shared head (the untied ``lm_head``
-    where there is one, else the embedding) at each exit layer.  Returns
-    (n_exits, B, S, V) f32."""
-    _ported(model)
+    Applies the final norm (the encdec layernorm, else the rmsnorm) and the
+    shared head (the untied ``lm_head`` where there is one, else the
+    embedding) at each exit layer.  Returns (n_exits, B, S, V) f32."""
     head = getattr(params, "head", None)
     head = params.embed if head is None else head
-    return torch.stack([
-        L.unembed(head, L.rmsnorm(hidden_per_layer[l], params.final_norm,
-                                  model.cfg.norm_eps)) for l in layers])
+
+    def norm(h):
+        if model.cfg.family == "encdec":
+            return L.layernorm(h, params.final_norm_w, params.final_norm_b)
+        return L.rmsnorm(h, params.final_norm, model.cfg.norm_eps)
+
+    return torch.stack([L.unembed(head, norm(hidden_per_layer[l]))
+                        for l in layers])
 
 
 def early_exit_decision(exit_logits_stack, threshold: float,
@@ -63,8 +61,8 @@ def layerskip_loss(model, params, batch, exit_layers: Sequence[int],
     (LayerSkip's curriculum, static form).  ``kw`` goes to
     ``model.forward`` (``remat``, ``attn_backend``).  Returns (loss,
     per_exit_ce (n_exits,))."""
-    _ported(model)
     logits, aux, hs = model.forward(params, batch, collect_hidden=True, **kw)
+    logits, hs = model.text_rows(logits, batch), model.text_rows(hs, batch, 2)
     labels = batch["labels"]
     ce_final = cross_entropy(logits[:, :-1], labels[:, 1:])
     ex = exit_logits(model, params, hs, exit_layers)

@@ -32,6 +32,7 @@ from repro_torch.core.speculative import (SpecDecoder,
                                           autoregressive_baseline, device_of,
                                           generator_for, prompt_tensor)
 from repro_torch.core.uncertainty import get_estimator
+from repro_torch.models.model import require_token_prompts
 
 
 class CollaborativeEngine:
@@ -52,6 +53,8 @@ class CollaborativeEngine:
                  skeleton_len: int = 8, kv_layout: str = "auto",
                  kv_block_size: int = 32, kv_blocks=None,
                  attn_backend: str = "auto"):
+        for m in (edge_model, cloud_model):
+            require_token_prompts(m.cfg, "CollaborativeEngine")
         self.edge = edge_model
         self.cloud = cloud_model
         self.temperature = temperature

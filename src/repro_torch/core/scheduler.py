@@ -62,6 +62,7 @@ from repro_torch.core.seq_state import (Lane, host_pull, layout_for,
 from repro_torch.core.speculative import BatchedSpecDecoder
 from repro_torch.core.tree_speculation import branching_for
 from repro_torch.core.traffic import VirtualClock, latency_rollup
+from repro_torch.models.model import require_token_prompts
 
 
 @dataclasses.dataclass
@@ -155,6 +156,8 @@ class BatchedEngine:
         if mesh is not None:
             raise NotImplementedError("mesh= (sharded serving) is a later "
                                       "slice of the port")
+        for m in (edge_model, cloud_model):
+            require_token_prompts(m.cfg, "BatchedEngine")
         self.policy = resolve_policy(policy, escalation, escalate_threshold)
         self.kv_layout = resolve_kv_layout(edge_model, cloud_model, kv_layout)
         self.kv_block_size = kv_block_size

@@ -53,6 +53,7 @@ from repro_torch.core.paged_cache import (BlockPool, blocks_for,
                                           prompt_cache_to_blocks,
                                           read_pool_blocks, write_pool_blocks)
 from repro_torch.core.uncertainty import get_batched_estimator
+from repro_torch.models.model import require_token_prompts
 from repro_torch.models.ssm import tree_leaves, tree_map
 
 # cache entries holding attention slabs (slot axis second, written in place)
@@ -839,6 +840,7 @@ class Lane:
         if attn_backend not in ("auto", "kernel", "plain"):
             raise ValueError(f"unknown attn_backend {attn_backend!r}; "
                              "known: auto | kernel | plain")
+        require_token_prompts(model.cfg, "Lane")
         self.model = model
         self.estimator = estimator
         self.temperature = temperature

@@ -34,6 +34,7 @@ from repro_torch.core.tree_speculation import (TreePlan, branching_for,
                                                tree_accept)
 from repro_torch.kernels import ops
 from repro_torch.kernels.spec_verify import spec_verify_plain
+from repro_torch.models.model import require_token_prompts
 
 FAMILIES_WITH_TREES = ("dense", "moe", "vlm")
 
@@ -164,6 +165,8 @@ class SpecDecoder:
     def __init__(self, draft_model, target_model, *, gamma: int = 4,
                  temperature: float = 1.0, adaptive: bool = False,
                  attn_backend: str = "auto"):
+        for m in (draft_model, target_model):
+            require_token_prompts(m.cfg, "SpecDecoder")
         self.draft = draft_model
         self.target = target_model
         self.gamma = gamma
@@ -260,6 +263,7 @@ def autoregressive_baseline(model, params, prompt, max_new: int, gen=None,
                             attn_backend: str = "auto"):
     """Plain target-only decoding (B = 1, a host round trip per token) —
     the survey's cloud-only baseline.  Returns the token list."""
+    require_token_prompts(model.cfg, "autoregressive_baseline")
     dev = device_of(params)
     gen = generator_for(params, gen)
     prompt = prompt_tensor(prompt, dev)

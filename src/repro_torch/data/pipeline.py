@@ -15,6 +15,8 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import stub_input, text_len
+
 
 @dataclasses.dataclass
 class SyntheticLM:
@@ -54,20 +56,28 @@ class SyntheticLM:
 def batches(cfg, batch: int, seq: int, *, device, domain_weights=None,
             seed: int = 0, synth: Optional[SyntheticLM] = None
             ) -> Iterator[Dict]:
-    """Infinite iterator of ``{"tokens", "labels"}`` (batch, seq) int32
-    tensors on ``device``: the JAX package's stream (same ``SyntheticLM``,
-    same numpy draws).  The vlm and encdec families' stub inputs are not
-    ported (nor are those families)."""
+    """Infinite iterator of ``{"tokens", "labels"}`` (batch, s_text) int32
+    tensors on ``device``, plus the family's stub input as float32
+    standard normals drawn after the tokens: vlm ``embeds`` (batch,
+    num_image_tokens, d) with s_text = max(seq - num_image_tokens, 8),
+    encdec ``frames`` (batch, encoder_seq, d).  The JAX package's stream:
+    same ``SyntheticLM``, same numpy draws in the same order."""
     synth = synth or SyntheticLM(cfg.vocab_size)
     rng = np.random.default_rng(seed)
     w = np.asarray(domain_weights if domain_weights is not None
                    else np.ones(synth.n_domains) / synth.n_domains)
     w = w / w.sum()
+    s_text = text_len(cfg, seq)
+    key, rows = stub_input(cfg)
     while True:
-        toks = np.stack([synth.sample(rng, rng.choice(len(w), p=w), seq)
+        toks = np.stack([synth.sample(rng, rng.choice(len(w), p=w), s_text)
                          for _ in range(batch)]).astype(np.int32)
         t = torch.from_numpy(toks).to(device)
-        yield {"tokens": t, "labels": t}
+        out = {"tokens": t, "labels": t}
+        if key is not None:
+            x = rng.standard_normal((batch, rows, cfg.d_model))
+            out[key] = torch.from_numpy(x.astype(np.float32)).to(device)
+        yield out
 
 
 def dirichlet_clients(n_clients: int, n_domains: int, alpha: float = 0.3,

@@ -5,6 +5,11 @@
 // flash_attention (body _kernel): q (B, H, S, hd) against k, v with a
 // `causal` flag and a sliding `window` (key k is visible to query q when
 // k <= q under causal and k > q - window under a window), scale 1/sqrt(hd).
+// Beyond the TPU kernel, a `prefix` (prefix-LM attention, the vlm family's
+// image prefix; the JAX model's layers._attn_mask(prefix_len=)) makes the
+// first `prefix` keys visible to every query under causal: key k is
+// visible when (k <= q or k < prefix) and, under a window, k > q - window.
+// Non-causal calls (the whisper encoder, cross attention) take Sq != Sk.
 // The TPU kernel takes K/V already expanded to H heads; this one also takes
 // Kv heads with H % Kv == 0 (query head h reads kv head h / (H / Kv)), and
 // reads q, k, v and writes the output through strides (head dim
@@ -69,6 +74,7 @@ struct Args {
   long long kb, kh, ks;      // k and v strides over (sequence, kv head, key)
   long long ob, oh, os;      // output strides, as q's
   int G, Sq, Sk, hd, causal, window, vec;
+  int prefix;                // keys every row sees under causal (0: none)
   float scale;
   int rows;                  // bf16: packed rows per block (16, 64, 128)
   float* lse;                // (B, H, Sq) row log-sum-exp, or null
@@ -96,7 +102,8 @@ __global__ void __launch_bounds__(128 * kWG)
   // keys any row of the tile can see
   const int p_first = r0 / G, p_last = (min(r0 + R, n_rows) - 1) / G;
   const int k_begin = a.window > 0 ? max(p_first - a.window + 1, 0) : 0;
-  const int k_end = a.causal ? min(p_last + 1, a.Sk) : a.Sk;
+  const int k_end =
+      a.causal ? max(min(p_last + 1, a.Sk), min(a.prefix, a.Sk)) : a.Sk;
   const int k_first = (k_begin / kKeys) * kKeys;
   const int n_tiles =
       k_end > k_first ? (k_end - k_first + kKeys - 1) / kKeys : 0;
@@ -104,13 +111,15 @@ __global__ void __launch_bounds__(128 * kWG)
   int pos[2];                                     // this thread's two rows
 #pragma unroll
   for (int h = 0; h < 2; ++h) pos[h] = (r0 + frag_row(h)) / G;
-  const int Sk = a.Sk, causal = a.causal, window = a.window;
+  const int Sk = a.Sk, causal = a.causal, window = a.window,
+            prefix = a.prefix;
   auto visible = [&](int h, int key) {
-    return key < Sk && (!causal || key <= pos[h]) &&
+    return key < Sk && (!causal || key <= pos[h] || key < prefix) &&
            (window <= 0 || key > pos[h] - window);
   };
   auto full = [&](int k0) {                       // every row sees [k0, +64)
-    return k0 + kKeys <= Sk && (!causal || k0 + kKeys - 1 <= p_first) &&
+    return k0 + kKeys <= Sk &&
+           (!causal || k0 + kKeys - 1 <= p_first || k0 + kKeys <= prefix) &&
            (window <= 0 || k0 > p_last - window);
   };
   Acc<kD> acc;
@@ -199,7 +208,8 @@ __global__ void __launch_bounds__(kThreads)
   // keys any row of this tile can see
   const int q_last = min(q0 + kBQ, Sq) - 1;
   const int k_begin = a.window > 0 ? max(q0 - a.window + 1, 0) : 0;
-  const int k_end = a.causal ? min(q_last + 1, Sk) : Sk;
+  const int k_end = a.causal ? max(min(q_last + 1, Sk), min(a.prefix, Sk))
+                             : Sk;
   const int nd = (hd + 31) / 32;             // lane groups; the tail is masked
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kMaxHd / 32];
@@ -229,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
       const int qpos = q0 + rr;
       if (qpos >= Sq) continue;              // warp-uniform
       bool vis = kpos < Sk;
-      if (a.causal) vis = vis && kpos <= qpos;
+      if (a.causal) vis = vis && (kpos <= qpos || kpos < a.prefix);
       if (a.window > 0) vis = vis && kpos > qpos - a.window;
       if (!__any_sync(0xffffffffu, vis)) continue;
       float s = 0.f;
@@ -286,21 +296,24 @@ int launch_f32(const Args<float>& a, int B, int H, cudaStream_t stream) {
 template <typename T>
 Args<T> make_args(const void* q, const void* k, const void* v, void* out,
                   const long long (&st)[9], int G, int Sq, int Sk, int hd,
-                  int causal, int window, int vec, float scale, float* lse) {
+                  int causal, int window, int prefix, int vec, float scale,
+                  float* lse) {
   return Args<T>{static_cast<const T*>(q), static_cast<const T*>(k),
                  static_cast<const T*>(v), static_cast<T*>(out),
                  st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-                 st[8], G, Sq, Sk, hd, causal, window, vec, scale, 64, lse};
+                 st[8], G, Sq, Sk, hd, causal, window, vec,
+                 causal ? prefix : 0, scale, 64, lse};
 }
 
 }  // namespace
 
-// The launch arguments come packed as 23 int64 (one ctypes argument: the
+// The launch arguments come packed as 24 int64 (one ctypes argument: the
 // conversion of each ctypes argument costs host time on every call), in
 // this order: dtype (0 = float32, 1 = bfloat16), q, its strides
 // over (b, head, position), k, v, their shared strides over (b, kv head,
 // key), out, its strides, B, H, Kv, Sq, Sk, hd, causal, window, lse (a
-// contiguous (B, H, Sq) float32 buffer, or 0 for none).  q and out are
+// contiguous (B, H, Sq) float32 buffer, or 0 for none), prefix (>= 0; read
+// only under causal).  q and out are
 // (B, H, Sq, hd), k and v (B, Kv, Sk, hd) with H % Kv == 0; every head dim
 // is contiguous.  Returns a cudaError_t as int.
 REPRO_EXPORT int repro_flash_attention(const long long* p, float scale,
@@ -317,20 +330,23 @@ REPRO_EXPORT int repro_flash_attention(const long long* p, float scale,
             Sk = static_cast<int>(p[18]), hd = static_cast<int>(p[19]),
             causal = static_cast<int>(p[20]), window = static_cast<int>(p[21]);
   float* lse = reinterpret_cast<float*>(p[22]);
-  if (hd < 1 || hd > 256 || Kv < 1 || H % Kv != 0)
+  const int prefix = static_cast<int>(p[23]);
+  if (hd < 1 || hd > 256 || Kv < 1 || H % Kv != 0 || prefix < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const int G = H / Kv;
   if (dtype == 0)
     return launch_f32(make_args<float>(q, k, v, out, st, G, Sq, Sk, hd,
-                                       causal, window, 0, scale, lse),
+                                       causal, window, prefix, 0, scale,
+                                       lse),
                       B, H, s);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int vec = repro::attn::rows16({q, k, v, out}, {st[0], st[1], st[2],
                                        st[3], st[4], st[5], st[6], st[7],
                                        st[8]}, hd);
   const Args<bf16> a = make_args<bf16>(q, k, v, out, st, G, Sq, Sk, hd,
-                                       causal, window, vec, scale, lse);
+                                       causal, window, prefix, vec, scale,
+                                       lse);
   if (hd <= 64) return launch_tc<64>(a, B, Kv, s);
   if (hd <= 80) return launch_tc<80>(a, B, Kv, s);
   if (hd <= 128) return launch_tc<128>(a, B, Kv, s);

@@ -1,5 +1,8 @@
 // The gradient of tiled (flash) attention for Hopper (sm_90a): dQ, dK and
-// dV of causal or windowed GQA attention, bf16 or float32.
+// dV of causal, windowed, prefix-LM or full GQA attention, bf16 or float32.
+// The masks are the forward's (flash_attention.cu): key j is visible to
+// row i when (j <= i or j < prefix) under causal and j > i - window under
+// a window; non-causal calls take Sq != Sk (cross attention).
 //
 // No TPU kernel stands behind it: the JAX package trains through jnp
 // attention (src/repro/models/layers.py::mha), which XLA differentiates.
@@ -124,6 +127,7 @@ struct Args {
   long long st[8][3];         // strides over (sequence, head, position) of
                               // q, k, v, o, g, dq, dk, dv
   int H, G, Sq, Sk, hd, causal, window;
+  int prefix;                 // keys every row sees under causal (0: none)
   float scale;
   int vec;                    // wgmma route: 16-byte copies and 4-byte
                               // stores (attn::rows16 of every tensor)
@@ -133,8 +137,8 @@ struct Args {
 enum { Q = 0, K = 1, V = 2, O = 3, G_ = 4, DQ = 5, DK = 6, DV = 7 };
 
 __device__ __forceinline__ bool visible(int i, int j, int Sq, int Sk,
-                                        int causal, int window) {
-  return i < Sq && j < Sk && (!causal || j <= i) &&
+                                        int causal, int window, int prefix) {
+  return i < Sq && j < Sk && (!causal || j <= i || j < prefix) &&
          (window <= 0 || j > i - window);
 }
 
@@ -236,7 +240,7 @@ __device__ __forceinline__ void scores(const float* qs, const float* gs,
                                        const float* lse_s, const float* dl_s,
                                        float* ps, float* dss, int q0, int k0,
                                        int Sq, int Sk, int hd, int causal,
-                                       int window, float scale) {
+                                       int window, int prefix, float scale) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int P = pitch(hd), nq = quads(hd);
   const int j = k0 + lane;
@@ -244,7 +248,8 @@ __device__ __forceinline__ void scores(const float* qs, const float* gs,
   float s[kRows], dp[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    vis[r] = visible(q0 + warp * kRows + r, j, Sq, Sk, causal, window);
+    vis[r] = visible(q0 + warp * kRows + r, j, Sq, Sk, causal, window,
+                     prefix);
     any = any || vis[r];
     s[r] = dp[r] = 0.f;
   }
@@ -300,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args<T> a) {
 
   // query rows that can see a key of this tile
   const int k_last = min(k0 + kT, a.Sk) - 1;
-  const int q_begin = a.causal ? k0 : 0;
+  const int q_begin = a.causal && k0 >= a.prefix ? k0 : 0;
   const int q_end = a.window > 0 ? min(k_last + a.window, a.Sq) : a.Sq;
   for (int g = 0; g < a.G; ++g) {
     const int h = kv * a.G + g;
@@ -318,7 +323,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args<T> a) {
       }
       __syncthreads();
       scores<true>(qs, gs, ks, vs, lse_s, dl_s, ps, dss, q0, k0, a.Sq, a.Sk,
-                   hd, a.causal, a.window, a.scale);
+                   hd, a.causal, a.window, a.prefix, a.scale);
       __syncthreads();
       for (int t = 0; t < kT; ++t) {
         const float p = ps[t * kSP + lane], ds = dss[t * kSP + lane];
@@ -390,7 +395,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args<T> a) {
   // keys any row of this tile can see
   const int q_last = min(q0 + kT, a.Sq) - 1;
   const int k_begin = a.window > 0 ? max(q0 - a.window + 1, 0) : 0;
-  const int k_end = a.causal ? min(q_last + 1, a.Sk) : a.Sk;
+  const int k_end =
+      a.causal ? max(min(q_last + 1, a.Sk), min(a.prefix, a.Sk)) : a.Sk;
   const T* kb = a.k + b * a.st[K][0] + kv * a.st[K][1];
   const T* vb = a.v + b * a.st[V][0] + kv * a.st[V][1];
   for (int k0 = (k_begin / kT) * kT; k0 < k_end; k0 += kT) {
@@ -399,7 +405,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args<T> a) {
     stage(vs, vb, a.st[V][2], k0, a.Sk, hd);
     __syncthreads();
     scores<false>(qs, gs, ks, vs, lse_s, dl_s, nullptr, dss, q0, k0, a.Sq,
-                  a.Sk, hd, a.causal, a.window, a.scale);
+                  a.Sk, hd, a.causal, a.window, a.prefix, a.scale);
     __syncthreads();
     for (int t = 0; t < kT; ++t) {
       const float ds = dss[row * kSP + t];
@@ -479,6 +485,7 @@ Args<T> make_args(const long long* p, float scale, int G) {
   a.hd = static_cast<int>(p[40]);
   a.causal = static_cast<int>(p[41]);
   a.window = static_cast<int>(p[42]);
+  a.prefix = a.causal ? static_cast<int>(p[44]) : 0;
   a.scale = scale;
   a.vec = 0;
   a.g_mul = a.g_shift = 0;
@@ -650,7 +657,7 @@ __device__ __forceinline__ void dkv_block(const Args<bf16>& a, int kt) {
 
   // packed query tiles that can see a key of the block
   const int k_last = min(k0 + kTile, Sk) - 1;
-  const int p_begin = a.causal ? k0 : 0;
+  const int p_begin = a.causal && k0 >= a.prefix ? k0 : 0;
   const int p_end = a.window > 0 ? min(k_last + a.window, Sq) : Sq;
   const int t_first = p_begin * G / kTile;
   const int n_tiles =
@@ -688,7 +695,7 @@ __device__ __forceinline__ void dkv_block(const Args<bf16>& a, int kt) {
   int key[2];                                     // this thread's two keys
 #pragma unroll
   for (int h = 0; h < 2; ++h) key[h] = k0 + (frag_row(h) & (kTile - 1));
-  const int causal = a.causal, window = a.window;
+  const int causal = a.causal, window = a.window, prefix = a.prefix;
   const float scale_log2 = a.scale * kLog2e;
   if (my_steps > 0) issue(0);
   cp_async_commit();
@@ -721,12 +728,14 @@ __device__ __forceinline__ void dkv_block(const Args<bf16>& a, int kt) {
     auto dl = [&](int, int c) { return ls[kTile + c]; };
     auto visible = [&](int h, int c) {   // branch-free
       const int gr = r0 + c, pos = pk.pos(gr);
-      return (gr < n_rows) & (key[h] < Sk) & (!causal | (key[h] <= pos)) &
+      return (gr < n_rows) & (key[h] < Sk) &
+             (!causal | (key[h] <= pos) | (key[h] < prefix)) &
              ((window <= 0) | (key[h] > pos - window));
     };
     // every key of the block visible to every row of the query tile
     const bool full = r0 + kTile <= n_rows && k0 + kTile <= Sk &&
-                      (!causal || k0 + kTile - 1 <= pk.pos(r0)) &&
+                      (!causal || k0 + kTile - 1 <= pk.pos(r0) ||
+                       k0 + kTile <= prefix) &&
                       (window <= 0 || k0 > pk.pos(r0 + kTile - 1) - window);
     uint32_t pf[1][4][4], df[1][4][4];
     if (full)
@@ -823,7 +832,8 @@ __device__ __forceinline__ void dq_block(const Args<bf16>& a, int r0) {
   const int p_first = pk.pos(r0);
   const int p_last = pk.pos(min(r0 + 2 * kTile, n_rows) - 1);
   const int k_begin = a.window > 0 ? max(p_first - a.window + 1, 0) : 0;
-  const int k_end = a.causal ? min(p_last + 1, Sk) : Sk;
+  const int k_end =
+      a.causal ? max(min(p_last + 1, Sk), min(a.prefix, Sk)) : Sk;
   const int k_first = (k_begin / kTile) * kTile;
   const int n_tiles =
       k_end > k_first ? (k_end - k_first + kTile - 1) / kTile : 0;
@@ -861,7 +871,7 @@ __device__ __forceinline__ void dq_block(const Args<bf16>& a, int r0) {
 
   Acc<kD> dq;
   dq.init();
-  const int causal = a.causal, window = a.window;
+  const int causal = a.causal, window = a.window, prefix = a.prefix;
   const float scale_log2 = a.scale * kLog2e;
   if (n_tiles > 0) issue(0);
   cp_async_commit();                              // with Q and dO
@@ -885,11 +895,13 @@ __device__ __forceinline__ void dq_block(const Args<bf16>& a, int r0) {
     auto d = [&](int h, int) { return dl[h]; };
     auto visible = [&](int h, int c) {       // branch-free
       const int key = k0 + c;
-      return (key < k_end) & (!causal | (key <= pos[h])) &
+      return (key < k_end) &
+             (!causal | (key <= pos[h]) | (key < prefix)) &
              ((window <= 0) | (key > pos[h] - window));
     };
     const bool full = k0 + kTile <= k_end &&
-                      (!causal || k0 + kTile - 1 <= p_first) &&
+                      (!causal || k0 + kTile - 1 <= p_first ||
+                       k0 + kTile <= prefix) &&
                       (window <= 0 || k0 > p_last - window);
     uint32_t pf[1][4][4], df[1][4][4];
     if (full)
@@ -970,12 +982,13 @@ int dispatch(Args<bf16> a, int B, int Kv, cudaStream_t s) {
 
 }  // namespace
 
-// The launch arguments come packed as 44 int64, in this order: dtype (0 =
+// The launch arguments come packed as 45 int64, in this order: dtype (0 =
 // float32, 1 = bfloat16); then q, k, v, out, dout, dq, dk, dv, each a
 // pointer followed by its strides over (sequence, head, position); lse
 // (the forward's (B, H, Sq) float32 log-sum-exp, contiguous); a (B, H, Sq)
 // float32 scratch for D; B, H, Kv, Sq, Sk, hd, causal, window; the route
-// (0 = CUDA cores, 1 = wgmma: bfloat16 with hd <= 128 only).  q, out,
+// (0 = CUDA cores, 1 = wgmma: bfloat16 with hd <= 128 only); prefix (>= 0,
+// read only under causal).  q, out,
 // dout and dq are (B, H, Sq, hd), k, v, dk and dv (B, Kv, Sk, hd), H % Kv
 // == 0, every head dim contiguous.  Returns a cudaError_t as int.
 REPRO_EXPORT int repro_flash_attention_bwd(const long long* p, float scale,
@@ -986,7 +999,7 @@ REPRO_EXPORT int repro_flash_attention_bwd(const long long* p, float scale,
             Sk = static_cast<int>(p[39]), hd = static_cast<int>(p[40]),
             route = static_cast<int>(p[43]);
   if (hd < 1 || hd > 256 || Kv < 1 || H % Kv != 0 || B > 65535 ||
-      Kv > 65535)
+      Kv > 65535 || p[44] < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (route == 1) {

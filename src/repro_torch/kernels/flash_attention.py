@@ -3,7 +3,12 @@ its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py::
 flash_attention`` (body ``_kernel``): q (B, H, S, hd) against k, v with a
-``causal`` flag and a sliding ``window``.  The JAX contract has K/V already
+``causal`` flag and a sliding ``window``; beyond it, a ``prefix_len`` makes
+the first keys visible to every query under ``causal`` (prefix-LM, the
+vlm family's image prefix: key k is visible to query q when ``k <= q or k
+< prefix_len``, then ``k > q - window`` under a window — the JAX model's
+``layers._attn_mask``), and a non-causal call may take Sq != Sk (cross
+attention).  The JAX contract has K/V already
 expanded to H heads; both versions here also take K/V with Kv heads, H % Kv
 == 0 (query head h reads kv head h // (H // Kv)), and the CUDA wrapper
 takes q, k, v as strided views with a contiguous head dim, so the model
@@ -53,8 +58,8 @@ KERNEL = CudaKernel("flash_attention.cu", "repro_flash_attention",
                     [PACKED, F, P])
 BWD_KERNEL = CudaKernel("flash_attention_bwd.cu", "repro_flash_attention_bwd",
                         [PACKED, F, P])
-_ARGS = struct.Struct("23q")     # the C entry's packed int64 arguments
-_BWD_ARGS = struct.Struct("44q")
+_ARGS = struct.Struct("24q")     # the C entry's packed int64 arguments
+_BWD_ARGS = struct.Struct("45q")
 BWD_ROUTES = ("cuda_cores", "wgmma")     # the C entry's route numbers
 # launches of the backward kernel per route (BWD_KERNEL.launches counts all)
 BWD_ROUTE_LAUNCHES = dict.fromkeys(BWD_ROUTES, 0)
@@ -62,9 +67,11 @@ BWD_ROUTE_LAUNCHES = dict.fromkeys(BWD_ROUTES, 0)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          prefix_len: int = 0):
     """q: (B, H, Sq, hd); k, v: (B, Kv, Sk, hd) with H % Kv == 0.  Returns
-    (B, H, Sq, hd) in q's dtype."""
+    (B, H, Sq, hd) in q's dtype.  ``prefix_len`` counts only under
+    ``causal``."""
     Sq, hd = q.shape[2], q.shape[3]
     Sk = k.shape[2]
     G = q.shape[1] // k.shape[1]
@@ -76,6 +83,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask = k_pos <= q_pos
+        if prefix_len:
+            mask = mask | (k_pos < prefix_len)
     if window:
         mask = mask & (k_pos > q_pos - window)
     s = torch.where(mask, s, NEG)
@@ -90,7 +99,8 @@ class BwdPlan:
     heads per tile row set (a kv head's G heads on ``wgmma``, where packed
     row r is position r // G of head kv * G + r % G; 1 on ``cuda_cores``,
     whose query tiles belong to one head).  Tiles count per (kv head, or
-    head on ``cuda_cores``, sequence)."""
+    head on ``cuda_cores``, sequence).  ``prefix`` is the causal call's
+    ``prefix_len`` (0 otherwise)."""
     route: str
     tile: int
     pack: int
@@ -98,6 +108,7 @@ class BwdPlan:
     Sk: int
     causal: bool
     window: int
+    prefix: int = 0
 
     @property
     def n_query_tiles(self) -> int:
@@ -113,7 +124,7 @@ class BwdPlan:
         alternate tiles)."""
         k0 = kt * self.tile
         k_last = min(k0 + self.tile, self.Sk) - 1
-        p_begin = k0 if self.causal else 0
+        p_begin = k0 if self.causal and k0 >= self.prefix else 0
         p_end = min(k_last + self.window, self.Sq) if self.window \
             else self.Sq
         if p_end <= p_begin:
@@ -129,7 +140,8 @@ class BwdPlan:
         p_first = r0 // self.pack
         p_last = (min(r0 + self.tile, self.pack * self.Sq) - 1) // self.pack
         k_begin = max(p_first - self.window + 1, 0) if self.window else 0
-        k_end = min(p_last + 1, self.Sk) if self.causal else self.Sk
+        k_end = max(min(p_last + 1, self.Sk), min(self.prefix, self.Sk)) \
+            if self.causal else self.Sk
         first = k_begin // self.tile
         if k_end <= first * self.tile:
             return range(0)
@@ -138,15 +150,17 @@ class BwdPlan:
 
 @functools.lru_cache(maxsize=256)
 def flash_bwd_plan(dtype, hd: int, G: int, Sq: int, Sk: int, causal: bool,
-                   window: int) -> BwdPlan:
+                   window: int, prefix_len: int = 0) -> BwdPlan:
     """The backward's plan from shapes alone: the ``wgmma`` route for
     bfloat16 with hd <= 128, else ``cuda_cores``."""
+    shape = (Sq, Sk, bool(causal), int(window),
+             int(prefix_len) if causal else 0)
     if dtype == torch.bfloat16 and hd <= 128:
-        return BwdPlan("wgmma", 64, G, Sq, Sk, bool(causal), int(window))
-    return BwdPlan("cuda_cores", 32, 1, Sq, Sk, bool(causal), int(window))
+        return BwdPlan("wgmma", 64, G, *shape)
+    return BwdPlan("cuda_cores", 32, 1, *shape)
 
 
-def _check(q, k, v):
+def _check(q, k, v, prefix_len=0):
     B, H, Sq, hd = q.shape
     Kv, Sk = k.shape[1], k.shape[2]
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -158,10 +172,12 @@ def _check(q, k, v):
             or H % Kv or hd > 256:
         raise ValueError(f"unsupported shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         return_lse: bool = False):
+                         prefix_len: int = 0, return_lse: bool = False):
     """Launch the Hopper kernel (same contract as the plain version; q, k,
     v may be strided views with a contiguous head dim, k and v with equal
     strides).  Returns a tensor laid out like ``q`` and, with
@@ -170,7 +186,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     (``flash_attention_kernel`` is the differentiable entry); never falls
     back."""
     refuse_grad("flash_attention_cuda", q, k, v)
-    _check(q, k, v)
+    _check(q, k, v, prefix_len)
     B, H, Sq, hd = q.shape
     Kv, Sk = k.shape[1], k.shape[2]
     if q.stride(3) != 1 or k.stride(3) != 1 or k.stride() != v.stride():
@@ -185,13 +201,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                              k.data_ptr(), v.data_ptr(), *k.stride()[:3],
                              out.data_ptr(), *out.stride()[:3], B, H, Kv, Sq,
                              Sk, hd, int(bool(causal)), int(window),
-                             0 if lse is None else lse.data_ptr()),
+                             0 if lse is None else lse.data_ptr(),
+                             int(prefix_len) if causal else 0),
                   1.0 / math.sqrt(hd), raw_stream(q))
     return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, prefix_len: int = 0):
     """Launch the Hopper backward: (dq, dk, dv) of the attention whose
     forward gave ``out`` and ``lse`` (``flash_attention_cuda(...,
     return_lse=True)``) for the output gradient ``dout``.  q, out and dout
@@ -199,7 +216,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
     contiguous head dim; dq, dk and dv come laid out like q, k and v.
     The route is ``flash_bwd_plan``'s.  Raises on anything the kernel does
     not take; never falls back."""
-    _check(q, k, v)
+    _check(q, k, v, prefix_len)
     B, H, Sq, hd = q.shape
     Kv, Sk = k.shape[1], k.shape[2]
     for name, t in (("out", out), ("dout", dout)):
@@ -222,10 +239,12 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
     args = [_DTYPES[q.dtype]]
     for t in ins + (dq, dk, dv):
         args += [t.data_ptr(), *t.stride()[:3]]
-    route = flash_bwd_plan(q.dtype, hd, H // Kv, Sq, Sk, bool(causal),
-                           int(window)).route
+    plan = flash_bwd_plan(q.dtype, hd, H // Kv, Sq, Sk, bool(causal),
+                          int(window), int(prefix_len))
+    route = plan.route
     args += [lse.data_ptr(), delta.data_ptr(), B, H, Kv, Sq, Sk, hd,
-             int(bool(causal)), int(window), BWD_ROUTES.index(route)]
+             int(bool(causal)), int(window), BWD_ROUTES.index(route),
+             plan.prefix]
     BWD_KERNEL.launch(_BWD_ARGS.pack(*args), 1.0 / math.sqrt(hd),
                       raw_stream(q))
     BWD_ROUTE_LAUNCHES[route] += 1
@@ -239,11 +258,12 @@ class FlashAttention(torch.autograd.Function):
     made contiguous before the backward launch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, prefix_len):
         out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        prefix_len=prefix_len,
                                         return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.prefix_len = causal, window, prefix_len
         return out
 
     @staticmethod
@@ -253,15 +273,19 @@ class FlashAttention(torch.autograd.Function):
             dout = dout.contiguous()
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                                               causal=ctx.causal,
-                                              window=ctx.window)
-        return dq, dk, dv, None, None
+                                              window=ctx.window,
+                                              prefix_len=ctx.prefix_len)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
+                           prefix_len: int = 0):
     """The model's CUDA entry: ``FlashAttention`` (forward and backward
     kernels) when grad mode is on and an input requires grad, else the
     forward-only launch."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, bool(causal), int(window))
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                    int(prefix_len))
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                prefix_len=prefix_len)

@@ -88,11 +88,13 @@ def tree_verify_attention(q, k, v, length, tree_mask, q_pos, *, window=0):
                                              q_pos, window=window)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=0):
     if q.is_cuda:
         return _flash.flash_attention_kernel(q, k, v, causal=causal,
-                                             window=window)
-    return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+                                             window=window,
+                                             prefix_len=prefix_len)
+    return _flash.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        prefix_len=prefix_len)
 
 
 def spec_verify(target_logits, draft_logits, draft_tokens, u_acc, u_res, *,

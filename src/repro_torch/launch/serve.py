@@ -63,6 +63,7 @@ from repro_torch.core.scheduler import BatchedEngine
 from repro_torch.core.traffic import bursty_arrivals, poisson_arrivals, replay
 from repro_torch.data import SyntheticLM
 from repro_torch.models import Model
+from repro_torch.models.model import require_token_prompts
 
 
 def build_policy(args):
@@ -221,6 +222,8 @@ def main(argv=None):
     check_scheduler_args(args, policy)
     e_cfg = get_config(args.edge)
     c_cfg = get_config(args.cloud)
+    for flag, cfg in (("--edge", e_cfg), ("--cloud", c_cfg)):
+        require_token_prompts(cfg, f"launch/serve.py {flag}")
     if args.reduced:
         e_cfg, c_cfg = e_cfg.reduced(), c_cfg.reduced()
     # shared vocab required for token-level collaboration

@@ -8,8 +8,11 @@ Seeded random init (seed 0), AdamW with a cosine schedule (warm-up a tenth
 of the steps) on the ``SyntheticLM`` stream of ``data/pipeline.batches``.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` trains on the CPU (``--reduced`` keeps that small).  ``--arch`` takes
-every family the port serves (dense, moe, ssm, xlstm, hybrid).  On CUDA the
-attention runs the flash kernel forward and backward, and the recurrent
+every family the port has (dense, moe, vlm, ssm, xlstm, hybrid, encdec;
+vlm batches carry the stub image ``embeds`` and take ``--seq`` rows in
+all, encdec batches the stub audio ``frames``).  On CUDA the attention
+runs the flash kernel forward and backward (prefix-LM for vlm, non-causal
+over the encoder and the cross-attention for encdec), and the recurrent
 families' chunked scan the SSD-scan kernel forward and backward.
 ``--remat`` recomputes each block in the backward (each group for the
 hybrid), every family.  The step updates the parameters and the AdamW

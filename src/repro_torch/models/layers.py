@@ -117,6 +117,16 @@ def rmsnorm(x, weight, eps: float = 1e-5):
     return (x * (1.0 + weight.float())).to(dt)
 
 
+def layernorm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm with weight and bias, in f32 (the encdec family)."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
 def groupnorm_heads(x, weight, eps: float = 1e-5):
     """Per-head group norm of the xLSTM cell outputs. x: (..., H, hd)."""
     dt = x.dtype
@@ -160,12 +170,17 @@ def apply_rope(x, positions, theta: float = 10_000.0):
 
 
 # ----------------------------------------------------------------- attention
-def _attn_mask(q_pos, k_pos, *, causal: bool, window: int):
-    """Boolean mask (Sq, Sk): True = attend."""
+def _attn_mask(q_pos, k_pos, *, causal: bool, window: int,
+               prefix_len: int = 0):
+    """Boolean mask (Sq, Sk): True = attend.  ``prefix_len`` (prefix-LM:
+    the first keys are visible to every query) counts only under
+    ``causal``."""
     m = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
                    device=q_pos.device)
     if causal:
         m = k_pos[None, :] <= q_pos[:, None]
+        if prefix_len:
+            m = m | (k_pos[None, :] < prefix_len)
     if window:
         m = m & (k_pos[None, :] > q_pos[:, None] - window)
     return m
@@ -189,7 +204,7 @@ def mha(q, k, v, mask=None, softcap: float = 0.0):
 
 
 def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
-                bq: int = 512, bk: int = 512):
+                prefix_len: int = 0, bq: int = 512, bk: int = 512):
     """Chunked attention with an online softmax over (bq, bk) blocks, the
     twin of the JAX package's ``mha_chunked``: memory O(bq * bk) per step
     instead of O(Sq * Sk).  Every block is computed, fully masked ones
@@ -220,6 +235,8 @@ def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
             msk = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
             if causal:
                 msk = k_pos[None, :] <= q_pos[:, None]
+                if prefix_len:
+                    msk = msk | (k_pos[None, :] < prefix_len)
             if window:
                 msk = msk & (k_pos[None, :] > q_pos[:, None] - window)
             s = torch.where(msk, s, NEG)
@@ -249,9 +266,29 @@ def _qkv(p, x, cfg):
             (x @ p["wv"]).reshape(B, T, Kv, hd))
 
 
+def use_kernel(backend: str, x) -> bool:
+    """Whether an attention read runs a Hopper kernel: "kernel" always,
+    "auto" on CUDA tensors."""
+    return backend == "kernel" or (backend == "auto" and x.is_cuda)
+
+
+def kernel_extend_mask(T: int, x, backend: str):
+    """The block mask that sends a linear T-token extend through the
+    tree-verify kernel on the kernel route: causal (T, T), so every cached
+    key is visible to all T queries and each new key to itself and the
+    queries after it — the causal mask.  None on the plain route, which
+    reads ``mha`` under the causal mask as the JAX package does."""
+    if not use_kernel(backend, x):
+        return None
+    return torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+
+
 def attention_block(p, x, positions, cfg, *, causal: bool = True,
-                    window: int = 0, backend: str = "auto"):
+                    window: int = 0, prefix_len: int = 0,
+                    backend: str = "auto"):
     """Full (prefill / train) attention. x: (B,S,d) -> (B,S,d), plus (k,v).
+    ``prefix_len`` makes the first keys visible to every query under
+    ``causal`` (prefix-LM: the vlm family's image prefix).
 
     On CUDA (``backend`` "auto" or "kernel") the scores never leave the
     chip: the Hopper flash kernel runs at every length on the projections
@@ -259,25 +296,29 @@ def attention_block(p, x, positions, cfg, *, causal: bool = True,
     the kernel — and writes its output in (B, S, H, hd), so nothing is
     copied around it.  Under grad (training) the forward also keeps each
     row's log-sum-exp and the hand-written backward kernel gives dQ, dK
-    and dV: training attention never leaves the kernels.  The CPU and ``backend="plain"`` materialize the
-    (S, S) mask and run ``mha`` below ``CHUNKED_ATTN_THRESHOLD`` and run
-    ``mha_chunked`` from it on, as the JAX package does."""
+    and dV: training attention never leaves the kernels.  The CPU and
+    ``backend="plain"`` materialize the (S, S) mask and run ``mha`` below
+    ``CHUNKED_ATTN_THRESHOLD`` and run ``mha_chunked`` from it on, as the
+    JAX package does."""
     B, S, d = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _qkv(p, x, cfg)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if backend == "kernel" or (backend == "auto" and x.is_cuda):
+    if use_kernel(backend, x):
         fn = flash_attention_kernel if backend == "kernel" \
             else ops.flash_attention
         out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 causal=causal, window=window).transpose(1, 2)
+                 causal=causal, window=window,
+                 prefix_len=prefix_len).transpose(1, 2)
     elif S >= CHUNKED_ATTN_THRESHOLD:
-        out = mha_chunked(q, k, v, causal=causal, window=window)
+        out = mha_chunked(q, k, v, causal=causal, window=window,
+                          prefix_len=prefix_len)
     else:
         mask = _attn_mask(positions, positions, causal=causal,
-                          window=window) if causal or window else None
+                          window=window, prefix_len=prefix_len) \
+            if causal or window else None
         out = mha(q, k, v, mask=mask)
     return out.reshape(B, S, H * hd) @ p["wo"], (k, v)
 
@@ -312,7 +353,7 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0,
     start = rows.clamp(0, Smax - 1)
     cache_k[b, start] = k[:, 0].to(cache_k.dtype)
     cache_v[b, start] = v[:, 0].to(cache_v.dtype)
-    if backend == "kernel" or (backend == "auto" and x.is_cuda):
+    if use_kernel(backend, x):
         fn = decode_attention_cuda if backend == "kernel" \
             else ops.decode_attention
         out = fn(q[:, 0].reshape(B, Kv, H // Kv, hd),
@@ -372,7 +413,7 @@ def extend_attention(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0,
     k_pos = torch.arange(Smax, device=x.device)
     if block_mask is None:
         mask = k_pos[None, None, :] <= q_pos[:, :, None]           # (B,T,S)
-    elif backend == "kernel" or (backend == "auto" and x.is_cuda):
+    elif use_kernel(backend, x):
         G = H // Kv
         fn = tree_verify_attention_cuda if backend == "kernel" \
             else ops.tree_verify_attention
@@ -416,15 +457,20 @@ def paged_write(pool, table, q_pos, vals):
     return pool
 
 
-def paged_extend_attention(p, x, k_pool, v_pool, table, pos, cfg):
+def paged_extend_attention(p, x, k_pool, v_pool, table, pos, cfg, *,
+                           backend: str = "auto"):
     """Cached decode through a paged KV pool (whole batch at once; T=1 is
     the single-token step, T>1 the speculative verify).
 
     x: (B,T,d); k_pool/v_pool: (NB, bs, Kv, hd) — ONE block pool shared by
     all sequences, written in place; table: (B, MB) int32 (logical position
     ``t`` of sequence ``b`` lives in block ``table[b, t // bs]`` at offset
-    ``t % bs``); pos: (B,) per-sequence write position.  Reads gather the
-    whole table; attention is causal, windowed by ``cfg.sliding_window``.
+    ``t % bs``); pos: (B,) per-sequence write position.  Attention is
+    causal, windowed by ``cfg.sliding_window``.  On the kernel route
+    (``backend`` "auto" on CUDA, or "kernel") the paged-decode kernel reads
+    one row per new token — token t of sequence b over b's table up to its
+    own position, which is the causal mask; otherwise the read gathers
+    the whole table and runs ``mha``, as the JAX package does.
     Returns (out (B,T,d), k_pool, v_pool)."""
     B, T, _ = x.shape
     _, bs, Kv, hd = k_pool.shape
@@ -436,6 +482,15 @@ def paged_extend_attention(p, x, k_pool, v_pool, table, pos, cfg):
         k = apply_rope(k, q_pos, cfg.rope_theta)
     paged_write(k_pool, table, q_pos, k)
     paged_write(v_pool, table, q_pos, v)
+    if use_kernel(backend, x):
+        fn = paged_decode_attention_cuda if backend == "kernel" \
+            else ops.paged_decode_attention
+        out = fn(q.reshape(B * T, Kv, H // Kv, hd), k_pool, v_pool,
+                 table.repeat_interleave(T, 0),
+                 (q_pos + 1).reshape(B * T).to(torch.int32),
+                 window=cfg.sliding_window)
+        out = out.reshape(B, T, H * hd).to(x.dtype)
+        return out @ p["wo"], k_pool, v_pool
     tl = table.long()
     kk = k_pool[tl].reshape(B, -1, Kv, hd)
     vv = v_pool[tl].reshape(B, -1, Kv, hd)
@@ -488,6 +543,46 @@ def paged_decode_attention_block(p, x, k_pool, v_pool, table, pos, cfg, *,
                                          window=win)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
     return out @ p["wo"], k_pool, v_pool
+
+
+def cross_attention_kv(p, enc, cfg):
+    """Cross-attention k/v of the encoder output. enc: (B,Se,d) ->
+    k, v (B,Se,Kv,hd)."""
+    B, Se, _ = enc.shape
+    Kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return ((enc @ p["wk"]).reshape(B, Se, Kv, hd),
+            (enc @ p["wv"]).reshape(B, Se, Kv, hd))
+
+
+def cross_attention(p, x, k, v, cfg, *, backend: str = "auto"):
+    """x: (B,Sq,d) attends over the fixed k, v (B,Se,Kv,hd) with no mask
+    (the encoder is fully visible).  On CUDA ("auto", "kernel") a
+    one-token step with no gradient to carry (the decode step) runs the
+    dense decode kernel over k, v as strided views with every row's length
+    Se; any other call (prefill, extend, the teacher-forced forward, and
+    under grad) runs the flash kernel non-causally on q (B,H,Sq,hd)
+    against k, v (B,Kv,Se,hd) views — under grad its backward kernel gives
+    dK and dV, which reach the cross projections and the encoder.  The CPU
+    and "plain" run ``mha``, as the JAX package does."""
+    B, Sq, _ = x.shape
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, Sq, H, hd)
+    if not use_kernel(backend, x):
+        out = mha(q, k, v, mask=None)
+    elif Sq == 1 and not (torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)):
+        fn = decode_attention_cuda if backend == "kernel" \
+            else ops.decode_attention
+        Se = k.shape[1]
+        length = torch.full((B,), Se, dtype=torch.int32, device=x.device)
+        out = fn(q[:, 0].reshape(B, Kv, H // Kv, hd), k.permute(0, 2, 1, 3),
+                 v.permute(0, 2, 1, 3), length).reshape(B, 1, H, hd)
+    else:
+        fn = flash_attention_kernel if backend == "kernel" \
+            else ops.flash_attention
+        out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=False).transpose(1, 2)
+    return out.reshape(B, Sq, H * hd).to(x.dtype) @ p["wo"]
 
 
 # ----------------------------------------------------------------- mlp

@@ -1,5 +1,5 @@
-"""Model facade over the ported families: dense, moe, ssm (mamba2), xlstm
-and hybrid (zamba2).
+"""Model facade over the ported families: dense, moe, vlm (paligemma), ssm
+(mamba2), xlstm, hybrid (zamba2) and encdec (whisper).
 
     m = Model(cfg)
     params = m.init(seed=0)                       # on CUDA unless told
@@ -9,20 +9,23 @@ and hybrid (zamba2).
     logits, cache = m.decode_step(params, token, cache)
 
 Same entry points as the JAX package's ``Model``.  Parameters are the
-``models.transformer.Transformer`` module for the dense and moe families
-and a ``layers.ParamTree`` for the recurrent ones.  ``attn_backend``
-("auto" | "kernel" | "plain") picks the kernels' or the plain path of
-every entry that reaches a kernel.  The vlm and encdec families raise
-``NotImplementedError`` naming their later slice.
+``models.transformer.Transformer`` module for the dense, moe and vlm
+families, ``models.encdec.EncDec`` for encdec and a ``layers.ParamTree``
+for the recurrent ones.  ``attn_backend`` ("auto" | "kernel" | "plain")
+picks the kernels' or the plain path of every entry that reaches a kernel.
+``batch`` is a dict: {"tokens", "labels"?, "embeds"? (vlm stub, (B, P, d)),
+"frames"? (encdec stub, (B, Se, d))}.
 """
+
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, ssm, transformer, xlstm
+from repro_torch.configs.base import (STUB_INPUTS, ModelConfig, stub_input,
+                                      text_len)
+from repro_torch.models import encdec, hybrid, ssm, transformer, xlstm
 
 
 def cross_entropy(logits, labels, ignore: int = -1):
@@ -35,24 +38,40 @@ def cross_entropy(logits, labels, ignore: int = -1):
     nll = (logz - gold) * mask
     return nll.sum() / mask.sum().clamp(min=1)
 
-FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm,
-            "xlstm": xlstm, "hybrid": hybrid}
+FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": ssm, "xlstm": xlstm, "hybrid": hybrid, "encdec": encdec}
 # KV-cache decoders (``transformer``'s families): they page, rewind by
 # ``pos`` and take token trees
 KV_FAMILIES = transformer.FAMILIES
 
 
+def require_token_prompts(cfg, who: str) -> None:
+    """Raise for a family whose prompts carry a stub input (vlm ``embeds``,
+    encdec ``frames``): the serving engine prefills with tokens alone, as
+    the JAX package's does (which fails there with a KeyError)."""
+    if cfg.family in STUB_INPUTS:
+        raise NotImplementedError(
+            f"{who} cannot serve {cfg.name} (family {cfg.family!r}): the "
+            "serving engine prefills with tokens alone and carries no "
+            f"{STUB_INPUTS[cfg.family]!r}, as in the JAX package; the "
+            "Model API (prefill, decode_step, extend_step) and the trainer "
+            "serve this family")
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-                "PyTorch port serves the dense, moe, ssm, xlstm and hybrid "
-                "families; vlm and encdec are later slices")
+            raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
         self.cfg = cfg
         self._mod = FAMILIES[cfg.family]
-        # families with attention: a sliding window, a K/V cache to size
-        self._attn = cfg.family in KV_FAMILIES + ("hybrid",)
+        # families with attention: a window keyword, a K/V cache to size
+        self._attn = cfg.family in KV_FAMILIES + ("hybrid", "encdec")
+
+    def _stub(self, batch: Dict) -> Dict:
+        """The family's stub input as a keyword: ``embeds=`` (vlm),
+        ``frames=`` (encdec), nothing otherwise."""
+        key = STUB_INPUTS.get(self.cfg.family)
+        return {key: batch[key]} if key else {}
 
     # ---------------------------------------------------------------- init
     def init(self, seed: int = 0, device="cuda"):
@@ -74,27 +93,40 @@ class Model:
         kw = {"window": window} if self._attn else {}
         return self._mod.forward(params, batch["tokens"], self.cfg,
                                  backend=attn_backend, remat=remat,
-                                 collect_hidden=collect_hidden, **kw)
+                                 collect_hidden=collect_hidden,
+                                 **self._stub(batch), **kw)
 
     def loss(self, params, batch: Dict, *, window: int = 0,
              remat: bool = False, attn_backend: str = "auto"):
         """Next-token cross entropy of ``batch["labels"]`` (-1 ignored)
-        plus the moe auxiliary loss, as the JAX package's ``Model.loss``."""
+        plus the moe auxiliary loss, as the JAX package's ``Model.loss``;
+        the vlm image-prefix rows carry no loss."""
         logits, aux = self.forward(params, batch, window=window, remat=remat,
                                    attn_backend=attn_backend)[:2]
+        logits = self.text_rows(logits, batch)
         return cross_entropy(logits[:, :-1, :], batch["labels"][:, 1:]) + aux
+
+    def text_rows(self, x, batch: Dict, dim: int = 1):
+        """``x`` with the vlm image-prefix rows (the first P along ``dim``)
+        sliced off; unchanged for every other family."""
+        if self.cfg.family != "vlm":
+            return x
+        return x.narrow(dim, batch["embeds"].shape[1],
+                        x.shape[dim] - batch["embeds"].shape[1])
 
     def prefill(self, params, batch: Dict, *, max_seq: Optional[int] = None,
                 window: int = 0, attn_backend: str = "auto"):
         kw = {"max_seq": max_seq, "window": window} if self._attn else {}
         return self._mod.prefill(params, batch["tokens"], self.cfg,
-                                 backend=attn_backend, **kw)
+                                 backend=attn_backend, **self._stub(batch),
+                                 **kw)
 
     def decode_step(self, params, token, cache, *, window: int = 0,
                     attn_backend: str = "auto"):
         """One decode step.  ``attn_backend``: "auto" (CUDA: the Hopper
         dense decode kernel of every attention read; CPU: ``mha``), "kernel"
-        or "plain".  The recurrent families' own step has no kernel."""
+        or "plain".  The recurrent families' own step has no kernel; the
+        encdec step's cross-attention reads the dense decode kernel too."""
         if self._attn:
             return self._mod.decode_step(params, token, cache, self.cfg,
                                          window=window,
@@ -134,8 +166,9 @@ class Model:
     def paged_kv(self) -> bool:
         """True if the cache is a pure self-attention KV cache that pages
         (shared block pool + block tables, see ``core/paged_cache.py``):
-        the dense and moe families.  Recurrent state has no sequence axis
-        to page."""
+        the dense, moe and vlm families.  Recurrent state has no sequence
+        axis to page; encdec carries cross-attention K/V pinned to the
+        encoder length."""
         return self.cfg.family in KV_FAMILIES
 
     def _require_paged(self):
@@ -160,18 +193,22 @@ class Model:
         return transformer.paged_decode_step(params, token, cache, self.cfg,
                                              attn_backend=attn_backend)
 
-    def paged_extend_step(self, params, tokens, cache):
+    def paged_extend_step(self, params, tokens, cache, *,
+                          attn_backend: str = "auto"):
         """Multi-token cached decode over a paged cache. tokens (B,T) ->
-        (logits (B,T,V), cache)."""
+        (logits (B,T,V), cache).  ``attn_backend`` reaches the vlm
+        family's read (on CUDA the paged-decode kernel, one row per new
+        token); the dense and moe families read through ``mha``."""
         self._require_paged()
-        return transformer.paged_extend_step(params, tokens, cache, self.cfg)
+        return transformer.paged_extend_step(params, tokens, cache, self.cfg,
+                                             attn_backend=attn_backend)
 
     @property
     def rewindable_cache(self) -> bool:
         """True if the cache rolls back by resetting ``pos`` (KV caches);
         False for recurrent state, which rewinds by replaying the accepted
         prefix (``replay_step``)."""
-        return self.cfg.family in KV_FAMILIES
+        return self.cfg.family in KV_FAMILIES + ("encdec",)
 
     def rewind(self, cache, new_pos):
         assert self.rewindable_cache
@@ -199,18 +236,29 @@ class Model:
 # ---------------------------------------------------------------- batches
 def example_batch(cfg: ModelConfig, batch: int, seq: int, gen=None,
                   with_labels: bool = True, device="cuda") -> Dict:
-    """A random ``{"tokens", "labels"?}`` batch of int32 (batch, seq) on
-    ``device``, drawn from the ``torch.Generator`` ``gen`` (seed 0 on
-    ``device`` if None)."""
+    """A random ``{"tokens", "labels"?}`` batch of int32 (batch, s_text) on
+    ``device`` plus the family's stub input in ``cfg.activ_dtype`` — vlm
+    ``embeds`` (batch, num_image_tokens, d) with s_text = max(seq - P, 8),
+    encdec ``frames`` (batch, encoder_seq, d), standard normal — as the
+    JAX package's ``example_batch`` lays it out.  Drawn from the
+    ``torch.Generator`` ``gen`` (seed 0 on ``device`` if None), tokens,
+    labels, then the stub: the JAX package's distributions, not its
+    draws."""
     device = torch.device(device)
     if gen is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
-    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+    s_text = text_len(cfg, seq)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, s_text),
                                    generator=gen, device=device,
                                    dtype=torch.int32)}
     if with_labels:
-        out["labels"] = torch.randint(0, cfg.vocab_size, (batch, seq),
+        out["labels"] = torch.randint(0, cfg.vocab_size, (batch, s_text),
                                       generator=gen, device=device,
                                       dtype=torch.int32)
+    key, rows = stub_input(cfg)
+    if key is not None:
+        out[key] = torch.randn((batch, rows, cfg.d_model), generator=gen,
+                               device=device) \
+            .to(transformer.dtype_of(cfg.activ_dtype))
     return out

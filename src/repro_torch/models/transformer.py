@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense and moe families.
+"""Decoder-only transformer, dense, moe and vlm families.
 
 The parameters live in an ``nn.Module`` per model (``Transformer``), laid
 out as the JAX pytree: ``x @ w`` with ``w`` (in, out), one ``Block`` per
@@ -11,7 +11,12 @@ A moe layer carries a ``moe`` parameter dict (``router``, ``w_gate``,
 ``w_up``, ``w_down``; ``models/moe.py``) where a dense one carries ``mlp``,
 and every entry point runs ``moe_apply`` in its place, as the JAX package
 does; ``forward`` returns the layers' summed auxiliary loss.  The vlm
-family is a later slice of the port.
+family is the dense decoder with a stub image prefix: ``forward`` and
+``prefill`` take ``embeds`` (B, P, d), prepend it to the token embeddings
+and attend over it bidirectionally (prefix-LM: ``prefix_len = P`` in every
+block, the flash kernels' ``prefix_len`` on CUDA); the cached steps are
+the dense ones, except that on CUDA its linear extends read through
+kernels (``KERNEL_EXTENDS``).
 """
 from __future__ import annotations
 
@@ -32,18 +37,25 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
+# families whose linear extends (no block mask) read through kernels on
+# CUDA: the tree-verify kernel under a causal (T, T) block mask, and the
+# paged-decode kernel over one row per new token.  The dense and moe
+# extends keep ``mha`` (ROADMAP A.10): the serving engine's chunked prefill
+# extends them by up to a tick's tokens, whose (T, T) mask outgrows the
+# tree kernel's shared memory.
+KERNEL_EXTENDS = ("vlm",)
 
 
 def require_dense(cfg) -> None:
-    """Raise unless ``cfg`` is a dense or moe decoder, the two families
+    """Raise unless ``cfg`` is a dense, moe or vlm decoder, the families
     this module serves."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not a dense or moe "
-            "transformer: this module serves those two families (the "
-            "recurrent families have their own modules); vlm is a later "
-            "slice")
+            f"family {cfg.family!r} ({cfg.name}) is not a decoder-only "
+            "transformer: this module serves the dense, moe and vlm "
+            "families (the recurrent families and encdec have their own "
+            "modules)")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -69,7 +81,7 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense or moe decoder: ``embed`` (V, d), ``blocks``,
+    """Parameters of a dense, moe or vlm decoder: ``embed`` (V, d), ``blocks``,
     ``final_norm`` and, when the head is untied, ``lm_head`` (V, d)."""
 
     def __init__(self, cfg, embed, blocks, final_norm, lm_head=None):
@@ -136,18 +148,19 @@ def _logits(params, h, cfg):
     return logits
 
 
-def _block(blk, h, positions, cfg, window, backend):
+def _block(blk, h, positions, cfg, window, backend, prefix_len=0):
     """One layer over the full sequence: (h, aux loss or None, (k, v))."""
     a, kv = L.attention_block(blk.attn,
                               L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
-                              positions, cfg, window=window, backend=backend)
+                              positions, cfg, window=window,
+                              prefix_len=prefix_len, backend=backend)
     h = h + a
     m, a_l = _ffn(blk, h, cfg)
     return h + m, a_l, kv
 
 
 def _layers(params, h, positions, cfg, window, backend, collect=None,
-            remat: bool = False, hidden=None):
+            remat: bool = False, hidden=None, prefix_len: int = 0):
     """Full-sequence pass over every layer; appends each layer's (k, v) to
     ``collect`` and its output to ``hidden``.  Returns (h, summed aux loss
     () f32).  ``remat`` recomputes each block in the backward
@@ -158,9 +171,11 @@ def _layers(params, h, positions, cfg, window, backend, collect=None,
         if remat:
             h, a_l = checkpoint(
                 lambda x, b=blk: _block(b, x, positions, cfg, window,
-                                        backend)[:2], h, use_reentrant=False)
+                                        backend, prefix_len)[:2], h,
+                use_reentrant=False)
         else:
-            h, a_l, kv = _block(blk, h, positions, cfg, window, backend)
+            h, a_l, kv = _block(blk, h, positions, cfg, window, backend,
+                                prefix_len)
             if collect is not None:
                 collect.append(kv)
         if hidden is not None:
@@ -170,20 +185,32 @@ def _layers(params, h, positions, cfg, window, backend, collect=None,
     return h, aux
 
 
-# ----------------------------------------------------------------- forward
-def forward(params, tokens, cfg, *, window: int = 0, backend: str = "auto",
-            remat: bool = False, collect_hidden: bool = False):
-    """Scoring / training forward pass.  tokens: (B, S) int.  Returns
-    (logits (B, S, V) f32, aux_loss) — the moe layers' summed load-balance
-    loss, 0 for the dense family — and every layer's output (L, B, S, d)
-    if ``collect_hidden``.  ``remat``: recompute each block in the
-    backward."""
-    L.check_backend(backend)
+def _embed(params, tokens, cfg, embeds):
+    """Token embeddings in the activation dtype, the vlm ``embeds`` (B, P,
+    d) prepended: (h, prefix_len)."""
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
+    if embeds is None:
+        return h, 0
+    return torch.cat([embeds.to(h.dtype), h], dim=1), embeds.shape[1]
+
+
+# ----------------------------------------------------------------- forward
+def forward(params, tokens, cfg, *, embeds=None, window: int = 0,
+            backend: str = "auto", remat: bool = False,
+            collect_hidden: bool = False):
+    """Scoring / training forward pass.  tokens: (B, S_text) int; for vlm
+    ``embeds`` (B, P, d) is prepended (prefix-LM attention over it).
+    Returns (logits (B, S, V) f32 over all S = P + S_text rows, aux_loss) —
+    the moe layers' summed load-balance loss, 0 for the dense family — and
+    every layer's output (L, B, S, d) if ``collect_hidden``.  ``remat``:
+    recompute each block in the backward."""
+    L.check_backend(backend)
+    h, prefix_len = _embed(params, tokens, cfg, embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     hidden = [] if collect_hidden else None
     h, aux = _layers(params, h, positions, cfg, window or cfg.sliding_window,
-                     backend, remat=remat, hidden=hidden)
+                     backend, remat=remat, hidden=hidden,
+                     prefix_len=prefix_len)
     out = (_logits(params, h, cfg), aux)
     return out + (torch.stack(hidden),) if collect_hidden else out
 
@@ -227,7 +254,8 @@ def paged_decode_step(params, token, cache, cfg, *,
     path, the parity oracle for tests."""
     L.check_backend(attn_backend)
     if attn_backend == "gather":
-        logits, cache = paged_extend_step(params, token, cache, cfg)
+        logits, cache = paged_extend_step(params, token, cache, cfg,
+                                          attn_backend="gather")
         return logits[:, 0], cache
     h = L.embed(params.embed, token).to(dtype_of(cfg.activ_dtype))
     pos, table = cache["pos"], cache["table"]
@@ -241,15 +269,20 @@ def paged_decode_step(params, token, cache, cfg, *,
     return _logits(params, h[:, 0, :], cfg), {**cache, "pos": pos + 1}
 
 
-def paged_extend_step(params, tokens, cache, cfg):
+def paged_extend_step(params, tokens, cache, cfg, *,
+                      attn_backend: str = "auto"):
     """Multi-token cached decode over a paged cache (speculative verify).
-    tokens (B, T) -> (logits (B, T, V), cache)."""
+    tokens (B, T) -> (logits (B, T, V), cache).  ``attn_backend`` as in
+    ``layers.paged_extend_attention`` for the ``KERNEL_EXTENDS`` families;
+    the others read the table's gather through ``mha``."""
+    L.check_backend(attn_backend)
+    backend = attn_backend if cfg.family in KERNEL_EXTENDS else "plain"
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
     pos, table = cache["pos"], cache["table"]
     for l, blk in enumerate(params.blocks):
         a, _, _ = L.paged_extend_attention(
             blk.attn, L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
-            cache["k"][l], cache["v"][l], table, pos, cfg)
+            cache["k"][l], cache["v"][l], table, pos, cfg, backend=backend)
         h = h + a
         h = h + _mlp(blk, h, cfg)
     return _logits(params, h, cfg), {**cache,
@@ -257,17 +290,19 @@ def paged_extend_step(params, tokens, cache, cfg):
 
 
 def prefill(params, tokens, cfg, *, max_seq: Optional[int] = None,
-            window: int = 0, backend: str = "auto"):
-    """Run the prompt, build the KV cache.  tokens (B, S).  Returns
-    (last-token logits (B, V), cache padded to ``max_seq`` entries)."""
+            embeds=None, window: int = 0, backend: str = "auto"):
+    """Run the prompt, build the KV cache.  tokens (B, S_text); for vlm
+    ``embeds`` (B, P, d) is prepended as in ``forward`` and the cache holds
+    all S = P + S_text rows.  Returns (last-token logits (B, V), cache
+    padded to ``max_seq`` entries)."""
     L.check_backend(backend)
-    h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
-    B, S = tokens.shape
+    h, prefix_len = _embed(params, tokens, cfg, embeds)
+    B, S = h.shape[:2]
     max_seq = max(max_seq or S, S)
     positions = torch.arange(S, device=h.device)
     kvs = []
     h, _ = _layers(params, h, positions, cfg, window or cfg.sliding_window,
-                   backend, kvs)
+                   backend, kvs, prefix_len=prefix_len)
     logits = _logits(params, h[:, -1, :], cfg)
     cache = init_cache(cfg, B, max_seq, device=h.device)
     for l, (k, v) in enumerate(kvs):
@@ -294,12 +329,17 @@ def extend_step(params, tokens, cache, cfg, *, window: int = 0,
     customizes intra-block attention (its last T columns are the new
     tokens, earlier columns cover tree rows already in the cache — see
     ``layers.extend_attention``; on CUDA the Hopper tree-verify kernel);
-    ``q_positions`` ((T,) or (B,T)) overrides the RoPE positions."""
+    ``q_positions`` ((T,) or (B,T)) overrides the RoPE positions.  A
+    ``KERNEL_EXTENDS`` family's linear extend takes the tree-verify kernel
+    too, under a causal block mask."""
     L.check_backend(attn_backend)
     pos = cache["pos"]
     win = window or cfg.sliding_window
     if block_mask is not None:
         block_mask = block_mask.bool().contiguous()
+    elif q_positions is None and cfg.family in KERNEL_EXTENDS:
+        block_mask = L.kernel_extend_mask(tokens.shape[1], tokens,
+                                          attn_backend)
     h = _cached(params, tokens, cache, cfg,
                 lambda p, x, ck, cv: L.extend_attention(
                     p, x, ck, cv, pos, cfg, window=win,

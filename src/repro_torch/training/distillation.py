@@ -9,6 +9,10 @@ port of the JAX package's ``training/distillation.py``.
 * ``logit_delta_guidance`` — SLM-guided LLM adaptation (the emulator of
   Mitchell et al., survey §3.5.2): apply (logits_slm_ft - logits_slm_base)
   to the LLM.
+
+For the vlm family the image-prefix rows carry no loss in ``kd_loss`` and
+``reverse_kd_loss``, and ``teacher_logits_fn`` returns the text rows only,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ def kd_loss(student_model, student_params, batch, teacher_logits, *,
     aux loss.  ``kd_mask`` ((B, S) bool) marks the positions with real
     teacher logits; None averages over every position."""
     logits, aux = student_model.forward(student_params, batch)[:2]
+    logits = student_model.text_rows(logits, batch)
     ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
     kl = kl_divergence(teacher_logits[:, :-1], logits[:, :-1], temperature,
                        mask=None if kd_mask is None else kd_mask[:, :-1])
@@ -50,6 +55,7 @@ def reverse_kd_loss(student_model, student_params, batch, teacher_logits, *,
     """KL(student || teacher): mode-seeking, the gradient flows through the
     student distribution (MiniLLM)."""
     logits, aux = student_model.forward(student_params, batch)[:2]
+    logits = student_model.text_rows(logits, batch)
     s = F.log_softmax(logits[:, :-1].float() / temperature, -1)
     t = F.log_softmax(teacher_logits[:, :-1].float() / temperature, -1)
     return torch.mean(torch.sum(torch.exp(s) * (s - t), dim=-1)) + aux
@@ -80,10 +86,12 @@ def distillspec_data(target_model, target_params, prompts, max_new: int,
 
 
 def teacher_logits_fn(teacher_model, teacher_params):
-    """The frozen teacher's forward for KD: batch -> logits, no graph."""
+    """The frozen teacher's forward for KD: batch -> logits (text rows
+    only for vlm), no graph."""
     @torch.no_grad()
     def fn(batch):
-        return teacher_model.forward(teacher_params, batch)[0]
+        return teacher_model.text_rows(
+            teacher_model.forward(teacher_params, batch)[0], batch)
     return fn
 
 

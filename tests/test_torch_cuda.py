@@ -361,6 +361,28 @@ def test_tree_verify_attention_kernel(cuda, B, Kv, G, S, hd, dtype, window):
     assert _err(out, ref) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("B,Kv,G,S,hd,n", [(8, 12, 1, 48, 64, 40),
+                                           (8, 1, 8, 304, 256, 296),
+                                           (2, 1, 8, 64, 256, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_verify_attention_kernel_linear_extend(cuda, B, Kv, G, S, hd, n,
+                                                    dtype):
+    """A 4-token linear extend as the encdec and vlm families run it on the
+    card: a causal (4, 4) block mask over ``n`` cached rows (whisper's and
+    paligemma's heads, hd 64 and 256)."""
+    N = 4
+    q = _rand(0, (B, N, Kv, G, hd), cuda, dtype).permute(0, 2, 3, 1, 4)
+    k = _cache_view(1, B, Kv, S, hd, cuda, dtype)
+    v = _cache_view(2, B, Kv, S, hd, cuda, dtype)
+    length = torch.full((B,), n, dtype=torch.int32, device=cuda)
+    q_pos = (length[:, None] + torch.arange(N, device=cuda)) \
+        .to(torch.int32).contiguous()
+    mask = torch.ones((N, N), dtype=torch.bool, device=cuda).tril()
+    out = tree_verify_attention_cuda(q, k, v, length, mask, q_pos)
+    ref = tree_verify_attention_plain(q, k, v, length, mask, q_pos)
+    assert _err(out, ref) <= TOL[dtype]
+
+
 @pytest.mark.parametrize("level", [0, 1, 2, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tree_verify_attention_kernel_levels(cuda, level, dtype):
@@ -1317,3 +1339,209 @@ def test_model_loss_trains_on_the_kernels(cuda, family):
     assert torch.equal(lk, lr)
     for a, b in zip(gk, gr):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------- prefix-LM, cross attention
+# The vlm family's prefix-LM mask (``prefix_len``: the first keys visible to
+# every query under causal) and the encdec family's non-causal reads —
+# the whisper encoder over 1500 frames and the decoder's cross attention,
+# Sq != Sk — in both flash kernels, against the plain versions.  (B, H,
+# Kv, S, hd, prefix, window): paligemma's heads (G 8 on one kv head, hd
+# 256: the CUDA-core backward) over 256 image rows + 16 text rows,
+# prefixes that end inside a tile with packed rows straddling it (G 3),
+# past S, and under a window
+PREFIX_SHAPES = [(1, 8, 1, 272, 256, 256, 0), (2, 9, 3, 100, 64, 37, 0),
+                 (1, 4, 4, 150, 80, 64, 40), (2, 4, 2, 70, 128, 100, 0),
+                 (1, 8, 1, 90, 64, 1, 0)]
+
+
+@pytest.mark.parametrize("B,H,Kv,S,hd,prefix,window", PREFIX_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_prefix(cuda, B, H, Kv, S, hd, prefix, window,
+                                dtype):
+    """Forward (with and without the LSE) and backward with a prefix."""
+    q, k, v, dout = _bwd_inputs(B, H, Kv, S, S, hd, cuda, dtype)
+    kw = dict(causal=True, window=window, prefix_len=prefix)
+    out = flash_attention_cuda(q, k, v, **kw)
+    assert _err(out, flash_attention_plain(q, k, v, **kw)) <= TOL[dtype]
+    got = _attn_grads(ops.flash_attention, q, k, v, dout, **kw)
+    ref = _attn_grads(flash_attention_plain, q, k, v, dout, **kw)
+    assert torch.equal(got[0], out)
+    for g, r in zip(got[1:], ref[1:]):
+        assert _rel_err(g, r) <= BWD_TOL[dtype]
+
+
+def test_flash_attention_prefix_counts_only_under_causal(cuda):
+    q, k, v, _ = _bwd_inputs(1, 4, 2, 64, 64, 64, cuda, torch.bfloat16)
+    assert torch.equal(flash_attention_cuda(q, k, v, causal=False,
+                                            prefix_len=20),
+                       flash_attention_cuda(q, k, v, causal=False))
+    with pytest.raises(ValueError, match="prefix_len"):
+        flash_attention_cuda(q, k, v, prefix_len=-1)
+
+
+# (B, H, Kv, Sq, Sk, hd): whisper-small's encoder (12 heads of 64 over 1500
+# frames, no tile divides it) and its cross attention, 16 and 256 decoder
+# rows against the 1500 encoder rows
+CROSS_SHAPES = [(1, 12, 12, 1500, 1500, 64), (2, 12, 12, 16, 1500, 64),
+                (1, 12, 12, 256, 1500, 64)]
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Sk,hd", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_whisper_shapes(cuda, B, H, Kv, Sq, Sk, hd, dtype):
+    q, k, v, dout = _bwd_inputs(B, H, Kv, Sq, Sk, hd, cuda, dtype)
+    got = _attn_grads(ops.flash_attention, q, k, v, dout, causal=False)
+    ref = _attn_grads(flash_attention_plain, q, k, v, dout, causal=False)
+    assert _err(got[0], ref[0]) <= TOL[dtype]
+    for g, r in zip(got[1:], ref[1:]):
+        assert _rel_err(g, r) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_at_the_new_families_shapes(cuda, dtype):
+    """Dense decode at paligemma's heads (Kv 1, G 8, hd 256) over ~300
+    positions and as whisper's cross attention (Kv 12, G 1, hd 64, every
+    row's length the 1500 encoder rows); paged decode at paligemma's
+    heads."""
+    for B, Kv, G, S, hd, lo, hi in ((8, 1, 8, 320, 256, 272, 301),
+                                    (8, 12, 1, 1500, 64, 1500, 1501)):
+        q = _rand(0, (B, Kv, G, hd), cuda, dtype)
+        k, v = (_rand(i, (B, S, Kv, hd), cuda, dtype).permute(0, 2, 1, 3)
+                for i in (1, 2))
+        length = torch.randint(lo, hi, (B,), device=cuda, dtype=torch.int32)
+        out = decode_attention_cuda(q, k, v, length)
+        assert _err(out, decode_attention_plain(q, k, v, length)) \
+            <= TOL[dtype]
+    B, Kv, G, hd, bs, MB = 8, 1, 8, 256, 32, 10
+    q = _rand(3, (B, Kv, G, hd), cuda, dtype)
+    kp, vp = (_rand(i, (B * MB + 1, bs, Kv, hd), cuda, dtype)
+              for i in (4, 5))
+    table = (torch.randperm(B * MB, device=cuda) + 1).reshape(B, MB) \
+        .to(torch.int32)
+    length = torch.randint(272, 301, (B,), device=cuda, dtype=torch.int32)
+    out = paged_decode_attention_cuda(q, kp, vp, table, length)
+    ref = paged_decode_attention_plain(q, kp, vp, table, length)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+NEW_FAMILIES = {"vlm": "paligemma-3b", "encdec": "whisper-small"}
+
+
+def _f32_reduced(arch):
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced().replace(param_dtype="float32",
+                                              activ_dtype="float32")
+
+
+@pytest.mark.parametrize("family", list(NEW_FAMILIES))
+def test_new_families_greedy_traces_kernel_vs_plain(cuda, family):
+    """Reduced float32 models on the card: prefill, 10 greedy decode steps
+    and a 4-token extend give the same tokens and logits within 1e-4 on
+    the kernels and on the plain versions; the kernel run launches the
+    flash kernel (prefill and, for encdec, the extend's cross attention),
+    the dense decode kernel (every decode read, self and cross) and the
+    tree-verify kernel (the extend's self attention, under a causal block
+    mask), the plain run none."""
+    from repro_torch.models import Model
+    from repro_torch.models.model import example_batch
+    cfg = _f32_reduced(NEW_FAMILIES[family])
+    m = Model(cfg)
+    p = m.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = example_batch(cfg, 2, 12, gen, with_labels=False, device="cuda")
+    runs = {}
+    for backend in ("auto", "plain"):
+        ops.reset_launch_counts()
+        lg, cache = m.prefill(p, batch, max_seq=32, attn_backend=backend)
+        toks, logits = [], [lg]
+        for _ in range(10):
+            tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+            toks.append(tok)
+            lg, cache = m.decode_step(p, tok, cache, attn_backend=backend)
+            logits.append(lg)
+        ext, cache = m.extend_step(p, torch.cat(toks[-4:], 1), cache,
+                                   attn_backend=backend)
+        runs[backend] = (torch.cat(toks, 1), logits + [ext],
+                         ops.launch_counts())
+    (tk, lk, ck), (tp, lp, cp) = runs["auto"], runs["plain"]
+    assert torch.equal(tk, tp)
+    for a, b in zip(lk, lp):
+        assert _err(a, b) <= 1e-4
+    L = cfg.num_layers
+    enc = cfg.encoder_layers if family == "encdec" else 0
+    assert ck["flash_attention"] == L + enc + (2 * L if enc else 0)
+    assert ck["decode_attention"] == 10 * L * (2 if enc else 1)
+    assert ck["tree_verify_attention"] == L
+    assert all(n == 0 for n in cp.values())
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_vlm_paged_extend_kernel_vs_plain(cuda, window):
+    """The vlm paged extend at float32 (reduced): the paged-decode kernel,
+    one row per new token, against the table's gather through ``mha`` —
+    logits and pools within 1e-4 (a layer's K/V is projected from the
+    layers before it), one launch per layer."""
+    from repro_torch.models import Model
+    cfg = _f32_reduced(NEW_FAMILIES["vlm"]).replace(sliding_window=window)
+    m = Model(cfg)
+    p = m.init(seed=0, device="cuda")
+    B, bs, MB, T = 3, 8, 4, 5
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    base = m.init_paged_cache(B * MB + 1, bs, B, MB, device="cuda")
+    base["k"].normal_(generator=gen)
+    base["v"].normal_(generator=gen)
+    base["table"] = torch.randperm(B * MB, generator=gen, device="cuda") \
+        .add_(1).to(torch.int32).reshape(B, MB)
+    base["pos"] = torch.tensor([0, 9, 25], dtype=torch.int32, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    runs = {}
+    for backend in ("auto", "plain"):
+        ops.reset_launch_counts()
+        cache = {k: v.clone() for k, v in base.items()}
+        lg, cache = m.paged_extend_step(p, toks, cache, attn_backend=backend)
+        runs[backend] = (lg, cache, ops.launch_counts())
+    (lk, ck, nk), (lp, cp, np_) = runs["auto"], runs["plain"]
+    assert _err(lk, lp) <= 1e-4
+    assert _err(ck["k"], cp["k"]) <= 1e-4 and _err(ck["v"], cp["v"]) <= 1e-4
+    assert nk["paged_decode_attention"] == cfg.num_layers
+    assert all(n == 0 for n in np_.values())
+
+
+@pytest.mark.parametrize("family", list(NEW_FAMILIES))
+@pytest.mark.parametrize("remat", [False, True])
+def test_new_families_train_on_the_kernels(cuda, family, remat):
+    """Model.loss under grad at float32 (reduced): every attention read —
+    prefix-LM for vlm; the encoder, the decoder and the cross attention
+    for encdec — runs the flash kernel forward and backward, and the loss
+    and gradients match the plain path (loss 1e-5, gradients 1e-4 of
+    max(1, max |plain|))."""
+    from repro_torch.models import Model
+    from repro_torch.models.model import example_batch
+    from repro_torch.training import tree as T
+    cfg = _f32_reduced(NEW_FAMILIES[family])
+    m = Model(cfg)
+    p = m.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = example_batch(cfg, 4, 44, gen, device="cuda")
+    res = {}
+    for backend in ("auto", "plain"):
+        tp = T.replace(p, [t.detach().requires_grad_(True)
+                           for t in T.tensors(p)])
+        ops.reset_launch_counts()
+        loss = m.loss(tp, batch, remat=remat and backend == "auto",
+                      attn_backend=backend)
+        grads = torch.autograd.grad(loss, T.tensors(tp))
+        res[backend] = (loss.detach(), grads, ops.launch_counts())
+    (lk, gk, ck), (lp, gp, cp) = res["auto"], res["plain"]
+    L = cfg.num_layers
+    enc = cfg.encoder_layers if family == "encdec" else 0
+    n_fwd = L + enc + (L if enc else 0)          # encdec: self + cross
+    dec = 2 * L if enc else L                    # the rematerialized reads
+    assert ck["flash_attention"] == n_fwd + (dec if remat else 0)
+    assert ck["flash_attention_bwd"] == n_fwd
+    assert all(n == 0 for n in cp.values())
+    assert abs(float(lk) - float(lp)) <= 1e-5 * float(lp)
+    for a, b in zip(gk, gp):
+        assert _rel_err(a, b) <= 1e-4

@@ -110,15 +110,3 @@ def test_layerskip_loss_and_grads_match_jax(models, fam):
     # remat changes nothing
     tl2, _ = TE.layerskip_loss(tm, train_p, tb, exits, remat=True)
     assert torch.equal(tl.detach(), tl2.detach())
-
-
-def test_early_exit_refuses_unported_families():
-    cfg = tget("whisper-small")
-
-    class Stub:
-        pass
-
-    m = Stub()
-    m.cfg = cfg
-    with pytest.raises(NotImplementedError, match="A.5"):
-        TE.exit_logits(m, None, None, [0])
