@@ -54,7 +54,8 @@ the first phase that fails:
    paligemma's heads (also at its paged extend: one row per new token),
    and the tree verify at both families' 4-token linear extends (a causal
    block mask), each held against its plain version (float32 and
-   bfloat16) and timed against SDPA (given the same boolean mask) with
+   bfloat16; each backward on its planned route and bit-identical over
+   two runs) and timed against SDPA (given the same boolean mask) with
    bounds from the visible pairs;
 3. serve seven paths at full width — granite-8b cloud, bfloat16, seeded
    random weights, 8 requests of 16 prompt tokens, 24 new tokens, gamma 4,
@@ -87,9 +88,11 @@ the first phase that fails:
    with ``--remat``, then whisper-small (batch 8, seq 256) and
    paligemma-3b (batch 8, seq 512: 256 image rows + 256 text tokens),
    each loss falling and every scan and attention layer
-   launching its forward and backward kernels in every step; a profiled
-   training step of smollm-135m and of mamba2-370m; and one float32 train
-   step through the kernels against
+   launching its forward and backward kernels in every step, every flash
+   backward on its tensor-core route (``wgmma256`` at paligemma's hd 256,
+   ``wgmma`` below it) and none on the CUDA cores; a profiled
+   training step of smollm-135m, mamba2-370m and paligemma-3b; and one
+   float32 train step through the kernels against
    the plain versions (2 layers, full width: smollm-135m, mamba2-370m,
    xlstm-125m); between serving and learning the stub-input families
    through the ``Model`` API at full width (bfloat16, batch 8, seeded
@@ -1524,16 +1527,23 @@ def check_stub_family_shapes(gen, rows):
                 ferr.append(err)
             got = _attn_grads(ops.flash_attention, q, k, v, dout, **kw)
             ref = _attn_grads(K.flash_attention_plain, q, k, v, dout, **kw)
+            again = _attn_grads(ops.flash_attention, q, k, v, dout, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
             err = max(max_err(a, b) for a, b in zip(got, ref))
             scale = max(1.0, max(float(r.float().abs().max()) for r in ref))
+            route = K.flash_bwd_plan(dtype, hd, H // Kv, Sq, Sk, causal, 0,
+                                     prefix).route
             print(f"[kernel] flash_attention_bwd {name} {label} (B,H,Kv,Sq,"
                   f"Sk,hd)={(B, H, Kv, Sq, Sk, hd)} causal={causal} prefix="
-                  f"{prefix}: max_abs_err {err:.3e} (tol {BWD_TOL[name]:g} x "
-                  f"{scale:.2f})", flush=True)
+                  f"{prefix} ({route}): max_abs_err {err:.3e} (tol "
+                  f"{BWD_TOL[name]:g} x {scale:.2f}); a second run "
+                  f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
             check(err <= BWD_TOL[name] * scale,
                   f"flash_attention_bwd {name} {label}: error {err}")
+            check(same, f"flash_attention_bwd {name} {label}: two runs "
+                        "differ")
             berr.append(err)
-            del got, ref, q, k, v, dout
+            del got, ref, again, q, k, v, dout
     for case in STUB_FLASH_BWD:
         t = _stub_flash_timing(K, case, gen)
         if case in STUB_FLASH:
@@ -2278,6 +2288,7 @@ def _family_train_runs():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_bwd_plan
     from repro_torch.launch.train import main as train_main
     out = []
     for arch, remat in FAMILY_TRAIN:
@@ -2303,7 +2314,8 @@ def _family_train_runs():
         launches = ops.launch_counts()
         mem = torch.cuda.max_memory_allocated() / 2**30
         h, steps = res["history"], res["steps"]
-        n_scan, n_attn = _layer_counts(get_config(arch))
+        cfg = get_config(arch)
+        n_scan, n_attn = _layer_counts(cfg)
         fwd = 2 if remat else 1
         label = f"{arch}{' --remat' if remat else ''}"
         check(h[-1][1] < h[0][1], f"trainer {label}: loss {h[0][1]} at step "
@@ -2320,6 +2332,15 @@ def _family_train_runs():
               and launches["flash_attention_bwd"] == n_attn * steps,
               f"trainer {label}: flash launches {launches} for {n_attn} "
               f"attention layers x {steps} steps")
+        # bf16 trainers: every flash backward on its tensor-core route
+        # (wgmma256 at paligemma's hd 256, wgmma below), none on the CUDA
+        # cores
+        route = flash_bwd_plan(torch.bfloat16, cfg.head_dim, 1, 1, 1, True,
+                               0).route
+        check(launches[f"flash_attention_bwd/{route}"]
+              == launches["flash_attention_bwd"]
+              and launches["flash_attention_bwd/cuda_cores"] == 0,
+              f"trainer {label}: flash backward routes {launches}")
         print(f"[learn] trainer {label} (batch {batch}, seq "
               f"{FAMILY_SEQ.get(arch, 256)}, {steps} "
               f"steps): loss {h[0][1]:.4f} -> {h[-1][1]:.4f}; "
@@ -2520,22 +2541,25 @@ def phase_stub_families(total):
 
 
 def _train_breakdown(arch="smollm-135m"):
-    """Where a full-width training step of ``arch`` goes (bfloat16, batch 8,
-    seq 256, AdamW): host issue against stream span of one step, and a
-    profiler pass over 3 steps for the device's busy share and its top
-    kernels."""
+    """Where a full-width training step of ``arch`` goes (its trainer's
+    config, bfloat16, batch 8, seq 256 — paligemma-3b's 512 of
+    ``FAMILY_SEQ`` —, AdamW): host issue against stream span of one step,
+    and a profiler pass over 3 steps for the device's busy share and its
+    top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
     from repro_torch.data import batches
     from repro_torch.models import Model
     from repro_torch.training import AdamW, make_train_step
-    e_cfg, _ = _configs(arch)
+    seq = FAMILY_SEQ.get(arch, 256)
+    e_cfg = get_config(arch)
     m = Model(e_cfg)
     p = m.init(seed=0, device="cuda")
     opt = AdamW()
     state = [p, opt.init(p, e_cfg)]
     step = make_train_step(m, opt)
-    batch = next(batches(e_cfg, 8, 256, device="cuda"))
+    batch = next(batches(e_cfg, 8, seq, device="cuda"))
 
     def one():
         state[0], state[1], _ = step(state[0], state[1], batch)
@@ -2555,7 +2579,7 @@ def _train_breakdown(arch="smollm-135m"):
 
     busy = sum(self_dev(e) for e in evs) / 1e3 / 3
     top = sorted(evs, key=self_dev, reverse=True)[:8]
-    print(f"[breakdown] one train step ({arch}, batch 8, seq 256): host "
+    print(f"[breakdown] one train step ({arch}, batch 8, seq {seq}): host "
           f"issue {host:.1f} ms, stream span {span:.1f} ms; profiled: wall "
           f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}); "
           "top device time per step: "
@@ -2621,7 +2645,7 @@ def phase_learn(total):
     for launches in _train_runs() + _family_train_runs():
         for k, n in launches.items():
             total[k] += n
-    for arch in ("smollm-135m", "mamba2-370m"):
+    for arch in ("smollm-135m", "mamba2-370m", "paligemma-3b"):
         torch.cuda.empty_cache()
         _train_breakdown(arch)
     torch.cuda.empty_cache()

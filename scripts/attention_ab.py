@@ -29,8 +29,12 @@ version of the wrappers takes:
 * ``bwd``: the flash backward alone at the training shape (smollm-135m
   heads, B 8, S 256) and at granite-8b's heads over S 2048, against
   SDPA's backward alone, with forward + backward against SDPA's
-  (``chip_smoke._flash_bwd_timing``), and the device ms of each of its
-  kernels (``torch.profiler``);
+  (``chip_smoke._flash_bwd_timing``), then at the stub families'
+  training shapes of ``chip_smoke.STUB_FLASH_BWD`` named in
+  ``BWD_STUB`` — paligemma-3b's (8, 8, 1, 512, 256) with prefix 256, the
+  whisper encoder and its cross attention — the same way with SDPA given
+  the boolean mask (``chip_smoke._stub_flash_timing``), and the device ms
+  of each of the backward's kernels (``torch.profiler``);
 * ``ssdbwd``: the SSD-scan backward alone at the trainer's shapes
   (mamba2-370m, xlstm-125m, zamba2-2.7b at batch 8, seq 256) and the
   2048-token prompts, beside the plain autograd's backward alone
@@ -54,6 +58,9 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (puts this checkout's src on the path)
 
 ALL = ("flash", "tree", "paged", "ssd", "decode", "spec", "bwd", "ssdbwd")
+# the stub families' backward shapes that ``bwd`` times (labels of
+# chip_smoke.STUB_FLASH_BWD)
+BWD_STUB = ("prefix_train", "encoder", "cross_train")
 
 
 def _flash(res, gen):
@@ -157,6 +164,16 @@ def _bwd(res, gen):
             lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                                                causal=True))
         res[f"bwd_{name}"] = row
+    for case in (c for c in cs.STUB_FLASH_BWD if c[0] in BWD_STUB):
+        row = cs._stub_flash_timing(K, case, gen)
+        kw = dict(causal=case[7], prefix_len=case[8])
+        q, k, v, dout = cs._stub_flash_inputs(case, torch.bfloat16, gen)
+        with torch.no_grad():
+            out, lse = K.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        row["kernels_device_ms"] = kernel_split(
+            lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                               **kw))
+        res[f"bwd_{case[0]}"] = row
 
 
 def main() -> int:

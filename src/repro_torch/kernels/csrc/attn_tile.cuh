@@ -1,7 +1,8 @@
 // The tensor-core attention tile shared by the bf16 flash-prefill and
 // tree-verify kernels (sm_90a); the flash backward
 // (flash_attention_bwd.cu) builds its products from the same copies and
-// wgmma primitives (qk_issue, pv_issue).
+// wgmma primitives (qk_issue, pv_issue; at hd 256 wgmma_ss_n32 and
+// wgmma_ss_n64_mn, both operands in shared memory).
 //
 // A block of kWG warpgroups (128 threads each) owns a tile of 64 * kWG
 // query rows: rows of one kv head, packed over its G query heads (GQA) and
@@ -191,6 +192,30 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : REPRO_F32(d)
       : "l"(da), "l"(db), "n"(kAcc));
+}
+// d[64 x 32] += A[64 x 16] B[16 x 32], A and B K-major in shared memory;
+// kAcc = 0: d = A B
+template <int kAcc = 1>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_F4(d, 0), REPRO_F4(d, 1), REPRO_F4(d, 2), REPRO_F4(d, 3)
+      : "l"(da), "l"(db), "n"(kAcc));
+}
+// d[64 x 64] += A[64 x 16] B[16 x 64], A K-major and B MN-major, both in
+// shared memory
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[8][4],
+                                                uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : REPRO_F32(d)
+      : "l"(da), "l"(db), "n"(1));
 }
 // d[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],

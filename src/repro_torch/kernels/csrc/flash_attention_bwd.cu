@@ -25,7 +25,7 @@
 // ms at the bf16 tensor-core rate, granite-8b's heads over S 2048 87 GFLOP,
 // 0.087 ms.  So the bf16 products run on the tensor cores.
 //
-// Two routes, chosen by the wrapper from the dtype and the head dim alone
+// Three routes, chosen by the wrapper from the dtype and the head dim alone
 // (kernels/flash_attention.py::flash_bwd_plan) and passed in; a route that
 // does not take the call is an error, never a fallback:
 //
@@ -79,7 +79,63 @@
 //   every masked entry is an exact zero by selection, so no stale shared
 //   memory reaches a result.
 //
-//   CUDA cores (float32, the exact parity path, and bf16 with hd 144-256):
+//   wgmma256 (bf16, 128 < hd <= 256: paligemma-3b's hd 256): the same
+//   delta kernel and one grid of both block kinds, on the same packed rows
+//   and walks, at a head dim padded to 256.  The wgmma route's layout does
+//   not fit there: 10 operand tiles of 64 x 256 are 320 KB of shared
+//   memory (a block has 227 KB), and dK and dV of 64 keys over 256
+//   columns are 256 float32 registers a thread of one warpgroup.  So the
+//   two warpgroups split the head dim of every accumulator (warpgroup w
+//   holds columns [128 w, 128 w + 128) of dK and dV, or of dQ: 128
+//   registers) and the rows of the score products, and exchange the
+//   scores through shared memory:
+//   2. dK/dV: one block per 64-key tile; K and V (64 KB) stay in shared
+//      memory while the block walks the 64-row packed query tiles that
+//      see a key of it, Q, dO (two stages, 128 KB), LSE and D.  Per query
+//      tile, warpgroup w forms
+//      query rows [32 w, 32 w + 32) of
+//        S^T = K Q^T, dP^T = V dO^T   wgmma m64n32k16, shared memory,
+//                                     K-major, over all 256 columns
+//        P^T, dS^T                    on its fragments (LSE and D per
+//                                     column), written as bf16 to two
+//                                     64 x 64 exchange tiles (16 KB)
+//      and after a barrier, with both halves of the exchange tiles as the
+//      A operand from shared memory,
+//        dV[:, w] += P^T dO[:, w], dK[:, w] += dS^T Q[:, w]
+//                                     wgmma m64n64k16, dO and Q MN-major
+//      Each warpgroup stores its own columns of dK (scaled) and dV: no
+//      partial sums to add.
+//   3. dQ: one block per 64 packed rows (Q, dO: 64 KB) walking the visible
+//      key tiles through two stages (K, V: 128 KB); warpgroup w forms keys
+//      [32 w, 32 w + 32) of S and dP, writes its half of dS (8 KB), and
+//      after a barrier adds dS K[:, w] to its dQ columns.
+//   Why an exchange and not both warpgroups computing the whole 64 x 64
+//   S^T and dP^T (no barrier): that is 6 products of a 64 x 64 x 256 tile
+//   a step instead of 4 and 64 more registers a thread beside the 128 of
+//   the accumulators; the exchange costs one barrier and 16 KB.
+//   Operand tiles are 128-byte swizzled (four 64-column blocks of 64 rows
+//   x 128 bytes, the 16-byte chunks of row r permuted by r % 8), the
+//   layout that the Tensor Memory Accelerator writes and that wgmma reads
+//   both K-major and MN-major, so one tile serves S^T = K Q^T and
+//   dK += dS^T Q alike.  What bounds the route is moving the tiles, 64 KB
+//   of operands per (key tile, query tile) pair in both block kinds (about
+//   390 MB a call at paligemma's training shape, against 0.027 ms of
+//   products).  Copied with cp.async by the block's threads, a dK/dV
+//   chain took 3.6 us a 64 KB tile on an H100 (700 W), about 18 GB/s an
+//   SM, the same with half the blocks running or with all of them reading
+//   one sequence's rows from L2: the limit is per SM (0.32 ms a call, the
+//   loads alone 0.23).  So one thread hands each tile to TMA, four boxes
+//   of 64 columns x 64 rows from a 5-d map of the packed rows (column,
+//   head within the kv head, position, kv head, sequence) or a 4-d map of
+//   the keys, completing on an mbarrier (the loads alone 0.12 ms, the call
+//   0.20; scripts/flash_bwd_variants.py).  A call whose rows TMA
+//   cannot take (not 16-byte aligned, G not dividing 64, a driver without
+//   cuTensorMapEncodeTiled) stages the same layout with cp.async or
+//   element copies; the arithmetic, and so the result, is the same.  A
+//   block takes 210 KB of shared memory, one block an SM; an mbarrier
+//   wait that never completes traps rather than hanging the card.
+//
+//   CUDA cores (float32, the exact parity path):
 //   float32 products on the CUDA cores (S and dP computed twice, seven
 //   products), operands staged in shared memory as float32.  The limit is
 //   shared memory, one 128-byte wavefront a cycle per SM against 128
@@ -100,8 +156,10 @@
 //   (zeros), so 16-byte loads stay aligned and a lane reading its own key
 //   row hits its own banks.
 //
-// Both routes write every gradient once, with no atomics, and run every
+// Every route writes every gradient once, with no atomics, and runs every
 // sum in a fixed order, so results are the same from run to run.
+#include <cuda.h>
+
 #include "attn_tile.cuh"
 
 namespace {
@@ -957,7 +1015,9 @@ int launch(const Args<bf16>& a, int B, int Kv, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(Args<bf16> a, int B, int Kv, cudaStream_t s) {
+// The tensor-core routes' launch arguments: 16-byte copies where every row
+// allows them, and n / G as a multiply-shift
+void prepare(Args<bf16>& a) {
   a.vec = repro::attn::rows16(
       {a.q, a.k, a.v, a.o, a.g, a.dq, a.dk, a.dv},
       {a.st[0][0], a.st[0][1], a.st[0][2], a.st[1][0], a.st[1][1],
@@ -973,12 +1033,678 @@ int dispatch(Args<bf16> a, int B, int Kv, cudaStream_t s) {
   a.g_shift = shift;
   a.g_mul = static_cast<unsigned>(
       ((1ull << 32) * ((1ull << shift) - a.G)) / a.G + 1);
+}
+
+int dispatch(Args<bf16> a, int B, int Kv, cudaStream_t s) {
+  prepare(a);
   if (a.hd <= 64) return launch<64>(a, B, Kv, s);
   if (a.hd <= 80) return launch<80>(a, B, Kv, s);
   return launch<128>(a, B, Kv, s);
 }
 
 }  // namespace tc
+
+// --------------------------------------- wgmma256 route (bf16, hd 129-256)
+namespace tc256 {
+
+using repro::attn::bf16;
+using tc::Packed;
+constexpr int kD = 256;       // the head dim, padded
+constexpr int kTile = 64;     // packed query rows / keys per tile
+constexpr int kBlock = 256;   // threads a block: two warpgroups
+constexpr int kE = kTile * kD;          // elements of one 64 x 256 operand tile
+constexpr int kCol = 8192;              // bytes of one of its 64-column blocks
+constexpr int kX = kTile * kTile;       // elements of one 64 x 64 exchange tile
+
+// The TMA descriptors of a call: Q and dO as packed rows (5-d: column, head
+// within the kv head, position, kv head, sequence; a box of 64 columns x G
+// heads x 64 / G positions is one 64-row column block), K and V as key
+// rows (4-d: column, key, kv head, sequence; a box of 64 columns x 64 keys).
+struct Maps {
+  CUtensorMap q, g, k, v;
+};
+
+// Shared memory of a block (after rounding its base up to 1024 bytes).
+// dK/dV: K, V, two stages of (Q, dO), the exchange tiles P^T and dS^T, two
+// stages of (LSE, D), 3 mbarriers.  dQ: Q, dO, two stages of (K, V), the
+// exchange tile dS, 3 mbarriers.
+struct Smem {
+  static constexpr int kDkv = 6 * kE * 2 + 2 * kX * 2 + 4 * kTile * 4 + 24;
+  static constexpr int kDq = 6 * kE * 2 + kX * 2 + 24;
+  static constexpr int kBytes = (kDkv > kDq ? kDkv : kDq) + 1024;
+  static_assert(kBytes <= 232448, "one block an SM");
+};
+
+// ------------------------------------------------------- operand tiles
+// A 64 x 256 operand tile is four 64-column blocks of 64 rows x 128 bytes,
+// the 16-byte chunks of row r permuted by r % 8: the 128-byte swizzle that
+// TMA writes and wgmma reads, K-major (rows the M or N index: S^T = K Q^T,
+// S = Q K^T) and MN-major (rows the reduction: P^T dO, dS^T Q, dS K) alike.
+// Byte offset of chunk c (0..31) of row r:
+__device__ __forceinline__ int sw(int r, int c) {
+  return (c >> 3) * kCol + r * 128 + (((c ^ r) & 7) << 4);
+}
+
+// Descriptor of a 128-byte-swizzled operand (layout type 1)
+__device__ __forceinline__ uint64_t desc_sw(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  return repro::attn::desc(p, lbo, sbo) | (1ull << 62);
+}
+
+// Stage 64 rows with the block's threads (the copies TMA does not take):
+// row r from row(r), elements [0, hd) of it, the rest and null rows zero;
+// vec: 16-byte cp.async (``valid`` any readable address), else element
+// copies.
+template <typename RowFn>
+__device__ __forceinline__ void stage_sw(bf16* dst, const RowFn& row, int hd,
+                                         bool vec, const bf16* valid) {
+  char* base = reinterpret_cast<char*>(dst);
+  for (int i = threadIdx.x; i < kTile * (kD / 8); i += kBlock) {
+    const int r = i >> 5, c = i & 31;
+    const bf16* src = row(r);
+    char* d = base + sw(r, c);
+    if (vec) {
+      const bool in = src != nullptr && c * 8 < hd;
+      repro::attn::cp_async16(d, in ? src + c * 8 : valid, in ? 16 : 0);
+    } else {
+      bf16* e8 = reinterpret_cast<bf16*>(d);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int x = c * 8 + e;
+        e8[e] = src != nullptr && x < hd ? src[x] : __float2bfloat16(0.f);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ TMA
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+// Wait for phase ``parity`` of the barrier; a copy that never lands traps
+// (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (long long n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > (1ll << 24)) __trap();
+  }
+}
+__device__ __forceinline__ void tma4(void* dst, const CUtensorMap* m, int c0,
+                                     int c1, int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          repro::attn::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma5(void* dst, const CUtensorMap* m, int c0,
+                                     int c1, int c2, int c3, int c4,
+                                     uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+          repro::attn::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// The block's shared memory, its base rounded up to 1024 bytes (the
+// swizzle's alignment)
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ __align__(1024) unsigned char smem256[];
+  const uint32_t s = repro::attn::smem_u32(smem256);
+  return smem256 + (((s + 1023) & ~1023u) - s);
+}
+
+// With TMA: set up the block's 3 barriers (one arrival each) and, when the
+// head dim leaves column blocks that no copy writes (hd <= 192), zero them
+// in the n operand tiles at ``tiles``.  Ends with a block barrier.
+__device__ __forceinline__ void tma_setup(uint32_t bars, bf16* tiles, int n,
+                                          int nkb) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int kb = nkb; kb < kD / 64; ++kb)
+    for (int i = threadIdx.x; i < n * kCol / 16; i += kBlock) {
+      const int t = i / (kCol / 16), j = i % (kCol / 16);
+      reinterpret_cast<uint4*>(reinterpret_cast<char*>(tiles + t * kE) +
+                               kb * kCol)[j] = make_uint4(0, 0, 0, 0);
+    }
+  repro::attn::fence_async_smem();
+  __syncthreads();
+}
+
+// Issue s = A B^T over the 256 columns without waiting: A the 64 rows at
+// ``a``, B the 32 rows at ``b`` (row 0 or 32 of a tile), both K-major in
+// operand tiles.  The caller fences before and commits after.
+__device__ __forceinline__ void st_issue(float (&s)[4][4], const bf16* a,
+                                         const bf16* b) {
+  using namespace repro::attn;
+  const char* pa = reinterpret_cast<const char*>(a);
+  const char* pb = reinterpret_cast<const char*>(b);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const int off = (kk >> 2) * kCol + (kk & 3) * 32;   // 16 columns
+    const uint64_t da = desc_sw(pa + off, 16, 1024);
+    const uint64_t db = desc_sw(pb + off, 16, 1024);
+    if (kk == 0)
+      wgmma_ss_n32<0>(s, da, db);
+    else
+      wgmma_ss_n32(s, da, db);
+  }
+}
+
+// Issue o += X Y[:, 128 half, +128) without waiting: X the 64 x 64 exchange
+// tile at ``x`` (K-major, no swizzle), Y the operand tile at ``y`` read
+// MN-major (its rows are the reduction); o holds the warpgroup's 128
+// columns as two 64-column accumulators.
+__device__ __forceinline__ void xy_issue(float (&o)[16][4], const bf16* x,
+                                         const bf16* y, int half) {
+  using namespace repro::attn;
+  const char* py = reinterpret_cast<const char*>(y);
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    const uint64_t da = desc(x + kk * 128, 128, 8 * 128);
+#pragma unroll
+    for (int c = 0; c < 2; ++c)                      // rows 16 kk..
+      wgmma_ss_n64_mn(*reinterpret_cast<float(*)[8][4]>(&o[8 * c]), da,
+                      desc_sw(py + (2 * half + c) * kCol + kk * 2048, kCol,
+                              1024));
+  }
+}
+
+// Element (m, k) of a 64 x 64 K-major exchange tile (no swizzle).
+__device__ __forceinline__ int xat(int m, int k) {
+  return ((m >> 3) * 8 + (k >> 3)) * 64 + (m & 7) * 8 + (k & 7);
+}
+
+__device__ __forceinline__ void zero(float (&o)[16][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+}
+
+// Store this warpgroup's 128 columns of a 64-row result, times m: row[h]
+// is the destination row of fragment half h (null: not stored).
+__device__ __forceinline__ void store_half(const float (&o)[16][4],
+                                           bf16* const (&row)[2], int wg,
+                                           int hd, float m, bool vec) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 128 * wg + 8 * j + repro::attn::frag_col();
+      if (col < hd && row[h] != nullptr)
+        repro::attn::store_pair(row[h] + col, col, hd, o[j][2 * h] * m,
+                                o[j][2 * h + 1] * m, vec);
+    }
+}
+
+// ------------------------------------------------------------ 2. dK, dV
+// Key tile kt: the block walks the packed query tiles that see its keys,
+// one tile at a time, the two warpgroups on the same tile.  Warpgroup w
+// takes query rows [32 w, 32 w + 32) of S^T = K Q^T and dP^T = V dO^T
+// (each over all 256 columns), forms those columns of P^T and dS^T and
+// writes them as bf16 to the exchange tiles; after a barrier it adds
+// P^T dO and dS^T Q to its dV and dK columns [128 w, 128 w + 128).
+__device__ __forceinline__ void dkv_block(const Args<bf16>& a, const Maps& m,
+                                          bool tma, int kt) {
+  using namespace repro::attn;
+  bf16* ks = reinterpret_cast<bf16*>(smem_base());
+  bf16* vs = ks + kE;
+  bf16* stages = vs + kE;        // stage i: Q at stages + 2 i kE, dO + kE
+  bf16* pt = stages + 4 * kE;
+  bf16* dst = pt + kX;
+  float* rowv = reinterpret_cast<float*>(dst + kX);
+                                 // stage i: LSE at rowv + 128 i, D + 64
+  const uint32_t bars = smem_u32(rowv + 4 * kTile);   // K/V, stage 0, 1
+  const int kv = blockIdx.x, b = blockIdx.y, k0 = kt * kTile;
+  const int wg = threadIdx.x >> 7;
+  const int G = a.G, Sq = a.Sq, Sk = a.Sk, hd = a.hd, n_rows = G * a.Sq;
+  const int nkb = (hd + 63) / 64, tx = 2 * nkb * kCol;
+  const Packed pk{static_cast<unsigned>(G), a.g_mul, a.g_shift};
+  const bool vec = a.vec;
+
+  // packed query tiles that can see a key of the block (BwdPlan.query_tiles)
+  const int k_last = min(k0 + kTile, Sk) - 1;
+  const int p_begin = a.causal && k0 >= a.prefix ? k0 : 0;
+  const int p_end = a.window > 0 ? min(k_last + a.window, Sq) : Sq;
+  const int t_first = p_begin * G / kTile;
+  const int n_tiles =
+      p_end > p_begin ? (p_end * G + kTile - 1) / kTile - t_first : 0;
+
+  const long long kvo = b * a.st[K][0] + kv * a.st[K][1];
+  const long long vvo = b * a.st[V][0] + kv * a.st[V][1];
+  if (tma) {
+    tma_setup(bars, ks, 6, nkb);
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect(bars, tx);
+      for (int kb = 0; kb < nkb; ++kb) {
+        tma4(ks + kb * kCol / 2, &m.k, 64 * kb, k0, kv, b, bars);
+        tma4(vs + kb * kCol / 2, &m.v, 64 * kb, k0, kv, b, bars);
+      }
+    }
+  } else {
+    stage_sw(ks, [&](int r) -> const bf16* {
+      return k0 + r < Sk ? a.k + kvo + (k0 + r) * a.st[K][2] : nullptr;
+    }, hd, vec, a.k);
+    stage_sw(vs, [&](int r) -> const bf16* {
+      return k0 + r < Sk ? a.v + vvo + (k0 + r) * a.st[V][2] : nullptr;
+    }, hd, vec, a.v);
+  }
+
+  const bf16* qb = a.q + b * a.st[Q][0] +
+                   static_cast<long long>(kv) * G * a.st[Q][1];
+  const bf16* gb = a.g + b * a.st[G_][0] +
+                   static_cast<long long>(kv) * G * a.st[G_][1];
+  const long long lrow = (static_cast<long long>(b) * a.H + kv * G) * Sq;
+  auto issue = [&](int i) {
+    const int r0 = (t_first + i) * kTile;
+    bf16* qs = stages + 2 * (i & 1) * kE;
+    if (tma) {
+      if (threadIdx.x == 0) {
+        const uint32_t bar = bars + 8 * (1 + (i & 1));
+        mbar_expect(bar, tx);
+        for (int kb = 0; kb < nkb; ++kb) {
+          tma5(qs + kb * kCol / 2, &m.q, 64 * kb, 0, r0 / G, kv, b, bar);
+          tma5(qs + kE + kb * kCol / 2, &m.g, 64 * kb, 0, r0 / G, kv, b,
+               bar);
+        }
+      }
+    } else {
+      stage_sw(qs, [&](int r) -> const bf16* {
+        const int gr = r0 + r;
+        return gr < n_rows ? qb + pk.off(gr, a.st[Q][1], a.st[Q][2])
+                           : nullptr;
+      }, hd, vec, a.q);
+      stage_sw(qs + kE, [&](int r) -> const bf16* {
+        const int gr = r0 + r;
+        return gr < n_rows ? gb + pk.off(gr, a.st[G_][1], a.st[G_][2])
+                           : nullptr;
+      }, hd, vec, a.g);
+    }
+    // threads 0-63 copy the LSE, 64-127 the D
+    if (threadIdx.x < 2 * kTile) {
+      const int c = threadIdx.x & (kTile - 1), gr = r0 + c;
+      const float* src = threadIdx.x < kTile ? a.lse : a.delta;
+      const bool in = gr < n_rows;
+      tc::cp_async4(rowv + 2 * kTile * (i & 1) + threadIdx.x,
+                    in ? src + lrow + pk.off(gr, Sq, 1) : src, in ? 4 : 0);
+    }
+  };
+
+  float dk[16][4], dv[16][4];
+  zero(dk);
+  zero(dv);
+  int key[2], xrow[2];                            // this thread's two keys
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    xrow[h] = frag_row(h) & (kTile - 1);
+    key[h] = k0 + xrow[h];
+  }
+  const int c0 = 32 * wg + frag_col();            // this thread's columns
+  const int causal = a.causal, window = a.window, prefix = a.prefix;
+  const float scale_log2 = a.scale * kLog2e;
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();                              // with K and V
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();                 // tile i has landed
+    if (tma) {
+      if (i == 0) mbar_wait(bars, 0);
+      mbar_wait(bars + 8 * (1 + (i & 1)), (i >> 1) & 1);
+    }
+    fence_async_smem();
+    __syncthreads();                    // and tile i - 1 is consumed
+    if (i + 1 < n_tiles) issue(i + 1);
+    cp_async_commit();
+    const bf16* qs = stages + 2 * (i & 1) * kE;
+    const bf16* gs = qs + kE;
+    const float* ls = rowv + 2 * kTile * (i & 1);
+    const int r0 = (t_first + i) * kTile;
+    float st[4][4], dpt[4][4];          // S^T, dP^T: rows keys, 32 columns
+    wg_fence();
+    st_issue(st, ks, qs + 32 * wg * kTile);     // query rows 32 wg..
+    st_issue(dpt, vs, gs + 32 * wg * kTile);
+    wg_commit();
+    wg_wait0();
+    fence_regs(st);
+    fence_regs(dpt);
+    // every key of the block visible to every row of the query tile
+    const bool full = r0 + kTile <= n_rows && k0 + kTile <= Sk &&
+                      (!causal || k0 + kTile - 1 <= pk.pos(r0) ||
+                       k0 + kTile <= prefix) &&
+                      (window <= 0 || k0 > pk.pos(r0 + kTile - 1) - window);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * j + e, gr = r0 + c, pos = pk.pos(gr);
+          const bool vis =
+              full || ((gr < n_rows) & (key[h] < Sk) &
+                       (!causal | (key[h] <= pos) | (key[h] < prefix)) &
+                       ((window <= 0) | (key[h] > pos - window)));
+          const float x = ex2(fmaf(st[j][2 * h + e], scale_log2,
+                                   -ls[c] * kLog2e));
+          p[e] = vis ? x : 0.f;
+          ds[e] = vis ? x * (dpt[j][2 * h + e] - ls[kTile + c]) : 0.f;
+        }
+        const int at = xat(xrow[h], c0 + 8 * j);
+        *reinterpret_cast<uint32_t*>(pt + at) = tc::pack_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(dst + at) = tc::pack_bf16(ds[0], ds[1]);
+      }
+    fence_async_smem();
+    __syncthreads();                    // both halves of P^T, dS^T written
+    wg_fence();
+    xy_issue(dv, pt, gs, wg);           // dV += P^T dO
+    xy_issue(dk, dst, qs, wg);          // dK += dS^T Q
+    wg_commit();
+    wg_wait0();
+    fence_regs(dv);
+    fence_regs(dk);
+  }
+  cp_async_wait<0>();
+  bf16* krow[2];
+  bf16* vrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = key[h] < Sk;
+    krow[h] = in ? a.dk + b * a.st[DK][0] + kv * a.st[DK][1] +
+                       key[h] * a.st[DK][2]
+                 : nullptr;
+    vrow[h] = in ? a.dv + b * a.st[DV][0] + kv * a.st[DV][1] +
+                       key[h] * a.st[DV][2]
+                 : nullptr;
+  }
+  store_half(dk, krow, wg, hd, a.scale, vec);
+  store_half(dv, vrow, wg, hd, 1.f, vec);
+}
+
+// ------------------------------------------------------------ 3. dQ
+// Packed rows [r0, r0 + 64) against the visible key tiles: warpgroup w
+// takes keys [32 w, 32 w + 32) of each tile's S and dP, writes those
+// columns of dS to the exchange tile, and after a barrier adds dS K to its
+// dQ columns [128 w, 128 w + 128).
+__device__ __forceinline__ void dq_block(const Args<bf16>& a, const Maps& m,
+                                         bool tma, int r0) {
+  using namespace repro::attn;
+  bf16* qs = reinterpret_cast<bf16*>(smem_base());
+  bf16* gs = qs + kE;
+  bf16* stages = gs + kE;        // stage i: K at stages + 2 i kE, V + kE
+  bf16* dsx = stages + 4 * kE;
+  const uint32_t bars = smem_u32(dsx + kX);        // Q/dO, stage 0, 1
+  const int kv = blockIdx.x, b = blockIdx.y, wg = threadIdx.x >> 7;
+  const int G = a.G, Sq = a.Sq, Sk = a.Sk, hd = a.hd, n_rows = G * a.Sq;
+  const int nkb = (hd + 63) / 64, tx = 2 * nkb * kCol;
+  const Packed pk{static_cast<unsigned>(G), a.g_mul, a.g_shift};
+  const bool vec = a.vec;
+  const bf16* qb = a.q + b * a.st[Q][0] +
+                   static_cast<long long>(kv) * G * a.st[Q][1];
+  const bf16* gb = a.g + b * a.st[G_][0] +
+                   static_cast<long long>(kv) * G * a.st[G_][1];
+
+  // keys any row of the block can see (BwdPlan.key_tiles)
+  const int p_first = pk.pos(r0);
+  const int p_last = pk.pos(min(r0 + kTile, n_rows) - 1);
+  const int k_begin = a.window > 0 ? max(p_first - a.window + 1, 0) : 0;
+  const int k_end =
+      a.causal ? max(min(p_last + 1, Sk), min(a.prefix, Sk)) : Sk;
+  const int k_first = (k_begin / kTile) * kTile;
+  const int n_tiles =
+      k_end > k_first ? (k_end - k_first + kTile - 1) / kTile : 0;
+
+  if (tma) {
+    tma_setup(bars, qs, 6, nkb);
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect(bars, tx);
+      for (int kb = 0; kb < nkb; ++kb) {
+        tma5(qs + kb * kCol / 2, &m.q, 64 * kb, 0, r0 / G, kv, b, bars);
+        tma5(gs + kb * kCol / 2, &m.g, 64 * kb, 0, r0 / G, kv, b, bars);
+      }
+    }
+  } else {
+    stage_sw(qs, [&](int r) -> const bf16* {
+      const int gr = r0 + r;
+      return gr < n_rows ? qb + pk.off(gr, a.st[Q][1], a.st[Q][2]) : nullptr;
+    }, hd, vec, a.q);
+    stage_sw(gs, [&](int r) -> const bf16* {
+      const int gr = r0 + r;
+      return gr < n_rows ? gb + pk.off(gr, a.st[G_][1], a.st[G_][2])
+                         : nullptr;
+    }, hd, vec, a.g);
+  }
+
+  // this thread's two rows: position, LSE log2e and D
+  int pos[2], xrow[2];
+  float lse2[2], dl[2];
+  bf16* qrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    xrow[h] = frag_row(h) & (kTile - 1);
+    const int gr = r0 + xrow[h];
+    const bool in = gr < n_rows;
+    pos[h] = pk.pos(gr);
+    const long long idx = (static_cast<long long>(b) * a.H + kv * G) * Sq +
+                          pk.off(gr, Sq, 1);
+    lse2[h] = in ? a.lse[idx] * kLog2e : 0.f;
+    dl[h] = in ? a.delta[idx] : 0.f;
+    qrow[h] = in ? a.dq + b * a.st[DQ][0] +
+                       static_cast<long long>(kv) * G * a.st[DQ][1] +
+                       pk.off(gr, a.st[DQ][1], a.st[DQ][2])
+                 : nullptr;
+  }
+  const long long kvo = b * a.st[K][0] + kv * a.st[K][1];
+  const long long vvo = b * a.st[V][0] + kv * a.st[V][1];
+  auto issue = [&](int i) {
+    bf16* kt = stages + (i & 1) * 2 * kE;
+    const int k0 = k_first + i * kTile;
+    if (tma) {
+      if (threadIdx.x == 0) {
+        const uint32_t bar = bars + 8 * (1 + (i & 1));
+        mbar_expect(bar, tx);
+        for (int kb = 0; kb < nkb; ++kb) {
+          tma4(kt + kb * kCol / 2, &m.k, 64 * kb, k0, kv, b, bar);
+          tma4(kt + kE + kb * kCol / 2, &m.v, 64 * kb, k0, kv, b, bar);
+        }
+      }
+    } else {
+      stage_sw(kt, [&](int r) -> const bf16* {
+        return k0 + r < k_end ? a.k + kvo + (k0 + r) * a.st[K][2] : nullptr;
+      }, hd, vec, a.k);
+      stage_sw(kt + kE, [&](int r) -> const bf16* {
+        return k0 + r < k_end ? a.v + vvo + (k0 + r) * a.st[V][2] : nullptr;
+      }, hd, vec, a.v);
+    }
+  };
+
+  float dq[16][4];
+  zero(dq);
+  const int c0 = 32 * wg + frag_col();            // this thread's columns
+  const int causal = a.causal, window = a.window, prefix = a.prefix;
+  const float scale_log2 = a.scale * kLog2e;
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();                              // with Q and dO
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();                 // tile i has landed
+    if (tma) {
+      if (i == 0) mbar_wait(bars, 0);
+      mbar_wait(bars + 8 * (1 + (i & 1)), (i >> 1) & 1);
+    }
+    fence_async_smem();
+    __syncthreads();                    // and tile i - 1 is consumed
+    if (i + 1 < n_tiles) issue(i + 1);
+    cp_async_commit();
+    const bf16* kt = stages + (i & 1) * 2 * kE;
+    const int k0 = k_first + i * kTile;
+    float s[4][4], dp[4][4];            // S, dP: rows, 32 keys
+    wg_fence();
+    st_issue(s, qs, kt + 32 * wg * kTile);      // keys 32 wg..
+    st_issue(dp, gs, kt + kE + 32 * wg * kTile);
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+    const bool full = k0 + kTile <= k_end &&
+                      (!causal || k0 + kTile - 1 <= p_first ||
+                       k0 + kTile <= prefix) &&
+                      (window <= 0 || k0 > p_last - window);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + c0 + 8 * j + e;
+          const bool vis =
+              full || ((key < k_end) &
+                       (!causal | (key <= pos[h]) | (key < prefix)) &
+                       ((window <= 0) | (key > pos[h] - window)));
+          const float x =
+              ex2(fmaf(s[j][2 * h + e], scale_log2, -lse2[h]));
+          ds[e] = vis ? x * (dp[j][2 * h + e] - dl[h]) : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(dsx + xat(xrow[h], c0 + 8 * j)) =
+            tc::pack_bf16(ds[0], ds[1]);
+      }
+    fence_async_smem();
+    __syncthreads();                    // both halves of dS written
+    wg_fence();
+    xy_issue(dq, dsx, kt, wg);          // dQ += dS K
+    wg_commit();
+    wg_wait0();
+    fence_regs(dq);
+  }
+  cp_async_wait<0>();
+  store_half(dq, qrow, wg, hd, a.scale, vec);
+}
+
+// One launch for both, as tc::grads_tc_kernel: blocks z < n_kt are the
+// dK/dV blocks of key tile z (tile 0 first), the rest the dQ blocks of 64
+// packed rows (the last rows first).
+__global__ void __launch_bounds__(kBlock, 1)
+    grads_kernel(const Args<bf16> a, const __grid_constant__ Maps m,
+                 int n_kt, int tma) {
+  const int z = blockIdx.z;
+  if (z < n_kt)
+    dkv_block(a, m, tma, z);
+  else
+    dq_block(a, m, tma, (gridDim.z - 1 - z) * kTile);
+}
+
+// ---------------------------------------------------------------- host
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                            void*, const cuuint64_t*, const cuuint64_t*,
+                            const cuuint32_t*, const cuuint32_t*,
+                            CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, looked up once (null when the
+// driver has none)
+Encode encoder() {
+  static const Encode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<Encode>(p)
+               : static_cast<Encode>(nullptr);
+  }();
+  return fn;
+}
+
+// A map of rank n over the bf16 tensor at p: dims[0] the head dim
+// (contiguous), strides of dims 1.. in elements, box {64, box[1], ...}
+bool encode(CUtensorMap* m, const void* p, int n, const cuuint64_t* dims,
+            const long long* strides, const cuuint32_t* box) {
+  cuuint64_t st[4];
+  for (int i = 0; i + 1 < n; ++i)
+    st[i] = static_cast<cuuint64_t>(strides[i]) * sizeof(bf16);
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, n,
+                   const_cast<void*>(p), dims, st, box, one,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The call's maps; false when TMA does not take it (rows that 16-byte
+// copies cannot move, G not dividing the 64-row tile, a driver without the
+// encoder, strides it refuses): the blocks then stage with cp.async.
+bool make_maps(const Args<bf16>& a, int B, int Kv, Maps* m) {
+  if (!a.vec || 64 % a.G != 0 || encoder() == nullptr) return false;
+  const unsigned G = static_cast<unsigned>(a.G);
+  const cuuint32_t pbox[5] = {64, G, 64 / G, 1, 1};
+  const cuuint32_t kbox[4] = {64, 64, 1, 1};
+  const cuuint64_t pdims[5] = {static_cast<cuuint64_t>(a.hd), G,
+                               static_cast<cuuint64_t>(a.Sq),
+                               static_cast<cuuint64_t>(Kv),
+                               static_cast<cuuint64_t>(B)};
+  const cuuint64_t kdims[4] = {static_cast<cuuint64_t>(a.hd),
+                               static_cast<cuuint64_t>(a.Sk),
+                               static_cast<cuuint64_t>(Kv),
+                               static_cast<cuuint64_t>(B)};
+  const long long qst[4] = {a.st[Q][1], a.st[Q][2], G * a.st[Q][1],
+                            a.st[Q][0]};
+  const long long gst[4] = {a.st[G_][1], a.st[G_][2], G * a.st[G_][1],
+                            a.st[G_][0]};
+  const long long kst[3] = {a.st[K][2], a.st[K][1], a.st[K][0]};
+  const long long vst[3] = {a.st[V][2], a.st[V][1], a.st[V][0]};
+  return encode(&m->q, a.q, 5, pdims, qst, pbox) &&
+         encode(&m->g, a.g, 5, pdims, gst, pbox) &&
+         encode(&m->k, a.k, 4, kdims, kst, kbox) &&
+         encode(&m->v, a.v, 4, kdims, vst, kbox);
+}
+
+int dispatch(Args<bf16> a, int B, int Kv, cudaStream_t s) {
+  tc::prepare(a);
+  const cudaError_t err = repro::attn::allow_smem<grads_kernel>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Maps m;
+  const bool tma = make_maps(a, B, Kv, &m);
+  const long long rows = static_cast<long long>(B) * a.H * a.Sq;
+  if (a.vec)
+    delta_rows16_kernel<<<static_cast<unsigned>((rows + kThreads / 8 - 1) /
+                                                (kThreads / 8)),
+                          kThreads, 0, s>>>(a, rows);
+  else
+    delta_kernel<bf16><<<static_cast<unsigned>((rows + kWarps - 1) / kWarps),
+                         kThreads, 0, s>>>(a, rows);
+  const int n_kt = (a.Sk + kTile - 1) / kTile;
+  const int n_qt = (a.G * a.Sq + kTile - 1) / kTile;
+  grads_kernel<<<dim3(Kv, B, n_kt + n_qt), kBlock, Smem::kBytes, s>>>(
+      a, m, n_kt, tma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc256
 
 }  // namespace
 
@@ -987,8 +1713,9 @@ int dispatch(Args<bf16> a, int B, int Kv, cudaStream_t s) {
 // pointer followed by its strides over (sequence, head, position); lse
 // (the forward's (B, H, Sq) float32 log-sum-exp, contiguous); a (B, H, Sq)
 // float32 scratch for D; B, H, Kv, Sq, Sk, hd, causal, window; the route
-// (0 = CUDA cores, 1 = wgmma: bfloat16 with hd <= 128 only); prefix (>= 0,
-// read only under causal).  q, out,
+// (0 = CUDA cores, 1 = wgmma: bfloat16 with hd <= 128 only, 2 = wgmma256:
+// bfloat16 with 128 < hd <= 256 only); prefix (>= 0, read only under
+// causal).  q, out,
 // dout and dq are (B, H, Sq, hd), k, v, dk and dv (B, Kv, Sk, hd), H % Kv
 // == 0, every head dim contiguous.  Returns a cudaError_t as int.
 REPRO_EXPORT int repro_flash_attention_bwd(const long long* p, float scale,
@@ -1011,9 +1738,15 @@ REPRO_EXPORT int repro_flash_attention_bwd(const long long* p, float scale,
     return tc::dispatch(make_args<__nv_bfloat16>(p, scale, H / Kv), B, Kv,
                         s);
   }
-  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return dispatch(make_args<float>(p, scale, H / Kv), B, Kv, s);
-  if (dtype == 1)
-    return dispatch(make_args<__nv_bfloat16>(p, scale, H / Kv), B, Kv, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 2) {
+    // grid z: the key tiles and the 64-row packed tiles of one kv head
+    if (dtype != 1 || hd <= 128 ||
+        (Sk + 63) / 64 + (static_cast<long long>(H / Kv) * Sq + 63) / 64 >
+            65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return tc256::dispatch(make_args<__nv_bfloat16>(p, scale, H / Kv), B,
+                           Kv, s);
+  }
+  if (route != 0 || dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(make_args<float>(p, scale, H / Kv), B, Kv, s);
 }

@@ -29,16 +29,18 @@ hand-written ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_cuda``);
 otherwise the forward-only launch.  The plain backward is autograd through
 ``flash_attention_plain``.
 
-The backward has two routes, chosen by ``flash_bwd_plan`` from the dtype
-and the head dim alone: ``wgmma`` (bfloat16 with hd <= 128 — every
-attention family the port trains) runs its products on the tensor cores
-over 64-row query tiles packed over a kv head's G query heads and 64-key
-tiles; ``cuda_cores`` (float32, the exact parity path, and bfloat16 with
-hd 144-256) runs them in float32 on the CUDA cores over 32-row per-head
-query tiles and 32-key tiles.  The plan also gives the tiles each block
-walks (the causal limit and the window bound them), as the kernels walk
-them.  A route is never taken on a failure: the kernel raises.  The
-``launch_counts`` of ``ops`` report the backward's launches per route.
+The backward has three routes, chosen by ``flash_bwd_plan`` from the
+dtype and the head dim alone: ``wgmma`` (bfloat16 with hd <= 128) and
+``wgmma256`` (bfloat16 with 128 < hd <= 256, paligemma-3b's hd 256) run
+their products on the tensor cores over 64-row query tiles packed over a
+kv head's G query heads and 64-key tiles (``wgmma256`` with the head dim
+split between a block's two warpgroups); ``cuda_cores`` (float32, the
+exact parity path) runs them in float32 on the CUDA cores over 32-row
+per-head query tiles and 32-key tiles.  The plan also gives the tiles each
+block walks (the causal limit, the prefix and the window bound them), as
+the kernels walk them.  A route is never taken on a failure: the kernel
+raises.  The ``launch_counts`` of ``ops`` report the backward's launches
+per route.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ BWD_KERNEL = CudaKernel("flash_attention_bwd.cu", "repro_flash_attention_bwd",
                         [PACKED, F, P])
 _ARGS = struct.Struct("24q")     # the C entry's packed int64 arguments
 _BWD_ARGS = struct.Struct("45q")
-BWD_ROUTES = ("cuda_cores", "wgmma")     # the C entry's route numbers
+BWD_ROUTES = ("cuda_cores", "wgmma", "wgmma256")  # the C entry's numbers
 # launches of the backward kernel per route (BWD_KERNEL.launches counts all)
 BWD_ROUTE_LAUNCHES = dict.fromkeys(BWD_ROUTES, 0)
 
@@ -96,11 +98,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 class BwdPlan:
     """How the backward kernel tiles one call: ``route``, the rows of a
     query tile and the keys of a key tile (``tile``), and ``pack`` query
-    heads per tile row set (a kv head's G heads on ``wgmma``, where packed
-    row r is position r // G of head kv * G + r % G; 1 on ``cuda_cores``,
-    whose query tiles belong to one head).  Tiles count per (kv head, or
-    head on ``cuda_cores``, sequence).  ``prefix`` is the causal call's
-    ``prefix_len`` (0 otherwise)."""
+    heads per tile row set (a kv head's G heads on ``wgmma`` and
+    ``wgmma256``, where packed row r is position r // G of head kv * G + r
+    % G; 1 on ``cuda_cores``, whose query tiles belong to one head).  Tiles
+    count per (kv head, or head on ``cuda_cores``, sequence).  ``prefix``
+    is the causal call's ``prefix_len`` (0 otherwise)."""
     route: str
     tile: int
     pack: int
@@ -121,7 +123,7 @@ class BwdPlan:
     def query_tiles(self, kt: int) -> range:
         """The query tiles that can see a key of key tile ``kt``: those
         its dK/dV block walks (on ``wgmma`` its two warpgroups taking
-        alternate tiles)."""
+        alternate tiles, on ``wgmma256`` both on each tile)."""
         k0 = kt * self.tile
         k_last = min(k0 + self.tile, self.Sk) - 1
         p_begin = k0 if self.causal and k0 >= self.prefix else 0
@@ -135,7 +137,8 @@ class BwdPlan:
     def key_tiles(self, qt: int) -> range:
         """The key tiles that a row of query tile ``qt`` can see (the
         forward's bounds): a dQ block walks those of its rows (on
-        ``wgmma`` two query tiles, the union of theirs)."""
+        ``wgmma`` two query tiles, the union of theirs; one tile on
+        ``wgmma256`` and ``cuda_cores``)."""
         r0 = qt * self.tile
         p_first = r0 // self.pack
         p_last = (min(r0 + self.tile, self.pack * self.Sq) - 1) // self.pack
@@ -151,12 +154,13 @@ class BwdPlan:
 @functools.lru_cache(maxsize=256)
 def flash_bwd_plan(dtype, hd: int, G: int, Sq: int, Sk: int, causal: bool,
                    window: int, prefix_len: int = 0) -> BwdPlan:
-    """The backward's plan from shapes alone: the ``wgmma`` route for
-    bfloat16 with hd <= 128, else ``cuda_cores``."""
+    """The backward's plan from shapes alone: for bfloat16 the ``wgmma``
+    route at hd <= 128 and ``wgmma256`` above it, ``cuda_cores`` for
+    float32."""
     shape = (Sq, Sk, bool(causal), int(window),
              int(prefix_len) if causal else 0)
-    if dtype == torch.bfloat16 and hd <= 128:
-        return BwdPlan("wgmma", 64, G, *shape)
+    if dtype == torch.bfloat16:
+        return BwdPlan("wgmma" if hd <= 128 else "wgmma256", 64, G, *shape)
     return BwdPlan("cuda_cores", 32, 1, *shape)
 
 

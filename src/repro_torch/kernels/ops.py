@@ -28,7 +28,8 @@ forward and backward kernels (``flash_attention.FlashAttention``,
 version.  The other four kernels (the decode, tree-verify and
 spec-verify kernels, serving only) have no backward and raise under grad
 on CUDA.  ``launch_counts`` also reports the two backwards' launches per
-route (``flash_attention_bwd/wgmma`` and ``.../cuda_cores``;
+route (``flash_attention_bwd/wgmma``, ``.../wgmma256`` and
+``.../cuda_cores``;
 ``ssd_chunk_scan_bwd/mma`` and ``.../cuda_cores``).
 """
 from __future__ import annotations

@@ -897,22 +897,77 @@ def test_flash_attention_backward_packed_tiles(cuda, B, H, Kv, Sq, Sk, hd,
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 80, "wgmma"),
     (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "cuda_cores"),
-    (torch.float32, 128, "cuda_cores"), (torch.bfloat16, 256, "cuda_cores")])
+    (torch.float32, 128, "cuda_cores"), (torch.bfloat16, 256, "wgmma256")])
 def test_flash_attention_backward_route(cuda, dtype, hd, route):
-    """bfloat16 with hd <= 128 launches the wgmma route, float32 and
-    bfloat16 hd 256 the CUDA-core route: one launch, counted per route in
-    ``ops.launch_counts()``."""
+    """bfloat16 with hd <= 128 launches the wgmma route, bfloat16 hd 256
+    the wgmma256 route, float32 the CUDA-core route: one launch, counted
+    per route in ``ops.launch_counts()``, and none on the other two."""
     q, k, v, dout = _bwd_inputs(1, 4, 2, 48, 48, hd, cuda, dtype)
     ops.reset_launch_counts()
     got = _attn_grads(ops.flash_attention, q, k, v, dout)
     ref = _attn_grads(flash_attention_plain, q, k, v, dout)
     counts = ops.launch_counts()
-    other = {"wgmma": "cuda_cores", "cuda_cores": "wgmma"}[route]
+    other = {"wgmma": ("cuda_cores", "wgmma256"),
+             "wgmma256": ("cuda_cores", "wgmma"),
+             "cuda_cores": ("wgmma", "wgmma256")}[route]
     assert counts["flash_attention_bwd"] == 1
     assert counts[f"flash_attention_bwd/{route}"] == 1
-    assert counts[f"flash_attention_bwd/{other}"] == 0
+    for o in other:
+        assert counts[f"flash_attention_bwd/{o}"] == 0
     for g, r in zip(got[1:], ref[1:]):
         assert _rel_err(g, r) <= BWD_TOL[dtype]
+
+
+# (B, H, Kv, Sq, Sk, causal, window, prefix) of the wgmma256 route (bf16,
+# 128 < hd <= 256), on strided (B, S, heads, hd) views: G 8 on one kv head
+# (paligemma) and G 1, causal over ragged lengths, windowed, with a prefix
+# (paligemma's 256 of 272 and of 512, one inside a tile under a window,
+# one past S), and non-causal Sq != Sk (whisper's 16 rows against 1500,
+# and G 8 over 40 x 72)
+WIDE_MASKS = [(1, 8, 1, 130, 130, True, 0, 0), (2, 4, 4, 97, 97, True, 0, 0),
+              (1, 8, 1, 100, 100, True, 37, 0),
+              (2, 4, 4, 75, 75, True, 17, 20),
+              (2, 8, 1, 272, 272, True, 0, 256),
+              (1, 8, 1, 512, 512, True, 0, 256),
+              (1, 8, 1, 90, 90, True, 0, 200),
+              (2, 12, 12, 16, 1500, False, 0, 0),
+              (1, 8, 1, 40, 72, False, 0, 0)]
+
+
+def _wide_case(cuda, B, H, Kv, Sq, Sk, hd, causal, window, prefix):
+    """One bf16 backward on the wgmma256 route against the plain autograd,
+    run twice: one launch on that route, gradients within BWD_TOL and laid
+    out like q, k, v, the two runs bit-identical."""
+    dtype = torch.bfloat16
+    q, k, v, dout = _bwd_inputs(B, H, Kv, Sq, Sk, hd, cuda, dtype)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    ops.reset_launch_counts()
+    got = _attn_grads(ops.flash_attention, q, k, v, dout, **kw)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd/wgmma256"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    again = _attn_grads(ops.flash_attention, q, k, v, dout, **kw)
+    ref = _attn_grads(flash_attention_plain, q, k, v, dout, **kw)
+    assert _err(got[0], ref[0]) <= TOL[dtype]
+    for g, r, x in zip(got[1:], ref[1:], (q, k, v)):
+        assert g.stride() == x.stride() and g.dtype == dtype
+        assert _rel_err(g, r) <= BWD_TOL[dtype]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Sk,causal,window,prefix", WIDE_MASKS)
+@pytest.mark.parametrize("hd", [144, 192, 256])
+def test_flash_attention_backward_wgmma256(cuda, B, H, Kv, Sq, Sk, causal,
+                                           window, prefix, hd):
+    _wide_case(cuda, B, H, Kv, Sq, Sk, hd, causal, window, prefix)
+
+
+@pytest.mark.parametrize("hd", [129, 250])
+def test_flash_attention_backward_wgmma256_element_copies(cuda, hd):
+    """Head dims that are not a multiple of 8 take the element copies and
+    the 2-byte stores (no 16-byte rows)."""
+    _wide_case(cuda, 1, 8, 1, 100, 100, hd, True, 0, 37)
 
 
 def test_flash_attention_backward_cross_length(cuda):
@@ -1347,7 +1402,7 @@ def test_model_loss_trains_on_the_kernels(cuda, family):
 # the whisper encoder over 1500 frames and the decoder's cross attention,
 # Sq != Sk — in both flash kernels, against the plain versions.  (B, H,
 # Kv, S, hd, prefix, window): paligemma's heads (G 8 on one kv head, hd
-# 256: the CUDA-core backward) over 256 image rows + 16 text rows,
+# 256: the wgmma256 backward) over 256 image rows + 16 text rows,
 # prefixes that end inside a tile with packed rows straddling it (G 3),
 # past S, and under a window
 PREFIX_SHAPES = [(1, 8, 1, 272, 256, 256, 0), (2, 9, 3, 100, 64, 37, 0),

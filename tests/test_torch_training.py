@@ -459,17 +459,18 @@ def test_flash_attention_plain_grad_matches_jax_ref(causal, window, G):
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 80, "wgmma"),
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 32, "wgmma"),
-    (torch.bfloat16, 256, "cuda_cores"), (torch.bfloat16, 144, "cuda_cores"),
+    (torch.bfloat16, 256, "wgmma256"), (torch.bfloat16, 144, "wgmma256"),
     (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores")])
 def test_flash_bwd_plan_route(dtype, hd, route):
     """The route follows the dtype and the head dim alone: wgmma for
-    bfloat16 with hd <= 128 (64-row query tiles packed over the G heads,
-    64-key tiles), the CUDA cores otherwise (32-row per-head tiles)."""
+    bfloat16 with hd <= 128, wgmma256 above it (both 64-row query tiles
+    packed over the G heads, 64-key tiles), the CUDA cores for float32
+    (32-row per-head tiles)."""
     for G, S, causal, window in ((1, 16, True, 0), (4, 2048, False, 9)):
         plan = flash_bwd_plan(dtype, hd, G, S, S, causal, window)
         assert plan.route == route
-        assert (plan.tile, plan.pack) == ((64, G) if route == "wgmma"
-                                          else (32, 1))
+        assert (plan.tile, plan.pack) == ((32, 1) if route == "cuda_cores"
+                                          else (64, G))
 
 
 def test_flash_bwd_plan_tile_counts():
