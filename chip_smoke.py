@@ -108,6 +108,25 @@ the first phase that fails:
    decode steps (the paged-decode kernel on every read) and split
    inference at k = 9 (identity bit-equal to the unsplit
    forward; an int8 boundary's wire bytes and logit error);
+3c. ``[mesh]``: sharded serving on the one card — four ranks (processes,
+   ``launch/mesh.spawn_ranks``) at (data 2, model 2) over gloo, the
+   kernels built once above: the default path (smollm-135m edge at full
+   depth, data parallel, its paged pool split per data shard and on the
+   head dim over 'model'; granite-8b at full width cut to
+   ``MESH_CLOUD_LAYERS`` layers, tensor parallel with FSDP; bf16, 8
+   requests of 16 + 24 tokens, gamma 4, ``SpeculativePolicy(0.6)``) must
+   serve every request with the same tokens on every rank, finite logits,
+   the paged-decode, flash and spec-verify kernels launched on every rank,
+   ``kv_shards`` 4 and ``mesh_shape`` {data 2, model 2}; it prints ms per
+   tick and per round (host issue, stream span; rank 0's profiled device
+   busy), the bytes each collective moved per round and the phase's
+   seconds; then the granite-moe-1b-a400m edge with 4096-token prefills
+   (``moe_block_sharded`` on every rank), and a float32 run (2 layers per
+   model, full width) against the unsharded engine in this process —
+   traces identical but for near ties (top-2 gap below 1e-4), and
+   ``kv_capacity_blocks`` above the unsharded engine's; ``[examples]``:
+   the four ``examples/torch_port`` scripts on the card, each in a fresh
+   process, each exiting 0 with its invariant held;
 4. serve each path again at float32, full width, cut depth (2 layers per
    model; xLSTM 4, zamba2 6 — one whole shared-attention group), plus the
    moe edge on the tree lane, the mamba2 path with chunked prefill and
@@ -120,8 +139,8 @@ the first phase that fails:
    teacher-forced on its tokens (logits within 1e-4) and one train step;
 5. print the card's name and power limit, a ``{"kernels": [...]}`` line
    (launches summed over the seven served paths, the per-request phase,
-   the encdec and vlm paths, the two adaptation paths and the nine
-   training runs; the flash
+   the encdec and vlm paths, the two adaptation paths, the nine
+   training runs and the mesh phase's four ranks; the flash
    backward's also per route) and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -2709,6 +2728,377 @@ def _stub_parity(arch):
     _train_step_parity(arch, cfg)
 
 
+# --------------------------------------------------------------- phase 3c
+# Sharded serving on one card: four ranks (processes) at (data 2, model 2)
+# over gloo, the ranks sharing the card.  The smollm-135m edge at full
+# depth, the granite-8b cloud at full width cut to MESH_CLOUD_LAYERS layers
+# (its FSDP gathers cross gloo every layer of every forward); the moe edge's
+# prompts make one 4096-token prefill, which takes the expert-parallel
+# branch; the float32 parity at 2 layers per model and MESH_PARITY_NEW new
+# tokens against the unsharded engine in this process.
+MESH_SHAPE = (2, 2)
+MESH_CLOUD_LAYERS = 2
+MESH_KERNELS = ("paged_decode_attention", "flash_attention", "spec_verify")
+MESH_MOE = dict(n=4, prompt=4097, new=8)
+MESH_PARITY_NEW = 8
+
+
+def _mesh_drain(mesh, e_cfg, c_cfg, ep, cp, prompts, max_new,
+                profile=False, **kw):
+    """One timed drain on the mesh: (traces, stats, launches, per-tick and
+    per-round host issue and stream span, per-round collective bytes,
+    wall s).  ``profile``: rank 0 also sums its device activity over the
+    drain (``torch.profiler``; its overhead lengthens the wall, so the
+    busy share is a lower bound) into ``timing["busy_ms"]``."""
+    import torch
+    from repro_torch.core.policy import SpeculativePolicy
+    from repro_torch.core.scheduler import BatchedEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    opts = dict(batch_size=8, gamma=4, temperature=0.0,
+                policy=SpeculativePolicy(0.6), kv_layout="paged")
+    opts.update(kw)
+    eng = BatchedEngine(Model(e_cfg), Model(c_cfg), mesh=mesh, **opts)
+    timing = {"tick": [], "round": [], "round_bytes": []}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            before = dict(mesh.moved)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            h = time.perf_counter()
+            t0.record()
+            out = fn(*a, **k)
+            t1.record()
+            host = (time.perf_counter() - h) * 1e3
+            t1.synchronize()
+            timing[key].append((host, t0.elapsed_time(t1)))
+            if key == "round":
+                timing["round_bytes"].append(
+                    {k: n - before.get(k, 0) for k, n in mesh.moved.items()
+                     if n != before.get(k, 0)})
+            return out
+        return run
+
+    eng.edge.chunk = timed(eng.edge.chunk, "tick")
+    eng.spec._round = timed(eng.spec._round, "round")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    prof = None
+    if profile and mesh.rank == 0:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    t = time.perf_counter()
+    traces = eng.serve_batch(ep, cp, prompts, max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        timing["busy_ms"] = sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+            for e in prof.key_averages()) / 1e3
+    launches = ops.launch_counts()
+    return traces, eng.stats(), launches, timing, wall
+
+
+def _mesh_rank(rank, plan):
+    """One rank of the [mesh] phase (a spawned process; imports only the
+    port).  Returns its tokens, stats, launches and timings."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import init_placed
+    from repro_torch.models import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(*MESH_SHAPE, device=dev)
+    out = {"rank": rank, "coords": mesh.coords, "backend": mesh.backend}
+    t0 = time.perf_counter()
+
+    def note(what):
+        if rank == 0:
+            print(f"[mesh] rank 0: {what} at {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+
+    def pair(edge, layers=None, dtype=None):
+        e_cfg, c_cfg = _configs(edge, layers, dtype)
+        if layers is None:
+            c_cfg = c_cfg.replace(num_layers=MESH_CLOUD_LAYERS)
+        ep = Model(e_cfg).init(seed=0, device=dev)
+        cp = init_placed(Model(c_cfg), 1, mesh, dev)
+        return e_cfg, c_cfg, ep, cp
+
+    # ---- the default path: paged KV, linear lane, bf16
+    e_cfg, c_cfg, ep, cp = pair("smollm-135m")
+    note("models built")
+    out["params_gib"] = sum(p.numel() * p.element_size()
+                            for p in cp.parameters()) / 2**30
+    prompts = _prompts(e_cfg.vocab_size)
+    traces, st, launches, timing, wall = _mesh_drain(
+        mesh, e_cfg, c_cfg, ep, cp, prompts, 24, profile=True)
+    note(f"linear drain done ({wall:.1f}s)")
+    seq = torch.as_tensor([list(p) + tr.tokens
+                           for p, tr in zip(prompts, traces)], device=dev)
+    finite = []
+    for params, cfg in ((ep, e_cfg), (cp, c_cfg)):
+        logits, _ = Model(cfg).prefill(params, {"tokens": seq})
+        finite.append(bool(torch.isfinite(logits).all()))
+    out["linear"] = {"tokens": [tr.tokens for tr in traces],
+                     "paths": [tr.path for tr in traces], "stats": st,
+                     "launches": launches, "timing": timing, "wall": wall,
+                     "finite": finite, "vocab": e_cfg.vocab_size,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del ep, cp, traces
+    torch.cuda.empty_cache()
+
+    # ---- the moe edge: one 4096-token prefill per prompt (expert parallel)
+    from repro_torch.core.policy import SpeculativePolicy
+    e_cfg, c_cfg, ep, cp = pair("granite-moe-1b-a400m")
+    note("moe models built")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, e_cfg.vocab_size, MESH_MOE["prompt"])
+               .astype("int32") for _ in range(MESH_MOE["n"])]
+    traces, st, launches, timing, wall = _mesh_drain(
+        mesh, e_cfg, c_cfg, ep, cp, prompts, MESH_MOE["new"],
+        batch_size=MESH_MOE["n"], prefill_chunk=0,
+        policy=SpeculativePolicy(1.1))
+    note(f"moe drain done ({wall:.1f}s)")
+    out["moe"] = {"tokens": [tr.tokens for tr in traces], "stats": st,
+                  "launches": launches, "wall": wall,
+                  "expert_parallel_bytes":
+                  mesh.moved.get("all_reduce/data,model", 0)}
+    del ep, cp, traces
+    torch.cuda.empty_cache()
+
+    # ---- float32 parity at 2 layers per model, full width
+    e_cfg, c_cfg, ep, cp = pair("smollm-135m", (2, 2), "float32")
+    prompts = _prompts(e_cfg.vocab_size)
+    traces, st, launches, _, wall = _mesh_drain(
+        mesh, e_cfg, c_cfg, ep, cp, prompts, MESH_PARITY_NEW)
+    note(f"parity drain done ({wall:.1f}s)")
+    out["parity"] = {"tokens": [tr.tokens for tr in traces],
+                     "paths": [tr.path for tr in traces], "stats": st,
+                     "launches": launches, "wall": wall}
+    out["moved"] = dict(mesh.moved)
+    return out
+
+
+def _pct(xs, q=50):
+    xs = sorted(xs)
+    return xs[min(int(len(xs) * q / 100), len(xs) - 1)] if xs else 0.0
+
+
+def phase_mesh(total):
+    """[mesh]: sharded serving over four ranks on the one card (see
+    ``MESH_*``); adds every rank's launches to ``total``."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import Model
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    store = ROOT / "build" / f"mesh_store_{int(time.time() * 1e3)}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    print(f"[mesh] spawning {MESH_SHAPE[0] * MESH_SHAPE[1]} ranks at "
+          f"(data {MESH_SHAPE[0]}, model {MESH_SHAPE[1]}) on one card; "
+          f"cloud depth cut to {MESH_CLOUD_LAYERS} layers (full width)",
+          flush=True)
+    ranks = spawn_ranks(_mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1], None,
+                        store=str(store), device="cuda", timeout=600)
+    print(f"[mesh] backend {ranks[0]['backend']} (ranks share one card); "
+          f"each rank holds {ranks[0]['params_gib']:.2f} GiB of the cloud's "
+          f"bfloat16 blocks", flush=True)
+    lin = [r["linear"] for r in ranks]
+    V = lin[0]["vocab"]
+    for r in ranks:
+        L = r["linear"]
+        check(L["tokens"] == lin[0]["tokens"],
+              f"[mesh] rank {r['rank']} served other tokens than rank 0")
+        check(all(len(t) == 24 and all(0 <= x < V for x in t)
+                  for t in L["tokens"]), f"[mesh] rank {r['rank']}: a "
+              "request lacks its 24 tokens")
+        check(all(L["finite"]), f"[mesh] rank {r['rank']}: non-finite "
+              "logits over the served sequences")
+        for k in MESH_KERNELS:
+            check(L["launches"][k] > 0, f"[mesh] kernel {k} was not "
+                  f"launched on rank {r['rank']} {r['coords']}")
+        st = L["stats"]
+        check(st["mesh_shape"] == {"data": 2, "model": 2},
+              f"[mesh] mesh_shape {st['mesh_shape']}")
+        check(st["kv_shards"] == 2 * 2, f"[mesh] kv_shards "
+              f"{st['kv_shards']} != data_shards 2 x kv_ways 2")
+        for k, n in L["launches"].items():
+            total[k] += n
+    st = lin[0]["stats"]
+    tick = [t for r in lin for t in r["timing"]["tick"]]
+    rnd = [t for r in lin for t in r["timing"]["round"]]
+    per_round = {}
+    for b in lin[0]["timing"]["round_bytes"]:
+        for k, n in b.items():
+            per_round.setdefault(k, []).append(n)
+    print(f"[mesh] linear path (smollm-135m edge x {MESH_CLOUD_LAYERS}-layer "
+          f"granite-8b, bf16): paths {_count_paths(lin[0]['paths'])}; "
+          f"{st['ticks']} ticks, {len(lin[0]['timing']['round'])} rounds "
+          f"on each rank; wall {lin[0]['wall']:.2f}s; kv_shards "
+          f"{st['kv_shards']}, kv_capacity_blocks "
+          f"{st['kv_capacity_blocks']}, mesh_devices {st['mesh_devices']}; "
+          f"peak memory per rank "
+          f"{max(r['peak_gib'] for r in lin):.2f} GiB", flush=True)
+    print(f"[mesh] per tick (all ranks): host issue median "
+          f"{_pct([h for h, _ in tick]):.1f} ms, stream span "
+          f"{_pct([d for _, d in tick]):.1f} ms; per round: host issue "
+          f"{_pct([h for h, _ in rnd]):.1f} ms, stream span "
+          f"{_pct([d for _, d in rnd]):.1f} ms; launches per rank "
+          + ", ".join(f"{k} {[r['launches'][k] for r in lin]}"
+                      for k in MESH_KERNELS), flush=True)
+    busy = lin[0]["timing"].get("busy_ms")
+    n_rounds = len(lin[0]["timing"]["round"])
+    print(f"[mesh] rank 0 device busy over the drain (profiled): "
+          f"{busy:.1f} ms of {lin[0]['wall'] * 1e3:.0f} ms wall "
+          f"({busy / (lin[0]['wall'] * 1e3):.1%}), about "
+          f"{busy / max(n_rounds + st['ticks'], 1):.1f} ms per tick or "
+          "round" if busy is not None else
+          "[mesh] rank 0 device busy: not measured", flush=True)
+    print("[mesh] bytes moved per round on rank 0 (median): "
+          + "; ".join(f"{k} {_pct(v) / 1e6:.3f} MB"
+                      for k, v in sorted(per_round.items()))
+          + "; whole phase on rank 0: "
+          + "; ".join(f"{k} {n / 1e6:.1f} MB"
+                      for k, n in sorted(ranks[0]["moved"].items())),
+          flush=True)
+
+    moe = [r["moe"] for r in ranks]
+    for r, m in zip(ranks, moe):
+        check(m["tokens"] == moe[0]["tokens"] and all(
+            len(t) == MESH_MOE["new"] for t in m["tokens"]),
+            f"[mesh] moe rank {r['rank']}: tokens differ or are missing")
+        check(m["expert_parallel_bytes"] > 0, f"[mesh] moe rank "
+              f"{r['rank']}: moe_block_sharded did not run")
+        for k in ("paged_decode_attention", "flash_attention"):
+            check(m["launches"][k] > 0, f"[mesh] moe: {k} not launched on "
+                  f"rank {r['rank']}")
+        for k, n in m["launches"].items():
+            total[k] += n
+    print(f"[mesh] moe edge (granite-moe-1b-a400m, {MESH_MOE['n']} prompts "
+          f"of {MESH_MOE['prompt']} tokens, prefill_chunk 0): "
+          f"moe_block_sharded on every rank ("
+          f"{moe[0]['expert_parallel_bytes']} B of aux means), wall "
+          f"{moe[0]['wall']:.2f}s", flush=True)
+
+    # ---- float32 parity against the unsharded engine in this process
+    par = [r["parity"] for r in ranks]
+    for r, p in zip(ranks, par):
+        check(p["tokens"] == par[0]["tokens"], f"[mesh] parity: rank "
+              f"{r['rank']} tokens differ from rank 0's")
+        for k, n in p["launches"].items():
+            total[k] += n
+    e_cfg, c_cfg = _configs("smollm-135m", (2, 2), "float32")
+    ep = Model(e_cfg).init(seed=0, device="cuda")
+    cp = Model(c_cfg).init(seed=1, device="cuda")
+    prompts = _prompts(e_cfg.vocab_size)
+    eng = _engine(e_cfg, c_cfg, kv_layout="paged")
+    base = eng.serve_batch(ep, cp, prompts, MESH_PARITY_NEW)
+    st0 = eng.stats()
+    check(par[0]["stats"]["kv_capacity_blocks"] > st0["kv_capacity_blocks"],
+          f"[mesh] kv_capacity_blocks {par[0]['stats']['kv_capacity_blocks']}"
+          f" not above the unsharded {st0['kv_capacity_blocks']}")
+    excused = 0
+    for i, (a, b) in enumerate(zip(par[0]["tokens"], base)):
+        if a == b.tokens:
+            continue
+        j = _first_divergence(a, b.tokens)
+        edge_chose = b.path == "edge"
+        params, cfg = (ep, e_cfg) if edge_chose else (cp, c_cfg)
+        gap = _top2_gap(prompts[i], b.tokens[:j], params, cfg)
+        print(f"[mesh] parity request {i} diverges at token {j}: unsharded "
+              f"top-2 gap {gap:.3e}", flush=True)
+        check(gap < GAP_TOL, f"[mesh] parity request {i}: divergence at "
+                             f"token {j} with a top-2 gap {gap} >= {GAP_TOL}")
+        excused += 1
+    print(f"[mesh] float32 parity (2-layer smollm-135m + 2-layer granite-8b, "
+          f"full width, {MESH_PARITY_NEW} new): mesh vs unsharded "
+          f"{len(base) - excused}/{len(base)} traces identical, {excused} "
+          f"near-tie divergences; kv_capacity_blocks "
+          f"{par[0]['stats']['kv_capacity_blocks']} vs "
+          f"{st0['kv_capacity_blocks']}", flush=True)
+    del ep, cp
+    torch.cuda.empty_cache()
+    print(f"[mesh] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
+def _count_paths(items):
+    out = {}
+    for x in items:
+        out[x] = out.get(x, 0) + 1
+    return out
+
+
+# the examples' own checks, run by phase_examples in a fresh process each
+EXAMPLE_RUNS = (
+    ("quickstart", [], "out['lossless'] and len(out['speculative']) == 24"),
+    ("collaborative_serving", [],
+     "all(len(v[4]) == 13 and all(t.tokens for t in v[4]) "
+     "for v in out.values())"),
+    ("federated_lora", [],
+     "all(a['A'].shape[-2] == 8 for a in out['aggregate'].values())"),
+    ("train_distill", ["--steps", "40"],
+     "out['teacher_history'][-1][1] < out['teacher_history'][0][1] "
+     "and out['distill_losses'][-1] < out['distill_losses'][0]"),
+)
+_EXAMPLE_DRIVER = """
+import importlib.util, json, sys, time
+name, check = sys.argv[1], sys.argv[2]
+spec = importlib.util.spec_from_file_location(name, sys.argv[3])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+t = time.perf_counter()
+out = mod.main(sys.argv[4:])
+assert eval(check), "invariant failed: " + check
+print("EXAMPLE_OK", name, round(time.perf_counter() - t, 2))
+"""
+
+
+def phase_examples():
+    """[examples]: the four port examples on the card, each a fresh process
+    (its default ``--device cuda``), all four at once, each exiting 0 with
+    its invariant held."""
+    import os
+    t_phase = time.perf_counter()
+    # two host threads each: the four share the machine's cores
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "2"}
+    logs = ROOT / "build" / "examples"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, argv, inv in EXAMPLE_RUNS:
+        with open(logs / f"{name}.out", "w") as fo, \
+                open(logs / f"{name}.err", "w") as fe:
+            procs.append((name, subprocess.Popen(
+                [sys.executable, "-c", _EXAMPLE_DRIVER, name, inv,
+                 str(ROOT / "examples" / "torch_port" / f"{name}.py"),
+                 *argv], cwd=ROOT, env=env, stdout=fo, stderr=fe)))
+    failed = []
+    for name, p in procs:
+        try:
+            p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        out = (logs / f"{name}.out").read_text()
+        err = (logs / f"{name}.err").read_text()
+        last = [ln for ln in out.splitlines() if ln.strip()]
+        if p.returncode != 0 or "EXAMPLE_OK" not in out:
+            failed.append(f"{name} exited {p.returncode}: {err[-2000:]}")
+            continue
+        print(f"[examples] {name}: ok (main {last[-1].split()[-1]}s); "
+              f"{' | '.join(last[-3:-1])[:300]}", flush=True)
+    check(not failed, "[examples] " + "; ".join(failed))
+    print(f"[examples] phase wall {time.perf_counter() - t_phase:.1f}s "
+          "(the four at once)", flush=True)
+
+
 # --------------------------------------------------------------- phase 4
 def phase_parity():
     """Every served path at float32, full width, cut depth
@@ -2799,6 +3189,11 @@ def main() -> int:
         phase_learn(launches)
         print(f"[time] + adaptation and training "
               f"{time.perf_counter() - t0:.0f}s", flush=True)
+        phase_mesh(launches)
+        print(f"[time] + mesh {time.perf_counter() - t0:.0f}s", flush=True)
+        phase_examples()
+        print(f"[time] + examples {time.perf_counter() - t0:.0f}s",
+              flush=True)
         phase_parity()
         print(f"[time] + parity {time.perf_counter() - t0:.0f}s", flush=True)
     except SmokeFailure as e:

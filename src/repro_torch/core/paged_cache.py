@@ -31,7 +31,8 @@ reallocated immediately without corruption.
 ids only, no device arrays), a copy of the JAX package's; ``write_pool_blocks``
 / ``copy_pool_blocks`` are the in-place torch scatters that land a prefilled
 prompt's K/V blocks in the pool and execute copy-on-write forks.
-``ShardedBlockPool`` waits for the sharded-serving slice.
+``ShardedBlockPool`` is the per-shard allocator of the sharded serving
+path (a copy of the JAX package's).
 """
 from __future__ import annotations
 
@@ -179,6 +180,113 @@ class BlockPool:
             if self._deref(blk):
                 dead.append(blk)
         return dead
+
+
+class ShardedBlockPool:
+    """Per-shard block allocation over ONE device KV pool (the sharded
+    serving path — `launch/sharding.paged_cache_spec` shards the pool's
+    block dim over the data axes, kv-heads over 'model').
+
+    The device pool is ``shards * per_shard`` blocks in global ids, of
+    which a data rank holds its own shard's range: shard ``s`` OWNS the
+    contiguous id range ``[s * per_shard, (s + 1) * per_shard)`` — exactly
+    the rows living on data shard ``s`` — and each range's first block is that shard's trap,
+    so masked garbage decode and table-row padding never cross shards.
+    Slots map to shards by ``shard_of`` (the scheduler's contiguous slot
+    groups), and ALL host-side bookkeeping — free lists, refcounts, prefix
+    sharing, copy-on-write, swap — is per-shard: an owner only ever holds
+    blocks from its own range, so allocation, sharing and the masked
+    writes it protects against are shard-local by construction.
+
+    Duck-types ``BlockPool`` (same methods the ``PagedKV`` adapter calls);
+    ``can_alloc``/``usable`` answer for one shard, ``used``/``peak_used``
+    aggregate across shards for the capacity stats.
+    """
+
+    def __init__(self, shards: int, per_shard: int, block_size: int,
+                 shard_of):
+        if shards < 1:
+            raise ValueError(f"need >= 1 shards, got {shards}")
+        self.shards = shards
+        self.per_shard = per_shard
+        self.num_blocks = shards * per_shard
+        self.block_size = block_size
+        self._shard_of = shard_of
+        # inner pools hand out LOCAL ids 1..per_shard-1 (0 = shard trap);
+        # global id = shard * per_shard + local
+        self._pools = [BlockPool(per_shard, block_size)
+                       for _ in range(shards)]
+        self.peak_used = 0
+
+    # ------------------------------------------------------------ queries
+    @property
+    def used(self) -> int:
+        return sum(p.used for p in self._pools)
+
+    def blocks_for(self, n_tokens: int) -> int:
+        return blocks_for(n_tokens, self.block_size)
+
+    def can_alloc(self, n_blocks: int, owner=None) -> bool:
+        if owner is None:       # no shard context: every shard must fit it
+            return all(p.can_alloc(n_blocks) for p in self._pools)
+        return self._pools[self._shard_of(owner)].can_alloc(n_blocks)
+
+    def usable(self) -> int:
+        return self.per_shard - 1
+
+    def trap(self, owner) -> int:
+        return self._shard_of(owner) * self.per_shard
+
+    def owned(self, owner) -> List[int]:
+        s = self._shard_of(owner)
+        base = s * self.per_shard
+        return [base + blk for blk in self._pools[s].owned(owner)]
+
+    def refcount(self, blk: int) -> int:
+        return self._pools[blk // self.per_shard].refcount(
+            blk % self.per_shard)
+
+    # ------------------------------------------------------------ alloc
+    def _note_peak(self):
+        self.peak_used = max(self.peak_used, self.used)
+
+    def alloc(self, owner, n_blocks: int) -> List[int]:
+        s = self._shard_of(owner)
+        base = s * self.per_shard
+        got = [base + blk for blk in self._pools[s].alloc(owner, n_blocks)]
+        self._note_peak()
+        return got
+
+    def grow_to(self, owner, n_tokens: int) -> List[int]:
+        s = self._shard_of(owner)
+        base = s * self.per_shard
+        got = [base + blk
+               for blk in self._pools[s].grow_to(owner, n_tokens)]
+        self._note_peak()
+        return got
+
+    # ------------------------------------------------------------ sharing
+    def share(self, owner, blocks: List[int]) -> None:
+        s = self._shard_of(owner)
+        base = s * self.per_shard
+        for blk in blocks:
+            if blk // self.per_shard != s:
+                raise RuntimeError(
+                    f"cross-shard share: block {blk} is not in shard {s}")
+        self._pools[s].share(owner, [blk - base for blk in blocks])
+
+    def fork(self, owner, blk: int) -> int:
+        s = self._shard_of(owner)
+        base = s * self.per_shard
+        new = base + self._pools[s].fork(owner, blk - base)
+        self._note_peak()
+        return new
+
+    # ------------------------------------------------------------ free
+    def free(self, owner) -> List[int]:
+        s = self._shard_of(owner)
+        base = s * self.per_shard
+        return [base + blk for blk in self._pools[s].free(owner)]
 
 
 # ---------------------------------------------------------------- device

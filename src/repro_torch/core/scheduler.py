@@ -40,8 +40,15 @@ the PyTorch twin of the JAX package's ``core/scheduler.py``.
     new edge weights, which the drain rebinds (``SequenceState.rebind``).
     With ``adaptation=None`` serving is unchanged to the token.
 
-Not ported yet, and refused with ``NotImplementedError`` when asked for:
-``mesh=`` (sharded serving).
+  * MESH (``mesh=``, a ``launch/mesh.Mesh``; one process per mesh
+    position, every rank running this same scheduler): edge drafts are
+    DATA-parallel (the slots split over the data axes, params
+    replicated), the cloud verifier TENSOR-parallel over 'model' (params
+    placed by ``launch/sharding.py``).  Every host pull returns the whole
+    batch on every rank, so every rank makes the same decisions.  The
+    mesh serves the paged layout on the linear lane; the dense and
+    recurrent layouts, the tree and self lanes and serve-time adaptation
+    are refused there with ``NotImplementedError`` (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import runtime
 from repro_torch.analysis import hot_path
 from repro_torch.core.cache import SemanticCache, embed_tokens_mean
 from repro_torch.core.policy import (ACTIONS, LANES, cloud_tokens,
@@ -153,9 +161,6 @@ class BatchedEngine:
         if prefill_chunk is not None and prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0 (0 = whole-prompt "
                              f"prefill), got {prefill_chunk}")
-        if mesh is not None:
-            raise NotImplementedError("mesh= (sharded serving) is a later "
-                                      "slice of the port")
         for m in (edge_model, cloud_model):
             require_token_prompts(m.cfg, "BatchedEngine")
         self.policy = resolve_policy(policy, escalation, escalate_threshold)
@@ -178,13 +183,28 @@ class BatchedEngine:
         self._esc_fns = {"cloud": self._cloud_escalate,
                          "skeleton": self._skeleton_escalate,
                          "speculative": self._spec_escalate}
+        # mesh serving: edge drafts are DATA-parallel (batch slots split
+        # over the data axes, params replicated); the cloud verifier is
+        # TENSOR-parallel over 'model'.  Escalation groups are whole on
+        # every data rank (gather_wave hands each the full wave), so the
+        # cloud lane never data-splits its pools
+        self.mesh = mesh
+        self._data_shards = 1
+        if mesh is not None:
+            self._mesh_refusals(adaptation)
+            dp = 1
+            for a in mesh.axis_names:
+                if a != "model":
+                    dp *= mesh.shape[a]
+            self._data_shards = dp if batch_size % dp == 0 else 1
         self.edge = Lane(edge_model, estimator, temperature,
                          layout=layout_for(edge_model, self.kv_layout),
-                         block_size=kv_block_size, attn_backend=attn_backend)
+                         block_size=kv_block_size, attn_backend=attn_backend,
+                         mesh=mesh, data_shards=self._data_shards)
         self.cloud = Lane(cloud_model, estimator, temperature,
                           layout=layout_for(cloud_model, self.kv_layout),
                           block_size=kv_block_size,
-                          attn_backend=attn_backend)
+                          attn_backend=attn_backend, mesh=mesh)
         self.cache = SemanticCache(threshold=cache_threshold) if use_cache \
             else None
         # online adaptation (AdaptationLoop or None): completions feed its
@@ -211,6 +231,10 @@ class BatchedEngine:
         if mode == "self" and not BatchedSpecDecoder.self_supported(
                 edge_model):
             mode = "linear"
+        if mesh is not None and mode != "linear":
+            raise NotImplementedError(
+                f"spec_mode {mode!r} on a device mesh is not ported; the "
+                "mesh serves the linear lane (ROADMAP A.8)")
         self.spec_mode = mode
         if mode == "tree":
             self.spec = BatchedSpecDecoder(
@@ -249,6 +273,18 @@ class BatchedEngine:
         self._events: Dict[int, dict] = {}          # rid -> lifecycle stamps
         self._gen: Optional[torch.Generator] = None
 
+    def _mesh_refusals(self, adaptation):
+        """What the mesh path does not serve yet (ROADMAP A.8)."""
+        if self.kv_layout != "paged":
+            raise NotImplementedError(
+                f"kv_layout {self.kv_layout!r} on a device mesh is not "
+                "ported: the mesh serves the paged layout of KV-cache "
+                "families on both models (ROADMAP A.8)")
+        if adaptation is not None:
+            raise NotImplementedError(
+                "serve-time adaptation on a device mesh is not ported "
+                "(ROADMAP A.8)")
+
     # ------------------------------------------------------------ submit
     def submit(self, prompt, max_new: int, at: Optional[float] = None,
                domain: Optional[int] = None) -> int:
@@ -283,9 +319,33 @@ class BatchedEngine:
         return None
 
     # ------------------------------------------------------------ run
-    @hot_path
     def run(self, edge_params, cloud_params) -> Dict[int, RequestTrace]:
-        """Drain the queue; returns {rid: RequestTrace} for this drain."""
+        """Drain the queue; returns {rid: RequestTrace} for this drain.
+
+        With ``mesh=...`` the drain runs inside a ``runtime.mesh_context``:
+        the edge params stay replicated (every rank holds them whole; when
+        its kv-heads split over 'model' each rank attends its own heads,
+        ``sharding.local_attention``), the cloud params are cut to this
+        rank's blocks per ``launch/sharding.py`` unless the caller placed
+        them already (``sharding.init_placed``), and the stats gain
+        ``mesh_devices`` and ``mesh_shape``.  ``mesh=None`` takes the exact
+        pre-mesh path."""
+        if self.mesh is None:
+            return self._run_impl(edge_params, cloud_params)
+        from repro_torch.launch.sharding import local_attention, place_params
+        edge_params = local_attention(edge_params, self.mesh,
+                                      self.edge_model.cfg)
+        cloud_params = place_params(cloud_params, self.mesh,
+                                    self.cloud_model.cfg)
+        with runtime.mesh_context(self.mesh):
+            res = self._run_impl(edge_params, cloud_params)
+        self._kv_stats["mesh_devices"] = self.mesh.size
+        self._kv_stats["mesh_shape"] = {k: int(v)
+                                        for k, v in self.mesh.shape.items()}
+        return res
+
+    @hot_path
+    def _run_impl(self, edge_params, cloud_params) -> Dict[int, RequestTrace]:
         if not self._queue:
             return {}
         # adaptation persists ACROSS drains: start from the last hot-swapped

@@ -35,8 +35,25 @@ Device tensors are updated IN PLACE where JAX returns new arrays (pools,
 tables, dense and hybrid K/V slabs, slot writes at admission); the
 recurrent models' steps return new state tensors, and ``pos`` is always
 replaced by a new tensor, so a snapshot never aliases live state except
-through the slabs, which the recurrent snapshot copies.  The sharded pools
-are a later slice of the port.
+through the slabs, which the recurrent snapshot copies.
+
+On a device mesh (``BatchedEngine(mesh=)``, the paged layout): the host
+bookkeeping is global and identical on every rank — one ``PagedKV`` per
+state with a ``ShardedBlockPool`` when the edge's slots split over the
+data axes — while each rank's device cache holds only its LOCAL view
+(``ShardView``, under ``caches["shard"]``): its data shard's slot rows and
+block range (local ids: the global id less ``shard * per_shard``, so each
+shard's trap is its local block 0) and its model rank's part of every
+block's bytes (kv-heads, else the head dim; ``kv_ways`` of them).  A lane
+whose attention runs on the local kv-heads — the tensor-parallel cloud, and
+the edge through ``launch/sharding.local_attention`` — computes on exactly
+those heads.  A pool split on the head dim under replicated attention (an
+edge whose kv-heads do not divide 'model') gathers, for every decode step,
+the blocks its slots' tables name over 'model' into a full-width working
+pool, runs the step's kernel on it and writes its own part back
+(``ShardView.run``).  ``Lane.chunk`` runs a data-split state on
+this rank's slots and all-gathers the tick's tapes over the data axes, so
+every rank's host pull sees the whole batch and makes the same decisions.
 """
 from __future__ import annotations
 
@@ -47,12 +64,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import runtime
 from repro_torch.analysis import hot_path
-from repro_torch.core.paged_cache import (BlockPool, blocks_for,
-                                          copy_pool_blocks,
+from repro_torch.core.paged_cache import (BlockPool, ShardedBlockPool,
+                                          blocks_for, copy_pool_blocks,
                                           prompt_cache_to_blocks,
                                           read_pool_blocks, write_pool_blocks)
+from repro_torch.launch.sharding import kv_shard_ways
 from repro_torch.core.uncertainty import get_batched_estimator
+from repro_torch.models import transformer
 from repro_torch.models.model import require_token_prompts
 from repro_torch.models.ssm import tree_leaves, tree_map
 
@@ -87,12 +107,19 @@ def host_pull(*tensors) -> List[np.ndarray]:
     return out
 
 
-def next_tokens(logits, temperature: float, gen):
+def next_tokens(logits, temperature: float, gen, view=None):
     """Greedy argmax at T=0, else a categorical draw (Gumbel-max with
-    uniforms from ``gen``).  Returns (B,) int32."""
+    uniforms from ``gen``).  Returns (B,) int32.  On a data-split
+    ``view`` the logits are this rank's rows: the uniforms are drawn for
+    the whole batch and cut to them, so every rank's generator advances
+    alike."""
     if temperature == 0.0:
         return logits.argmax(-1).to(torch.int32)
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    if view is not None and view.sharded:
+        u = view.rows(torch.rand((view.batch,) + tuple(logits.shape[1:]),
+                                 generator=gen, device=logits.device))
+    else:
+        u = torch.rand(logits.shape, generator=gen, device=logits.device)
     g = -torch.log(-torch.log(u))
     return (logits.float() / temperature + g).argmax(-1).to(torch.int32)
 
@@ -167,6 +194,75 @@ def resolve_kv_layout(edge_model, cloud_model, kv_layout: str) -> str:
     return kv_layout
 
 
+# ---------------------------------------------------------------- mesh view
+class ShardView:
+    """One rank's LOCAL view of a paged state on a device mesh (see the
+    module docstring): which slots and blocks it holds and which part of
+    each block's bytes.
+
+    ``sharded``: the slots split over the data axes (this rank holds rows
+    ``[lo, hi)`` of the batch and block ids ``[base, base + per_shard)``);
+    ``kv_dim`` (3 heads, 4 head dim, None) and ``kv_ways``: the split of
+    each block over 'model'; ``gather``: the lane's attention is replicated
+    over 'model' (params replicated or the head-count fallback), so a step
+    computes full-width K/V and the pool keeps this rank's part."""
+
+    def __init__(self, mesh, batch: int, data_shards: int, per_shard: int,
+                 kv_ways: int, kv_dim: Optional[int], gather: bool):
+        self.mesh = mesh
+        self.batch = batch
+        self.sharded = data_shards > 1
+        n = batch // data_shards if self.sharded else batch
+        d = mesh.axis_index(runtime.data_axes()) if self.sharded else 0
+        self.lo, self.hi = d * n, (d + 1) * n
+        self.base = d * per_shard if self.sharded else 0
+        self.kv_ways = kv_ways
+        self.kv_dim = kv_dim if kv_ways > 1 else None
+        self.gather = gather and self.kv_dim is not None
+        self.part = mesh.axis_index("model")
+
+    def mine(self, b: int) -> bool:
+        return self.lo <= b < self.hi
+
+    def rows(self, x):
+        """This rank's slot rows of a whole-batch tensor."""
+        return x[self.lo:self.hi] if self.sharded else x
+
+    def local_ids(self, ids) -> List[int]:
+        return [int(i) - self.base for i in ids]
+
+    def kv_part(self, x):
+        """This rank's part of full-width K/V blocks (..., Kv, hd) — the
+        identity when the lane computed only its own heads."""
+        if not self.gather:
+            return x
+        dim = x.dim() - 5 + self.kv_dim
+        w = x.shape[dim] // self.kv_ways
+        return x.narrow(dim, self.part * w, w)
+
+    def run(self, fn, caches):
+        """Run a paged step ``fn(caches) -> (logits, caches)`` on full-width
+        K/V: gather the blocks this rank's table rows name (one all-gather
+        of their parts over 'model', K and V together) into a working pool
+        whose table is the identity, run ``fn`` on it, and write this
+        rank's part of every working block back.  Duplicate ids (shared
+        prefix blocks, the trap) differ only at positions past their
+        owners' lengths, so any copy may land."""
+        if not self.gather:
+            return fn(caches)
+        table = caches["table"]
+        ids = table.reshape(-1).long()
+        kv = torch.stack([caches["k"][:, ids], caches["v"][:, ids]])
+        full = self.mesh.all_gather(kv, "model", dim=1 + self.kv_dim)
+        work = {"k": full[0], "v": full[1], "pos": caches["pos"],
+                "table": torch.arange(ids.numel(), dtype=torch.int32,
+                                      device=ids.device).view(table.shape)}
+        lg, work = fn(work)
+        caches["k"][:, ids] = self.kv_part(work["k"])
+        caches["v"][:, ids] = self.kv_part(work["v"])
+        return lg, {**caches, "pos": work["pos"]}
+
+
 # ---------------------------------------------------------------- spec ops
 class SpecOps:
     """Per-(model, layout) ops for batched speculative decoding:
@@ -184,6 +280,11 @@ class SpecOps:
     def step(self, params, tok, caches):
         """tok (G, 1, 1) -> (logits (G, V), caches)."""
         if self.layout == "paged":
+            view = caches.get("shard")
+            if view is not None:
+                return view.run(lambda c: self.model.paged_decode_step(
+                    params, tok[:, :, 0], c, attn_backend=self.attn_backend),
+                    caches)
             return self.model.paged_decode_step(
                 params, tok[:, :, 0], caches, attn_backend=self.attn_backend)
         return self.model.decode_step(params, tok[:, :, 0], caches,
@@ -192,6 +293,10 @@ class SpecOps:
     def extend(self, params, tokens, caches):
         """tokens (G, T) -> (logits (G, T, V), caches)."""
         if self.layout == "paged":
+            view = caches.get("shard")
+            if view is not None:
+                return view.run(lambda c: self.model.paged_extend_step(
+                    params, tokens, c), caches)
             return self.model.paged_extend_step(params, tokens, caches)
         return self.model.extend_step(params, tokens, caches,
                                       attn_backend=self.attn_backend)
@@ -417,26 +522,69 @@ class PagedKV(SequenceState):
     (``cow_split``).  SWAP: ``swap_out`` stages a slot's blocks to host
     memory and releases them; ``swap_in`` restores them bit-for-bit,
     re-sharing full prompt blocks still live in the index.
+
+    SHARDED (``data_shards > 1``): a ``ShardedBlockPool`` gives each data
+    shard a contiguous block range and its own trap; prefix sharing, CoW
+    and the capacity checks are per shard.  ``kv_ways`` is the model-axis
+    division of every block's bytes; the default pool keeps the unsharded
+    default's per-device bytes, so capacity scales with ``kv_shards =
+    data_shards * kv_ways``.  With a ``mesh`` the device cache is this
+    rank's local view (``ShardView``); the byte stats stay global.
     """
 
     layout = "paged"
 
     def __init__(self, lane: "Lane", params, batch: int, slot_len: int,
-                 block_size: int, num_blocks: Optional[int] = None):
+                 block_size: int, num_blocks: Optional[int] = None, *,
+                 data_shards: int = 1, kv_ways: int = 1, mesh=None,
+                 kv_gather: bool = False):
         self.lane = lane
         self.params = params
         self.block_size = block_size
         self.max_blocks = blocks_for(slot_len, block_size)
-        if num_blocks is None:  # worst-case-safe default: dense capacity
-            num_blocks = batch * self.max_blocks + 1
-        num_blocks = max(num_blocks, 2)
-        self.pool = BlockPool(num_blocks, block_size)
+        self.data_shards = data_shards
+        self.kv_ways = kv_ways
+        if data_shards > 1 and batch % data_shards != 0:
+            raise ValueError(f"batch {batch} does not divide into "
+                             f"{data_shards} data shards")
+        self._spb = batch // max(data_shards, 1)    # slots per shard
+        if data_shards > 1:
+            if num_blocks is None:
+                per_shard = (batch * self.max_blocks + 1) * kv_ways
+            else:                   # explicit num_blocks = TOTAL blocks
+                per_shard = -(-num_blocks // data_shards)
+            per_shard = max(per_shard, 2)
+            num_blocks = data_shards * per_shard
+            self.pool = ShardedBlockPool(data_shards, per_shard,
+                                         block_size, self._shard_of)
+        else:
+            if num_blocks is None:  # worst-case-safe default: dense capacity
+                num_blocks = (batch * self.max_blocks + 1) * kv_ways
+            num_blocks = max(num_blocks, 2)
+            self.pool = BlockPool(num_blocks, block_size)
         self.device = params.embed.device
-        self.caches = lane.model.init_paged_cache(
-            num_blocks, block_size, batch, self.max_blocks,
-            device=self.device)
-        self._block_bytes = (self.caches["k"].nbytes +
-                             self.caches["v"].nbytes) // num_blocks
+        cfg = lane.model.cfg
+        self.view = None
+        if mesh is not None:
+            kv_dim = 3 if cfg.num_kv_heads % max(kv_ways, 1) == 0 else 4
+            self.view = ShardView(mesh, batch, data_shards,
+                                  num_blocks // data_shards, kv_ways, kv_dim,
+                                  kv_gather)
+            if self.view.kv_dim == 3:
+                cfg = cfg.replace(num_kv_heads=cfg.num_kv_heads // kv_ways)
+            elif self.view.kv_dim == 4:
+                cfg = cfg.replace(head_dim=cfg.head_dim // kv_ways)
+        split = self.view is not None and self.view.sharded
+        local_blocks = num_blocks // data_shards if split else num_blocks
+        self.caches = transformer.init_paged_cache(
+            cfg, local_blocks, block_size, self._spb if split else batch,
+            self.max_blocks, device=self.device)
+        if self.view is not None:
+            self.caches["shard"] = self.view
+        # global bytes per block (every shard's part of it)
+        self._block_bytes = (self.caches["k"].nbytes + self.caches["v"].nbytes
+                             ) * (kv_ways if mesh is not None else 1) \
+            // local_blocks
         self._len = [0] * batch     # real cache entries written per slot
         self._commit = [0] * batch  # blocks reserved for future growth
         self._entries: List[Optional[np.ndarray]] = [None] * batch  # prompts
@@ -458,6 +606,39 @@ class PagedKV(SequenceState):
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.array(ids, np.int32), device=self.device)
 
+    def _mine(self, b: int) -> bool:
+        """Slot ``b``'s rows live on this rank (always, off-mesh)."""
+        return self.view is None or self.view.mine(b)
+
+    def _dev_ids(self, ids) -> torch.Tensor:
+        """Global block ids as this rank's local pool indices."""
+        if self.view is not None:
+            ids = self.view.local_ids(ids)
+        return self._ids(ids)
+
+    def _dev_slot(self, b: int) -> int:
+        return b if self.view is None else b - self.view.lo
+
+    # ------------------------------------------------------------ shards
+    def _shard_of(self, b: int) -> int:
+        """Data shard owning slot ``b`` (contiguous slot groups; 0 when the
+        pool is unsharded)."""
+        return b // self._spb if self.data_shards > 1 else 0
+
+    def _pkey(self, shard: int, key: bytes):
+        """Prefix-index key: the digest alone on the single pool; scoped by
+        shard on sharded pools — prefix sharing/CoW stay host-side
+        PER-SHARD, a slot can only map blocks its own shard owns."""
+        return key if self.data_shards <= 1 else (shard, key)
+
+    def _commit_sum(self, b: int) -> int:
+        """Outstanding growth reservations charged against slot ``b``'s
+        shard (all slots on the single pool)."""
+        if self.data_shards <= 1:
+            return sum(self._commit)
+        s = self._shard_of(b)
+        return sum(self._commit[s * self._spb:(s + 1) * self._spb])
+
     # ------------------------------------------------------------ prefix
     def _prefix_keys(self, entries: np.ndarray) -> List[bytes]:
         """Chained per-block digests: ``key[j]`` identifies the prefix
@@ -471,21 +652,25 @@ class PagedKV(SequenceState):
             keys.append(prev)
         return keys
 
-    def _lookup_prefix(self, entries: np.ndarray) -> Tuple[int, List[int]]:
-        """Longest indexed prefix of ``entries``: (entries matched, ids)."""
+    def _lookup_prefix(self, entries: np.ndarray,
+                       shard: int = 0) -> Tuple[int, List[int]]:
+        """Longest indexed prefix of ``entries`` within ``shard``: (entries
+        matched, ids)."""
         E, bs = entries.size, self.block_size
         keys = self._prefix_keys(entries)
         for j in range(len(keys) - 1, -1, -1):
-            got = self._prefix_index.get(keys[j])
+            got = self._prefix_index.get(self._pkey(shard, keys[j]))
             if got is not None:
                 return min((j + 1) * bs, E), list(got)
         return 0, []
 
-    def _register(self, entries: np.ndarray, blocks: List[int]):
+    def _register(self, entries: np.ndarray, blocks: List[int],
+                  shard: int = 0):
         """Index every block-aligned prefix of ``entries`` (plus the full
         partial-tail prefix).  First registrant wins."""
         for j, key in enumerate(self._prefix_keys(entries)):
-            self._prefix_index.setdefault(key, tuple(blocks[:j + 1]))
+            self._prefix_index.setdefault(self._pkey(shard, key),
+                                          tuple(blocks[:j + 1]))
         self._indexed.update(blocks)
 
     def _reindex(self):
@@ -513,7 +698,7 @@ class PagedKV(SequenceState):
         (refcount bumps), registering a CoW reservation when the shared
         tail is partial.  Returns the cache entries covered."""
         m, shared = _peek if _peek is not None else \
-            self._lookup_prefix(entries)
+            self._lookup_prefix(entries, self._shard_of(b))
         if shared:
             self.pool.share(b, shared)
             if m % self.block_size:
@@ -586,11 +771,11 @@ class PagedKV(SequenceState):
         E = entries.size
         nb = self.pool.blocks_for(E)
         total = self.pool.blocks_for(need_tokens)
-        m, shared = self._lookup_prefix(entries)
+        m, shared = self._lookup_prefix(entries, self._shard_of(b))
         own_new = nb - len(shared)
         cow_extra = 1 if shared and (m % self.block_size) else 0
         if not self.pool.can_alloc(own_new + (total - nb) + cow_extra
-                                   + sum(self._commit)):
+                                   + self._commit_sum(b), owner=b):
             return None
         ns = 0
         if shared:
@@ -606,22 +791,25 @@ class PagedKV(SequenceState):
         the prefix index (``c1``: its single-sequence cache, or None when
         every block was shared)."""
         E = entries.size
-        if blocks:
+        if blocks and self._mine(b):
             nb = self.pool.blocks_for(E)
             kb, vb = prompt_cache_to_blocks(
                 {"k": c1["k"][:, :, :nb * self.block_size],
                  "v": c1["v"][:, :, :nb * self.block_size]},
                 self.block_size)
+            if self.view is not None:
+                kb, vb = self.view.kv_part(kb), self.view.kv_part(vb)
             write_pool_blocks(self.caches["k"], self.caches["v"],
-                              self._ids(blocks), kb[:, ns:], vb[:, ns:])
+                              self._dev_ids(blocks), kb[:, ns:], vb[:, ns:])
         mine = self.pool.owned(b)
+        # pad = trap block (the slot's shard's trap on sharded pools)
         row = np.full((self.max_blocks,), self.pool.trap(b), np.int32)
         row[:len(mine)] = mine
         self._pend.append((b, row, E))
         self._len[b] = E
         self._entries[b] = entries
         self._stale.discard(b)
-        self._register(entries, mine)
+        self._register(entries, mine, self._shard_of(b))
 
     def begin(self, b: int, prompt, need_tokens: int) -> bool:
         """Reserve blocks for a chunked prefill; the slot's row stays a
@@ -655,8 +843,12 @@ class PagedKV(SequenceState):
                 entries[:self.block_size].tobytes(),
                 digest_size=16).digest())
         counts = Counter(k for k in firsts if k is not None)
+        # slot (and so shard) assignment happens after the hint, so probe
+        # every shard's index — a miss only costs a chunking opportunity
+        shards = range(max(self.data_shards, 1))
         return [k is not None
-                and (k in self._prefix_index or counts[k] > 1)
+                and (any(self._pkey(s, k) in self._prefix_index
+                         for s in shards) or counts[k] > 1)
                 for k in firsts]
 
     def fits_empty(self, need_tokens: int, prompt=None) -> bool:
@@ -665,10 +857,11 @@ class PagedKV(SequenceState):
             return True
         if prompt is not None:      # admissible via currently-live sharing?
             entries = np.asarray(prompt, np.int32)[:-1]
-            m, shared = self._lookup_prefix(entries)
-            cow = 1 if shared and (m % self.block_size) else 0
-            if total - len(shared) + cow <= self.pool.usable():
-                return True
+            for s in range(max(self.data_shards, 1)):
+                m, shared = self._lookup_prefix(entries, s)
+                cow = 1 if shared and (m % self.block_size) else 0
+                if total - len(shared) + cow <= self.pool.usable():
+                    return True
         return False
 
     def swappable(self, b: int) -> bool:
@@ -695,13 +888,20 @@ class PagedKV(SequenceState):
             rows.append(np.full((self.max_blocks,), self.pool.trap(b),
                                 np.int32))
             poss.append(0)
+        self._pend, self._stale = [], set()
+        if self.view is not None:   # this rank's slot rows, local ids
+            keep = [i for i, b in enumerate(idx) if self.view.mine(b)]
+            if not keep:
+                return
+            idx = [self._dev_slot(idx[i]) for i in keep]
+            rows = [rows[i] - self.view.base for i in keep]
+            poss = [poss[i] for i in keep]
         ii = torch.as_tensor(idx, dtype=torch.long, device=self.device)
         self.caches["table"][ii] = torch.as_tensor(np.stack(rows),
                                                    device=self.device)
         pos = self.caches["pos"].clone()
         pos[ii] = self._ids(poss)
         self.caches = {**self.caches, "pos": pos}
-        self._pend, self._stale = [], set()
 
     @hot_path
     def prepare_tick(self, occupied, steps_h, n: int):
@@ -716,28 +916,30 @@ class PagedKV(SequenceState):
             if steps <= 0:
                 continue
             cow = self.cow_split(b)
-            if cow is not None:
+            mine = self._mine(b)
+            if cow is not None and mine:
                 src, dst, i0 = cow
                 cow_src.append(src)
                 cow_dst.append(dst)
-                upd_b.append(b)
+                upd_b.append(self._dev_slot(b))
                 upd_i.append(i0)
                 upd_blk.append(dst)
             target = self._len[b] + steps
             new = self.pool.grow_to(b, target)
             self._commit[b] = max(self._commit[b] - len(new), 0)
             base = len(self.pool.owned(b)) - len(new)
-            for j, blk in enumerate(new):
-                upd_b.append(b)
+            for j, blk in enumerate(new if mine else ()):
+                upd_b.append(self._dev_slot(b))
                 upd_i.append(base + j)
                 upd_blk.append(blk)
             self._len[b] = target
         if cow_src:
             copy_pool_blocks(self.caches["k"], self.caches["v"],
-                             self._ids(cow_src), self._ids(cow_dst))
+                             self._dev_ids(cow_src), self._dev_ids(cow_dst))
         if upd_b:
             self.caches["table"][self._ids(upd_b).long(),
-                                 self._ids(upd_i).long()] = self._ids(upd_blk)
+                                 self._ids(upd_i).long()] = \
+                self._dev_ids(upd_blk)
 
     def retire(self, b: int):
         self._drop_cow_rsv(b)
@@ -753,8 +955,7 @@ class PagedKV(SequenceState):
         handle is self-contained (content, entry count, outstanding
         reservation); unconsumed CoW reservations are shed."""
         ids = self.pool.owned(b)
-        k, v = read_pool_blocks(self.caches["k"], self.caches["v"],
-                                self._ids(ids))
+        k, v = self._read_blocks(b, ids)
         commit = max(self._commit[b] - self._drop_cow_rsv(b), 0)
         handle = {"k": k.cpu(), "v": v.cpu(),
                   "len": self._len[b], "commit": commit,
@@ -767,6 +968,28 @@ class PagedKV(SequenceState):
         self._swaps += 1
         return handle
 
+    def _read_blocks(self, b: int, ids: List[int]):
+        """Slot ``b``'s blocks ``ids`` (this rank's part of their bytes).
+        On a data-split pool only the owning shard holds them: the others
+        contribute zeros to one sum over the data axes, so every rank ends
+        with the handle (a restore may land on another shard)."""
+        if self.view is None:
+            return read_pool_blocks(self.caches["k"], self.caches["v"],
+                                    self._ids(ids))
+        if self.view.mine(b):
+            k, v = read_pool_blocks(self.caches["k"], self.caches["v"],
+                                    self._dev_ids(ids))
+        else:
+            shape = (self.caches["k"].shape[0], len(ids)) + \
+                tuple(self.caches["k"].shape[2:])
+            k = self.caches["k"].new_zeros(shape)
+            v = self.caches["v"].new_zeros(shape)
+        if self.view.sharded:
+            kv = self.view.mesh.all_reduce(torch.stack([k, v]),
+                                           runtime.data_axes())
+            k, v = kv[0], kv[1]
+        return k, v
+
     def swap_in(self, b: int, handle: dict) -> bool:
         """Restore a swapped-out slot into ``b``; False when the pool
         cannot back its blocks + outstanding reservation yet.  Full prompt
@@ -775,11 +998,11 @@ class PagedKV(SequenceState):
         entries = handle.get("entries")
         ns, shared = 0, []
         if entries is not None:
-            m, cand = self._lookup_prefix(entries)
+            m, cand = self._lookup_prefix(entries, self._shard_of(b))
             ns = min(m // self.block_size, nb)
             shared = cand[:ns]
         if not self.pool.can_alloc((nb - ns) + handle["commit"]
-                                   + sum(self._commit)):
+                                   + self._commit_sum(b), owner=b):
             return False
         if shared:
             self.pool.share(b, shared)
@@ -787,9 +1010,9 @@ class PagedKV(SequenceState):
             self._shared_blocks += ns
         blocks = self.pool.alloc(b, nb - ns) if nb > ns else []
         self._commit[b] = handle["commit"]
-        if nb > ns:
+        if nb > ns and self._mine(b):
             write_pool_blocks(self.caches["k"], self.caches["v"],
-                              self._ids(blocks),
+                              self._dev_ids(blocks),
                               handle["k"][:, ns:].to(self.device),
                               handle["v"][:, ns:].to(self.device))
         mine = self.pool.owned(b)
@@ -803,7 +1026,8 @@ class PagedKV(SequenceState):
             # restored PROMPT blocks are index-worthy again; generated-token
             # blocks stay out of the index
             self._register(entries, mine[:blocks_for(entries.size,
-                                                     self.block_size)])
+                                                     self.block_size)],
+                           self._shard_of(b))
         return True
 
     @property
@@ -813,17 +1037,26 @@ class PagedKV(SequenceState):
 
     @property
     def capacity_bytes(self) -> int:
-        return self.caches["k"].nbytes + self.caches["v"].nbytes
+        """The whole pool's bytes (every rank's part, on a mesh)."""
+        return self.pool.num_blocks * self._block_bytes
 
     def stats(self) -> dict:
+        # usable capacity: pool minus trap(s) — per-shard traps on sharded
+        # pools.  kv_shards is the total byte-division factor (data shards
+        # x model-axis kv ways): the per-device footprint of this capacity
+        # is capacity_bytes / kv_shards
+        if self.data_shards > 1:
+            cap = self.data_shards * (self.pool.per_shard - 1)
+        else:
+            cap = self.pool.num_blocks - 1
         return {"kv_blocks_peak": self.pool.peak_used,
                 "kv_block_size": self.block_size,
                 "kv_prefix_hits": self._prefix_hits,
                 "kv_shared_blocks": self._shared_blocks,
                 "kv_cow_forks": self._cow_forks,
                 "kv_swaps": self._swaps,
-                "kv_shards": 1,
-                "kv_capacity_blocks": self.pool.num_blocks - 1}
+                "kv_shards": self.data_shards * self.kv_ways,
+                "kv_capacity_blocks": cap}
 
 
 # ---------------------------------------------------------------- lane
@@ -836,7 +1069,8 @@ class Lane:
 
     def __init__(self, model, estimator: str, temperature: float,
                  layout: str = "dense", block_size: int = 32,
-                 attn_backend: str = "auto"):
+                 attn_backend: str = "auto", mesh=None,
+                 data_shards: int = 1):
         if attn_backend not in ("auto", "kernel", "plain"):
             raise ValueError(f"unknown attn_backend {attn_backend!r}; "
                              "known: auto | kernel | plain")
@@ -847,6 +1081,12 @@ class Lane:
         self.layout = layout
         self.block_size = block_size
         self.attn_backend = attn_backend
+        self.mesh = mesh
+        self.data_shards = data_shards if mesh is not None else 1
+        # model-axis byte division of the paged pool (1 when this model's
+        # kv-heads/head-dim don't divide — replication fallback)
+        self.kv_ways = kv_shard_ways(mesh, model.cfg) if mesh is not None \
+            else 1
         self.ops = SpecOps(model, layout, attn_backend)
         self._est = get_batched_estimator(estimator)
         self._dense_side: Optional["Lane"] = None
@@ -869,7 +1109,9 @@ class Lane:
             self._dense_side = Lane(self.model, self.estimator,
                                     self.temperature, layout="dense",
                                     block_size=self.block_size,
-                                    attn_backend=self.attn_backend)
+                                    attn_backend=self.attn_backend,
+                                    mesh=self.mesh,
+                                    data_shards=self.data_shards)
         return self._dense_side
 
     def prefill(self, params, prompt, max_seq: int):
@@ -944,11 +1186,16 @@ class Lane:
         serve-time adaptation, pulled with the token tape in the SAME
         batched pull.  ``topk=0`` returns exactly the tuple it always
         has."""
+        view = caches.get("shard")
+        B = tok.shape[0]
+        if view is not None and view.sharded:   # this rank's slots
+            tok, steps_left, unc_sum = (view.rows(tok), view.rows(steps_left),
+                                        view.rows(unc_sum))
         toks, actives, tvals, tidx = [], [], [], []
         for _ in range(n_steps):
             lg, caches = self.ops.step(params, tok, caches)       # (B, V)
             active = steps_left > 0
-            nxt = next_tokens(lg, self.temperature, gen)
+            nxt = next_tokens(lg, self.temperature, gen, view)
             unc_sum = unc_sum + torch.where(active, self._est(lg), 0.0)
             steps_left = torch.where(active & (nxt == stop), 0,
                                      steps_left - active.to(torch.int32))
@@ -959,24 +1206,66 @@ class Lane:
                 tvals.append(tv)
                 tidx.append(ti.to(torch.int32))
             tok = nxt[:, None, None]
-        out = (caches, tok, steps_left, unc_sum, torch.stack(toks),
-               torch.stack(actives))
+        tapes = [torch.stack(toks), torch.stack(actives)]
         if topk:
-            out += (torch.stack(tvals), torch.stack(tidx))
-        return out
+            tapes += [torch.stack(tvals), torch.stack(tidx)]
+        if view is not None and view.sharded:
+            # the tick's ONE collective: every rank gets the whole batch's
+            # state and tapes (slot axis first for the gather, then back)
+            got = runtime.gather_wave(tok, steps_left, unc_sum,
+                                      *(t.transpose(0, 1) for t in tapes),
+                                      rows=B)
+            tok, steps_left, unc_sum = got[:3]
+            tapes = [t.transpose(0, 1) for t in got[3:]]
+        return (caches, tok, steps_left, unc_sum) + tuple(tapes)
 
     def make_state(self, params, batch: int, slot_len: int, *,
                    need_tokens: Optional[Sequence[int]] = None,
                    num_blocks: Optional[int] = None) -> SequenceState:
         """Build this lane's decode-state adapter.  ``need_tokens``
         (escalation groups) sizes a paged pool to the group's residency,
-        pow2-bucketed."""
+        pow2-bucketed.  On a mesh the paged state is built as this rank's
+        local view (``_place``); the dense and recurrent layouts are not
+        ported to the mesh."""
+        if self.mesh is not None and self.layout != "paged":
+            raise NotImplementedError(
+                f"the {self.layout} layout on a device mesh is not ported; "
+                "the mesh serves the paged layout (ROADMAP A.8)")
         if self.layout == "recurrent":
             return RecurrentState(self, params, batch, slot_len)
         if self.layout == "dense":
             return DenseKV(self, params, batch, slot_len)
+        shards = self.data_shards if batch % max(self.data_shards, 1) == 0 \
+            else 1
         if num_blocks is None and need_tokens is not None:
-            needed = sum(blocks_for(t, self.block_size) for t in need_tokens)
-            num_blocks = 1 + pow2_steps(needed, 1 << 30)
+            if shards > 1:
+                # per-shard demand: slot i lives on shard i // (batch/S), so
+                # size every shard's range to the HEAVIEST shard (pools are
+                # uniform), pow2-bucketed
+                spb = batch // shards
+                per = [0] * shards
+                for i, t in enumerate(need_tokens):
+                    per[i // spb] += blocks_for(t, self.block_size)
+                num_blocks = shards * (1 + pow2_steps(max(per), 1 << 30))
+            else:
+                needed = sum(blocks_for(t, self.block_size)
+                             for t in need_tokens)
+                num_blocks = 1 + pow2_steps(needed, 1 << 30)
         return PagedKV(self, params, batch, slot_len, self.block_size,
-                       num_blocks)
+                       num_blocks, data_shards=shards, kv_ways=self.kv_ways,
+                       **self._place(params))
+
+    def _place(self, params) -> dict:
+        """Where a fresh paged state's device arrays live (nothing
+        off-mesh): this rank's local view of the pool — block dim over the
+        data axes, kv-heads (else the head dim) over 'model', as
+        ``launch/sharding.paged_cache_spec`` places them.  ``kv_gather``:
+        this lane's attention is not tensor parallel over the pool's heads
+        (replicated params, or the head-count fallback), so its steps
+        gather full-width blocks (``ShardView.run``)."""
+        if self.mesh is None:
+            return {}
+        tp = getattr(params, "tp", None)
+        tp_heads = tp is not None and \
+            tp.cfg.num_kv_heads != tp.full_cfg.num_kv_heads
+        return {"mesh": self.mesh, "kv_gather": not tp_heads}

@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import runtime
 from repro_torch.analysis import hot_path
 from repro_torch.core.self_speculative import partial_extend_step
 from repro_torch.core.seq_state import (SpecOps, host_pull, layout_for,
@@ -370,6 +371,14 @@ class BatchedSpecDecoder:
             self._tops = SpecOps(model, "dense", attn_backend)
             self._per_round = (gamma, gamma + 1)
 
+    def _linear_only(self):
+        """The mesh serves the linear lane only: the tree and self rounds
+        are refused inside a mesh context."""
+        if self.mode != "linear" and runtime.current_mesh() is not None:
+            raise NotImplementedError(
+                f"the {self.mode} speculation lane on a device mesh is not "
+                "ported; the mesh serves the linear lane (ROADMAP A.8)")
+
     @staticmethod
     def tree_supported(draft_model, target_model) -> bool:
         return (draft_model.cfg.family in FAMILIES_WITH_TREES
@@ -379,13 +388,17 @@ class BatchedSpecDecoder:
     def self_supported(model) -> bool:
         return model.cfg.family in FAMILIES_WITH_TREES
 
-    def _accept(self, t_logits, draft_lgs, draft_toks, gen):
+    def _accept(self, t_logits, draft_lgs, draft_toks, gen, rows=None):
         """Acceptance of a linear draft tape (linear and self lanes):
         uniforms from ``gen``, then the spec-verify kernel (its plain
-        version under ``attn_backend="plain"``)."""
+        version under ``attn_backend="plain"``).  ``rows``: the wave's
+        whole group size when the inputs are this rank's data slice of it —
+        the uniforms are drawn for the whole group and cut to the slice."""
         G, gamma = draft_toks.shape
-        u = torch.rand((2, G, gamma + 1), generator=gen,
-                       device=t_logits.device)
+        u = torch.rand((2, G if rows is None else rows, gamma + 1),
+                       generator=gen, device=t_logits.device)
+        if rows is not None:
+            u = runtime.scatter_wave(u.transpose(0, 1)).transpose(0, 1)
         verify = spec_verify_plain if self.attn_backend == "plain" \
             else ops.spec_verify
         return verify(t_logits.float().contiguous(), draft_lgs.contiguous(),
@@ -398,11 +411,23 @@ class BatchedSpecDecoder:
 
         last: (G, 1, 1) pending tokens; active: (G,) bool — frozen slots
         keep their cache position and pending token.  Both caches contain
-        sequence[:-1] on entry and exit."""
+        sequence[:-1] on entry and exit.
+
+        On a mesh the draft state is the edge's data-split local view:
+        ``last`` is this rank's rows and ``active`` the whole group's.  The
+        draft runs on the local rows, ``gather_wave`` hands every rank the
+        whole draft tape (ONE collective) for the tensor-parallel cloud's
+        verify of the whole wave, acceptance runs on the local rows
+        (``scatter_wave`` of the verify logits) and one more gather brings
+        every rank the wave's acceptances, which commit the replicated
+        cloud state and the host pull.  Off-mesh the wave calls are the
+        identity."""
         if self.mode == "tree":
             return self._tree_round(draft_params, target_params, d_slots,
                                     t_slots, last, active, gen)
         gamma = self.gamma
+        G = active.shape[0]
+        view = d_slots.get("shard")
         d_snap = self._dops.snapshot(d_slots)
         t_snap = self._tops.snapshot(t_slots)
 
@@ -412,27 +437,36 @@ class BatchedSpecDecoder:
         tok = last
         for _ in range(gamma + 1):
             lg, d_slots = self._dops.step(draft_params, tok, d_slots)
-            nxt = next_tokens(lg, self.temperature, gen)
+            nxt = next_tokens(lg, self.temperature, gen, view)
             toks.append(nxt)
             lgs.append(lg)
             tok = nxt[:, None, None]
         draft_toks = torch.stack(toks[:gamma], dim=1)          # (G, gamma)
         draft_lgs = torch.stack(lgs[:gamma], dim=1).float()    # (G, gamma, V)
 
-        # ---- verify in one batched target pass over [last, d_0..d_{g-1}]
-        ver_in = torch.cat([last[:, :, 0], draft_toks], dim=1)  # (G, g+1)
+        # ---- verify in one batched target pass over [last, d_0..d_{g-1}].
+        # On a mesh this is THE wave crossing: the edge's data-split draft
+        # tape is all-gathered over the data axes, the tensor-parallel
+        # cloud verifies the whole wave, and acceptance comes back to each
+        # data slice
+        ver_l = torch.cat([last[:, :, 0], draft_toks], dim=1)   # (G, g+1)
+        ver_in, draft_all = runtime.gather_wave(ver_l, draft_toks, rows=G)
         t_logits, t_slots = self._tops.extend(target_params, ver_in, t_slots)
-        n_acc, next_tok = self._accept(t_logits, draft_lgs, draft_toks, gen)
+        split = ver_in is not ver_l         # the wave crossed the data axes
+        n_acc_l, next_l = self._accept(
+            runtime.scatter_wave(t_logits), draft_lgs, draft_toks, gen,
+            rows=G if split else None)
+        n_acc, next_tok = runtime.gather_wave(n_acc_l, next_l, rows=G)
 
         # ---- per-slot rewind to the accepted prefix [last, d_0..]
         counts = torch.where(active, n_acc + 1, 0).to(torch.int32)
-        d_slots = self._dops.commit(draft_params, d_slots, d_snap, ver_in,
-                                    counts)
+        d_slots = self._dops.commit(draft_params, d_slots, d_snap, ver_l,
+                                    runtime.scatter_wave(counts))
         t_slots = self._tops.commit(target_params, t_slots, t_snap, ver_in,
                                     counts)
-        last = torch.where(active[:, None, None], next_tok[:, None, None],
-                           last)
-        return d_slots, t_slots, last, draft_toks, n_acc, next_tok
+        last = torch.where(runtime.scatter_wave(active)[:, None, None],
+                           next_l[:, None, None], last)
+        return d_slots, t_slots, last, draft_all, n_acc, next_tok
 
     def _plan_tensors(self, device):
         """The plan's (n_pad, n_pad) mask and (n_pad,) depths on
@@ -561,10 +595,12 @@ class BatchedSpecDecoder:
         if self.mode == "self":
             raise ValueError("the self lane decodes one shared state: use "
                              "generate_group_self")
+        self._linear_only()
         G = last.shape[0]
         remaining = np.array(max_news, np.int64)    # host list, not a sync
         out: List[List[int]] = [[] for _ in range(G)]
         member_stats = [{"rounds": 0, "accepted": []} for _ in range(G)]
+        last = runtime.scatter_wave(last)       # this rank's rows on a mesh
         while (remaining > 0).any():
             active = torch.as_tensor(remaining > 0, device=last.device)
             d_slots, t_slots, last, draft_toks, n_acc, next_tok = \
@@ -581,6 +617,7 @@ class BatchedSpecDecoder:
         it)."""
         if self.mode != "self":
             raise ValueError("generate_group_self serves the self lane")
+        self._linear_only()
         G = last.shape[0]
         remaining = np.array(max_news, np.int64)    # host list, not a sync
         out: List[List[int]] = [[] for _ in range(G)]

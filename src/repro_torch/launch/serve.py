@@ -7,8 +7,24 @@ surface picked by ``--policy`` (a ``core/policy.py::CollabPolicy``).
 
 Same flags and defaults as the JAX package's ``repro.launch.serve``, plus
 ``--device`` (default ``cuda``: with no card it raises; ``--device cpu``
-runs the plain PyTorch versions of the kernels on the CPU).  Not ported
-yet: ``--mesh`` (sharded serving) is refused.
+runs the plain PyTorch versions of the kernels on the CPU).
+
+Running on a mesh: ``--mesh data,model`` shards the batched scheduler over
+the ranks of the process group, one process per mesh position —
+``torchrun --nproc-per-node N -m repro_torch.launch.serve --mesh
+data,model`` (or ``--mesh data=2,model=2``).  The cloud verifier runs
+TENSOR-PARALLEL over 'model' (each rank draws only its blocks of the
+cloud's parameters, placed by ``launch/sharding.py``'s rules), edge drafts
+stay DATA-parallel over 'data' (params replicated, batch slots and the
+paged block pool split per data shard), and each grouped escalation wave
+crosses the mesh as one all-gather of the draft tape before the verify.
+Axis sizes are inferred (near-balanced factors of the world size, larger
+trailing) or pinned.  Per-shard KV pools keep the single-device
+per-device byte budget, so ``kv_capacity_blocks`` scales with the shard
+count (the ``shards=`` / ``capacity_blocks=`` stats line).  NCCL when the
+ranks have a card each, gloo when they share one (printed).  Only rank 0
+prints.  The mesh serves the paged layout on the linear lane.  Omitting
+``--mesh`` takes the exact single-device path.
 
 Serve-time adaptation (batched scheduler): ``--adapt distill|lora``
 captures every completion's supervision triple (prompt, rejected edge
@@ -49,6 +65,7 @@ every request into speculative verification.
 from __future__ import annotations
 
 import argparse
+import builtins
 import time
 
 import numpy as np
@@ -62,6 +79,7 @@ from repro_torch.core.policy import (POLICIES, ThresholdPolicy, make_policy,
 from repro_torch.core.scheduler import BatchedEngine
 from repro_torch.core.traffic import bursty_arrivals, poisson_arrivals, replay
 from repro_torch.data import SyntheticLM
+from repro_torch.launch import resolve_device
 from repro_torch.models import Model
 from repro_torch.models.model import require_token_prompts
 
@@ -182,8 +200,10 @@ def parse_args(argv=None):
                          "adapters (--adapt lora) or the distilled edge "
                          "params (--adapt distill)")
     ap.add_argument("--mesh", default=None, metavar="AXES",
-                    help="sharded serving over local devices (not ported: "
-                         "the batched engine refuses it)")
+                    help="shard the batched scheduler over the process "
+                         "group's ranks (run under torchrun): comma-"
+                         "separated axis names, e.g. 'data,model' (sizes "
+                         "inferred) or 'data=2,model=2' (pinned)")
     ap.add_argument("--reduced", action="store_true")
     return ap.parse_args(argv)
 
@@ -212,12 +232,19 @@ def check_scheduler_args(args, policy) -> None:
                          "the batched scheduler's retirement path)")
 
 
+def _quiet(*args, **kwargs):
+    """``print`` on the ranks that do not report."""
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda (the default) needs a CUDA card; "
-                           "pass --device cpu to run on the CPU")
-    dev = torch.device(args.device)
+    dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None and args.scheduler == "batched":
+        from repro_torch.launch.mesh import init_distributed, parse_mesh_arg
+        dev = init_distributed(args.device)
+        mesh = parse_mesh_arg(args.mesh, device=dev)
+    print = _quiet if mesh is not None and mesh.rank else builtins.print
     policy = build_policy(args)
     check_scheduler_args(args, policy)
     e_cfg = get_config(args.edge)
@@ -232,7 +259,13 @@ def main(argv=None):
 
     edge, cloud = Model(e_cfg), Model(c_cfg)
     ep = edge.init(seed=0, device=dev)
-    cp = cloud.init(seed=1, device=dev)
+    if mesh is not None:
+        from repro_torch.launch.sharding import init_placed
+        print(f"mesh: {dict(mesh.shape)} over {mesh.size} ranks "
+              f"({mesh.backend}, {dev.type})")
+        cp = init_placed(cloud, 1, mesh, dev)    # this rank's blocks only
+    else:
+        cp = cloud.init(seed=1, device=dev)
 
     synth = SyntheticLM(v)
     rng = np.random.default_rng(0)
@@ -260,7 +293,7 @@ def main(argv=None):
                             spec_mode=args.spec_mode,
                             spec_tree_width=args.spec_tree_width,
                             spec_exit_layer=args.spec_exit_layer,
-                            mesh=args.mesh, adaptation=adaptation)
+                            mesh=mesh, adaptation=adaptation)
         if args.arrival != "none":
             gen = (poisson_arrivals if args.arrival == "poisson"
                    else bursty_arrivals)
@@ -303,7 +336,10 @@ def main(argv=None):
               f"peak={stats['kv_peak_bytes'] / 1e6:.2f}MB "
               f"capacity={stats['kv_capacity_bytes'] / 1e6:.2f}MB"
               + (f" blocks_peak={stats['kv_blocks_peak']}"
-                 if "kv_blocks_peak" in stats else ""))
+                 if "kv_blocks_peak" in stats else "")
+              + (f" shards={stats['kv_shards']} "
+                 f"capacity_blocks={stats['kv_capacity_blocks']}"
+                 if stats.get("kv_shards", 1) > 1 else ""))
         if stats.get("kv_prefix_hits") or stats.get("preemptions"):
             print(f"kv: prefix_hits={stats.get('kv_prefix_hits', 0)} "
                   f"shared_blocks={stats.get('kv_shared_blocks', 0)} "

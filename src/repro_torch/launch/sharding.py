@@ -1,0 +1,481 @@
+"""Sharding rules: params / batches / caches -> partition specs (the twin of
+the JAX package's ``launch/sharding.py``), and the placement of the port's
+parameters by them.
+
+A spec is a tuple with one entry per dim of the JAX leaf — an axis name, a
+tuple of axis names, or None — as ``jax.sharding.PartitionSpec`` is (``()``
+is ``P()``, replicated).  The rules are pure functions of leaf paths,
+shapes, the mesh's axis sizes and ``cfg``, kept line for line with JAX's,
+so the port and the JAX package place every leaf alike.  The port walks
+its own parameters by their JAX leaf paths (``bridge.jax_layout``).
+
+Policy (single pod, axes (data, model); multi-pod prepends "pod" to the
+batch axes):
+  * params: FSDP over "data" on the d_model-ish dim + tensor parallel over
+    "model" on heads/d_ff/vocab; MoE experts over "model"; tiny leaves
+    replicated.
+  * batches: leading batch dim over ("pod","data") when divisible.
+  * KV caches: batch over data axes; kv-heads over "model" when divisible,
+    else the head dim; recurrent states shard their head dim.
+
+Every rule checks divisibility and falls back to replication.
+
+``place_params`` cuts a full parameter module down to this rank's blocks
+and attaches a ``TensorParallel`` (``params.tp``): the collectives the
+model's forward runs on those blocks (``models/transformer.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import types
+from typing import Dict, Tuple
+
+import torch
+
+# leaf-name classes
+_DOWN = ("wo", "w_down", "out_proj")
+_UP = ("wq", "wk", "wv", "w_gate", "w_up", "in_proj", "w_q", "w_k", "w_v",
+       "w_gates", "w_i", "w_f")
+_EMBED = ("embed", "lm_head")
+_REPLICATE = ("router", "g_bias", "f_bias", "A_log", "dt_bias", "D",
+              "alpha", "enc_pos", "dec_pos", "out_norm", "r_gates")
+
+
+def _div(n: int, mesh, axis: str) -> bool:
+    return axis in mesh.axis_names and n % mesh.shape[axis] == 0
+
+
+def param_spec(path: str, shape, mesh, cfg=None) -> tuple:
+    """Spec of the JAX parameter leaf at ``path`` ("blocks/attn/wq") of
+    ``shape`` (the JAX leaf's, stacked axes included)."""
+    name = path.split("/")[-1]
+    nd = len(shape)
+    if nd <= 1 or name in _REPLICATE:
+        return ()
+    # head-aware TP: sharding an attention projection over 'model' is only
+    # clean when the head count divides the axis; fall back to FSDP-only
+    if cfg is not None and name in ("wq", "wk", "wv", "wo"):
+        heads = cfg.num_heads if name in ("wq", "wo") else cfg.num_kv_heads
+        if heads % mesh.shape.get("model", 1) != 0:
+            spec = [None] * nd
+            d_dim = nd - 2 if name in ("wq", "wk", "wv") else nd - 1
+            if _div(shape[d_dim], mesh, "data"):
+                spec[d_dim] = "data"
+            return tuple(spec)
+    if name in _EMBED:
+        return tuple(["model" if _div(shape[0], mesh, "model") else None]
+                     + [None] * (nd - 1))
+    # expert weights (..., E, d, f) detected by moe path
+    if "moe" in path and nd >= 3 and name in ("w_gate", "w_up", "w_down"):
+        spec = [None] * nd
+        e_dim = nd - 3
+        if _div(shape[e_dim], mesh, "model"):
+            spec[e_dim] = "model"
+        return tuple(spec)
+    if name in _DOWN:
+        spec = [None] * nd
+        if _div(shape[-2], mesh, "model"):
+            spec[-2] = "model"
+        if _div(shape[-1], mesh, "data"):
+            spec[-1] = "data"
+        return tuple(spec)
+    if name in _UP or nd >= 2:
+        spec = [None] * nd
+        if _div(shape[-2], mesh, "data"):
+            spec[-2] = "data"
+        if _div(shape[-1], mesh, "model"):
+            spec[-1] = "model"
+        return tuple(spec)
+    return ()
+
+
+def params_specs(params, mesh, cfg=None) -> Dict[str, tuple]:
+    """Port parameter name -> the spec of its own tensor: its JAX leaf's
+    spec with the stacked (layer) axes dropped."""
+    from repro_torch.bridge import config_of, jax_layout
+    cfg = config_of(params, cfg)
+    named = dict(params.named_parameters())
+    out = {}
+    for path, (stack, names) in jax_layout(params, cfg).items():
+        for n in names:
+            spec = param_spec(path, stack + tuple(named[n].shape), mesh, cfg)
+            out[n] = spec[len(stack):] if spec else ()
+    return out
+
+
+# ---------------------------------------------------------------- batches
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def _dp_size(mesh) -> int:
+    n = 1
+    for a in batch_axes(mesh):
+        n *= mesh.shape[a]
+    return n
+
+
+def _dp_entry(mesh):
+    """The spec entry of the batch axes: a lone axis as its bare name, as
+    ``PartitionSpec`` normalizes a one-name tuple."""
+    dp = batch_axes(mesh)
+    return dp[0] if len(dp) == 1 else dp
+
+
+def batch_spec(shape, mesh) -> tuple:
+    dp = _dp_entry(mesh)
+    if shape and shape[0] % _dp_size(mesh) == 0:
+        return (dp,) + (None,) * (len(shape) - 1)
+    return (None,) * len(shape)
+
+
+def batch_specs(batch: Dict, mesh) -> Dict[str, tuple]:
+    return {k: batch_spec(tuple(v.shape), mesh) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------- caches
+def cache_spec(path: str, shape, mesh, cfg, batch: int = -1) -> tuple:
+    """KV caches / recurrent states (see module docstring).  ``batch`` is
+    the runtime batch the recurrent rule looks for (JAX stashes it on the
+    config as ``_runtime_batch``)."""
+    name = path.split("/")[-1]
+    nd = len(shape)
+    dp = _dp_entry(mesh)
+    if nd == 0 or name == "pos":
+        return ()
+    spec = [None] * nd
+    if cfg.family in ("dense", "moe", "vlm", "encdec") or \
+            name in ("k", "v", "ck", "cv"):
+        # (L|G, B, S, Kv, hd): kv-heads over 'model', else the HEAD DIM
+        if nd == 5:
+            if shape[1] % _dp_size(mesh) == 0:
+                spec[1] = dp
+            if _div(shape[3], mesh, "model"):
+                spec[3] = "model"
+            elif _div(shape[4], mesh, "model"):
+                spec[4] = "model"
+            return tuple(spec)
+    # recurrent states: the batch dim (matches the runtime B), then the
+    # largest remaining dim over "model" if divisible
+    b_dim = None
+    for i, s in enumerate(shape):
+        if s == batch:
+            b_dim = i
+            break
+    if b_dim is not None and shape[b_dim] % _dp_size(mesh) == 0:
+        spec[b_dim] = dp
+    rest = [(s, i) for i, s in enumerate(shape)
+            if i != b_dim and spec[i] is None]
+    rest.sort(reverse=True)
+    for s, i in rest:
+        if _div(s, mesh, "model"):
+            spec[i] = "model"
+            break
+    return tuple(spec)
+
+
+def cache_specs(cache: Dict, mesh, cfg, batch_size: int) -> Dict[str, tuple]:
+    """``cache_spec`` of every entry of a cache dict at runtime batch
+    ``batch_size``."""
+    return {k: cache_spec(k, tuple(v.shape), mesh, cfg, batch_size)
+            for k, v in cache.items()}
+
+
+# ---------------------------------------------------------------- paged pools
+def kv_shard_ways(mesh, cfg) -> int:
+    """How many ways the paged KV pool's per-block BYTES divide over the
+    'model' axis: kv-heads when divisible, else the head dim, else 1
+    (replication fallback, ``cache_spec``'s preference order).  ``PagedKV``
+    multiplies its default pool capacity by this."""
+    m = mesh.shape.get("model", 1)
+    if m <= 1:
+        return 1
+    if cfg.num_kv_heads % m == 0 or cfg.head_dim % m == 0:
+        return m
+    return 1
+
+
+def paged_cache_spec(path: str, shape, mesh, cfg,
+                     data_shards: int = 1) -> tuple:
+    """Specs for the PAGED cache ``{k, v, table, pos}``: the pool
+    ``(L, num_blocks, block_size, Kv, hd)``'s dim 1 is the BLOCK dim, which
+    takes the dp axes only when the host allocator is per-shard
+    (``data_shards`` equals the dp size and each shard owns a contiguous id
+    range, ``paged_cache.ShardedBlockPool``); kv-heads over 'model' when
+    divisible, else the head dim, else replication."""
+    name = path.split("/")[-1]
+    nd = len(shape)
+    dp = _dp_entry(mesh)
+    spec = [None] * nd
+    if nd == 0 or name == "pos":
+        return ()
+    if name == "table":            # (B, max_blocks): slot rows over dp
+        if shape[0] % _dp_size(mesh) == 0:
+            spec[0] = dp
+        return tuple(spec)
+    if nd == 5:                    # k/v pool (L, NB, bs, Kv, hd)
+        if data_shards == _dp_size(mesh) > 1 and shape[1] % data_shards == 0:
+            spec[1] = dp           # per-shard block ranges
+        if _div(shape[3], mesh, "model"):
+            spec[3] = "model"
+        elif _div(shape[4], mesh, "model"):
+            spec[4] = "model"
+        return tuple(spec)
+    return tuple(spec)
+
+
+def paged_cache_specs(cache: Dict, mesh, cfg, data_shards: int = 1):
+    return {k: paged_cache_spec(k, tuple(v.shape), mesh, cfg, data_shards)
+            for k, v in cache.items()}
+
+
+def replicated_specs(params) -> Dict[str, tuple]:
+    """Fully-replicated placement (the data-parallel edge's params)."""
+    return {n: () for n, _ in params.named_parameters()}
+
+
+# ---------------------------------------------------------------- placement
+def _has(spec, axis: str, dim: int) -> bool:
+    """True when ``spec`` puts ``axis`` on ``dim``."""
+    try:
+        return spec[dim] == axis
+    except IndexError:
+        return False
+
+
+# the model-axis splits a forward computes on (column-parallel projections,
+# row-parallel outputs); every other split of a block leaf is gathered
+# before the layer runs
+_COMPUTE_SPLITS = {"attn/wq": -1, "attn/wk": -1, "attn/wv": -1,
+                   "attn/wo": -2, "mlp/w_gate": -1, "mlp/w_up": -1,
+                   "mlp/w_down": -2}
+
+
+@dataclasses.dataclass
+class TensorParallel:
+    """What a placed parameter module's forward does on each rank's
+    blocks: ``cfg`` is the LOCAL config (heads and d_ff cut by the model
+    axis where the rules split them), ``full_cfg`` the model's.  ``block``
+    holds each block leaf's spec (the same for every layer)."""
+    mesh: object
+    full_cfg: object
+    cfg: object
+    block: Dict[str, tuple]
+    embed: tuple
+    head: tuple
+
+    # ------------------------------------------------------------ weights
+    def gather_block(self, blk):
+        """FSDP: the layer's weights with every split all-gathered (one
+        collective per split dim) except the model-axis splits the forward
+        computes on (``_COMPUTE_SPLITS``).  The rules also split the
+        per-layer norms' d over 'model' (their stacked (L, d) JAX leaf takes
+        (data, model)); the layer axis is no tensor dim here, so each rank
+        keeps every layer's slice."""
+        def full(name, t):
+            keep = _COMPUTE_SPLITS.get(name)
+            spec = self.block[name]
+            for dim, ax in enumerate(spec):
+                if ax is not None and not (ax == "model" and keep is not None
+                                           and dim - len(spec) == keep):
+                    t = self.mesh.all_gather(t, ax, dim=dim)
+            return t
+
+        def group(kind, d):
+            return None if d is None else \
+                {k: full(f"{kind}/{k}", v) for k, v in d.items()}
+
+        return types.SimpleNamespace(
+            attn_norm=full("attn_norm", blk.attn_norm),
+            mlp_norm=full("mlp_norm", blk.mlp_norm),
+            attn=group("attn", blk.attn), mlp=group("mlp", blk.mlp),
+            moe=group("moe", blk.moe))
+
+    # ------------------------------------------------------------ partials
+    def reduce_attn(self, a):
+        """Row-parallel ``wo``: sum the heads' partial outputs over
+        'model'."""
+        return self.mesh.all_reduce(a, "model") \
+            if _has(self.block["attn/wo"], "model", -2) else a
+
+    def reduce_mlp(self, m):
+        key = "mlp/w_down"
+        return self.mesh.all_reduce(m, "model") \
+            if key in self.block and _has(self.block[key], "model", -2) \
+            else m
+
+    # ------------------------------------------------------------ vocab
+    def embed_lookup(self, table, tokens):
+        """Token rows of a vocabulary-split (V/m, d) table: each model rank
+        looks up the ids in its range, the others contribute zeros, one
+        sum over 'model'."""
+        if not _has(self.embed, "model", 0):
+            return table[tokens.long()]
+        n = table.shape[0]
+        lo = self.mesh.axis_index("model") * n
+        ids = tokens.long() - lo
+        inside = (ids >= 0) & (ids < n)
+        rows = table[ids.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
+        return self.mesh.all_reduce(rows, "model")
+
+    def gather_logits(self, logits):
+        """Full-vocabulary logits from each model rank's (..., V/m)."""
+        return self.mesh.all_gather(logits, "model", dim=-1) \
+            if _has(self.head, "model", 0) else logits
+
+
+def _local_cfg(cfg, specs, mesh):
+    m = mesh.shape.get("model", 1)
+    kw = {}
+    q, k = specs.get("attn/wq", ()), specs.get("attn/wk", ())
+    if _has(q, "model", -1) != _has(k, "model", -1):
+        raise NotImplementedError(
+            f"{cfg.name}: query heads ({cfg.num_heads}) and kv heads "
+            f"({cfg.num_kv_heads}) split differently over model={m}; "
+            "ROADMAP A.8 lists uneven head splits")
+    if _has(q, "model", -1):
+        kw.update(num_heads=cfg.num_heads // m,
+                  num_kv_heads=cfg.num_kv_heads // m)
+    if _has(specs.get("mlp/w_up", ()), "model", -1):
+        kw["d_ff"] = cfg.d_ff // m
+    return cfg.replace(**kw) if kw else cfg
+
+
+def block_specs(cfg, mesh) -> Dict[str, tuple]:
+    """Each per-layer leaf's spec ("attn/wq" -> spec of the (d, H*hd)
+    tensor) from ``param_spec`` on the stacked JAX shape."""
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    H, Kv, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    shapes = {"attn/wq": (d, H * hd), "attn/wk": (d, Kv * hd),
+              "attn/wv": (d, Kv * hd), "attn/wo": (H * hd, d),
+              "attn_norm": (d,), "mlp_norm": (d,)}
+    if cfg.family == "moe":
+        E = cfg.num_experts
+        shapes.update({"moe/router": (d, E), "moe/w_gate": (E, d, f),
+                       "moe/w_up": (E, d, f), "moe/w_down": (E, f, d)})
+    else:
+        if cfg.mlp_activation in ("silu", "geglu"):
+            shapes["mlp/w_gate"] = (d, f)
+        shapes.update({"mlp/w_up": (d, f), "mlp/w_down": (f, d)})
+    out = {}
+    for k, s in shapes.items():
+        spec = param_spec(f"blocks/{k}", (L,) + s, mesh, cfg)
+        out[k] = spec[1:] if spec else ()
+    return out
+
+
+def leaf_placer(cfg, mesh):
+    """``leaf(path, tensor) -> this rank's block`` for a per-layer tensor
+    at JAX path ``blocks/...`` or an unstacked one (``embed``,
+    ``lm_head``, ``final_norm``): what ``init_params(place=...)`` applies to
+    each leaf as it is drawn, so a rank never holds a whole large model."""
+    from repro_torch import runtime
+    blk = block_specs(cfg, mesh)
+    V, d = cfg.vocab_size, cfg.d_model
+
+    def place(path: str, t: torch.Tensor) -> torch.Tensor:
+        if path.startswith("blocks/"):
+            spec = blk[path[len("blocks/"):]]
+        else:
+            spec = param_spec(path, (V, d) if path in _EMBED else (d,),
+                              mesh, cfg)
+        return runtime.local_slice(t, spec, mesh).contiguous()
+    return place
+
+
+def attach_tp(params, mesh, cfg=None):
+    """Mark an already-placed (local-block) parameter module with its
+    ``TensorParallel`` and return it."""
+    from repro_torch.bridge import config_of
+    cfg = config_of(params, cfg)
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"tensor-parallel placement of the {cfg.family!r} family "
+            f"({cfg.name}) is not ported; the mesh serves dense clouds "
+            "(ROADMAP A.8)")
+    specs = block_specs(cfg, mesh)
+    V, d = cfg.vocab_size, cfg.d_model
+    emb = param_spec("embed", (V, d), mesh, cfg)
+    head = param_spec("lm_head", (V, d), mesh, cfg) \
+        if not cfg.tie_embeddings else emb
+    params.tp = TensorParallel(mesh, cfg, _local_cfg(cfg, specs, mesh),
+                               specs, emb, head)
+    return params
+
+
+def place_params(params, mesh, cfg=None):
+    """This rank's blocks of a full (replicated) parameter module, by
+    ``param_spec``, as a new module of the same class with ``tp`` set —
+    the twin of ``jax.device_put(params, params_shardings(...))``."""
+    from repro_torch.bridge import config_of
+    from repro_torch.models.transformer import Block, Transformer
+    cfg = config_of(params, cfg)
+    if getattr(params, "tp", None) is not None:
+        return params
+    place = leaf_placer(cfg, mesh)
+
+    def group(prefix, d):
+        return None if d is None else \
+            {k: place(f"blocks/{prefix}/{k}", v.data) for k, v in d.items()}
+
+    blocks = [Block(place("blocks/attn_norm", b.attn_norm.data),
+                    group("attn", b.attn),
+                    place("blocks/mlp_norm", b.mlp_norm.data),
+                    **({"moe": group("moe", b.moe)} if b.moe is not None
+                       else {"mlp": group("mlp", b.mlp)}))
+              for b in params.blocks]
+    head = None if params.lm_head is None else \
+        place("lm_head", params.lm_head.data)
+    out = Transformer(cfg, place("embed", params.embed.data), blocks,
+                      place("final_norm", params.final_norm.data), head)
+    return attach_tp(out, mesh, cfg)
+
+
+def local_attention(params, mesh, cfg=None):
+    """A replicated (data-parallel) model's parameters with every block's
+    attention cut to this rank's model-axis heads — column views of
+    ``wq``/``wk``/``wv`` and row views of ``wo``, no copies — and a
+    ``TensorParallel`` attached that sums the heads' partial outputs over
+    'model'; the MLP, norms, embedding and head stay whole.  The schedule
+    for a paged pool whose kv-heads split over 'model' under replicated
+    weights (the edge): each model rank attends its own whole heads in its
+    part of the pool, one (B, T, d) sum per layer instead of moving blocks.
+    ``params`` unchanged when the kv-heads do not divide the axis."""
+    from repro_torch.bridge import config_of
+    from repro_torch.models.transformer import Block, Transformer
+    cfg = config_of(params, cfg)
+    m = mesh.shape.get("model", 1)
+    if m <= 1 or cfg.num_kv_heads % m or getattr(params, "tp", None):
+        return params
+    i, hd = mesh.axis_index("model"), cfg.head_dim
+    q, kv = cfg.num_heads * hd // m, cfg.num_kv_heads * hd // m
+
+    def attn(a):
+        return {"wq": a["wq"][:, i * q:(i + 1) * q],
+                "wk": a["wk"][:, i * kv:(i + 1) * kv],
+                "wv": a["wv"][:, i * kv:(i + 1) * kv],
+                "wo": a["wo"][i * q:(i + 1) * q]}
+
+    blocks = [Block(b.attn_norm, attn(b.attn), b.mlp_norm,
+                    **({"moe": dict(b.moe)} if b.moe is not None
+                       else {"mlp": dict(b.mlp)}))
+              for b in params.blocks]
+    out = Transformer(cfg, params.embed, blocks, params.final_norm,
+                      params.lm_head)
+    specs = {k: () for k in block_specs(cfg, mesh)}
+    specs.update({"attn/wq": (None, "model"), "attn/wk": (None, "model"),
+                  "attn/wv": (None, "model"), "attn/wo": ("model", None)})
+    out.tp = TensorParallel(mesh, cfg, cfg.replace(
+        num_heads=cfg.num_heads // m, num_kv_heads=cfg.num_kv_heads // m),
+        specs, (), ())
+    return out
+
+
+def init_placed(model, seed: int, mesh, device):
+    """``model.init(seed)`` drawn on ``device`` and cut to this rank's
+    blocks leaf by leaf (the same values ``place_params`` of the full init
+    gives), with ``tp`` attached: how a rank builds a cloud too large to
+    hold whole."""
+    p = model.init(seed=seed, device=device,
+                   place=leaf_placer(model.cfg, mesh))
+    return attach_tp(p, mesh, model.cfg)

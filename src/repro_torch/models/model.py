@@ -74,9 +74,13 @@ class Model:
         return {key: batch[key]} if key else {}
 
     # ---------------------------------------------------------------- init
-    def init(self, seed: int = 0, device="cuda"):
+    def init(self, seed: int = 0, device="cuda", place=None):
         """Seeded random parameters on ``device`` (CUDA by default; pass
-        ``device="cpu"`` explicitly for the CPU)."""
+        ``device="cpu"`` explicitly for the CPU).  ``place`` (the
+        transformer families) cuts each leaf to a mesh rank's block as it
+        is drawn: ``launch/sharding.init_placed``."""
+        if place is not None:
+            return self._mod.init_params(self.cfg, seed, device, place=place)
         return self._mod.init_params(self.cfg, seed, device)
 
     # ---------------------------------------------------------------- fwd

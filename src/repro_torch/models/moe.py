@@ -11,8 +11,10 @@ assignment past an expert's capacity goes to the out-of-range slot
 whatever the model's dtype; the router's weights are float32 too.
 
 No Pallas kernel covers this sublayer in the JAX package, so the expert
-products here are library matrix products.  Sharded (expert-parallel)
-dispatch is not ported: ``moe_apply`` is ``moe_block``.
+products here are library matrix products.  On a device mesh
+``moe_apply`` takes ``moe_block_sharded`` (expert parallelism: each model
+rank runs its own slice of the experts on its tokens, one sum over the
+model axis) from 4096 tokens on, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -91,16 +93,76 @@ def moe_block(p, x, cfg):
     # in ascending expert order (the order of the sorted slots)
     flat = torch.cat([out_e, out_e.new_zeros((1, d))])        # drop row = 0
     contrib = flat[dest].float() * gate.reshape(-1)[order][:, None]
+    combined = _combine(contrib, order, T, k)
+    return combined.reshape(B, S, d).to(x.dtype), aux
+
+
+def _combine(contrib, order, T: int, k: int):
+    """Each token's k weighted slot outputs summed in ascending expert
+    order (the order of the sorted slots): (T*k, d) f32 -> (T, d)."""
     slot_of = torch.empty_like(order)
-    slot_of[order] = torch.arange(T * k, device=x.device)
-    slots = slot_of.reshape(T, k).sort(dim=-1).values         # by expert
-    combined = contrib[slots].sum(1)
+    slot_of[order] = torch.arange(T * k, device=order.device)
+    return contrib[slot_of.reshape(T, k).sort(dim=-1).values].sum(1)
+
+
+def moe_block_sharded(p, x, cfg, mesh, dp_axes, ep_axis: str):
+    """Expert-parallel MoE (the survey's MoE-based modular collaboration,
+    §2.1.2, mapped to a device mesh): the twin of the JAX package's
+    ``shard_map`` version, run on this rank's local view.
+
+    Layout: ``x`` is this rank's tokens (sharded over ``dp_axes``,
+    replicated over ``ep_axis``); the experts split over ``ep_axis`` (``p``
+    holds all E experts, cut here to this rank's ``E / n_ep``, or already
+    only those); the router is replicated.  Each rank routes its LOCAL
+    tokens to its LOCAL experts with the capacity counted over its local
+    tokens, and the partial outputs are summed over ``ep_axis``; the aux
+    loss is averaged over every axis."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    n_ep = mesh.axis_size(ep_axis)
+    E_local = E // n_ep
+    lo = mesh.axis_index(ep_axis) * E_local
+    T = B * S
+    C = capacity(T, cfg)
+    xt = x.reshape(T, d)
+    probs, gate, expert_idx = _route(p, xt, k)
+
+    me = probs.mean(0)
+    ce = torch.bincount(expert_idx.reshape(-1), minlength=E).float() / (T * k)
+    aux = mesh.all_reduce(cfg.router_aux_coef * E * (me * ce).sum(),
+                          tuple(dp_axes) + (ep_axis,), op="mean")
+
+    e_flat = expert_idx.reshape(-1)
+    order = torch.argsort(e_flat, stable=True)
+    sorted_e = e_flat[order]
+    counts = torch.bincount(e_flat, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(T * k, device=x.device) - starts[sorted_e]
+    mine = (sorted_e >= lo) & (sorted_e < lo + E_local) & (pos_in_e < C)
+    dest = torch.where(mine, (sorted_e - lo) * C + pos_in_e, E_local * C)
+    src_tok = order // k
+    local = {n: w if w.shape[0] == E_local else w[lo:lo + E_local]
+             for n, w in p.items() if n != "router"}
+    buf = torch.zeros((E_local * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[dest] = xt[src_tok]
+    out_e = _experts(local, buf[:E_local * C].reshape(E_local, C, d))
+    flat = torch.cat([out_e.reshape(E_local * C, d), out_e.new_zeros((1, d))])
+    contrib = flat[dest].float() * gate.reshape(-1)[order][:, None]
+    combined = mesh.all_reduce(_combine(contrib, order, T, k), ep_axis)
     return combined.reshape(B, S, d).to(x.dtype), aux
 
 
 def moe_apply(p, x, cfg):
-    """The serving and training entry: the sort-based dispatch (no mesh
-    branch in the port)."""
+    """The serving and training entry: expert parallelism when a mesh
+    context is active, the token count is large (train/prefill, >= 4096)
+    and the experts divide the model axis; the sort-based dispatch
+    otherwise."""
+    from repro_torch import runtime
+    mesh = runtime.current_mesh()
+    if mesh is not None and x.shape[0] * x.shape[1] >= 4096 \
+            and cfg.num_experts % mesh.shape[runtime.model_axis()] == 0:
+        return moe_block_sharded(p, x, cfg, mesh, runtime.data_axes(),
+                                 runtime.model_axis())
     return moe_block(p, x, cfg)
 
 

@@ -17,6 +17,15 @@ and attend over it bidirectionally (prefix-LM: ``prefix_len = P`` in every
 block, the flash kernels' ``prefix_len`` on CUDA); the cached steps are
 the dense ones, except that on CUDA its linear extends read through
 kernels (``KERNEL_EXTENDS``).
+
+Tensor parallelism (a cloud on a device mesh): parameters placed by
+``launch/sharding.place_params`` hold this rank's blocks and carry a
+``TensorParallel`` as ``params.tp``.  Every entry point then runs on the
+local heads and d_ff (``tp.cfg``), all-gathers each layer's data-split
+weights before it computes (FSDP, ``tp.gather_block``), sums the
+row-parallel ``wo`` / ``w_down`` partials over 'model', looks tokens up in
+the vocabulary-split embedding and all-gathers the vocabulary-split logits.
+Without ``tp`` none of this runs.
 """
 from __future__ import annotations
 
@@ -99,63 +108,115 @@ class Transformer(nn.Module):
 
 
 # ----------------------------------------------------------------- init
-def init_params(cfg, seed: int = 0, device="cuda") -> Transformer:
+def init_params(cfg, seed: int = 0, device="cuda", place=None) -> Transformer:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (same distributions as the JAX package's init, not the same draws; a
-    moe router is float32 whatever ``cfg.param_dtype`` says, as there)."""
+    moe router is float32 whatever ``cfg.param_dtype`` says, as there).
+    ``place(path, tensor)``, when given, cuts every leaf to this rank's
+    block as soon as it is drawn (``launch/sharding.leaf_placer``; the
+    draws are the unplaced init's), so a rank of a mesh never holds the
+    whole model."""
     require_dense(cfg)
     dtype = dtype_of(cfg.param_dtype)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d = cfg.d_model
+    put = place or (lambda path, t: t)
+
+    def group(kind, leaves):
+        return {k: put(f"blocks/{kind}/{k}", v) for k, v in leaves.items()}
 
     def ffn():
         if cfg.family == "moe":
-            return {"moe": MOE.init_moe(gen, cfg, dtype, device)}
-        return {"mlp": L.init_mlp(gen, cfg, dtype, device)}
+            return {"moe": group("moe", MOE.init_moe(gen, cfg, dtype, device))}
+        return {"mlp": group("mlp", L.init_mlp(gen, cfg, dtype, device))}
 
-    blocks = [Block(torch.zeros(d, dtype=dtype, device=device),
-                    L.init_attention(gen, cfg, dtype, device),
-                    torch.zeros(d, dtype=dtype, device=device), **ffn())
+    def norm(path):
+        return put(path, torch.zeros(d, dtype=dtype, device=device))
+
+    blocks = [Block(norm("blocks/attn_norm"),
+                    group("attn", L.init_attention(gen, cfg, dtype, device)),
+                    norm("blocks/mlp_norm"), **ffn())
               for _ in range(cfg.num_layers)]
-    embed = L.init_embedding(gen, cfg.vocab_size, d, dtype, device)
+    embed = put("embed", L.init_embedding(gen, cfg.vocab_size, d, dtype,
+                                          device))
     head = None if cfg.tie_embeddings else \
-        L.init_embedding(gen, cfg.vocab_size, d, dtype, device)
-    return Transformer(cfg, embed, blocks,
-                       torch.zeros(d, dtype=dtype, device=device), head)
+        put("lm_head", L.init_embedding(gen, cfg.vocab_size, d, dtype,
+                                        device))
+    return Transformer(cfg, embed, blocks, norm("final_norm"), head)
 
 
 # ----------------------------------------------------------------- blocks
-def _ffn(blk, h, cfg):
+def _tp(params):
+    """The parameters' ``TensorParallel`` (placed on a mesh), else None."""
+    return getattr(params, "tp", None)
+
+
+def _cfg(params, cfg):
+    """The config the local blocks compute with: the tensor-parallel local
+    one (heads and d_ff cut by the model axis) when placed, else ``cfg``."""
+    tp = _tp(params)
+    return cfg if tp is None else tp.cfg
+
+
+def _blocks(params):
+    """The layers to run, each with its data-split weights all-gathered
+    when the parameters are placed on a mesh (FSDP)."""
+    tp = _tp(params)
+    if tp is None:
+        return params.blocks
+    return (tp.gather_block(b) for b in params.blocks)
+
+
+def _attn_sum(params, a):
+    """Row-parallel attention output: sum over 'model' when placed."""
+    tp = _tp(params)
+    return a if tp is None else tp.reduce_attn(a)
+
+
+def _ffn(blk, h, cfg, tp=None):
     """The layer's feed-forward half on the normed residual: (out, aux
-    loss) — ``moe_apply`` for a moe block, the MLP (aux 0) otherwise."""
+    loss) — ``moe_apply`` for a moe block, the MLP (aux 0) otherwise; a
+    row-parallel ``w_down``'s partials summed over 'model' under ``tp``."""
     hn = L.rmsnorm(h, blk.mlp_norm, cfg.norm_eps)
     if blk.moe is not None:
         return MOE.moe_apply(blk.moe, hn, cfg)
-    return L.mlp_block(blk.mlp, hn, cfg.mlp_activation), None
+    m = L.mlp_block(blk.mlp, hn, cfg.mlp_activation)
+    return (m if tp is None else tp.reduce_mlp(m)), None
 
 
-def _mlp(blk, h, cfg):
-    return _ffn(blk, h, cfg)[0]
+def _mlp(blk, h, cfg, tp=None):
+    return _ffn(blk, h, cfg, tp)[0]
+
+
+def _tokens(params, tokens, cfg):
+    """Token embeddings in the activation dtype (a vocabulary-split table
+    summed over 'model' when placed)."""
+    tp = _tp(params)
+    h = L.embed(params.embed, tokens) if tp is None else \
+        tp.embed_lookup(params.embed, tokens)
+    return h.to(dtype_of(cfg.activ_dtype))
 
 
 def _logits(params, h, cfg):
     logits = L.unembed(params.head, L.rmsnorm(h, params.final_norm,
                                               cfg.norm_eps))
+    if _tp(params) is not None:
+        logits = _tp(params).gather_logits(logits)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
 
 
-def _block(blk, h, positions, cfg, window, backend, prefix_len=0):
+def _block(blk, h, positions, cfg, window, backend, prefix_len=0, tp=None):
     """One layer over the full sequence: (h, aux loss or None, (k, v))."""
     a, kv = L.attention_block(blk.attn,
                               L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
                               positions, cfg, window=window,
                               prefix_len=prefix_len, backend=backend)
-    h = h + a
-    m, a_l = _ffn(blk, h, cfg)
+    h = h + (a if tp is None else tp.reduce_attn(a))
+    m, a_l = _ffn(blk, h, cfg, tp)
     return h + m, a_l, kv
 
 
@@ -167,15 +228,16 @@ def _layers(params, h, positions, cfg, window, backend, collect=None,
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
     activations — JAX's ``jax.checkpoint`` per block."""
     aux = torch.zeros((), device=h.device)
-    for blk in params.blocks:
+    tp = _tp(params)
+    for blk in _blocks(params):
         if remat:
             h, a_l = checkpoint(
                 lambda x, b=blk: _block(b, x, positions, cfg, window,
-                                        backend, prefix_len)[:2], h,
+                                        backend, prefix_len, tp)[:2], h,
                 use_reentrant=False)
         else:
             h, a_l, kv = _block(blk, h, positions, cfg, window, backend,
-                                prefix_len)
+                                prefix_len, tp)
             if collect is not None:
                 collect.append(kv)
         if hidden is not None:
@@ -188,7 +250,7 @@ def _layers(params, h, positions, cfg, window, backend, collect=None,
 def _embed(params, tokens, cfg, embeds):
     """Token embeddings in the activation dtype, the vlm ``embeds`` (B, P,
     d) prepended: (h, prefix_len)."""
-    h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
+    h = _tokens(params, tokens, cfg)
     if embeds is None:
         return h, 0
     return torch.cat([embeds.to(h.dtype), h], dim=1), embeds.shape[1]
@@ -205,6 +267,7 @@ def forward(params, tokens, cfg, *, embeds=None, window: int = 0,
     every layer's output (L, B, S, d) if ``collect_hidden``.  ``remat``:
     recompute each block in the backward."""
     L.check_backend(backend)
+    cfg = _cfg(params, cfg)
     h, prefix_len = _embed(params, tokens, cfg, embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     hidden = [] if collect_hidden else None
@@ -257,15 +320,16 @@ def paged_decode_step(params, token, cache, cfg, *,
         logits, cache = paged_extend_step(params, token, cache, cfg,
                                           attn_backend="gather")
         return logits[:, 0], cache
-    h = L.embed(params.embed, token).to(dtype_of(cfg.activ_dtype))
+    cfg = _cfg(params, cfg)
+    h = _tokens(params, token, cfg)
     pos, table = cache["pos"], cache["table"]
-    for l, blk in enumerate(params.blocks):
+    for l, blk in enumerate(_blocks(params)):
         a, _, _ = L.paged_decode_attention_block(
             blk.attn, L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
             cache["k"][l], cache["v"][l], table, pos, cfg,
             backend=attn_backend)
-        h = h + a
-        h = h + _mlp(blk, h, cfg)
+        h = h + _attn_sum(params, a)
+        h = h + _mlp(blk, h, cfg, _tp(params))
     return _logits(params, h[:, 0, :], cfg), {**cache, "pos": pos + 1}
 
 
@@ -277,14 +341,15 @@ def paged_extend_step(params, tokens, cache, cfg, *,
     the others read the table's gather through ``mha``."""
     L.check_backend(attn_backend)
     backend = attn_backend if cfg.family in KERNEL_EXTENDS else "plain"
-    h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
+    cfg = _cfg(params, cfg)
+    h = _tokens(params, tokens, cfg)
     pos, table = cache["pos"], cache["table"]
-    for l, blk in enumerate(params.blocks):
+    for l, blk in enumerate(_blocks(params)):
         a, _, _ = L.paged_extend_attention(
             blk.attn, L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
             cache["k"][l], cache["v"][l], table, pos, cfg, backend=backend)
-        h = h + a
-        h = h + _mlp(blk, h, cfg)
+        h = h + _attn_sum(params, a)
+        h = h + _mlp(blk, h, cfg, _tp(params))
     return _logits(params, h, cfg), {**cache,
                                      "pos": pos + tokens.shape[1]}
 
@@ -296,6 +361,7 @@ def prefill(params, tokens, cfg, *, max_seq: Optional[int] = None,
     all S = P + S_text rows.  Returns (last-token logits (B, V), cache
     padded to ``max_seq`` entries)."""
     L.check_backend(backend)
+    cfg = _cfg(params, cfg)
     h, prefix_len = _embed(params, tokens, cfg, embeds)
     B, S = h.shape[:2]
     max_seq = max(max_seq or S, S)
@@ -313,12 +379,12 @@ def prefill(params, tokens, cfg, *, max_seq: Optional[int] = None,
 
 
 def _cached(params, tokens, cache, cfg, attend):
-    h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
-    for l, blk in enumerate(params.blocks):
+    h = _tokens(params, tokens, cfg)
+    for l, blk in enumerate(_blocks(params)):
         a, _, _ = attend(blk.attn, L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
                          cache["k"][l], cache["v"][l])
-        h = h + a
-        h = h + _mlp(blk, h, cfg)
+        h = h + _attn_sum(params, a)
+        h = h + _mlp(blk, h, cfg, _tp(params))
     return h
 
 
@@ -333,6 +399,7 @@ def extend_step(params, tokens, cache, cfg, *, window: int = 0,
     ``KERNEL_EXTENDS`` family's linear extend takes the tree-verify kernel
     too, under a causal block mask."""
     L.check_backend(attn_backend)
+    cfg = _cfg(params, cfg)
     pos = cache["pos"]
     win = window or cfg.sliding_window
     if block_mask is not None:
@@ -354,6 +421,7 @@ def decode_step(params, token, cache, cfg, *, window: int = 0,
     Returns (logits (B,V), cache).  ``attn_backend`` as in
     ``layers.decode_attention``: on CUDA the Hopper dense decode kernel."""
     L.check_backend(attn_backend)
+    cfg = _cfg(params, cfg)
     pos = cache["pos"]
     win = window or cfg.sliding_window
     h = _cached(params, token, cache, cfg,

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or the JAX package ``repro``; the whole
+"""The port stands alone: no module of ``src/repro_torch`` (nor an example
+of ``examples/torch_port`` or ``chip_smoke.py``) imports ``jax`` or the
+JAX package ``repro``; the whole
 package imports and serves with both blocked; its entry points default to
 CUDA and raise without a card instead of carrying on on the CPU."""
 import ast
@@ -35,6 +36,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + sorted((REPO / "examples" / "torch_port")
+                                  .glob("*.py"))
                          + [REPO / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_repro_imports(path):
