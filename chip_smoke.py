@@ -64,7 +64,8 @@ the first phase that fails:
    and the self lane (paged serving, exit layer 15); with the
    granite-moe-1b-a400m edge (32 experts, top 8) and the recurrent edges
    mamba2-370m, xlstm-125m and zamba2-2.7b the linear lane (KV layout
-   auto: paged for moe, dense for the recurrent edges) — and check every
+   auto: paged for moe, dense for the recurrent edges; the moe, mamba2
+   and zamba2 edges at the depth ``SERVE_DEPTH`` cuts) — and check every
    request, the logits' finiteness and that each kernel the path runs was
    launched during that path's run (counts reset just before it, read just
    after); then time the pieces of the smollm rounds and profile the
@@ -114,17 +115,25 @@ the first phase that fails:
    depth, data parallel, its paged pool split per data shard and on the
    head dim over 'model'; granite-8b at full width cut to
    ``MESH_CLOUD_LAYERS`` layers, tensor parallel with FSDP; bf16, 8
-   requests of 16 + 24 tokens, gamma 4, ``SpeculativePolicy(0.6)``) must
+   requests of 16 + 12 tokens, gamma 4, ``SpeculativePolicy(0.6)``) must
    serve every request with the same tokens on every rank, finite logits,
    the paged-decode, flash and spec-verify kernels launched on every rank,
    ``kv_shards`` 4 and ``mesh_shape`` {data 2, model 2}; it prints ms per
    tick and per round (host issue, stream span; rank 0's profiled device
    busy), the bytes each collective moved per round and the phase's
-   seconds; then the granite-moe-1b-a400m edge with 4096-token prefills
-   (``moe_block_sharded`` on every rank), and a float32 run (2 layers per
-   model, full width) against the unsharded engine in this process —
-   traces identical but for near ties (top-2 gap below 1e-4), and
-   ``kv_capacity_blocks`` above the unsharded engine's; ``[examples]``:
+   seconds; then the tree lane (dense states: the edge's head-dim halves
+   gathered every step, the cloud's kv-heads split) and the self lane on
+   the same models, the granite-moe-1b-a400m edge with 4096-token
+   prefills (``moe_block_sharded`` on every rank) and the mamba2-370m edge
+   on data-split recurrent states (``MESH_LANES``: the linear cell's
+   traffic, each launching on every rank the kernels its ``PATHS`` entry
+   names, with the same tokens on every rank; ms per tick and round,
+   bytes per collective per round, a rank's state bytes against the
+   whole state's), and a float32 run of the linear, tree, self and mamba2
+   paths (``PARITY_DEPTH``, full width) against the unsharded engine in
+   this process — traces identical but for near ties (top-2 gap below
+   1e-4), and a paged ``kv_capacity_blocks`` above the unsharded
+   engine's; ``[examples]``:
    the four ``examples/torch_port`` scripts on the card, each in a fresh
    process, each exiting 0 with its invariant held;
 4. serve each path again at float32, full width, cut depth (2 layers per
@@ -164,6 +173,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"float32": 67e12,      # CUDA cores, no tensor cores
             "bfloat16": 989e12}    # dense tensor-core rate
 GAP_TOL = 1e-4
+T0 = time.perf_counter()           # the script's start, for lap()
 
 
 class SmokeFailure(RuntimeError):
@@ -258,6 +268,27 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = ops / PEAK_OPS[dtype] * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def device_activity(prof):
+    """(device busy ms, {kernel name: ms}) of a finished ``torch.profiler``
+    run: the summed durations of its device events (kernels, copies,
+    sets), read from the raw kineto results.  ``key_averages()`` first
+    builds a Python event tree, which over a drain's 1e5-1e6 events takes
+    tens of seconds to minutes of host time."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e6
+    return sum(by_name.values()), by_name
+
+
+def lap(label):
+    """Print the seconds since the script started, after ``label``."""
+    print(f"[time] {label} {time.perf_counter() - T0:.0f}s", flush=True)
 
 
 def max_err(a, b) -> float:
@@ -1705,6 +1736,11 @@ PATHS = (
     ("xlstm", "xlstm-125m", {}, RECURRENT_KERNELS),
     ("hybrid", "zamba2-2.7b", {}, RECURRENT_KERNELS + ("decode_attention",)),
 )
+# served depth where it is cut (edge layers; the granite-8b cloud keeps its
+# 36): the moe, mamba2 and zamba2 edges at half or a third of their depth
+# (zamba2 keeps three shared-attention groups of 6), for the script's time
+SERVE_DEPTH = {"granite-moe-1b-a400m": 12, "mamba2-370m": 24,
+               "zamba2-2.7b": 18}
 # f32 parity depth per edge (edge layers, cloud layers): zamba2 keeps its
 # own shared_attn_every = 6 (one group), xLSTM reaches its sLSTM block 3
 PARITY_DEPTH = {"smollm-135m": (2, 2), "mamba2-370m": (2, 2),
@@ -1714,6 +1750,9 @@ PARITY_DEPTH = {"smollm-135m": (2, 2), "mamba2-370m": (2, 2),
 # launch (serve_reference's prefills and batch-1 decode steps, the tree
 # verify, and the one-slot BatchedEngine's paged ticks and spec verify)
 PER_REQUEST_NEW = 8
+# new tokens of each served path's drain (the kernel checks' serving
+# shapes follow from it: slot_len 80, 3-block paged tables)
+SERVE_NEW = 24
 PER_REQUEST_KERNELS = ("flash_attention", "decode_attention",
                        "tree_verify_attention", "paged_decode_attention",
                        "spec_verify")
@@ -1749,6 +1788,8 @@ def phase_serve():
     ep = cp = e_cfg = c_cfg = None
     for name, edge, kw, kernels in PATHS:
         e_new, c_new = _configs(edge)
+        if edge in SERVE_DEPTH:
+            e_new = e_new.replace(num_layers=SERVE_DEPTH[edge])
         if e_new != e_cfg:
             ep = None
             torch.cuda.empty_cache()
@@ -1760,13 +1801,13 @@ def phase_serve():
         prompts = _prompts(e_cfg.vocab_size)
         V = e_cfg.vocab_size
         # warm-up drain (library handles, allocator), not measured
-        _engine(e_cfg, c_cfg, **kw).serve_batch(ep, cp, prompts[:2], 4)
+        _engine(e_cfg, c_cfg, **kw).serve_batch(ep, cp, prompts[:2], 2)
         eng = _engine(e_cfg, c_cfg, **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t = time.perf_counter()
-        traces = eng.serve_batch(ep, cp, prompts, 24)
+        traces = eng.serve_batch(ep, cp, prompts, SERVE_NEW)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         launches = ops.launch_counts()
@@ -1774,9 +1815,9 @@ def phase_serve():
         check(stats["spec_mode"] == kw.get("spec_mode", "linear"),
               f"{name} path: engine served lane {stats['spec_mode']}")
         for i, tr in enumerate(traces):
-            check(tr.tokens is not None and len(tr.tokens) == 24,
+            check(tr.tokens is not None and len(tr.tokens) == SERVE_NEW,
                   f"{name} request {i}: {len(tr.tokens or [])} tokens, "
-                  "want 24")
+                  f"want {SERVE_NEW}")
             check(all(0 <= t < V for t in tr.tokens),
                   f"{name} request {i}: token outside [0, {V})")
         for k in kernels:
@@ -1789,10 +1830,10 @@ def phase_serve():
             paths[tr.path] = paths.get(tr.path, 0) + 1
         ticks = stats["ticks"]
         lane = stats["spec_lanes"][stats["spec_mode"]]
-        print(f"[serve] {name} path ({e_cfg.name} edge, {stats['kv_layout']} "
-              f"KV): paths {paths}; "
+        print(f"[serve] {name} path ({e_cfg.num_layers}-layer {e_cfg.name} "
+              f"edge, {stats['kv_layout']} KV): paths {paths}; "
               f"{len(traces) / dt:.2f} req/s, "
-              f"{24 * len(traces) / dt:.1f} tok/s, {dt:.2f}s; "
+              f"{SERVE_NEW * len(traces) / dt:.1f} tok/s, {dt:.2f}s; "
               f"{ticks} edge ticks at "
               f"{stats['tick_seconds'] / max(ticks, 1) * 1e3:.1f} ms/tick; "
               f"{lane['member_rounds']} member rounds, accept rate "
@@ -1806,17 +1847,21 @@ def phase_serve():
         # finiteness of the logits on the path: a prefill of every served
         # sequence through both models must give finite logits
         _check_finite(ep, cp, e_cfg, c_cfg, prompts, traces)
+        lap(f"serve {name} path")
         if name == "self":            # the last path of the dense edge
             phase_breakdown(ep, cp, e_cfg, c_cfg, prompts)
+            lap("breakdown")
             for k, n in phase_per_request(ep, cp, e_cfg, c_cfg,
                                           prompts).items():
                 total[k] += n
+            lap("per-request")
         if e_cfg.family != "dense":
             h, d, busy = _round_ms(_engine(e_cfg, c_cfg, **kw), ep, cp,
                                    prompts)
             print(f"[breakdown] one {name} round (G=8): host issue "
                   f"{h:.3f} ms, stream span {d:.3f} ms, device busy "
                   f"{busy:.3f} ms", flush=True)
+            lap(f"{name} round breakdown")
     del ep, cp
     torch.cuda.empty_cache()
     return total
@@ -1869,27 +1914,22 @@ def _profile_drain(label, eng, ep, cp, prompts, max_new):
         eng.serve_batch(ep, cp, prompts, max_new)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    evs = prof.key_averages()
-
-    def self_dev(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy = sum(self_dev(e) for e in evs) / 1e3
-    top = sorted(evs, key=self_dev, reverse=True)[:6]
+    busy, by_name = device_activity(prof)
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
     rounds = eng.stats()["spec_lanes"][eng.spec_mode]["member_rounds"]
     print(f"[breakdown] profiled {label} drain ({len(prompts)} requests, "
           f"{max_new} new, {rounds} member rounds): wall {wall:.0f} ms, "
           f"device busy {busy:.0f} ms ({busy / wall:.1%}); top device time: "
-          + "; ".join(f"{e.key[:60]} {self_dev(e) / 1e3:.1f} ms"
-                      for e in top), flush=True)
+          + "; ".join(f"{k[:60]} {ms:.1f} ms" for k, ms in top), flush=True)
 
 
-def _round_ms(eng, ep, cp, prompts):
+def _round_ms(eng, ep, cp, prompts, cross_check=False):
     """(host issue ms, stream span ms, device busy ms) of ONE speculative
     round of ``eng``'s lane over the 8 prompts, on group states built as
     ``BatchedEngine._spec_escalate`` builds them.  The device time is the
-    profiler's kernel time per round over 3 rounds."""
+    profiler's kernel time per round over 2 rounds.  ``cross_check``
+    prints it beside the profiler's ``key_averages()`` sum of self device
+    time over the same events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     G = len(prompts)
@@ -1916,14 +1956,19 @@ def _round_ms(eng, ep, cp, prompts):
     else:
         fn = lambda: eng.spec._round(ep, cp, caches[0], caches[1], last,
                                      active, gen)
-    host, span = _host_device_ms(fn, reps=5)
+    host, span = _host_device_ms(fn, reps=3)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
+        for _ in range(2):
             fn()
         torch.cuda.synchronize()
-    busy = sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-               for e in prof.key_averages()) / 1e3 / 3
+    busy = device_activity(prof)[0] / 2
+    if cross_check:
+        avg = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+                  for e in prof.key_averages()) / 1e3 / 2
+        print(f"[breakdown] device busy per {eng.spec_mode} round: raw "
+              f"device events {busy:.3f} ms, key_averages self device time "
+              f"{avg:.3f} ms", flush=True)
     return host, span, busy
 
 
@@ -2000,13 +2045,14 @@ def phase_breakdown(ep, cp, e_cfg, c_cfg, prompts):
     for name, edge, kw, _ in PATHS:
         if edge != e_cfg.name:
             continue
-        h, d, busy = _round_ms(_engine(e_cfg, c_cfg, **kw), ep, cp, prompts)
+        h, d, busy = _round_ms(_engine(e_cfg, c_cfg, **kw), ep, cp, prompts,
+                               cross_check=name == "linear")
         print(f"[breakdown] one {name} round (G=8): host issue {h:.3f} ms, "
               f"stream span {d:.3f} ms, device busy {busy:.3f} ms",
               flush=True)
-    # 8 requests, 8 new tokens: one edge tick and 8 speculative rounds
+    # 8 requests, 4 new tokens: one edge tick and 4 speculative rounds
     for label, kw in (("linear", {}), ("tree", PATHS[1][2])):
-        _profile_drain(label, _engine(e_cfg, c_cfg, **kw), ep, cp, prompts, 8)
+        _profile_drain(label, _engine(e_cfg, c_cfg, **kw), ep, cp, prompts, 4)
 
 
 def _per_request_runs(ep, cp, e_cfg, c_cfg, prompts, backend, exit_layer):
@@ -2383,11 +2429,6 @@ STUB_NEW = 24
 STUB_PROMPT = 16
 
 
-def _self_dev(e):
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0.0))
-
-
 def _step_breakdown(fn, reps=5):
     """(host issue ms, stream span ms, device busy ms) of one call of
     ``fn``: ``_host_device_ms``, then a profiler pass for the busy time."""
@@ -2398,8 +2439,7 @@ def _step_breakdown(fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return host, span, sum(_self_dev(e) for e in prof.key_averages()) \
-        / 1e3 / reps
+    return host, span, device_activity(prof)[0] / reps
 
 
 def _stub_run(m, p, batch, label):
@@ -2590,20 +2630,15 @@ def _train_breakdown(arch="smollm-135m"):
             one()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / 3
-    evs = prof.key_averages()
-
-    def self_dev(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy = sum(self_dev(e) for e in evs) / 1e3 / 3
-    top = sorted(evs, key=self_dev, reverse=True)[:8]
+    busy, by_name = device_activity(prof)
+    busy /= 3
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     print(f"[breakdown] one train step ({arch}, batch 8, seq {seq}): host "
           f"issue {host:.1f} ms, stream span {span:.1f} ms; profiled: wall "
           f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}); "
           "top device time per step: "
-          + "; ".join(f"{e.key[:50]} {self_dev(e) / 3e3:.2f} ms"
-                      for e in top), flush=True)
+          + "; ".join(f"{k[:50]} {ms / 3:.2f} ms" for k, ms in top),
+          flush=True)
 
 
 def _train_step_parity(arch="smollm-135m", cfg=None):
@@ -2659,14 +2694,21 @@ def phase_learn(total):
         for k, n in _adapt_path(name, policy, akw, kernels, ep, cp, e_cfg,
                                 c_cfg, prompts).items():
             total[k] += n
+        lap(name)
     del ep, cp
     torch.cuda.empty_cache()
-    for launches in _train_runs() + _family_train_runs():
+    for launches in _train_runs():
         for k, n in launches.items():
             total[k] += n
+    lap("trainer smollm-135m")
+    for launches in _family_train_runs():
+        for k, n in launches.items():
+            total[k] += n
+    lap("family trainers")
     for arch in ("smollm-135m", "mamba2-370m", "paligemma-3b"):
         torch.cuda.empty_cache()
         _train_breakdown(arch)
+    lap("train-step breakdowns")
     torch.cuda.empty_cache()
     for arch in ("smollm-135m", "mamba2-370m", "xlstm-125m"):
         _train_step_parity(arch)
@@ -2730,17 +2772,24 @@ def _stub_parity(arch):
 
 # --------------------------------------------------------------- phase 3c
 # Sharded serving on one card: four ranks (processes) at (data 2, model 2)
-# over gloo, the ranks sharing the card.  The smollm-135m edge at full
-# depth, the granite-8b cloud at full width cut to MESH_CLOUD_LAYERS layers
-# (its FSDP gathers cross gloo every layer of every forward); the moe edge's
-# prompts make one 4096-token prefill, which takes the expert-parallel
-# branch; the float32 parity at 2 layers per model and MESH_PARITY_NEW new
-# tokens against the unsharded engine in this process.
+# over gloo, the ranks sharing the card.  The edges at full depth, the
+# granite-8b cloud at full width cut to MESH_CLOUD_LAYERS layers (its FSDP
+# gathers cross gloo every layer of every forward); the moe edge's prompts
+# make one 4096-token prefill, which takes the expert-parallel branch; the
+# float32 parity of each MESH_PARITY path at PARITY_DEPTH and
+# MESH_PARITY_NEW new tokens against the unsharded engine in this process.
 MESH_SHAPE = (2, 2)
 MESH_CLOUD_LAYERS = 2
 MESH_KERNELS = ("paged_decode_attention", "flash_attention", "spec_verify")
 MESH_MOE = dict(n=4, prompt=4097, new=8)
-MESH_PARITY_NEW = 8
+MESH_PARITY_NEW = 4
+# new tokens of each bf16 drain on the mesh
+MESH_NEW = 12
+# the other lanes and layouts on the mesh, served as their ``PATHS`` entries
+# (the same engine settings, the kernels each must launch on every rank):
+# the tree lane on dense states, the self lane, the recurrent mamba2 edge
+MESH_LANES = ("tree", "self", "mamba2")
+MESH_PARITY = ("linear",) + MESH_LANES
 
 
 def _mesh_drain(mesh, e_cfg, c_cfg, ep, cp, prompts, max_new,
@@ -2749,15 +2798,31 @@ def _mesh_drain(mesh, e_cfg, c_cfg, ep, cp, prompts, max_new,
     per-round host issue and stream span, per-round collective bytes,
     wall s).  ``profile``: rank 0 also sums its device activity over the
     drain (``torch.profiler``; its overhead lengthens the wall, so the
-    busy share is a lower bound) into ``timing["busy_ms"]``."""
+    busy share is a lower bound) into ``timing["busy_ms"]``, after a
+    2-token warm-up drain on every rank that rank 0 runs in the
+    profiler's warm-up step, which takes the profiler's start-up and the
+    process's first tick."""
     import torch
     from repro_torch.core.policy import SpeculativePolicy
     from repro_torch.core.scheduler import BatchedEngine
     from repro_torch.kernels import ops
     from repro_torch.models import Model
     opts = dict(batch_size=8, gamma=4, temperature=0.0,
-                policy=SpeculativePolicy(0.6), kv_layout="paged")
+                policy=SpeculativePolicy(0.6), kv_layout="auto")
     opts.update(kw)
+    prof = None
+    if profile:
+        if mesh.rank == 0:
+            from torch.profiler import ProfilerActivity, schedule
+            prof = torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=1))
+            prof.__enter__()
+        BatchedEngine(Model(e_cfg), Model(c_cfg), mesh=mesh,
+                      **opts).serve_batch(ep, cp, prompts, 2)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.step()
     eng = BatchedEngine(Model(e_cfg), Model(c_cfg), mesh=mesh, **opts)
     timing = {"tick": [], "round": [], "round_bytes": []}
 
@@ -2782,23 +2847,16 @@ def _mesh_drain(mesh, e_cfg, c_cfg, ep, cp, prompts, max_new,
 
     eng.edge.chunk = timed(eng.edge.chunk, "tick")
     eng.spec._round = timed(eng.spec._round, "round")
+    eng.spec._self_round = timed(eng.spec._self_round, "round")
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    prof = None
-    if profile and mesh.rank == 0:
-        from torch.profiler import ProfilerActivity
-        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
-        prof.__enter__()
     t = time.perf_counter()
     traces = eng.serve_batch(ep, cp, prompts, max_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     if prof is not None:
         prof.__exit__(None, None, None)
-        timing["busy_ms"] = sum(
-            getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-            for e in prof.key_averages()) / 1e3
+        timing["busy_ms"] = device_activity(prof)[0]
     launches = ops.launch_counts()
     return traces, eng.stats(), launches, timing, wall
 
@@ -2830,15 +2888,32 @@ def _mesh_rank(rank, plan):
         cp = init_placed(Model(c_cfg), 1, mesh, dev)
         return e_cfg, c_cfg, ep, cp
 
+    def drain(name, e_cfg, c_cfg, ep, cp, prompts, max_new, **kw):
+        res = _mesh_drain(mesh, e_cfg, c_cfg, ep, cp, prompts, max_new,
+                          **kw)
+        note(f"{name} drain done ({res[4]:.1f}s)")
+        return res
+
+    def lane(name, e_cfg, c_cfg, ep, cp):
+        prompts = _prompts(e_cfg.vocab_size)
+        traces, st, launches, timing, wall = drain(
+            name, e_cfg, c_cfg, ep, cp, prompts, MESH_NEW,
+            **paths[name][2])
+        out["lanes"][name] = {
+            "tokens": [tr.tokens for tr in traces],
+            "paths": [tr.path for tr in traces], "stats": st,
+            "launches": launches, "timing": timing, "wall": wall}
+
+    paths = {p[0]: p for p in PATHS}
+    out["lanes"] = {}
     # ---- the default path: paged KV, linear lane, bf16
     e_cfg, c_cfg, ep, cp = pair("smollm-135m")
     note("models built")
     out["params_gib"] = sum(p.numel() * p.element_size()
                             for p in cp.parameters()) / 2**30
     prompts = _prompts(e_cfg.vocab_size)
-    traces, st, launches, timing, wall = _mesh_drain(
-        mesh, e_cfg, c_cfg, ep, cp, prompts, 24, profile=True)
-    note(f"linear drain done ({wall:.1f}s)")
+    traces, st, launches, timing, wall = drain(
+        "linear", e_cfg, c_cfg, ep, cp, prompts, MESH_NEW, profile=True)
     seq = torch.as_tensor([list(p) + tr.tokens
                            for p, tr in zip(prompts, traces)], device=dev)
     finite = []
@@ -2850,7 +2925,11 @@ def _mesh_rank(rank, plan):
                      "launches": launches, "timing": timing, "wall": wall,
                      "finite": finite, "vocab": e_cfg.vocab_size,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    del ep, cp, traces
+    del traces
+    # ---- the tree lane (dense states) and the self lane, same models
+    for name in ("tree", "self"):
+        lane(name, e_cfg, c_cfg, ep, cp)
+    del ep, cp
     torch.cuda.empty_cache()
 
     # ---- the moe edge: one 4096-token prefill per prompt (expert parallel)
@@ -2860,11 +2939,10 @@ def _mesh_rank(rank, plan):
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, e_cfg.vocab_size, MESH_MOE["prompt"])
                .astype("int32") for _ in range(MESH_MOE["n"])]
-    traces, st, launches, timing, wall = _mesh_drain(
-        mesh, e_cfg, c_cfg, ep, cp, prompts, MESH_MOE["new"],
+    traces, st, launches, timing, wall = drain(
+        "moe", e_cfg, c_cfg, ep, cp, prompts, MESH_MOE["new"],
         batch_size=MESH_MOE["n"], prefill_chunk=0,
         policy=SpeculativePolicy(1.1))
-    note(f"moe drain done ({wall:.1f}s)")
     out["moe"] = {"tokens": [tr.tokens for tr in traces], "stats": st,
                   "launches": launches, "wall": wall,
                   "expert_parallel_bytes":
@@ -2872,17 +2950,35 @@ def _mesh_rank(rank, plan):
     del ep, cp, traces
     torch.cuda.empty_cache()
 
-    # ---- float32 parity at 2 layers per model, full width
-    e_cfg, c_cfg, ep, cp = pair("smollm-135m", (2, 2), "float32")
-    prompts = _prompts(e_cfg.vocab_size)
-    traces, st, launches, _, wall = _mesh_drain(
-        mesh, e_cfg, c_cfg, ep, cp, prompts, MESH_PARITY_NEW)
-    note(f"parity drain done ({wall:.1f}s)")
-    out["parity"] = {"tokens": [tr.tokens for tr in traces],
-                     "paths": [tr.path for tr in traces], "stats": st,
-                     "launches": launches, "wall": wall}
+    # ---- the recurrent edge: mamba2-370m on data-split recurrent states
+    e_cfg, c_cfg, ep, cp = pair("mamba2-370m")
+    note("mamba2 models built")
+    lane("mamba2", e_cfg, c_cfg, ep, cp)
+    del ep, cp
+    torch.cuda.empty_cache()
+
+    # ---- float32 parity per lane at PARITY_DEPTH, full width
+    out["parity"] = {}
+    for name in MESH_PARITY:
+        edge, kw = paths[name][1], _parity_kw(paths[name][2])
+        e_cfg, c_cfg, ep, cp = pair(edge, PARITY_DEPTH[edge], "float32")
+        prompts = _prompts(e_cfg.vocab_size)
+        traces, st, launches, _, wall = drain(
+            f"{name} parity", e_cfg, c_cfg, ep, cp, prompts,
+            MESH_PARITY_NEW, **kw)
+        out["parity"][name] = {"tokens": [tr.tokens for tr in traces],
+                               "paths": [tr.path for tr in traces],
+                               "stats": st, "launches": launches,
+                               "wall": wall}
+        del ep, cp
     out["moved"] = dict(mesh.moved)
     return out
+
+
+def _parity_kw(kw):
+    """A path's engine settings at ``PARITY_DEPTH``: the self lane drafts
+    with the first of two layers."""
+    return {**kw, "spec_exit_layer": 1} if "spec_exit_layer" in kw else kw
 
 
 def _pct(xs, q=50):
@@ -2895,7 +2991,6 @@ def phase_mesh(total):
     ``MESH_*``); adds every rank's launches to ``total``."""
     import torch
     from repro_torch.launch.mesh import spawn_ranks
-    from repro_torch.models import Model
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     store = ROOT / "build" / f"mesh_store_{int(time.time() * 1e3)}"
@@ -2915,9 +3010,9 @@ def phase_mesh(total):
         L = r["linear"]
         check(L["tokens"] == lin[0]["tokens"],
               f"[mesh] rank {r['rank']} served other tokens than rank 0")
-        check(all(len(t) == 24 and all(0 <= x < V for x in t)
+        check(all(len(t) == MESH_NEW and all(0 <= x < V for x in t)
                   for t in L["tokens"]), f"[mesh] rank {r['rank']}: a "
-              "request lacks its 24 tokens")
+              f"request lacks its {MESH_NEW} tokens")
         check(all(L["finite"]), f"[mesh] rank {r['rank']}: non-finite "
               "logits over the served sequences")
         for k in MESH_KERNELS:
@@ -2933,10 +3028,6 @@ def phase_mesh(total):
     st = lin[0]["stats"]
     tick = [t for r in lin for t in r["timing"]["tick"]]
     rnd = [t for r in lin for t in r["timing"]["round"]]
-    per_round = {}
-    for b in lin[0]["timing"]["round_bytes"]:
-        for k, n in b.items():
-            per_round.setdefault(k, []).append(n)
     print(f"[mesh] linear path (smollm-135m edge x {MESH_CLOUD_LAYERS}-layer "
           f"granite-8b, bf16): paths {_count_paths(lin[0]['paths'])}; "
           f"{st['ticks']} ticks, {len(lin[0]['timing']['round'])} rounds "
@@ -2961,8 +3052,7 @@ def phase_mesh(total):
           "round" if busy is not None else
           "[mesh] rank 0 device busy: not measured", flush=True)
     print("[mesh] bytes moved per round on rank 0 (median): "
-          + "; ".join(f"{k} {_pct(v) / 1e6:.3f} MB"
-                      for k, v in sorted(per_round.items()))
+          + _per_round_bytes(lin[0]["timing"])
           + "; whole phase on rank 0: "
           + "; ".join(f"{k} {n / 1e6:.1f} MB"
                       for k, n in sorted(ranks[0]["moved"].items())),
@@ -2986,46 +3076,126 @@ def phase_mesh(total):
           f"{moe[0]['expert_parallel_bytes']} B of aux means), wall "
           f"{moe[0]['wall']:.2f}s", flush=True)
 
+    paths = {p[0]: p for p in PATHS}
+    for name in MESH_LANES:
+        _mesh_lane_report(name, paths[name], ranks, total)
+
     # ---- float32 parity against the unsharded engine in this process
-    par = [r["parity"] for r in ranks]
+    for name in MESH_PARITY:
+        _mesh_parity(name, paths[name], ranks, total)
+    print(f"[mesh] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
+def _per_round_bytes(timing):
+    """Median bytes per round of each collective ("<op>/<axes>")."""
+    per_round = {}
+    for b in timing["round_bytes"]:
+        for k, n in b.items():
+            per_round.setdefault(k, []).append(n)
+    return "; ".join(f"{k} {_pct(v) / 1e6:.3f} MB"
+                     for k, v in sorted(per_round.items()))
+
+
+def _mesh_lane_report(name, path, ranks, total):
+    """Check and print one ``MESH_LANES`` drain: every request served its
+    ``MESH_NEW`` tokens, the same on every rank, with the kernels of its
+    ``PATHS`` entry launched on every rank; ms per tick and round, the bytes per
+    collective per round and this rank's state bytes against the whole
+    state's (what the unsharded engine holds)."""
+    _, edge, kw, kernels = path
+    runs = [r["lanes"][name] for r in ranks]
+    for r, run in zip(ranks, runs):
+        check(run["tokens"] == runs[0]["tokens"],
+              f"[mesh] {name}: rank {r['rank']} served other tokens than "
+              "rank 0")
+        check(all(len(t) == MESH_NEW for t in run["tokens"]),
+              f"[mesh] {name}: rank {r['rank']}: a request lacks its "
+              f"{MESH_NEW} tokens")
+        check(run["stats"]["spec_mode"] == kw.get("spec_mode", "linear"),
+              f"[mesh] {name}: served lane {run['stats']['spec_mode']}")
+        for k in kernels:
+            check(run["launches"][k] > 0, f"[mesh] {name}: kernel {k} was "
+                  f"not launched on rank {r['rank']} {r['coords']}")
+        for k, n in run["launches"].items():
+            total[k] += n
+    st, timing = runs[0]["stats"], runs[0]["timing"]
+    tick = [t for run in runs for t in run["timing"]["tick"]]
+    rnd = [t for run in runs for t in run["timing"]["round"]]
+    rank_b = st.get("kv_rank_bytes",
+                    st["kv_capacity_bytes"] // st.get("kv_shards", 1))
+    print(f"[mesh] {name} lane ({edge} edge, {st['kv_layout']} KV, "
+          f"{st['spec_mode']} lane, x {MESH_CLOUD_LAYERS}-layer granite-8b, "
+          f"bf16): paths {_count_paths(runs[0]['paths'])}; {st['ticks']} "
+          f"ticks, {len(timing['round'])} rounds on each rank; wall "
+          f"{runs[0]['wall']:.2f}s; per tick median host issue "
+          f"{_pct([h for h, _ in tick]):.1f} ms, stream span "
+          f"{_pct([d for _, d in tick]):.1f} ms; per round host issue "
+          f"{_pct([h for h, _ in rnd]):.1f} ms, stream span "
+          f"{_pct([d for _, d in rnd]):.1f} ms; serving state per rank "
+          f"{rank_b} B of {st['kv_capacity_bytes']} B (whole), escalation "
+          f"groups' peak {st.get('kv_group_peak_bytes', 0)} B (whole); "
+          f"launches per rank "
+          + ", ".join(f"{k} {[run['launches'][k] for run in runs]}"
+                      for k in kernels), flush=True)
+    print(f"[mesh] {name} lane bytes moved per round on rank 0 (median): "
+          + _per_round_bytes(timing), flush=True)
+
+
+def _mesh_parity(name, path, ranks, total):
+    """The float32 drain of one path on the mesh (every rank the same
+    tokens) against the unsharded engine here, at ``PARITY_DEPTH``: traces
+    identical but for near ties (the plain top-2 gap of the model that
+    chose the token below ``GAP_TOL``)."""
+    import torch
+    from repro_torch.models import Model
+    _, edge, kw, _ = path
+    kw = _parity_kw(kw)
+    par = [r["parity"][name] for r in ranks]
     for r, p in zip(ranks, par):
-        check(p["tokens"] == par[0]["tokens"], f"[mesh] parity: rank "
+        check(p["tokens"] == par[0]["tokens"], f"[mesh] {name} parity: rank "
               f"{r['rank']} tokens differ from rank 0's")
         for k, n in p["launches"].items():
             total[k] += n
-    e_cfg, c_cfg = _configs("smollm-135m", (2, 2), "float32")
+    e_cfg, c_cfg = _configs(edge, PARITY_DEPTH[edge], "float32")
     ep = Model(e_cfg).init(seed=0, device="cuda")
     cp = Model(c_cfg).init(seed=1, device="cuda")
     prompts = _prompts(e_cfg.vocab_size)
-    eng = _engine(e_cfg, c_cfg, kv_layout="paged")
+    eng = _engine(e_cfg, c_cfg, **kw)
     base = eng.serve_batch(ep, cp, prompts, MESH_PARITY_NEW)
-    st0 = eng.stats()
-    check(par[0]["stats"]["kv_capacity_blocks"] > st0["kv_capacity_blocks"],
-          f"[mesh] kv_capacity_blocks {par[0]['stats']['kv_capacity_blocks']}"
-          f" not above the unsharded {st0['kv_capacity_blocks']}")
+    st0, st = eng.stats(), par[0]["stats"]
+    if "kv_capacity_blocks" in st0:
+        check(st["kv_capacity_blocks"] > st0["kv_capacity_blocks"],
+              f"[mesh] kv_capacity_blocks {st['kv_capacity_blocks']} not "
+              f"above the unsharded {st0['kv_capacity_blocks']}")
     excused = 0
     for i, (a, b) in enumerate(zip(par[0]["tokens"], base)):
         if a == b.tokens:
             continue
         j = _first_divergence(a, b.tokens)
-        edge_chose = b.path == "edge"
+        # the model that chose the token: the edge for edge output and on
+        # the self lane, else the cloud
+        edge_chose = b.path == "edge" or name == "self"
         params, cfg = (ep, e_cfg) if edge_chose else (cp, c_cfg)
         gap = _top2_gap(prompts[i], b.tokens[:j], params, cfg)
-        print(f"[mesh] parity request {i} diverges at token {j}: unsharded "
-              f"top-2 gap {gap:.3e}", flush=True)
-        check(gap < GAP_TOL, f"[mesh] parity request {i}: divergence at "
-                             f"token {j} with a top-2 gap {gap} >= {GAP_TOL}")
+        print(f"[mesh] {name} parity request {i} diverges at token {j}: "
+              f"unsharded top-2 gap {gap:.3e}", flush=True)
+        check(gap < GAP_TOL, f"[mesh] {name} parity request {i}: divergence "
+                             f"at token {j} with a top-2 gap {gap} >= "
+                             f"{GAP_TOL}")
         excused += 1
-    print(f"[mesh] float32 parity (2-layer smollm-135m + 2-layer granite-8b, "
-          f"full width, {MESH_PARITY_NEW} new): mesh vs unsharded "
+    print(f"[mesh] {name} float32 parity ({e_cfg.num_layers}-layer {edge} + "
+          f"{c_cfg.num_layers}-layer granite-8b, full width, "
+          f"{st['kv_layout']} KV, {st['spec_mode']} lane, "
+          f"{MESH_PARITY_NEW} new): mesh vs unsharded "
           f"{len(base) - excused}/{len(base)} traces identical, {excused} "
-          f"near-tie divergences; kv_capacity_blocks "
-          f"{par[0]['stats']['kv_capacity_blocks']} vs "
-          f"{st0['kv_capacity_blocks']}", flush=True)
+          f"near-tie divergences; kv_capacity_bytes {st['kv_capacity_bytes']}"
+          f" vs {st0['kv_capacity_bytes']}"
+          + (f", kv_capacity_blocks {st['kv_capacity_blocks']} vs "
+             f"{st0['kv_capacity_blocks']}" if "kv_capacity_blocks" in st0
+             else ""), flush=True)
     del ep, cp
     torch.cuda.empty_cache()
-    print(f"[mesh] phase wall {time.perf_counter() - t_phase:.1f}s",
-          flush=True)
 
 
 def _count_paths(items):
@@ -3121,7 +3291,7 @@ def phase_parity():
             c_cfg, cp = c_new, Model(c_new).init(seed=1, device="cuda")
         prompts = _prompts(e_cfg.vocab_size)
         if name == "self":
-            kw = {**kw, "spec_exit_layer": 1}     # 2 layers: exit after 1
+            kw = _parity_kw(kw)
             parity_per_request(ep, cp, e_cfg, c_cfg, prompts)
         runs = {}
         for backend in ("auto", "plain"):
@@ -3151,6 +3321,7 @@ def phase_parity():
               f"granite-8b), kernels vs plain: "
               f"{len(prompts) - excused}/{len(prompts)} traces identical, "
               f"{excused} near-tie divergences", flush=True)
+        lap(f"parity {name}")
     del ep, cp
     torch.cuda.empty_cache()
     for arch in ("whisper-small", "paligemma-3b"):
@@ -3174,28 +3345,23 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
     try:
         phase_build()
+        lap("build")
         kernels = phase_kernels()
-        print(f"[time] build + kernel checks {time.perf_counter() - t0:.0f}s",
-              flush=True)
+        lap("build + kernel checks")
         launches = phase_serve()
-        print(f"[time] + serve and breakdown {time.perf_counter() - t0:.0f}s",
-              flush=True)
+        lap("+ serve and breakdown")
         phase_stub_families(launches)
-        print(f"[time] + encdec and vlm {time.perf_counter() - t0:.0f}s",
-              flush=True)
+        lap("+ encdec and vlm")
         phase_learn(launches)
-        print(f"[time] + adaptation and training "
-              f"{time.perf_counter() - t0:.0f}s", flush=True)
+        lap("+ adaptation and training")
         phase_mesh(launches)
-        print(f"[time] + mesh {time.perf_counter() - t0:.0f}s", flush=True)
+        lap("+ mesh")
         phase_examples()
-        print(f"[time] + examples {time.perf_counter() - t0:.0f}s",
-              flush=True)
+        lap("+ examples")
         phase_parity()
-        print(f"[time] + parity {time.perf_counter() - t0:.0f}s", flush=True)
+        lap("+ parity")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

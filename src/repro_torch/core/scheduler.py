@@ -45,10 +45,13 @@ the PyTorch twin of the JAX package's ``core/scheduler.py``.
     DATA-parallel (the slots split over the data axes, params
     replicated), the cloud verifier TENSOR-parallel over 'model' (params
     placed by ``launch/sharding.py``).  Every host pull returns the whole
-    batch on every rank, so every rank makes the same decisions.  The
-    mesh serves the paged layout on the linear lane; the dense and
-    recurrent layouts, the tree and self lanes and serve-time adaptation
-    are refused there with ``NotImplementedError`` (ROADMAP A.8).
+    batch on every rank, so every rank makes the same decisions.  Every
+    lane (linear, tree, self) and every layout (paged, dense, recurrent)
+    is served there, each state a rank's local view
+    (``core/seq_state.py``); serve-time adaptation is refused with
+    ``NotImplementedError`` (ROADMAP A.8), as are a moe cloud and query
+    and kv heads that split differently over 'model' (when ``run``
+    places the cloud, ``launch/sharding.py``).
 """
 from __future__ import annotations
 
@@ -191,7 +194,10 @@ class BatchedEngine:
         self.mesh = mesh
         self._data_shards = 1
         if mesh is not None:
-            self._mesh_refusals(adaptation)
+            if adaptation is not None:
+                raise NotImplementedError(
+                    "serve-time adaptation on a device mesh is not ported "
+                    "(ROADMAP A.8)")
             dp = 1
             for a in mesh.axis_names:
                 if a != "model":
@@ -231,10 +237,6 @@ class BatchedEngine:
         if mode == "self" and not BatchedSpecDecoder.self_supported(
                 edge_model):
             mode = "linear"
-        if mesh is not None and mode != "linear":
-            raise NotImplementedError(
-                f"spec_mode {mode!r} on a device mesh is not ported; the "
-                "mesh serves the linear lane (ROADMAP A.8)")
         self.spec_mode = mode
         if mode == "tree":
             self.spec = BatchedSpecDecoder(
@@ -272,18 +274,6 @@ class BatchedEngine:
         self._prefill_jobs: Dict[int, dict] = {}    # slot -> chunked job
         self._events: Dict[int, dict] = {}          # rid -> lifecycle stamps
         self._gen: Optional[torch.Generator] = None
-
-    def _mesh_refusals(self, adaptation):
-        """What the mesh path does not serve yet (ROADMAP A.8)."""
-        if self.kv_layout != "paged":
-            raise NotImplementedError(
-                f"kv_layout {self.kv_layout!r} on a device mesh is not "
-                "ported: the mesh serves the paged layout of KV-cache "
-                "families on both models (ROADMAP A.8)")
-        if adaptation is not None:
-            raise NotImplementedError(
-                "serve-time adaptation on a device mesh is not ported "
-                "(ROADMAP A.8)")
 
     # ------------------------------------------------------------ submit
     def submit(self, prompt, max_new: int, at: Optional[float] = None,

@@ -11,6 +11,7 @@ its expert dispatch).
 """
 from __future__ import annotations
 
+import itertools
 from typing import List
 
 import torch
@@ -24,16 +25,22 @@ def partial_extend_step(params, tokens, cache, cfg, k: int, *,
     """Run the first ``k`` blocks + final norm + head over a dense cache,
     writing layers [0, k) at [pos, pos+T) IN PLACE.  Returns (logits
     (B, T, V), cache); ``pos`` is NOT advanced — draft positions stay
-    provisional until verification, and the caller manages them."""
+    provisional until verification, and the caller manages them.
+    Parameters placed on a mesh (``params.tp``, e.g. an edge attending its
+    own heads through ``launch/sharding.local_attention``) run on their
+    local heads, their partial outputs summed over 'model', as the full
+    steps in ``models/transformer.py`` do."""
     pos = cache["pos"]
     win = window or cfg.sliding_window
-    h = L.embed(params.embed, tokens).to(TR.dtype_of(cfg.activ_dtype))
-    for l, blk in enumerate(params.blocks[:k]):
+    tp = TR._tp(params)
+    cfg = TR._cfg(params, cfg)
+    h = TR._tokens(params, tokens, cfg)
+    for l, blk in enumerate(itertools.islice(TR._blocks(params), k)):
         a, _, _ = L.extend_attention(
             blk.attn, L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
             cache["k"][l], cache["v"][l], pos, cfg, window=win)
-        h = h + a
-        h = h + TR._mlp(blk, h, cfg)
+        h = h + TR._attn_sum(params, a)
+        h = h + TR._mlp(blk, h, cfg, tp)
     return TR._logits(params, h, cfg), cache
 
 

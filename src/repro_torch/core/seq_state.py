@@ -37,23 +37,33 @@ recurrent models' steps return new state tensors, and ``pos`` is always
 replaced by a new tensor, so a snapshot never aliases live state except
 through the slabs, which the recurrent snapshot copies.
 
-On a device mesh (``BatchedEngine(mesh=)``, the paged layout): the host
-bookkeeping is global and identical on every rank — one ``PagedKV`` per
-state with a ``ShardedBlockPool`` when the edge's slots split over the
-data axes — while each rank's device cache holds only its LOCAL view
-(``ShardView``, under ``caches["shard"]``): its data shard's slot rows and
-block range (local ids: the global id less ``shard * per_shard``, so each
-shard's trap is its local block 0) and its model rank's part of every
-block's bytes (kv-heads, else the head dim; ``kv_ways`` of them).  A lane
-whose attention runs on the local kv-heads — the tensor-parallel cloud, and
-the edge through ``launch/sharding.local_attention`` — computes on exactly
-those heads.  A pool split on the head dim under replicated attention (an
-edge whose kv-heads do not divide 'model') gathers, for every decode step,
-the blocks its slots' tables name over 'model' into a full-width working
-pool, runs the step's kernel on it and writes its own part back
-(``ShardView.run``).  ``Lane.chunk`` runs a data-split state on
-this rank's slots and all-gathers the tick's tapes over the data axes, so
-every rank's host pull sees the whole batch and makes the same decisions.
+On a device mesh (``BatchedEngine(mesh=)``): the host bookkeeping is
+global and identical on every rank, while each rank's device cache holds
+only its LOCAL view (under ``caches["shard"]``): its data shard's slot
+rows when the lane's slots split over the data axes, and its model rank's
+part of the attention K/V (kv-heads, else the head dim; ``kv_ways`` of
+them).  A lane whose attention runs on the local kv-heads — the
+tensor-parallel cloud, and the edge through
+``launch/sharding.local_attention`` — computes on exactly those heads; a
+lane whose attention is replicated over 'model' on split K/V (an edge
+whose kv-heads do not divide 'model', the hybrid's shared block) gathers
+full-width K/V for every step, runs it, and writes its own part back.
+
+  - ``PagedKV`` (``ShardView``): one global pool with a
+    ``ShardedBlockPool`` when the edge's slots split, a rank holding its
+    shard's block range (local ids: the global id less ``shard *
+    per_shard``, so each shard's trap is its local block 0); a replicated
+    step gathers only the blocks its slots' tables name
+    (``ShardView.run``).
+  - ``DenseKV`` / ``RecurrentState`` (``DenseView``): a rank holds its
+    slot rows of every leaf, sized from the lane's local config; the
+    recurrent states' own leaves stay whole over 'model' (the edge's
+    weights are whole on every rank, so a split would cost a gather a
+    step and save no compute), the hybrid's K/V slabs split as above.
+
+``Lane.chunk`` runs a data-split state on this rank's slots and
+all-gathers the tick's tapes over the data axes, so every rank's host pull
+sees the whole batch and makes the same decisions.
 """
 from __future__ import annotations
 
@@ -73,11 +83,13 @@ from repro_torch.core.paged_cache import (BlockPool, ShardedBlockPool,
 from repro_torch.launch.sharding import kv_shard_ways
 from repro_torch.core.uncertainty import get_batched_estimator
 from repro_torch.models import transformer
-from repro_torch.models.model import require_token_prompts
+from repro_torch.models.model import Model, require_token_prompts
 from repro_torch.models.ssm import tree_leaves, tree_map
 
 # cache entries holding attention slabs (slot axis second, written in place)
 SLABS = ("k", "v")
+# the cache entry holding a state's local view on a device mesh
+VIEW = "shard"
 
 
 # ---------------------------------------------------------------- host pull
@@ -147,7 +159,7 @@ def write_slots(slots, bs: List[int], caches: List):
         return write
 
     for key, big in slots.items():
-        if key != "pos":
+        if key not in ("pos", VIEW):
             tree_map(put(1 if key in SLABS else 0), big,
                      *(c[key] for c in caches))
     pos = slots["pos"].clone()
@@ -194,28 +206,39 @@ def resolve_kv_layout(edge_model, cloud_model, kv_layout: str) -> str:
     return kv_layout
 
 
-# ---------------------------------------------------------------- mesh view
-class ShardView:
-    """One rank's LOCAL view of a paged state on a device mesh (see the
-    module docstring): which slots and blocks it holds and which part of
-    each block's bytes.
+# ---------------------------------------------------------------- mesh views
+def local_kv(cfg, kv_ways: int):
+    """The config of a rank's part of the attention K/V split ``kv_ways``
+    ways over 'model' — kv-heads when they divide, else the head dim, as
+    ``launch/sharding.cache_spec`` places them — and the dim of a (L, B,
+    S|bs, Kv, hd) slab it cuts (3, 4, or None when unsplit)."""
+    if kv_ways <= 1:
+        return cfg, None
+    if cfg.num_kv_heads % kv_ways == 0:
+        return cfg.replace(num_kv_heads=cfg.num_kv_heads // kv_ways), 3
+    return cfg.replace(head_dim=cfg.head_dim // kv_ways), 4
+
+
+class LocalView:
+    """One rank's LOCAL view of a state on a device mesh (see the module
+    docstring): which slots it holds and which part of the K/V bytes.
 
     ``sharded``: the slots split over the data axes (this rank holds rows
-    ``[lo, hi)`` of the batch and block ids ``[base, base + per_shard)``);
-    ``kv_dim`` (3 heads, 4 head dim, None) and ``kv_ways``: the split of
-    each block over 'model'; ``gather``: the lane's attention is replicated
-    over 'model' (params replicated or the head-count fallback), so a step
-    computes full-width K/V and the pool keeps this rank's part."""
+    ``[lo, hi)`` of the batch); ``kv_dim`` (3 heads, 4 head dim, None) and
+    ``kv_ways``: the split of the K/V over 'model'; ``gather``: the lane's
+    attention is replicated over 'model' (params replicated or the
+    head-count fallback), so a step computes full-width K/V and the state
+    keeps this rank's part."""
 
-    def __init__(self, mesh, batch: int, data_shards: int, per_shard: int,
-                 kv_ways: int, kv_dim: Optional[int], gather: bool):
+    def __init__(self, mesh, batch: int, data_shards: int, kv_ways: int,
+                 kv_dim: Optional[int], gather: bool):
         self.mesh = mesh
         self.batch = batch
         self.sharded = data_shards > 1
         n = batch // data_shards if self.sharded else batch
-        d = mesh.axis_index(runtime.data_axes()) if self.sharded else 0
-        self.lo, self.hi = d * n, (d + 1) * n
-        self.base = d * per_shard if self.sharded else 0
+        self.shard = mesh.axis_index(runtime.data_axes()) \
+            if self.sharded else 0
+        self.lo, self.hi = self.shard * n, (self.shard + 1) * n
         self.kv_ways = kv_ways
         self.kv_dim = kv_dim if kv_ways > 1 else None
         self.gather = gather and self.kv_dim is not None
@@ -228,17 +251,34 @@ class ShardView:
         """This rank's slot rows of a whole-batch tensor."""
         return x[self.lo:self.hi] if self.sharded else x
 
-    def local_ids(self, ids) -> List[int]:
-        return [int(i) - self.base for i in ids]
-
     def kv_part(self, x):
-        """This rank's part of full-width K/V blocks (..., Kv, hd) — the
-        identity when the lane computed only its own heads."""
+        """This rank's part of full-width K/V (..., Kv, hd) — the identity
+        when the lane computed only its own heads."""
         if not self.gather:
             return x
         dim = x.dim() - 5 + self.kv_dim
         w = x.shape[dim] // self.kv_ways
         return x.narrow(dim, self.part * w, w)
+
+    def gather_kv(self, k, v):
+        """Full-width K and V from every model rank's part: ONE all-gather
+        over 'model' of the two stacked."""
+        full = self.mesh.all_gather(torch.stack([k, v]), "model",
+                                    dim=1 + self.kv_dim)
+        return full[0], full[1]
+
+
+class ShardView(LocalView):
+    """The local view of a paged state: also the block range ``[base,
+    base + per_shard)`` this rank's data shard owns."""
+
+    def __init__(self, mesh, batch: int, data_shards: int, per_shard: int,
+                 kv_ways: int, kv_dim: Optional[int], gather: bool):
+        super().__init__(mesh, batch, data_shards, kv_ways, kv_dim, gather)
+        self.base = self.shard * per_shard
+
+    def local_ids(self, ids) -> List[int]:
+        return [int(i) - self.base for i in ids]
 
     def run(self, fn, caches):
         """Run a paged step ``fn(caches) -> (logits, caches)`` on full-width
@@ -252,15 +292,42 @@ class ShardView:
             return fn(caches)
         table = caches["table"]
         ids = table.reshape(-1).long()
-        kv = torch.stack([caches["k"][:, ids], caches["v"][:, ids]])
-        full = self.mesh.all_gather(kv, "model", dim=1 + self.kv_dim)
-        work = {"k": full[0], "v": full[1], "pos": caches["pos"],
+        k, v = self.gather_kv(caches["k"][:, ids], caches["v"][:, ids])
+        work = {"k": k, "v": v, "pos": caches["pos"],
                 "table": torch.arange(ids.numel(), dtype=torch.int32,
                                       device=ids.device).view(table.shape)}
         lg, work = fn(work)
         caches["k"][:, ids] = self.kv_part(work["k"])
         caches["v"][:, ids] = self.kv_part(work["v"])
         return lg, {**caches, "pos": work["pos"]}
+
+
+class DenseView(LocalView):
+    """The local view of a dense or recurrent state: this rank's slot rows
+    of every leaf, and its part of the K/V slabs."""
+
+    def own(self, cache):
+        """This rank's part of a freshly prefilled single-sequence cache."""
+        if not self.gather or "k" not in cache:
+            return cache
+        return {**cache, "k": self.kv_part(cache["k"]),
+                "v": self.kv_part(cache["v"])}
+
+    def run(self, fn, caches):
+        """Run ``fn(caches) -> (out, caches)`` on this rank's rows: the view
+        entry is set aside (the recurrent steps build new dicts), and a
+        replicated lane on split K/V slabs first gathers them to full
+        width (one all-gather over 'model', K and V together), then writes
+        its own part of what the step left in them back."""
+        work = {k: v for k, v in caches.items() if k != VIEW}
+        if self.gather:
+            work["k"], work["v"] = self.gather_kv(work["k"], work["v"])
+        out, new = fn(work)
+        if self.gather:
+            caches["k"].copy_(self.kv_part(new["k"]))
+            caches["v"].copy_(self.kv_part(new["v"]))
+            new = {**new, "k": caches["k"], "v": caches["v"]}
+        return out, {**new, VIEW: self}
 
 
 # ---------------------------------------------------------------- spec ops
@@ -277,29 +344,27 @@ class SpecOps:
         self.layout = layout
         self.attn_backend = attn_backend
 
+    def run(self, caches, fn):
+        """``fn(caches) -> (out, caches)`` on the state's local view on a
+        device mesh (``ShardView.run`` / ``DenseView.run``), else
+        directly."""
+        view = caches.get(VIEW)
+        return fn(caches) if view is None else view.run(fn, caches)
+
     def step(self, params, tok, caches):
         """tok (G, 1, 1) -> (logits (G, V), caches)."""
-        if self.layout == "paged":
-            view = caches.get("shard")
-            if view is not None:
-                return view.run(lambda c: self.model.paged_decode_step(
-                    params, tok[:, :, 0], c, attn_backend=self.attn_backend),
-                    caches)
-            return self.model.paged_decode_step(
-                params, tok[:, :, 0], caches, attn_backend=self.attn_backend)
-        return self.model.decode_step(params, tok[:, :, 0], caches,
-                                      attn_backend=self.attn_backend)
+        step = self.model.paged_decode_step if self.layout == "paged" \
+            else self.model.decode_step
+        return self.run(caches, lambda c: step(
+            params, tok[:, :, 0], c, attn_backend=self.attn_backend))
 
     def extend(self, params, tokens, caches):
         """tokens (G, T) -> (logits (G, T, V), caches)."""
         if self.layout == "paged":
-            view = caches.get("shard")
-            if view is not None:
-                return view.run(lambda c: self.model.paged_extend_step(
-                    params, tokens, c), caches)
-            return self.model.paged_extend_step(params, tokens, caches)
-        return self.model.extend_step(params, tokens, caches,
-                                      attn_backend=self.attn_backend)
+            return self.run(caches, lambda c: self.model.paged_extend_step(
+                params, tokens, c))
+        return self.run(caches, lambda c: self.model.extend_step(
+            params, tokens, c, attn_backend=self.attn_backend))
 
     def extend_tree(self, params, tokens, caches, block_mask, depths):
         """Tree-masked extend: each slot's ``tokens`` (G, T) row is a packed
@@ -311,11 +376,10 @@ class SpecOps:
             raise ValueError(
                 f"token trees need a dense-layout attention model; got "
                 f"layout {self.layout!r}")
-        q_pos = caches["pos"].long()[:, None] + depths.long()[None, :]
-        return self.model.extend_step(params, tokens, caches,
-                                      block_mask=block_mask,
-                                      q_positions=q_pos,
-                                      attn_backend=self.attn_backend)
+        return self.run(caches, lambda c: self.model.extend_step(
+            params, tokens, c, block_mask=block_mask,
+            q_positions=c["pos"].long()[:, None] + depths.long()[None, :],
+            attn_backend=self.attn_backend))
 
     def reset(self, caches, snap):
         """Roll the group back to the pre-round snapshot WITHOUT committing
@@ -376,8 +440,9 @@ class SpecOps:
         ``replay_step`` from the snapshot — each slot re-advances through
         its own prefix."""
         if self.layout == "recurrent":
-            return self.model.replay_step(params, tokens, snap, counts,
-                                          attn_backend=self.attn_backend)
+            return self.run(snap, lambda c: (None, self.model.replay_step(
+                params, tokens, c, counts,
+                attn_backend=self.attn_backend)))[1]
         return {**caches, "pos": (snap + counts).to(torch.int32)}
 
 
@@ -461,16 +526,34 @@ class SequenceState:
 
 class DenseKV(SequenceState):
     """Dense stacked slot caches: every slot padded to a common
-    ``slot_len`` (kept as the parity oracle)."""
+    ``slot_len`` (kept as the parity oracle).
+
+    With a ``mesh`` the device cache is this rank's local view
+    (``DenseView``): its slot rows when ``data_shards > 1``, sized from
+    the lane's local config (its part of the K/V over 'model', ``kv_ways``
+    of them); admissions prefill every slot on every rank (a prefill may
+    run collectives every rank must join) and land only this rank's rows.
+    ``capacity_bytes`` stays global; ``stats()`` adds this rank's bytes."""
 
     layout = "dense"
 
-    def __init__(self, lane: "Lane", params, batch: int, slot_len: int):
+    def __init__(self, lane: "Lane", params, batch: int, slot_len: int, *,
+                 data_shards: int = 1, mesh=None, kv_gather: bool = False):
         self.lane = lane
         self.params = params
         self.slot_len = slot_len
-        self.caches = stack_slot_caches(lane.model, batch, slot_len,
+        self.view = None
+        model, rows = lane.model, batch
+        if mesh is not None:            # sized from this rank's config
+            ways = lane.kv_ways if lane.model.kv_slabs else 1
+            cfg, kv_dim = local_kv(lane.model.cfg, ways)
+            self.view = DenseView(mesh, batch, data_shards, ways, kv_dim,
+                                  kv_gather)
+            model, rows = Model(cfg), self.view.hi - self.view.lo
+        self.caches = stack_slot_caches(model, rows, slot_len,
                                         params.embed.device)
+        if self.view is not None:
+            self.caches[VIEW] = self.view
         self._pend_bs: List[int] = []
         self._pend_caches: List[Any] = []
 
@@ -491,10 +574,39 @@ class DenseKV(SequenceState):
         return self.slot_len
 
     def flush(self):
-        if self._pend_bs:   # one scatter for the whole admission wave
-            self.caches = write_slots(self.caches, self._pend_bs,
-                                      self._pend_caches)
-            self._pend_bs, self._pend_caches = [], []
+        if not self._pend_bs:
+            return
+        bs, cs = self._pend_bs, self._pend_caches
+        self._pend_bs, self._pend_caches = [], []
+        v = self.view
+        if v is not None:           # this rank's rows, its part of the K/V
+            keep = [i for i, b in enumerate(bs) if v.mine(b)]
+            bs, cs = [bs[i] - v.lo for i in keep], [v.own(cs[i]) for i in keep]
+        if bs:                      # one scatter for the whole admission wave
+            self.caches = write_slots(self.caches, bs, cs)
+
+    def _bytes(self, whole: bool) -> int:
+        """The state's device bytes: this rank's, or (``whole``) every
+        rank's part of it."""
+        n = 0
+        for key, val in self.caches.items():
+            if key == VIEW:
+                continue
+            b = sum(t.nbytes for t in tree_leaves(val))
+            if whole and self.view is not None:
+                b = b * self.view.batch // (self.view.hi - self.view.lo)
+                if key in SLABS and self.view.kv_dim is not None:
+                    b *= self.view.kv_ways
+            n += b
+        return n
+
+    @property
+    def capacity_bytes(self) -> int:
+        return self._bytes(whole=True)
+
+    def stats(self) -> dict:
+        return {} if self.view is None else \
+            {"kv_rank_bytes": self._bytes(whole=False)}
 
 
 class RecurrentState(DenseKV):
@@ -566,21 +678,17 @@ class PagedKV(SequenceState):
         cfg = lane.model.cfg
         self.view = None
         if mesh is not None:
-            kv_dim = 3 if cfg.num_kv_heads % max(kv_ways, 1) == 0 else 4
+            cfg, kv_dim = local_kv(cfg, kv_ways)
             self.view = ShardView(mesh, batch, data_shards,
                                   num_blocks // data_shards, kv_ways, kv_dim,
                                   kv_gather)
-            if self.view.kv_dim == 3:
-                cfg = cfg.replace(num_kv_heads=cfg.num_kv_heads // kv_ways)
-            elif self.view.kv_dim == 4:
-                cfg = cfg.replace(head_dim=cfg.head_dim // kv_ways)
         split = self.view is not None and self.view.sharded
         local_blocks = num_blocks // data_shards if split else num_blocks
         self.caches = transformer.init_paged_cache(
             cfg, local_blocks, block_size, self._spb if split else batch,
             self.max_blocks, device=self.device)
         if self.view is not None:
-            self.caches["shard"] = self.view
+            self.caches[VIEW] = self.view
         # global bytes per block (every shard's part of it)
         self._block_bytes = (self.caches["k"].nbytes + self.caches["v"].nbytes
                              ) * (kv_ways if mesh is not None else 1) \
@@ -1186,7 +1294,7 @@ class Lane:
         serve-time adaptation, pulled with the token tape in the SAME
         batched pull.  ``topk=0`` returns exactly the tuple it always
         has."""
-        view = caches.get("shard")
+        view = caches.get(VIEW)
         B = tok.shape[0]
         if view is not None and view.sharded:   # this rank's slots
             tok, steps_left, unc_sum = (view.rows(tok), view.rows(steps_left),
@@ -1224,19 +1332,14 @@ class Lane:
                    num_blocks: Optional[int] = None) -> SequenceState:
         """Build this lane's decode-state adapter.  ``need_tokens``
         (escalation groups) sizes a paged pool to the group's residency,
-        pow2-bucketed.  On a mesh the paged state is built as this rank's
-        local view (``_place``); the dense and recurrent layouts are not
-        ported to the mesh."""
-        if self.mesh is not None and self.layout != "paged":
-            raise NotImplementedError(
-                f"the {self.layout} layout on a device mesh is not ported; "
-                "the mesh serves the paged layout (ROADMAP A.8)")
-        if self.layout == "recurrent":
-            return RecurrentState(self, params, batch, slot_len)
-        if self.layout == "dense":
-            return DenseKV(self, params, batch, slot_len)
+        pow2-bucketed.  On a mesh every layout is built as this rank's
+        local view (``_place``)."""
         shards = self.data_shards if batch % max(self.data_shards, 1) == 0 \
             else 1
+        if self.layout != "paged":
+            cls = RecurrentState if self.layout == "recurrent" else DenseKV
+            return cls(self, params, batch, slot_len, data_shards=shards,
+                       **self._place(params))
         if num_blocks is None and need_tokens is not None:
             if shards > 1:
                 # per-shard demand: slot i lives on shard i // (batch/S), so
@@ -1256,13 +1359,14 @@ class Lane:
                        **self._place(params))
 
     def _place(self, params) -> dict:
-        """Where a fresh paged state's device arrays live (nothing
-        off-mesh): this rank's local view of the pool — block dim over the
-        data axes, kv-heads (else the head dim) over 'model', as
-        ``launch/sharding.paged_cache_spec`` places them.  ``kv_gather``:
-        this lane's attention is not tensor parallel over the pool's heads
-        (replicated params, or the head-count fallback), so its steps
-        gather full-width blocks (``ShardView.run``)."""
+        """Where a fresh state's device arrays live (nothing off-mesh):
+        this rank's local view — slots (the paged pool's block dim) over
+        the data axes, K/V kv-heads (else the head dim) over 'model', as
+        ``launch/sharding.cache_spec`` and ``paged_cache_spec`` place
+        them.  ``kv_gather``: this lane's attention is not tensor parallel
+        over the K/V heads (replicated params, or the head-count
+        fallback), so its steps gather full-width K/V (``ShardView.run``,
+        ``DenseView.run``)."""
         if self.mesh is None:
             return {}
         tp = getattr(params, "tp", None)

@@ -29,8 +29,8 @@ import torch
 from repro_torch import runtime
 from repro_torch.analysis import hot_path
 from repro_torch.core.self_speculative import partial_extend_step
-from repro_torch.core.seq_state import (SpecOps, host_pull, layout_for,
-                                        next_tokens)
+from repro_torch.core.seq_state import (VIEW, SpecOps, host_pull,
+                                        layout_for, next_tokens)
 from repro_torch.core.tree_speculation import (TreePlan, branching_for,
                                                tree_accept)
 from repro_torch.kernels import ops
@@ -371,14 +371,6 @@ class BatchedSpecDecoder:
             self._tops = SpecOps(model, "dense", attn_backend)
             self._per_round = (gamma, gamma + 1)
 
-    def _linear_only(self):
-        """The mesh serves the linear lane only: the tree and self rounds
-        are refused inside a mesh context."""
-        if self.mode != "linear" and runtime.current_mesh() is not None:
-            raise NotImplementedError(
-                f"the {self.mode} speculation lane on a device mesh is not "
-                "ported; the mesh serves the linear lane (ROADMAP A.8)")
-
     @staticmethod
     def tree_supported(draft_model, target_model) -> bool:
         return (draft_model.cfg.family in FAMILIES_WITH_TREES
@@ -491,9 +483,17 @@ class BatchedSpecDecoder:
         one batched tree-masked target extend over all ``n_pad`` nodes and
         ``tree_accept`` walks the accepted root path.  Every node's row was
         written at RoPE position snap + depth, so BOTH commits are row
-        permutes down to the contiguous prefix: no extra forward pass."""
+        permutes down to the contiguous prefix: no extra forward pass.
+
+        On a mesh (as ``_round``): the edge drafts the trees of this rank's
+        rows, ONE ``gather_wave`` of the tree tokens hands the
+        tensor-parallel cloud the whole wave, ``tree_accept`` walks the
+        local rows against ``scatter_wave`` of the verify logits (the
+        (G, n_pad, V) draft logits never cross), and ONE more gather
+        brings every rank the wave's ``n_acc``, emitted tokens and paths:
+        the edge commits its rows, the cloud the whole wave."""
         plan = self.plan
-        G = last.shape[0]
+        G = active.shape[0]
         D = plan.depth
         dev = last.device
         mask, depths = self._plan_tensors(dev)
@@ -502,7 +502,8 @@ class BatchedSpecDecoder:
 
         # ---- draft: deterministic top-k tree expansion; node c's
         # acceptance distribution q is its PARENT's draft logits
-        toks = torch.zeros((G, plan.n_pad), dtype=torch.int32, device=dev)
+        toks = torch.zeros((last.shape[0], plan.n_pad), dtype=torch.int32,
+                           device=dev)
         toks[:, 0] = last[:, 0, 0]
         q_lgs = [None] * plan.n_pad
         spans = [(0, 1)] + list(plan.levels)     # contiguous: b_i == a_{i+1}
@@ -530,22 +531,30 @@ class BatchedSpecDecoder:
         q_logits = torch.stack([zero if l is None else l for l in q_lgs],
                                dim=1)                           # (G,n_pad,V)
 
-        # ---- verify: ONE batched tree-masked target extend
-        t_lgs, t_slots = self._tops.extend_tree(target_params, toks, t_slots,
-                                                mask, depths)
+        # ---- verify: ONE batched tree-masked target extend of the wave
+        toks_all = runtime.gather_wave(toks, rows=G)
+        t_lgs, t_slots = self._tops.extend_tree(target_params, toks_all,
+                                                t_slots, mask, depths)
         kmax = max(plan.branching)
         u_acc = torch.rand((G, D, kmax), generator=gen, device=dev)
         u_res = torch.rand((G, D + 1), generator=gen, device=dev)
-        n_acc, em, path = tree_accept(t_lgs, q_logits, toks, plan, u_acc,
-                                      u_res, temperature=self.temperature)
+        if toks_all is not toks:            # the wave crossed the data axes
+            t_lgs, u_acc, u_res = (runtime.scatter_wave(x)
+                                   for x in (t_lgs, u_acc, u_res))
+        n_acc_l, em_l, path_l = tree_accept(
+            t_lgs, q_logits, toks, plan, u_acc, u_res,
+            temperature=self.temperature)
+        n_acc, em, path = runtime.gather_wave(n_acc_l, em_l, path_l, rows=G)
         next_tok = em.gather(1, n_acc.long()[:, None])[:, 0]
+        next_l = em_l.gather(1, n_acc_l.long()[:, None])[:, 0]
 
         # ---- commit the accepted root path in both caches (row permutes)
         counts = torch.where(active, n_acc + 1, 0).to(torch.int32)
-        d_slots = self._dops.commit_permute(d_slots, d_snap, path, counts)
+        d_slots = self._dops.commit_permute(d_slots, d_snap, path_l,
+                                            runtime.scatter_wave(counts))
         t_slots = self._tops.commit_permute(t_slots, t_snap, path, counts)
-        last = torch.where(active[:, None, None], next_tok[:, None, None],
-                           last)
+        last = torch.where(runtime.scatter_wave(active)[:, None, None],
+                           next_l[:, None, None], last)
         return d_slots, t_slots, last, em[:, :D], n_acc, next_tok
 
     def _self_round(self, params, slots, last, active, gen):
@@ -554,17 +563,26 @@ class BatchedSpecDecoder:
         (shallow K/V at the draft positions, ``pos`` advanced by hand),
         then the full depth verifies from the snapshot — overwriting every
         layer's K/V at those positions — and the commit is the usual
-        ``pos`` write."""
+        ``pos`` write.
+
+        On a mesh there is no cloud: every rank drafts, verifies and
+        commits its own rows of the data-split state (acceptance uniforms
+        drawn for the whole group and cut to them), and ONE ``gather_wave``
+        of (draft tape, ``n_acc``, next token) gives every rank the whole
+        wave for the host pull.  (The JAX package gathers the verify input
+        and verifies replicated; the tokens are the same.)"""
         gamma = self.gamma
+        G = active.shape[0]
+        view = slots.get(VIEW)
         snap = self._tops.snapshot(slots)
         toks, lgs = [], []
         tok = last
         for _ in range(gamma):
-            lg, slots = partial_extend_step(params, tok[:, :, 0], slots,
-                                            self._cfg, self.exit_layer)
+            lg, slots = self._tops.run(slots, lambda c: partial_extend_step(
+                params, tok[:, :, 0], c, self._cfg, self.exit_layer))
             lg = lg[:, 0]                                        # (G, V)
             slots = {**slots, "pos": slots["pos"] + 1}
-            nxt = next_tokens(lg, self.temperature, gen)
+            nxt = next_tokens(lg, self.temperature, gen, view)
             toks.append(nxt)
             lgs.append(lg)
             tok = nxt[:, None, None]
@@ -574,12 +592,17 @@ class BatchedSpecDecoder:
         ver_in = torch.cat([last[:, :, 0], draft_toks], dim=1)
         slots = self._tops.reset(slots, snap)
         t_logits, slots = self._tops.extend(params, ver_in, slots)
-        n_acc, next_tok = self._accept(t_logits, draft_lgs, draft_toks, gen)
+        split = last.shape[0] != G          # this rank holds a data slice
+        n_acc_l, next_l = self._accept(t_logits, draft_lgs, draft_toks, gen,
+                                       rows=G if split else None)
+        active_l = runtime.scatter_wave(active) if split else active
 
-        counts = torch.where(active, n_acc + 1, 0).to(torch.int32)
+        counts = torch.where(active_l, n_acc_l + 1, 0).to(torch.int32)
         slots = self._tops.commit(params, slots, snap, ver_in, counts)
-        last = torch.where(active[:, None, None], next_tok[:, None, None],
+        last = torch.where(active_l[:, None, None], next_l[:, None, None],
                            last)
+        draft_toks, n_acc, next_tok = runtime.gather_wave(
+            draft_toks, n_acc_l, next_l, rows=G)
         return slots, last, draft_toks, n_acc, next_tok
 
     @hot_path
@@ -595,7 +618,6 @@ class BatchedSpecDecoder:
         if self.mode == "self":
             raise ValueError("the self lane decodes one shared state: use "
                              "generate_group_self")
-        self._linear_only()
         G = last.shape[0]
         remaining = np.array(max_news, np.int64)    # host list, not a sync
         out: List[List[int]] = [[] for _ in range(G)]
@@ -617,11 +639,11 @@ class BatchedSpecDecoder:
         it)."""
         if self.mode != "self":
             raise ValueError("generate_group_self serves the self lane")
-        self._linear_only()
         G = last.shape[0]
         remaining = np.array(max_news, np.int64)    # host list, not a sync
         out: List[List[int]] = [[] for _ in range(G)]
         member_stats = [{"rounds": 0, "accepted": []} for _ in range(G)]
+        last = runtime.scatter_wave(last)       # this rank's rows on a mesh
         while (remaining > 0).any():
             active = torch.as_tensor(remaining > 0, device=last.device)
             slots, last, draft_toks, n_acc, next_tok = self._self_round(

@@ -15,16 +15,20 @@ the ranks of the process group, one process per mesh position —
 data,model`` (or ``--mesh data=2,model=2``).  The cloud verifier runs
 TENSOR-PARALLEL over 'model' (each rank draws only its blocks of the
 cloud's parameters, placed by ``launch/sharding.py``'s rules), edge drafts
-stay DATA-parallel over 'data' (params replicated, batch slots and the
-paged block pool split per data shard), and each grouped escalation wave
-crosses the mesh as one all-gather of the draft tape before the verify.
-Axis sizes are inferred (near-balanced factors of the world size, larger
-trailing) or pinned.  Per-shard KV pools keep the single-device
-per-device byte budget, so ``kv_capacity_blocks`` scales with the shard
-count (the ``shards=`` / ``capacity_blocks=`` stats line).  NCCL when the
-ranks have a card each, gloo when they share one (printed).  Only rank 0
-prints.  The mesh serves the paged layout on the linear lane.  Omitting
-``--mesh`` takes the exact single-device path.
+stay DATA-parallel over 'data' (params replicated, batch slots — the paged
+block pool, the dense slabs, the recurrent states — split per data
+shard), and each grouped escalation wave crosses the mesh as one
+all-gather of the draft tape (or token trees) before the verify.  Every
+lane (``--spec-mode linear|tree|self``), layout (``--kv-layout
+paged|dense``) and edge family (a recurrent ``--edge`` too) is served;
+``--adapt`` and a moe ``--cloud`` are refused there.  Axis sizes are
+inferred (near-balanced factors of the world size, larger trailing) or
+pinned.  Per-shard KV pools keep the single-device per-device byte budget,
+so ``kv_capacity_blocks`` scales with the shard count (the ``shards=`` /
+``capacity_blocks=`` stats line); a dense or recurrent state reports this
+rank's bytes (``rank=``).  NCCL when the ranks have a card each, gloo when
+they share one (printed).  Only rank 0 prints.  Omitting ``--mesh`` takes
+the exact single-device path.
 
 Serve-time adaptation (batched scheduler): ``--adapt distill|lora``
 captures every completion's supervision triple (prompt, rejected edge
@@ -339,7 +343,9 @@ def main(argv=None):
                  if "kv_blocks_peak" in stats else "")
               + (f" shards={stats['kv_shards']} "
                  f"capacity_blocks={stats['kv_capacity_blocks']}"
-                 if stats.get("kv_shards", 1) > 1 else ""))
+                 if stats.get("kv_shards", 1) > 1 else "")
+              + (f" rank={stats['kv_rank_bytes'] / 1e6:.2f}MB"
+                 if "kv_rank_bytes" in stats else ""))
         if stats.get("kv_prefix_hits") or stats.get("preemptions"):
             print(f"kv: prefix_hits={stats.get('kv_prefix_hits', 0)} "
                   f"shared_blocks={stats.get('kv_shared_blocks', 0)} "

@@ -440,12 +440,15 @@ def local_attention(params, mesh, cfg=None):
     for a paged pool whose kv-heads split over 'model' under replicated
     weights (the edge): each model rank attends its own whole heads in its
     part of the pool, one (B, T, d) sum per layer instead of moving blocks.
-    ``params`` unchanged when the kv-heads do not divide the axis."""
+    ``params`` unchanged when the kv-heads do not divide the axis, and for
+    the families that are not decoder-only transformers (their attention,
+    if any, stays replicated)."""
     from repro_torch.bridge import config_of
-    from repro_torch.models.transformer import Block, Transformer
+    from repro_torch.models.transformer import FAMILIES, Block, Transformer
     cfg = config_of(params, cfg)
     m = mesh.shape.get("model", 1)
-    if m <= 1 or cfg.num_kv_heads % m or getattr(params, "tp", None):
+    if m <= 1 or cfg.family not in FAMILIES or cfg.num_kv_heads % m \
+            or getattr(params, "tp", None):
         return params
     i, hd = mesh.axis_index("model"), cfg.head_dim
     q, kv = cfg.num_heads * hd // m, cfg.num_kv_heads * hd // m

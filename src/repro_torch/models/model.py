@@ -208,6 +208,13 @@ class Model:
                                              attn_backend=attn_backend)
 
     @property
+    def kv_slabs(self) -> bool:
+        """True if the cache carries attention K/V slabs ``k`` / ``v`` (a
+        layer or group axis first, then the slot axis): every family but
+        the pure recurrent ones (ssm, xlstm)."""
+        return self._attn
+
+    @property
     def rewindable_cache(self) -> bool:
         """True if the cache rolls back by resetting ``pos`` (KV caches);
         False for recurrent state, which rewinds by replaying the accepted
