@@ -31,7 +31,10 @@ the first phase that fails:
    random states; the per-request phase's shapes too: dense decode at
    batch 1 (smollm-135m and granite-8b heads) and tree verify at batch 1
    with the 16-node (3, 2, 1) token tree, and paged decode at
-   granite-moe-1b-a400m's heads (Kv 8, G 2), each held and timed; the
+   granite-moe-1b-a400m's heads (Kv 8, G 2), and paged decode and flash
+   at a model rank's heads of the ``[mesh]`` phase's granite-20b (Kv 1,
+   G 24, hd 128) and olmoe-1b-7b (Kv 8, G 1) clouds, each held and
+   timed; the
    flash backward (the port's own kernel, ``csrc/flash_attention_bwd.cu``)
    against autograd of the plain attention (dq, dk, dv and the forward's
    log-sum-exp against ``logsumexp`` of the plain scores, float32 and
@@ -115,7 +118,7 @@ the first phase that fails:
    depth, data parallel, its paged pool split per data shard and on the
    head dim over 'model'; granite-8b at full width cut to
    ``MESH_CLOUD_LAYERS`` layers, tensor parallel with FSDP; bf16, 8
-   requests of 16 + 12 tokens, gamma 4, ``SpeculativePolicy(0.6)``) must
+   requests of 16 + 8 tokens, gamma 4, ``SpeculativePolicy(0.6)``) must
    serve every request with the same tokens on every rank, finite logits,
    the paged-decode, flash and spec-verify kernels launched on every rank,
    ``kv_shards`` 4 and ``mesh_shape`` {data 2, model 2}; it prints ms per
@@ -129,11 +132,22 @@ the first phase that fails:
    traffic, each launching on every rank the kernels its ``PATHS`` entry
    names, with the same tokens on every rank; ms per tick and round,
    bytes per collective per round, a rank's state bytes against the
-   whole state's), and a float32 run of the linear, tree, self and mamba2
-   paths (``PARITY_DEPTH``, full width) against the unsharded engine in
-   this process — traces identical but for near ties (top-2 gap below
-   1e-4), and a paged ``kv_capacity_blocks`` above the unsharded
-   engine's; ``[examples]``:
+   whole state's), the three ``MESH_EXTRA`` paths with the smollm-135m
+   edge, whose escalations alternate between cloud regenerations (the
+   cloud's paged decode at its local heads) and speculative rounds —
+   serve-time adaptation (``--adapt distill``, 8 requests through 4
+   slots, an update every 4 completions distilling the regenerations'
+   teacher top-k: at least one swap, the same loop stats on every rank,
+   the flash backward launched too), an olmoe-1b-7b cloud (64 experts
+   over 'model') and a granite-20b cloud (48 query heads on one kv head:
+   queries split, K/V whole, cache split on the head dim), both at full
+   width cut to ``MESH_CLOUD_LAYERS`` layers, each with the same prints
+   and checks, and a float32 run of the linear, tree, self,
+   mamba2 and ``MESH_EXTRA`` paths (``PARITY_DEPTH``, full width) against
+   the unsharded engine in this process — traces identical but for near
+   ties (top-2 gap below 1e-4), the adaptation loop's counts equal and
+   its last loss within 1e-4 relative, and a paged
+   ``kv_capacity_blocks`` above the unsharded engine's; ``[examples]``:
    the four ``examples/torch_port`` scripts on the card, each in a fresh
    process, each exiting 0 with its invariant held;
 4. serve each path again at float32, full width, cut depth (2 layers per
@@ -382,6 +396,12 @@ def _paged_inputs(dtype, gen, hd=64, MB=3, lengths=(15, 46), Kv=3, G=3):
 PAGED_LONG = (128, (3968, 4097))
 # the moe path's edge ticks: granite-moe-1b-a400m heads (Kv 8, G 2, hd 64)
 PAGED_MOE = dict(MB=3, lengths=(15, 46), Kv=8, G=2)
+# a model rank's attention heads (arch, Kv, G; hd 128) of the [mesh]
+# phase's other clouds at model 2: granite-20b's 24 query heads on its one
+# kv head (the K/V whole on every rank), olmoe-1b-7b's 8 query and 8 kv
+# heads; paged decode (3-block tables) and flash (16-token prefills) are
+# held and timed at both
+MESH_LOCAL_HEADS = (("granite-20b", 1, 24), ("olmoe-1b-7b", 8, 1))
 
 
 def paged_timing(K, gen, MB=3, lengths=(15, 46), Kv=3, G=3, hd=64):
@@ -424,14 +444,15 @@ def paged_timing(K, gen, MB=3, lengths=(15, 46), Kv=3, G=3, hd=64):
 
 def check_paged(gen):
     """Paged decode against its plain version at the serving shape (head
-    dims 64 and 80), the moe path's heads and the long shape, float32 and
-    bfloat16, windows 0 and 24; then timed at the serving, long and moe
-    shapes in bfloat16."""
+    dims 64 and 80), the moe path's heads, the long shape and the mesh
+    clouds' local heads, float32 and bfloat16, windows 0 and 24; then
+    timed at the serving, long, moe and local-head shapes in bfloat16."""
     import torch
     from repro_torch.kernels import decode_attention as K
     rows = []
     cases = [(hd, 3, (15, 46), 3, 3) for hd in (64, 80)] + \
-        [(64, *PAGED_LONG, 3, 3), (64, *PAGED_MOE.values())]
+        [(64, *PAGED_LONG, 3, 3), (64, *PAGED_MOE.values())] + \
+        [(128, 3, (15, 46), kv, g) for _, kv, g in MESH_LOCAL_HEADS]
     for (dtype, tol), (hd, MB, lengths, Kv, G) in itertools.product(
             ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)), cases):
         q, kp, vp, table, length = _paged_inputs(dtype, gen, hd, MB, lengths,
@@ -460,6 +481,10 @@ def check_paged(gen):
                    **paged_timing(K, gen, *PAGED_LONG)}
     row["moe"] = {"shape": "(B,Kv,G,hd,bs,MB)=(8, 8, 2, 64, 32, 3)",
                   **paged_timing(K, gen, **PAGED_MOE)}
+    for arch, kv, g in MESH_LOCAL_HEADS:
+        row[f"{arch} local"] = {
+            "shape": f"(B,Kv,G,hd,bs,MB)=(8, {kv}, {g}, 128, 32, 3)",
+            **paged_timing(K, gen, Kv=kv, G=g, hd=128)}
     return row
 
 
@@ -512,12 +537,13 @@ def check_flash(gen):
     """Flash prefill against its plain version: q, k, v as strided views
     of (B, S, heads, hd) projections, GQA resolved in the kernel, causal,
     windowed and full, float32 and bfloat16, at the serving shapes and one
-    long prompt; then timed at granite-8b's 16-token prefill and the long
-    prompt."""
+    long prompt, and the mesh clouds' local heads; then timed at
+    granite-8b's 16-token prefill, the long prompt and the local heads."""
     import torch
     from repro_torch.kernels import flash_attention as K
     errs = []
-    cases = [(sh, m) for sh in FLASH_SERVING
+    local = [(1, kv * g, kv, 16, 128) for _, kv, g in MESH_LOCAL_HEADS]
+    cases = [(sh, m) for sh in FLASH_SERVING + tuple(local)
              for m in ((True, 0), (True, 6), (False, 0))] + \
         [(FLASH_LONG, m) for m in ((True, 0), (True, 256))]
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -543,6 +569,9 @@ def check_flash(gen):
     row.update(_flash_timing(K, FLASH_SERVING[1], gen))
     row["long"] = {"shape": "(B,H,Kv,S,hd)=" + str(FLASH_LONG),
                    **_flash_timing(K, FLASH_LONG, gen)}
+    for (arch, _, _), shape in zip(MESH_LOCAL_HEADS, local):
+        row[f"{arch} local"] = {"shape": "(B,H,Kv,S,hd)=" + str(shape),
+                                **_flash_timing(K, shape, gen)}
     return row
 
 
@@ -1694,12 +1723,12 @@ def check_stub_extends(gen, row):
 
 
 # --------------------------------------------------------------- phase 3
-def _configs(edge: str, num_layers=None, dtype=None):
-    """(edge, granite-8b cloud) configs with the vocabulary cut to the
-    smaller of the two, as the serve CLI does; ``num_layers`` (edge layers,
-    cloud layers) cuts depth."""
+def _configs(edge: str, num_layers=None, dtype=None, cloud="granite-8b"):
+    """(edge, cloud) configs, granite-8b unless told, with the vocabulary
+    cut to the smaller of the two, as the serve CLI does; ``num_layers``
+    (edge layers, cloud layers) cuts depth."""
     from repro_torch.configs import get_config
-    e, c = get_config(edge), get_config("granite-8b")
+    e, c = get_config(edge), get_config(cloud)
     kw = {"vocab_size": min(e.vocab_size, c.vocab_size)}
     if dtype is not None:
         kw.update(param_dtype=dtype, activ_dtype=dtype)
@@ -1762,10 +1791,10 @@ def _engine(e_cfg, c_cfg, attn_backend="auto", **kw):
     from repro_torch.core.policy import SpeculativePolicy
     from repro_torch.core.scheduler import BatchedEngine
     from repro_torch.models import Model
-    kw = {"kv_layout": "auto", **kw}
-    return BatchedEngine(Model(e_cfg), Model(c_cfg), batch_size=8, gamma=4,
-                         temperature=0.0, policy=SpeculativePolicy(0.6),
-                         attn_backend=attn_backend, **kw)
+    kw = {"kv_layout": "auto", "batch_size": 8,
+          "policy": SpeculativePolicy(0.6), **kw}
+    return BatchedEngine(Model(e_cfg), Model(c_cfg), gamma=4,
+                         temperature=0.0, attn_backend=attn_backend, **kw)
 
 
 def _init(cfg, seed):
@@ -2784,12 +2813,60 @@ MESH_KERNELS = ("paged_decode_attention", "flash_attention", "spec_verify")
 MESH_MOE = dict(n=4, prompt=4097, new=8)
 MESH_PARITY_NEW = 4
 # new tokens of each bf16 drain on the mesh
-MESH_NEW = 12
+MESH_NEW = 8
 # the other lanes and layouts on the mesh, served as their ``PATHS`` entries
 # (the same engine settings, the kernels each must launch on every rank):
 # the tree lane on dense states, the self lane, the recurrent mamba2 edge
 MESH_LANES = ("tree", "self", "mamba2")
 MESH_PARITY = ("linear",) + MESH_LANES
+# the paths that finish sharded serving, with the smollm-135m edge: name,
+# cloud, engine settings (stateful objects made fresh per engine by
+# ``_fresh_opts``), the kernels every rank must launch.  Each wave's
+# escalations alternate between a cloud regeneration (the cloud's paged
+# decode steps at its local heads) and speculative rounds.  Serve-time
+# adaptation (``--adapt distill``, on the linear path's models: 8 requests
+# through 4 slots and an update due every 4 completions, so the second
+# wave serves on swapped weights; the update distills the regenerations'
+# top-k teacher logits); a moe cloud (olmoe-1b-7b: its 64 experts over
+# 'model') and a cloud whose one kv head does not divide 'model'
+# (granite-20b: its 48 query heads split, its K/V computed whole on every
+# rank and cached split on the head dim), both at full width cut to
+# MESH_CLOUD_LAYERS layers.  Each drain serves MESH_NEW new tokens; each
+# path has its float32 parity
+MESH_EXTRA = (
+    ("adapt distill", "granite-8b",
+     {"batch_size": 4, "mixed": True,
+      "adapt": {"mode": "distill", "interval": 4, "topk": 8}},
+     MESH_KERNELS + ("flash_attention_bwd",)),
+    ("olmoe cloud", "olmoe-1b-7b", {"mixed": True}, MESH_KERNELS),
+    ("granite-20b cloud", "granite-20b", {"mixed": True}, MESH_KERNELS),
+)
+
+
+def _mixed_policy():
+    """``ThresholdPolicy(-1)`` whose retirement waves send every other
+    request to a cloud regeneration and the rest to speculative rounds."""
+    from repro_torch.core.policy import ThresholdPolicy
+
+    class Mixed(ThresholdPolicy):
+        name = "mixed"
+
+        def decide(self, unc, steps, budget):
+            return ["cloud" if i % 2 == 0 else "speculative"
+                    for i in range(len(unc))]
+    return Mixed(-1.0)
+
+
+def _fresh_opts(kw):
+    """A ``MESH_EXTRA`` path's engine keywords with fresh stateful
+    objects: its adaptation loop and its policy."""
+    from repro_torch.core.adaptation import AdaptationLoop
+    kw = dict(kw)
+    if kw.pop("mixed", False):
+        kw["policy"] = _mixed_policy()
+    if "adapt" in kw:
+        kw["adaptation"] = AdaptationLoop(**kw.pop("adapt"))
+    return kw
 
 
 def _mesh_drain(mesh, e_cfg, c_cfg, ep, cp, prompts, max_new,
@@ -2880,8 +2957,8 @@ def _mesh_rank(rank, plan):
             print(f"[mesh] rank 0: {what} at {time.perf_counter() - t0:.1f}s",
                   flush=True)
 
-    def pair(edge, layers=None, dtype=None):
-        e_cfg, c_cfg = _configs(edge, layers, dtype)
+    def pair(edge, layers=None, dtype=None, cloud="granite-8b"):
+        e_cfg, c_cfg = _configs(edge, layers, dtype, cloud)
         if layers is None:
             c_cfg = c_cfg.replace(num_layers=MESH_CLOUD_LAYERS)
         ep = Model(e_cfg).init(seed=0, device=dev)
@@ -2904,7 +2981,29 @@ def _mesh_rank(rank, plan):
             "paths": [tr.path for tr in traces], "stats": st,
             "launches": launches, "timing": timing, "wall": wall}
 
+    def extra(name, e_cfg, c_cfg, ep, cp):
+        """A ``MESH_EXTRA`` drain: as ``lane``, plus what the path shows of
+        itself on this rank (the loop's stats and teacher-carrying
+        records, the cloud's local heads and experts)."""
+        kw = _fresh_opts(extras[name][2])
+        prompts = _prompts(e_cfg.vocab_size)
+        traces, st, launches, timing, wall = drain(
+            name, e_cfg, c_cfg, ep, cp, prompts, MESH_NEW, **kw)
+        loop = kw.get("adaptation")
+        blk = cp.blocks[0]
+        out["lanes"][name] = {
+            "tokens": [tr.tokens for tr in traces],
+            "paths": [tr.path for tr in traces], "stats": st,
+            "launches": launches, "timing": timing, "wall": wall,
+            "teachers": None if loop is None else sum(
+                r.teacher_values is not None for r in loop.store.records()),
+            "heads": (cp.tp.cfg.num_heads, cp.tp.cfg.num_kv_heads,
+                      cp.tp.attn_heads),
+            "experts": None if blk.moe is None else
+            tuple(blk.moe["w_up"].shape)}
+
     paths = {p[0]: p for p in PATHS}
+    extras = {p[0]: p for p in MESH_EXTRA}
     out["lanes"] = {}
     # ---- the default path: paged KV, linear lane, bf16
     e_cfg, c_cfg, ep, cp = pair("smollm-135m")
@@ -2929,6 +3028,8 @@ def _mesh_rank(rank, plan):
     # ---- the tree lane (dense states) and the self lane, same models
     for name in ("tree", "self"):
         lane(name, e_cfg, c_cfg, ep, cp)
+    # ---- serve-time adaptation on the same models
+    extra("adapt distill", e_cfg, c_cfg, ep, cp)
     del ep, cp
     torch.cuda.empty_cache()
 
@@ -2946,7 +3047,7 @@ def _mesh_rank(rank, plan):
     out["moe"] = {"tokens": [tr.tokens for tr in traces], "stats": st,
                   "launches": launches, "wall": wall,
                   "expert_parallel_bytes":
-                  mesh.moved.get("all_reduce/data,model", 0)}
+                  mesh.moved.get("all_reduce/data", 0)}
     del ep, cp, traces
     torch.cuda.empty_cache()
 
@@ -2957,15 +3058,26 @@ def _mesh_rank(rank, plan):
     del ep, cp
     torch.cuda.empty_cache()
 
-    # ---- float32 parity per lane at PARITY_DEPTH, full width
+    # ---- the moe cloud and the one-kv-head cloud
+    for name, cloud, _, _ in MESH_EXTRA[1:]:
+        e_cfg, c_cfg, ep, cp = pair("smollm-135m", cloud=cloud)
+        note(f"{cloud} models built")
+        extra(name, e_cfg, c_cfg, ep, cp)
+        del ep, cp
+        torch.cuda.empty_cache()
+
+    # ---- float32 parity per path at PARITY_DEPTH, full width
     out["parity"] = {}
-    for name in MESH_PARITY:
-        edge, kw = paths[name][1], _parity_kw(paths[name][2])
-        e_cfg, c_cfg, ep, cp = pair(edge, PARITY_DEPTH[edge], "float32")
+    runs = [(name, paths[name][1], "granite-8b", _parity_kw(paths[name][2]))
+            for name in MESH_PARITY] + \
+        [(name, "smollm-135m", cloud, kw) for name, cloud, kw, _ in MESH_EXTRA]
+    for name, edge, cloud, kw in runs:
+        e_cfg, c_cfg, ep, cp = pair(edge, PARITY_DEPTH[edge], "float32",
+                                    cloud)
         prompts = _prompts(e_cfg.vocab_size)
         traces, st, launches, _, wall = drain(
             f"{name} parity", e_cfg, c_cfg, ep, cp, prompts,
-            MESH_PARITY_NEW, **kw)
+            MESH_PARITY_NEW, **_fresh_opts(kw))
         out["parity"][name] = {"tokens": [tr.tokens for tr in traces],
                                "paths": [tr.path for tr in traces],
                                "stats": st, "launches": launches,
@@ -3079,10 +3191,15 @@ def phase_mesh(total):
     paths = {p[0]: p for p in PATHS}
     for name in MESH_LANES:
         _mesh_lane_report(name, paths[name], ranks, total)
+    for name, cloud, kw, kernels in MESH_EXTRA:
+        _mesh_extra_report(name, cloud, kw, kernels, ranks, total)
 
     # ---- float32 parity against the unsharded engine in this process
     for name in MESH_PARITY:
-        _mesh_parity(name, paths[name], ranks, total)
+        _mesh_parity(name, paths[name][1], _parity_kw(paths[name][2]),
+                     ranks, total)
+    for name, cloud, kw, _ in MESH_EXTRA:
+        _mesh_parity(name, "smollm-135m", kw, ranks, total, cloud)
     print(f"[mesh] phase wall {time.perf_counter() - t_phase:.1f}s",
           flush=True)
 
@@ -3097,12 +3214,12 @@ def _per_round_bytes(timing):
                      for k, v in sorted(per_round.items()))
 
 
-def _mesh_lane_report(name, path, ranks, total):
-    """Check and print one ``MESH_LANES`` drain: every request served its
-    ``MESH_NEW`` tokens, the same on every rank, with the kernels of its
-    ``PATHS`` entry launched on every rank; ms per tick and round, the bytes per
-    collective per round and this rank's state bytes against the whole
-    state's (what the unsharded engine holds)."""
+def _mesh_lane_report(name, path, ranks, total, cloud="granite-8b"):
+    """Check and print one ``MESH_LANES`` drain (or, with ``cloud``, a
+    ``MESH_EXTRA`` one): every request served its ``MESH_NEW`` tokens, the same on every rank, with the kernels of its ``PATHS``
+    entry launched on every rank; ms per tick and round, the bytes per
+    collective per round, ``kv_capacity_blocks`` and this rank's state
+    bytes against the whole state's (what the unsharded engine holds)."""
     _, edge, kw, kernels = path
     runs = [r["lanes"][name] for r in ranks]
     for r, run in zip(ranks, runs):
@@ -3125,7 +3242,7 @@ def _mesh_lane_report(name, path, ranks, total):
     rank_b = st.get("kv_rank_bytes",
                     st["kv_capacity_bytes"] // st.get("kv_shards", 1))
     print(f"[mesh] {name} lane ({edge} edge, {st['kv_layout']} KV, "
-          f"{st['spec_mode']} lane, x {MESH_CLOUD_LAYERS}-layer granite-8b, "
+          f"{st['spec_mode']} lane, x {MESH_CLOUD_LAYERS}-layer {cloud}, "
           f"bf16): paths {_count_paths(runs[0]['paths'])}; {st['ticks']} "
           f"ticks, {len(timing['round'])} rounds on each rank; wall "
           f"{runs[0]['wall']:.2f}s; per tick median host issue "
@@ -3133,8 +3250,10 @@ def _mesh_lane_report(name, path, ranks, total):
           f"{_pct([d for _, d in tick]):.1f} ms; per round host issue "
           f"{_pct([h for h, _ in rnd]):.1f} ms, stream span "
           f"{_pct([d for _, d in rnd]):.1f} ms; serving state per rank "
-          f"{rank_b} B of {st['kv_capacity_bytes']} B (whole), escalation "
-          f"groups' peak {st.get('kv_group_peak_bytes', 0)} B (whole); "
+          f"{rank_b} B of {st['kv_capacity_bytes']} B (whole), "
+          f"kv_capacity_blocks {st.get('kv_capacity_blocks', 'n/a')}, "
+          f"escalation groups' peak {st.get('kv_group_peak_bytes', 0)} B "
+          f"(whole); "
           f"launches per rank "
           + ", ".join(f"{k} {[run['launches'][k] for run in runs]}"
                       for k in kernels), flush=True)
@@ -3142,28 +3261,68 @@ def _mesh_lane_report(name, path, ranks, total):
           + _per_round_bytes(timing), flush=True)
 
 
-def _mesh_parity(name, path, ranks, total):
+def _mesh_extra_report(name, cloud, kw, kernels, ranks, total):
+    """``_mesh_lane_report`` of one ``MESH_EXTRA`` drain, plus what the
+    path shows of itself: the adaptation loop's swaps, train steps, last
+    loss and teacher-carrying records (the same on every rank, at least
+    one swap), and the cloud's local heads and experts on a rank."""
+    import math
+    _mesh_lane_report(name, (name, "smollm-135m", kw, kernels), ranks,
+                      total, cloud)
+    runs = [r["lanes"][name] for r in ranks]
+    run = runs[0]
+    if "adapt" in kw:
+        a = run["stats"]["adaptation"]
+        for r, other in zip(ranks, runs):
+            check(other["stats"]["adaptation"] == a, f"[mesh] {name}: rank "
+                  f"{r['rank']}'s adaptation stats differ from rank 0's")
+        check(a["swaps"] >= 1 and a["last_loss"] is not None
+              and math.isfinite(a["last_loss"]) and run["teachers"] > 0,
+              f"[mesh] {name}: swaps {a['swaps']}, last loss "
+              f"{a['last_loss']}, {run['teachers']} records with teacher "
+              "top-k")
+        print(f"[mesh] {name}: swaps {a['swaps']}, train steps "
+              f"{a['train_steps']}, last_loss {a['last_loss']:.4f}, "
+              f"{run['teachers']} of {a['store_size']} records with teacher "
+              f"top-k (every rank the same)", flush=True)
+    else:
+        print(f"[mesh] {name}: a rank computes (query heads, kv heads, on "
+              f"its own heads) = {run['heads']}, experts (local E, d, f) = "
+              f"{run['experts']}", flush=True)
+
+
+def _mesh_parity(name, edge, kw, ranks, total, cloud="granite-8b"):
     """The float32 drain of one path on the mesh (every rank the same
     tokens) against the unsharded engine here, at ``PARITY_DEPTH``: traces
     identical but for near ties (the plain top-2 gap of the model that
-    chose the token below ``GAP_TOL``)."""
+    chose the token below ``GAP_TOL``); an adaptation loop's counts equal
+    and its last loss within 1e-4 relative (the teacher logits of a
+    tensor-parallel cloud differ in the last bits)."""
     import torch
     from repro_torch.models import Model
-    _, edge, kw, _ = path
-    kw = _parity_kw(kw)
     par = [r["parity"][name] for r in ranks]
     for r, p in zip(ranks, par):
         check(p["tokens"] == par[0]["tokens"], f"[mesh] {name} parity: rank "
               f"{r['rank']} tokens differ from rank 0's")
         for k, n in p["launches"].items():
             total[k] += n
-    e_cfg, c_cfg = _configs(edge, PARITY_DEPTH[edge], "float32")
+    e_cfg, c_cfg = _configs(edge, PARITY_DEPTH[edge], "float32", cloud)
     ep = Model(e_cfg).init(seed=0, device="cuda")
     cp = Model(c_cfg).init(seed=1, device="cuda")
     prompts = _prompts(e_cfg.vocab_size)
-    eng = _engine(e_cfg, c_cfg, **kw)
+    eng = _engine(e_cfg, c_cfg, **_fresh_opts(kw))
     base = eng.serve_batch(ep, cp, prompts, MESH_PARITY_NEW)
     st0, st = eng.stats(), par[0]["stats"]
+    if "adaptation" in st0:
+        a, a0 = st["adaptation"], st0["adaptation"]
+        keys = ("observed", "updates", "train_steps", "swaps", "store_size")
+        check({k: a[k] for k in keys} == {k: a0[k] for k in keys}
+              and a0["swaps"] >= 1 and abs(a["last_loss"] - a0["last_loss"])
+              <= 1e-4 * max(1.0, abs(a0["last_loss"])),
+              f"[mesh] {name} parity: adaptation {a} vs unsharded {a0}")
+        print(f"[mesh] {name} float32 parity: swaps {a['swaps']} / "
+              f"{a0['swaps']}, last_loss {a['last_loss']:.6f} vs unsharded "
+              f"{a0['last_loss']:.6f}", flush=True)
     if "kv_capacity_blocks" in st0:
         check(st["kv_capacity_blocks"] > st0["kv_capacity_blocks"],
               f"[mesh] kv_capacity_blocks {st['kv_capacity_blocks']} not "
@@ -3185,7 +3344,7 @@ def _mesh_parity(name, path, ranks, total):
                              f"{GAP_TOL}")
         excused += 1
     print(f"[mesh] {name} float32 parity ({e_cfg.num_layers}-layer {edge} + "
-          f"{c_cfg.num_layers}-layer granite-8b, full width, "
+          f"{c_cfg.num_layers}-layer {cloud}, full width, "
           f"{st['kv_layout']} KV, {st['spec_mode']} lane, "
           f"{MESH_PARITY_NEW} new): mesh vs unsharded "
           f"{len(base) - excused}/{len(base)} traces identical, {excused} "

@@ -32,7 +32,11 @@ and learning*).
    params' structure, shapes, dtypes and device (AdamW and ``merge_lora``
    cast back to each parameter's dtype), built from new tensors
    (``donate=False``): the serving params are never written, so the work
-   queued before the swap reads the old weights.
+   queued before the swap reads the old weights.  On a device mesh every
+   rank trains on the same store from the same seed; the swap then takes
+   rank 0's weights bit for bit (one broadcast per dtype), since a
+   backward that sums with atomics may round differently on each rank,
+   and ranks that served different weights would decide differently.
 
 ``interval=0`` is capture-only: the store fills but ``maybe_update``
 never fires.  Sampling uses numpy's ``default_rng(seed)``, as JAX's does,
@@ -100,6 +104,7 @@ class AdaptationLoop:
             opt = AdamW(lr=1e-3)
         self.opt = opt
         self.model = None
+        self.mesh = None
         self._train_step = None
         self._opt_state = None
         self._base = None           # frozen base params (lora mode)
@@ -120,10 +125,12 @@ class AdaptationLoop:
         corrected tokens alone, so capture stays free there."""
         return self.topk if self.mode == "distill" else 0
 
-    def bind(self, model) -> None:
-        """Attach the edge model whose params the loop trains (the engine
-        calls this at construction)."""
+    def bind(self, model, mesh=None) -> None:
+        """Attach the edge model whose params the loop trains, and the
+        device mesh it serves on, if any (the engine calls this at
+        construction)."""
         self.model = model
+        self.mesh = mesh
 
     def current(self, params):
         """The latest adapted edge weights, or ``params`` unchanged when
@@ -204,6 +211,8 @@ class AdaptationLoop:
                                          self.model.cfg)
         else:
             self.latest = target
+        if self.mesh is not None:
+            self.latest = _rank0_copy(self.latest, self.mesh)
         return self.latest
 
     # ------------------------------------------------------------ stats
@@ -214,3 +223,18 @@ class AdaptationLoop:
                 "last_loss": None if self._last_loss is None
                 else float(self._last_loss),
                 **{f"store_{k}": v for k, v in self.store.stats().items()}}
+
+
+def _rank0_copy(params, mesh):
+    """``params`` with every tensor replaced by rank 0's copy: one
+    broadcast of the tensors of each dtype, flattened together."""
+    from repro_torch.training import tree as T
+    ts = T.tensors(params)
+    out = list(ts)
+    for dtype in dict.fromkeys(t.dtype for t in ts):
+        idx = [i for i, t in enumerate(ts) if t.dtype == dtype]
+        flat = mesh.broadcast(torch.cat([ts[i].detach().reshape(-1)
+                                         for i in idx]))
+        for i, part in zip(idx, flat.split([ts[i].numel() for i in idx])):
+            out[i] = part.view_as(ts[i])
+    return T.replace(params, out)

@@ -48,10 +48,11 @@ the PyTorch twin of the JAX package's ``core/scheduler.py``.
     batch on every rank, so every rank makes the same decisions.  Every
     lane (linear, tree, self) and every layout (paged, dense, recurrent)
     is served there, each state a rank's local view
-    (``core/seq_state.py``); serve-time adaptation is refused with
-    ``NotImplementedError`` (ROADMAP A.8), as are a moe cloud and query
-    and kv heads that split differently over 'model' (when ``run``
-    places the cloud, ``launch/sharding.py``).
+    (``core/seq_state.py``), with a dense, moe (experts over 'model') or
+    vlm cloud whatever its head counts (``launch/sharding.py``).  An
+    adaptation loop trains on the whole edge params on every rank (the
+    same store from the same pulls, the same seed), every rank swaps in
+    rank 0's result, and each rank serves its view of it.
 """
 from __future__ import annotations
 
@@ -194,10 +195,6 @@ class BatchedEngine:
         self.mesh = mesh
         self._data_shards = 1
         if mesh is not None:
-            if adaptation is not None:
-                raise NotImplementedError(
-                    "serve-time adaptation on a device mesh is not ported "
-                    "(ROADMAP A.8)")
             dp = 1
             for a in mesh.axis_names:
                 if a != "model":
@@ -218,7 +215,7 @@ class BatchedEngine:
         # between ticks
         self.adaptation = adaptation
         if adaptation is not None:
-            adaptation.bind(edge_model)
+            adaptation.bind(edge_model, mesh)
         # speculation lane: engine kwarg > policy attribute > linear.  A
         # model family the requested lane cannot serve falls back to the
         # linear tape; stats()["spec_mode"] reports the effective mode
@@ -318,30 +315,37 @@ class BatchedEngine:
         ``sharding.local_attention``), the cloud params are cut to this
         rank's blocks per ``launch/sharding.py`` unless the caller placed
         them already (``sharding.init_placed``), and the stats gain
-        ``mesh_devices`` and ``mesh_shape``.  ``mesh=None`` takes the exact
-        pre-mesh path."""
+        ``mesh_devices`` and ``mesh_shape``.  An adaptation loop trains on
+        the whole edge params, and each swap is served through the same
+        view.  ``mesh=None`` takes the exact pre-mesh path."""
         if self.mesh is None:
             return self._run_impl(edge_params, cloud_params)
         from repro_torch.launch.sharding import local_attention, place_params
-        edge_params = local_attention(edge_params, self.mesh,
-                                      self.edge_model.cfg)
         cloud_params = place_params(cloud_params, self.mesh,
                                     self.cloud_model.cfg)
         with runtime.mesh_context(self.mesh):
-            res = self._run_impl(edge_params, cloud_params)
+            res = self._run_impl(
+                edge_params, cloud_params,
+                lambda p: local_attention(p, self.mesh, self.edge_model.cfg))
         self._kv_stats["mesh_devices"] = self.mesh.size
         self._kv_stats["mesh_shape"] = {k: int(v)
                                         for k, v in self.mesh.shape.items()}
         return res
 
     @hot_path
-    def _run_impl(self, edge_params, cloud_params) -> Dict[int, RequestTrace]:
+    def _run_impl(self, edge_params, cloud_params,
+                  edge_view=None) -> Dict[int, RequestTrace]:
+        """The drain; ``edge_view(params)`` is what the edge serves with
+        of its whole params (a rank's view on a mesh), which is what the
+        adaptation loop trains and swaps."""
         if not self._queue:
             return {}
+        view = edge_view or (lambda p: p)
         # adaptation persists ACROSS drains: start from the last hot-swapped
         # edge weights, not the caller's baseline
-        if self.adaptation is not None:
-            edge_params = self.adaptation.current(edge_params)
+        edge_whole = edge_params if self.adaptation is None \
+            else self.adaptation.current(edge_params)
+        edge_params = view(edge_whole)
         clock = self.clock
         t0 = clock.now()
         for r in self._queue:
@@ -387,9 +391,10 @@ class BatchedEngine:
             # dtypes, so the in-flight caches stay valid; the work queued
             # before the swap reads the old tensors
             if self.adaptation is not None:
-                swapped_p = self.adaptation.maybe_update(edge_params)
+                swapped_p = self.adaptation.maybe_update(edge_whole)
                 if swapped_p is not None:
-                    edge_params = swapped_p
+                    edge_whole = swapped_p
+                    edge_params = view(edge_whole)
                     state.rebind(edge_params)
             free = [b for b in range(B) if slots[b].req is None]
             wave: set = set()       # slots admitted/resumed this wave

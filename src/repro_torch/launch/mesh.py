@@ -174,6 +174,16 @@ class Mesh:
         self._count("all_reduce", axes, y.nbytes)
         return y / n if op == "mean" else y
 
+    def broadcast(self, x: torch.Tensor, src: int = 0):
+        """Rank ``src``'s ``x`` on every rank of the mesh; returns a new
+        tensor."""
+        if self.size == 1:
+            return x
+        y = x.contiguous().clone()
+        dist.broadcast(y, src, group=self.group(self.axis_names))
+        self._count("broadcast", self.axis_names, y.nbytes)
+        return y
+
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank}, device={self.device})"
 

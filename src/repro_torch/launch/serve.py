@@ -20,8 +20,13 @@ block pool, the dense slabs, the recurrent states — split per data
 shard), and each grouped escalation wave crosses the mesh as one
 all-gather of the draft tape (or token trees) before the verify.  Every
 lane (``--spec-mode linear|tree|self``), layout (``--kv-layout
-paged|dense``) and edge family (a recurrent ``--edge`` too) is served;
-``--adapt`` and a moe ``--cloud`` are refused there.  Axis sizes are
+paged|dense``) and edge family (a recurrent ``--edge`` too) is served,
+with ``--adapt`` (every rank trains the whole edge the same way and
+swaps in the same weights; rank 0 saves ``--adapt-checkpoint``), a moe
+``--cloud`` (``olmoe-1b-7b``: its experts split over 'model') and a
+cloud whose kv heads do not divide 'model' (``granite-20b``, one kv
+head: its query heads split, its K/V computed whole on every rank and
+its cache split on the head dim).  Axis sizes are
 inferred (near-balanced factors of the world size, larger trailing) or
 pinned.  Per-shard KV pools keep the single-device per-device byte budget,
 so ``kv_capacity_blocks`` scales with the shard count (the ``shards=`` /
@@ -374,7 +379,8 @@ def main(argv=None):
               f"swaps={a['swaps']} loss={loss} "
               f"store={a['store_size']}/{a['store_capacity']} "
               f"(evicted={a['store_evicted']})")
-    if args.adapt_checkpoint is not None and "adaptation" in stats:
+    if args.adapt_checkpoint is not None and "adaptation" in stats \
+            and (mesh is None or mesh.rank == 0):
         from repro_torch.training import checkpoint
         artifact = adaptation.adapters if args.adapt == "lora" \
             else adaptation.latest

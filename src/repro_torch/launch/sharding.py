@@ -248,7 +248,8 @@ def _has(spec, axis: str, dim: int) -> bool:
 # before the layer runs
 _COMPUTE_SPLITS = {"attn/wq": -1, "attn/wk": -1, "attn/wv": -1,
                    "attn/wo": -2, "mlp/w_gate": -1, "mlp/w_up": -1,
-                   "mlp/w_down": -2}
+                   "mlp/w_down": -2, "moe/w_gate": -3, "moe/w_up": -3,
+                   "moe/w_down": -3}
 
 
 @dataclasses.dataclass
@@ -256,13 +257,18 @@ class TensorParallel:
     """What a placed parameter module's forward does on each rank's
     blocks: ``cfg`` is the LOCAL config (heads and d_ff cut by the model
     axis where the rules split them), ``full_cfg`` the model's.  ``block``
-    holds each block leaf's spec (the same for every layer)."""
+    holds each block leaf's spec (the same for every layer).
+    ``attn_heads``: the attention runs on this rank's query heads (the
+    model-axis splits of ``wq`` / ``wo`` are computed on and ``wo``'s
+    partials summed); False gathers them and runs every head on every
+    rank (``_local_cfg``)."""
     mesh: object
     full_cfg: object
     cfg: object
     block: Dict[str, tuple]
     embed: tuple
     head: tuple
+    attn_heads: bool = True
 
     # ------------------------------------------------------------ weights
     def gather_block(self, blk):
@@ -274,6 +280,8 @@ class TensorParallel:
         keeps every layer's slice."""
         def full(name, t):
             keep = _COMPUTE_SPLITS.get(name)
+            if name.startswith("attn/") and not self.attn_heads:
+                keep = None
             spec = self.block[name]
             for dim, ax in enumerate(spec):
                 if ax is not None and not (ax == "model" and keep is not None
@@ -296,13 +304,26 @@ class TensorParallel:
         """Row-parallel ``wo``: sum the heads' partial outputs over
         'model'."""
         return self.mesh.all_reduce(a, "model") \
-            if _has(self.block["attn/wo"], "model", -2) else a
+            if self.attn_heads and _has(self.block["attn/wo"], "model", -2) \
+            else a
 
     def reduce_mlp(self, m):
         key = "mlp/w_down"
         return self.mesh.all_reduce(m, "model") \
             if key in self.block and _has(self.block[key], "model", -2) \
             else m
+
+    def moe(self, p, x, cfg):
+        """A moe block on this rank's experts: expert parallel over
+        'model' at every token count (the tokens are whole on every rank,
+        so no data axis splits them and the dropless capacity counts the
+        same T as the unsharded ``moe_block``); ``moe_apply`` when every
+        rank holds every expert (a replicated edge, or experts that do not
+        divide the axis)."""
+        from repro_torch.models import moe as MOE
+        if _has(self.block["moe/w_up"], "model", -3):
+            return MOE.moe_block_sharded(p, x, cfg, self.mesh, (), "model")
+        return MOE.moe_apply(p, x, cfg)
 
     # ------------------------------------------------------------ vocab
     def embed_lookup(self, table, tokens):
@@ -325,20 +346,26 @@ class TensorParallel:
 
 
 def _local_cfg(cfg, specs, mesh):
+    """(the config a rank's blocks compute with, whether its attention runs
+    on its own query heads).  Query and kv heads split alike: H/m and Kv/m
+    heads.  Only the query heads split (``param_spec`` keeps ``wk`` /
+    ``wv`` off 'model' when Kv does not divide it): with one kv head (MQA)
+    every rank runs its H/m query heads on the full K/V it computes;
+    otherwise a rank's query heads may span kv-head groups, and the
+    attention runs whole on every rank (``wq`` / ``wo`` gathered over
+    'model'), as JAX runs it when the heads do not divide."""
     m = mesh.shape.get("model", 1)
     kw = {}
     q, k = specs.get("attn/wq", ()), specs.get("attn/wk", ())
-    if _has(q, "model", -1) != _has(k, "model", -1):
-        raise NotImplementedError(
-            f"{cfg.name}: query heads ({cfg.num_heads}) and kv heads "
-            f"({cfg.num_kv_heads}) split differently over model={m}; "
-            "ROADMAP A.8 lists uneven head splits")
-    if _has(q, "model", -1):
-        kw.update(num_heads=cfg.num_heads // m,
-                  num_kv_heads=cfg.num_kv_heads // m)
+    q_split, k_split = _has(q, "model", -1), _has(k, "model", -1)
+    heads = q_split and (k_split or cfg.num_kv_heads == 1)
+    if heads:
+        kw["num_heads"] = cfg.num_heads // m
+        if k_split:
+            kw["num_kv_heads"] = cfg.num_kv_heads // m
     if _has(specs.get("mlp/w_up", ()), "model", -1):
         kw["d_ff"] = cfg.d_ff // m
-    return cfg.replace(**kw) if kw else cfg
+    return (cfg.replace(**kw) if kw else cfg), heads or not q_split
 
 
 def block_specs(cfg, mesh) -> Dict[str, tuple]:
@@ -387,19 +414,16 @@ def attach_tp(params, mesh, cfg=None):
     """Mark an already-placed (local-block) parameter module with its
     ``TensorParallel`` and return it."""
     from repro_torch.bridge import config_of
+    from repro_torch.models.transformer import require_dense
     cfg = config_of(params, cfg)
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"tensor-parallel placement of the {cfg.family!r} family "
-            f"({cfg.name}) is not ported; the mesh serves dense clouds "
-            "(ROADMAP A.8)")
+    require_dense(cfg)
     specs = block_specs(cfg, mesh)
     V, d = cfg.vocab_size, cfg.d_model
     emb = param_spec("embed", (V, d), mesh, cfg)
     head = param_spec("lm_head", (V, d), mesh, cfg) \
         if not cfg.tie_embeddings else emb
-    params.tp = TensorParallel(mesh, cfg, _local_cfg(cfg, specs, mesh),
-                               specs, emb, head)
+    local, heads = _local_cfg(cfg, specs, mesh)
+    params.tp = TensorParallel(mesh, cfg, local, specs, emb, head, heads)
     return params
 
 

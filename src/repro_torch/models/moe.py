@@ -14,7 +14,9 @@ No Pallas kernel covers this sublayer in the JAX package, so the expert
 products here are library matrix products.  On a device mesh
 ``moe_apply`` takes ``moe_block_sharded`` (expert parallelism: each model
 rank runs its own slice of the experts on its tokens, one sum over the
-model axis) from 4096 tokens on, as the JAX package does.
+model axis) from 4096 tokens on, as the JAX package does; a
+tensor-parallel cloud's blocks take it at every token count
+(``launch/sharding.TensorParallel.moe``).
 """
 from __future__ import annotations
 
@@ -116,7 +118,11 @@ def moe_block_sharded(p, x, cfg, mesh, dp_axes, ep_axis: str):
     only those); the router is replicated.  Each rank routes its LOCAL
     tokens to its LOCAL experts with the capacity counted over its local
     tokens, and the partial outputs are summed over ``ep_axis``; the aux
-    loss is averaged over every axis."""
+    loss is averaged over ``dp_axes`` (it is the same on every rank of
+    ``ep_axis``, whose tokens and router are the same, so JAX's mean over
+    that axis too needs no collective here).  With no ``dp_axes`` the
+    tokens are whole on every rank: the tensor-parallel cloud's
+    ``TensorParallel.moe``, at any token count."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     n_ep = mesh.axis_size(ep_axis)
@@ -130,7 +136,7 @@ def moe_block_sharded(p, x, cfg, mesh, dp_axes, ep_axis: str):
     me = probs.mean(0)
     ce = torch.bincount(expert_idx.reshape(-1), minlength=E).float() / (T * k)
     aux = mesh.all_reduce(cfg.router_aux_coef * E * (me * ce).sum(),
-                          tuple(dp_axes) + (ep_axis,), op="mean")
+                          tuple(dp_axes), op="mean")
 
     e_flat = expert_idx.reshape(-1)
     order = torch.argsort(e_flat, stable=True)

@@ -23,8 +23,9 @@ Tensor parallelism (a cloud on a device mesh): parameters placed by
 ``TensorParallel`` as ``params.tp``.  Every entry point then runs on the
 local heads and d_ff (``tp.cfg``), all-gathers each layer's data-split
 weights before it computes (FSDP, ``tp.gather_block``), sums the
-row-parallel ``wo`` / ``w_down`` partials over 'model', looks tokens up in
-the vocabulary-split embedding and all-gathers the vocabulary-split logits.
+row-parallel ``wo`` / ``w_down`` partials over 'model', runs a moe
+block's experts expert-parallel over 'model', looks tokens up in the
+vocabulary-split embedding and all-gathers the vocabulary-split logits.
 Without ``tp`` none of this runs.
 """
 from __future__ import annotations
@@ -177,11 +178,13 @@ def _attn_sum(params, a):
 
 def _ffn(blk, h, cfg, tp=None):
     """The layer's feed-forward half on the normed residual: (out, aux
-    loss) — ``moe_apply`` for a moe block, the MLP (aux 0) otherwise; a
+    loss) — ``moe_apply`` for a moe block (under ``tp`` its experts over
+    'model', ``TensorParallel.moe``), the MLP (aux 0) otherwise; a
     row-parallel ``w_down``'s partials summed over 'model' under ``tp``."""
     hn = L.rmsnorm(h, blk.mlp_norm, cfg.norm_eps)
     if blk.moe is not None:
-        return MOE.moe_apply(blk.moe, hn, cfg)
+        return MOE.moe_apply(blk.moe, hn, cfg) if tp is None \
+            else tp.moe(blk.moe, hn, cfg)
     m = L.mlp_block(blk.mlp, hn, cfg.mlp_activation)
     return (m if tp is None else tp.reduce_mlp(m)), None
 

@@ -96,12 +96,14 @@ def test_flash_attention_kernel_gqa_views(cuda, G, S, hd, causal, dtype,
 
 
 @pytest.mark.parametrize("B,Kv,G", [(1, 8, 4), (1, 16, 1), (8, 8, 4),
-                                    (8, 32, 1)])
+                                    (8, 32, 1), (1, 1, 24), (1, 8, 1)])
 @pytest.mark.parametrize("window", [0, 5])
 def test_flash_attention_kernel_short_prefill(cuda, B, Kv, G, window):
     """16-token prefills whose grids fill a small part (8 or 16 blocks),
     half (64 blocks) or more than the card: the kernel gives each block of
-    a grid of at most a quarter of the SMs 16 rows, a larger one 64."""
+    a grid of at most a quarter of the SMs 16 rows, a larger one 64.  (1,
+    1, 24) and (1, 8, 1) are a model rank's heads of the granite-20b and
+    olmoe-1b-7b clouds at model 2."""
     S, hd = 16, 128
     q = _proj_view(0, B, S, Kv * G, hd, cuda, torch.bfloat16)
     k = _proj_view(1, B, S, Kv, hd, cuda, torch.bfloat16)
@@ -147,10 +149,14 @@ def test_attention_block_makes_no_copies(cuda, dtype):
                                              (8, 3, 3, 32, 3, 64),
                                              (2, 4, 2, 32, 4, 80),
                                              (2, 2, 5, 16, 4, 64),
-                                             (3, 1, 8, 32, 4, 128)])
+                                             (3, 1, 8, 32, 4, 128),
+                                             (8, 1, 24, 32, 3, 128),
+                                             (8, 8, 1, 32, 3, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 11, 48])
 def test_paged_decode_kernel(cuda, B, Kv, G, bs, MB, hd, dtype, window):
+    """The last two: a model rank's heads of the granite-20b (one kv head,
+    24 query heads) and olmoe-1b-7b clouds at model 2."""
     NB = B * MB + 1
     q = _rand(0, (B, Kv, G, hd), cuda, dtype)
     kp = _rand(1, (NB, bs, Kv, hd), cuda, dtype)

@@ -4,9 +4,14 @@ single-process pools).
 
 * ``param_spec`` / ``cache_spec`` / ``paged_cache_spec`` / ``batch_spec``
   / ``kv_shard_ways`` / ``_balanced_factor`` equal JAX's as tuples on every
-  leaf of the reduced smollm-135m, granite-8b and granite-moe-1b-a400m
-  trees (shapes from ``jax.eval_shape``), over duck-typed meshes at
-  (2, 4), (2, 2) and (1, 1).
+  leaf of the reduced smollm-135m, granite-8b, granite-moe-1b-a400m,
+  granite-20b (one kv head) and olmoe-1b-7b trees (shapes from
+  ``jax.eval_shape``), over duck-typed meshes at (2, 4), (2, 2), (1, 4)
+  and (1, 1).
+* The local config and attention split a placed cloud computes with, for
+  query and kv heads that split alike, differently (one kv head, or kv
+  heads that would straddle a rank's query heads) and a moe cloud's
+  experts.
 * ``ShardedBlockPool`` gives the same ids, counts and exceptions as JAX's
   under seeded random alloc/share/fork/free/can_alloc/trap sequences.
 * ``PagedKV(data_shards=2, kv_ways=2)``, built directly in both packages
@@ -38,8 +43,9 @@ from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import sharding as tsh  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
 
-ARCHS = ("smollm-135m", "granite-8b", "granite-moe-1b-a400m")
-MESHES = ((2, 4), (2, 2), (1, 1))
+ARCHS = ("smollm-135m", "granite-8b", "granite-moe-1b-a400m", "granite-20b",
+         "olmoe-1b-7b")
+MESHES = ((2, 4), (2, 2), (1, 4), (1, 1))
 
 
 def _mesh(data, model):
@@ -156,6 +162,43 @@ def test_kv_shard_ways_and_balanced_factor_match_jax():
         for k in range(1, 4):
             assert tmesh._balanced_factor(rem, k) == \
                 jmesh._balanced_factor(rem, k)
+
+
+@pytest.mark.parametrize("arch,kv,dm,want", [
+    ("granite-8b", None, (2, 2), (2, 2, True)),       # 4 / 4 heads, alike
+    ("granite-20b", None, (2, 2), (2, 1, True)),      # MQA: queries split
+    ("granite-20b", None, (1, 4), (1, 1, True)),
+    ("granite-8b", 2, (1, 4), (4, 2, False)),         # 2 kv heads over 4
+    ("granite-8b", None, (1, 3), (4, 4, True)),       # nothing splits
+])
+def test_local_cfg_of_each_head_split(arch, kv, dm, want):
+    """(local query heads, local kv heads, attention on local heads) of a
+    reduced cloud: kv heads that split as the queries do, one kv head
+    (every rank its queries on the whole K/V), more kv heads that do not
+    divide 'model' (the attention whole on every rank: ``wq`` / ``wo``
+    gathered, no partial sum), and heads that do not divide it at all."""
+    cfg = tget(arch).reduced()
+    if kv is not None:
+        cfg = cfg.replace(num_kv_heads=kv)
+    mesh = _mesh(*dm)
+    local, heads = tsh._local_cfg(cfg, tsh.block_specs(cfg, mesh), mesh)
+    assert (local.num_heads, local.num_kv_heads, heads) == want
+    assert local.head_dim == cfg.head_dim
+
+
+def test_moe_cloud_experts_split_over_model():
+    """olmoe's experts split over 'model' with no data split and a
+    replicated router (JAX's rule); the forward computes on that split
+    (``TensorParallel.gather_block`` keeps it)."""
+    cfg = tget("olmoe-1b-7b").reduced()
+    specs = tsh.block_specs(cfg, _mesh(2, 2))
+    for k in ("moe/w_gate", "moe/w_up", "moe/w_down"):
+        assert specs[k] == ("model", None, None)
+        assert tsh._COMPUTE_SPLITS[k] == -3
+    assert specs["moe/router"] == ()
+    local, heads = tsh._local_cfg(cfg, specs, _mesh(2, 2))
+    assert (local.num_experts, local.d_ff, heads) == \
+        (cfg.num_experts, cfg.d_ff, True)
 
 
 def test_params_specs_walk_the_port_tree():

@@ -13,30 +13,44 @@ import numpy as np
 import torch
 
 
-def pair_cfgs(edge_kv_heads=None, edge="smollm-135m"):
-    """The reduced ``edge`` (smollm-135m by default) and granite-8b cloud
-    on a shared vocabulary (``edge_kv_heads`` overrides the edge's kv-head
-    count)."""
+def pair_cfgs(edge_kv_heads=None, edge="smollm-135m", cloud="granite-8b",
+              cloud_heads=None):
+    """The reduced ``edge`` (smollm-135m by default) and ``cloud``
+    (granite-8b by default) on a shared vocabulary (``edge_kv_heads``
+    overrides the edge's kv-head count, ``cloud_heads`` the cloud's
+    (query, kv) head counts)."""
     from repro_torch.configs import get_config
     e = get_config(edge).reduced()
-    c = get_config("granite-8b").reduced().replace(vocab_size=e.vocab_size)
+    c = get_config(cloud).reduced().replace(vocab_size=e.vocab_size)
     if edge_kv_heads is not None:
         e = e.replace(num_kv_heads=edge_kv_heads)
+    if cloud_heads is not None:
+        c = c.replace(num_heads=cloud_heads[0], num_kv_heads=cloud_heads[1])
     return e, c
 
 
 def engine(mesh=None, edge_kv_heads=None, threshold=-1.0,
-           edge="smollm-135m", kv_layout="paged", **kw):
+           edge="smollm-135m", kv_layout="paged", cloud="granite-8b",
+           cloud_heads=None, policy="speculative", adapt=None, batch_size=8,
+           **kw):
     """The batched engine over ``pair_cfgs`` (paged and linear unless
-    told, greedy, no semantic cache)."""
-    from repro_torch.core.policy import SpeculativePolicy
+    told, greedy, no semantic cache).  ``policy``: "speculative" or
+    "threshold" at ``threshold``; ``adapt``: the keywords of a fresh
+    ``AdaptationLoop`` (AdamW at lr 1e-3, eps 1e-3)."""
+    from repro_torch.core.adaptation import AdaptationLoop
+    from repro_torch.core.policy import SpeculativePolicy, ThresholdPolicy
     from repro_torch.core.scheduler import BatchedEngine
     from repro_torch.models import Model
-    e_cfg, c_cfg = pair_cfgs(edge_kv_heads, edge)
-    return BatchedEngine(Model(e_cfg), Model(c_cfg), batch_size=8,
-                         temperature=0.0, use_cache=False,
-                         policy=SpeculativePolicy(threshold),
-                         kv_layout=kv_layout, mesh=mesh, **kw)
+    from repro_torch.training.optimizer import AdamW
+    e_cfg, c_cfg = pair_cfgs(edge_kv_heads, edge, cloud, cloud_heads)
+    pol = {"speculative": SpeculativePolicy,
+           "threshold": ThresholdPolicy}[policy](threshold)
+    loop = None if adapt is None else \
+        AdaptationLoop(opt=AdamW(lr=1e-3, eps=1e-3), **adapt)
+    return BatchedEngine(Model(e_cfg), Model(c_cfg), batch_size=batch_size,
+                         temperature=0.0, use_cache=False, policy=pol,
+                         kv_layout=kv_layout, mesh=mesh, adaptation=loop,
+                         **kw)
 
 
 def drain(ep, cp, prompts, max_new, **kw):
@@ -134,10 +148,20 @@ def serve_worker(rank, payload):
 
 
 # ---------------------------------------------------------------- lanes
-# the lanes and layouts of ``tests/test_torch_mesh_lanes.py``: drain name
-# -> (payload key of the bridged edge, ``engine`` keywords).  "twin" drafts
-# trees with the cloud's own weights, so its drafts are accepted and the
-# commits move real paths
+# the lanes, layouts, clouds and adaptation loops of
+# ``tests/test_torch_mesh_lanes.py``: drain name -> (payload key of the
+# bridged edge, ``engine`` keywords; a "cloud" keyword names the cloud's
+# arch and its payload key, granite-8b's is "cloud", unless "cloud_key"
+# names another).  "twin" drafts trees
+# with the cloud's own weights, so its drafts are accepted and the commits
+# move real paths; "distill" and "lora" serve 8 requests through 4 slots
+# with an update due every 2 completions, so the second wave runs on
+# swapped edge weights; "olmoe" is a moe cloud (4 experts over model 2),
+# "granite20b" a cloud of 4 query heads and 1 kv head that regenerates
+# every request (its decode steps on the gathered head-dim halves),
+# "straddle" one of 6 query heads over 3 kv heads (a rank's 3 query heads
+# would span two kv groups: its attention runs whole on every rank)
+ADAPT = dict(interval=2, batch_size=4, seq_len=16, min_records=1)
 LANE_DRAINS = {
     "dense": ("edge_kv1", dict(edge_kv_heads=1, kv_layout="dense")),
     "tree": ("edge", dict(kv_layout="dense", spec_mode="tree",
@@ -147,31 +171,50 @@ LANE_DRAINS = {
     "zamba2": ("zamba2", dict(edge="zamba2-2.7b", kv_layout="auto")),
     "twin": ("cloud", dict(edge="granite-8b", kv_layout="dense",
                            spec_mode="tree", spec_tree_width=2)),
+    "distill": ("edge", dict(policy="threshold", batch_size=4,
+                             adapt=dict(mode="distill", topk=4, **ADAPT))),
+    "lora": ("edge", dict(batch_size=4, adapt=dict(mode="lora", **ADAPT))),
+    "olmoe": ("edge", dict(cloud="olmoe-1b-7b")),
+    "granite20b": ("edge", dict(cloud="granite-20b", policy="threshold")),
+    "straddle": ("edge", dict(cloud_heads=(6, 3), cloud_key="straddle")),
 }
 
 
 def lane_drains(payload, mesh=None):
     """Every ``LANE_DRAINS`` drain on the payload's bridged parameters:
-    name -> (tokens, the edge's uncertainty per request, stats)."""
+    name -> (tokens, the edge's uncertainty per request, stats; on a mesh
+    the stats also hold the bytes each collective moved in the drain,
+    under "moved")."""
     from repro_torch.bridge import params_from_numpy
     out = {}
     for name, (key, kw) in LANE_DRAINS.items():
+        kw = dict(kw)
+        cloud_key = kw.pop("cloud_key", kw.get("cloud", "cloud"))
         e_cfg, c_cfg = pair_cfgs(kw.get("edge_kv_heads"),
-                                 kw.get("edge", "smollm-135m"))
+                                 kw.get("edge", "smollm-135m"),
+                                 kw.get("cloud", "granite-8b"),
+                                 kw.get("cloud_heads"))
         eng = engine(mesh=mesh, **kw)
+        before = dict(mesh.moved) if mesh is not None else {}
         traces = eng.serve_batch(
             params_from_numpy(payload[key], e_cfg, "cpu"),
-            params_from_numpy(payload["cloud"], c_cfg, "cpu"),
+            params_from_numpy(payload[cloud_key], c_cfg, "cpu"),
             payload["prompts"], payload["max_new"])
+        st = eng.stats()
+        if mesh is not None:
+            st["moved"] = {k: n - before.get(k, 0)
+                           for k, n in mesh.moved.items()
+                           if n != before.get(k, 0)}
         out[name] = ([t.tokens for t in traces],
-                     [t.uncertainty for t in traces], eng.stats())
+                     [t.uncertainty for t in traces], st)
     return out
 
 
 def _dense_shapes(mesh):
-    """Per-rank K/V of two dense states — the edge's head-dim split (one
+    """Per-rank K/V of three dense states — the edge's head-dim split (one
     kv head) over 8 data-split slots, the cloud's kv-head split over a
-    whole group — each beside the whole state's shape, its
+    whole group, and a one-kv-head cloud's head-dim split (granite-20b)
+    over a whole group — each beside the whole state's shape, its
     ``cache_specs`` entry and the bytes (global, this rank's, whole)."""
     from repro_torch import runtime
     from repro_torch.core.seq_state import stack_slot_caches
@@ -180,9 +223,12 @@ def _dense_shapes(mesh):
     from repro_torch.models import Model
     shapes = {}
     with runtime.mesh_context(mesh):
-        for name, kv in (("edge_hd", 1), ("cloud_heads", None)):
-            eng = engine(mesh=mesh, edge_kv_heads=kv, kv_layout="dense")
-            e_cfg, c_cfg = pair_cfgs(kv)
+        for name, kv, cloud in (("edge_hd", 1, "granite-8b"),
+                                ("cloud_heads", None, "granite-8b"),
+                                ("cloud_hd", None, "granite-20b")):
+            eng = engine(mesh=mesh, edge_kv_heads=kv, kv_layout="dense",
+                         cloud=cloud)
+            e_cfg, c_cfg = pair_cfgs(kv, cloud=cloud)
             if name == "edge_hd":
                 lane, cfg = eng.edge, e_cfg
                 p = local_attention(Model(cfg).init(device="cpu"), mesh, cfg)
@@ -200,55 +246,59 @@ def _dense_shapes(mesh):
     return shapes
 
 
-def _refusals(mesh, prompt):
-    """What the mesh still refuses (ROADMAP A.8): name -> the message."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.adaptation import AdaptationLoop
-    from repro_torch.core.scheduler import BatchedEngine
-    from repro_torch.launch.sharding import place_params
-    from repro_torch.models import Model
-    e_cfg, c_cfg = pair_cfgs()
-    m_cfg = get_config("granite-moe-1b-a400m").reduced().replace(
-        vocab_size=e_cfg.vocab_size)
-
-    def moe_cloud():
-        eng = BatchedEngine(Model(e_cfg), Model(m_cfg), batch_size=8,
-                            mesh=mesh)
-        eng.serve_batch(Model(e_cfg).init(seed=0, device="cpu"),
-                        Model(m_cfg).init(seed=1, device="cpu"), [prompt], 2)
-
-    makers = {
-        "adaptation": lambda: engine(mesh=mesh,
-                                     adaptation=AdaptationLoop(mode="lora")),
-        "moe_cloud": moe_cloud,
-        "uneven_heads": lambda: place_params(
-            Model(c_cfg.replace(num_kv_heads=1)).init(device="cpu"), mesh)}
-    out = {}
-    for name, make in makers.items():
-        try:
-            make()
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return out
+def _uneven_pool(mesh):
+    """The granite-20b cloud lane's paged pool on this rank (8 slots of
+    32 tokens, the default pool): the local K shape, the whole pool's and
+    its ``paged_cache_specs`` entry, the stats, and the local config the
+    placed blocks compute with."""
+    from repro_torch.core.seq_state import Lane
+    from repro_torch.launch.sharding import paged_cache_specs, place_params
+    from repro_torch.models import Model, transformer
+    _, cfg = pair_cfgs(cloud="granite-20b")
+    p = place_params(Model(cfg).init(device="cpu"), mesh)
+    lane = Lane(Model(cfg), "entropy", 0.0, layout="paged", block_size=4,
+                mesh=mesh)
+    st = lane.make_state(p, 8, 32)
+    whole = transformer.init_paged_cache(cfg, st.pool.num_blocks, 4, 8,
+                                         st.max_blocks, device="meta")
+    return {"local": tuple(st.caches["k"].shape),
+            "whole": tuple(whole["k"].shape),
+            "spec": paged_cache_specs(whole, mesh, cfg)["k"],
+            "stats": st.stats(), "gather": st.view.gather,
+            "heads": (p.tp.cfg.num_heads, p.tp.cfg.num_kv_heads,
+                      p.tp.attn_heads)}
 
 
-def lanes_worker(rank, payload):
-    """The ``LANE_DRAINS``, the per-rank dense shapes, the refusals and
-    ``serve.py --mesh`` on the tree lane, on one (data 2, model 2) mesh of
-    four ranks."""
+def _serve_cli(*extra):
+    """``serve.py --mesh data=2,model=2`` at reduced size with ``extra``
+    flags: (rank 0's report, stats)."""
     from repro_torch.launch import serve
-    from repro_torch.launch.mesh import make_host_mesh
-    torch.set_num_threads(1)
-    mesh = make_host_mesh(2, 2)
-    out = {"coords": mesh.coords, "drains": lane_drains(payload, mesh),
-           "shapes": _dense_shapes(mesh),
-           "refused": _refusals(mesh, payload["prompts"][0])}
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         _, st = serve.main(["--device", "cpu", "--reduced", "--requests",
                             "4", "--max-new", "4", "--prompt-len", "8",
                             "--mesh", "data=2,model=2", "--batch-size", "4",
-                            "--spec-mode", "tree", "--kv-layout", "dense"])
-    out["serve"] = (buf.getvalue(), st["spec_mode"], st["mesh_shape"])
+                            *extra])
+    return buf.getvalue(), st
+
+
+def lanes_worker(rank, payload):
+    """The ``LANE_DRAINS``, the per-rank dense shapes, the one-kv-head
+    cloud's paged pool and ``serve.py --mesh`` on the tree lane, with
+    ``--adapt distill`` and with a moe cloud, on one (data 2, model 2)
+    mesh of four ranks."""
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(2, 2)
+    out = {"coords": mesh.coords, "drains": lane_drains(payload, mesh),
+           "shapes": _dense_shapes(mesh), "uneven_pool": _uneven_pool(mesh)}
+    text, st = _serve_cli("--spec-mode", "tree", "--kv-layout", "dense")
+    out["serve"] = (text, st["spec_mode"], st["mesh_shape"])
+    text, st = _serve_cli("--adapt", "distill", "--adapt-interval", "2",
+                          "--policy", "threshold", "--threshold", "-1",
+                          "--batch-size", "2")
+    out["serve_adapt"] = (text, st["adaptation"])
+    text, st = _serve_cli("--cloud", "olmoe-1b-7b")
+    out["serve_moe"] = (text, st["spec_mode"], st["mesh_shape"])
     out["moved"] = dict(mesh.moved)
     return out
