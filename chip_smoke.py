@@ -39,7 +39,9 @@ the first phase that fails:
    against autograd of the plain attention (dq, dk, dv and the forward's
    log-sum-exp against ``logsumexp`` of the plain scores, float32 and
    bfloat16, smollm-135m heads at S 64 and 256, granite-8b heads at S 128
-   and 130, zamba2's hd 80 with G 1, a window, a ragged length), timed
+   and 130, zamba2's hd 80 with G 1, a window, a ragged length, and a
+   ``[mesh-train]`` rank's heads and rows of granite-8b and olmoe-1b-7b,
+   also timed there), timed
    alone against SDPA's backward alone and, forward + backward, against
    SDPA's forward + backward at the training shape and at S 2048; the
    SSD-scan backward (``csrc/ssd_scan_bwd.cu``) against autograd of the
@@ -118,7 +120,7 @@ the first phase that fails:
    depth, data parallel, its paged pool split per data shard and on the
    head dim over 'model'; granite-8b at full width cut to
    ``MESH_CLOUD_LAYERS`` layers, tensor parallel with FSDP; bf16, 8
-   requests of 16 + 8 tokens, gamma 4, ``SpeculativePolicy(0.6)``) must
+   requests of 16 + 4 tokens, gamma 4, ``SpeculativePolicy(0.6)``) must
    serve every request with the same tokens on every rank, finite logits,
    the paged-decode, flash and spec-verify kernels launched on every rank,
    ``kv_shards`` 4 and ``mesh_shape`` {data 2, model 2}; it prints ms per
@@ -147,7 +149,24 @@ the first phase that fails:
    the unsharded engine in this process — traces identical but for near
    ties (top-2 gap below 1e-4), the adaptation loop's counts equal and
    its last loss within 1e-4 relative, and a paged
-   ``kv_capacity_blocks`` above the unsharded engine's; ``[examples]``:
+   ``kv_capacity_blocks`` above the unsharded engine's;
+3d. ``[mesh-train]``: sharded training on the one card — four ranks at
+   (data 2, model 2) over gloo run ``launch/train.train_on_mesh`` (the
+   ``train.py --mesh`` path below the mesh's construction) on granite-8b
+   (heads split over 'model', FSDP over 'data') and olmoe-1b-7b (64
+   experts over 'model'), each at full width cut to
+   ``MESH_CLOUD_LAYERS`` layers, bf16, batch 8, seq 256, 3 AdamW steps:
+   a finite loss and grad norm, the same on every rank, the flash forward
+   and backward launched on every rank; it prints ms per step (host
+   issue, stream span; rank 0's profiled device busy), the bytes per
+   collective per step and a rank's bytes of parameters and moments
+   against the whole model's; then 2 float32 steps of each against the
+   unsharded port's step in this process: every rank's gathered
+   parameters within 1e-6 (absolute and relative), losses and grad norms
+   within 1e-5 relative; ``[dryrun]``: granite-8b x train_4k on rank 0 of
+   the 256-rank single-pod mesh on the meta device (``launch/dryrun.py``):
+   flops, bytes and collective bytes per rank and the seconds it took;
+   ``[examples]``:
    the four ``examples/torch_port`` scripts on the card, each in a fresh
    process, each exiting 0 with its invariant held;
 4. serve each path again at float32, full width, cut depth (2 layers per
@@ -163,7 +182,7 @@ the first phase that fails:
 5. print the card's name and power limit, a ``{"kernels": [...]}`` line
    (launches summed over the seven served paths, the per-request phase,
    the encdec and vlm paths, the two adaptation paths, the nine
-   training runs and the mesh phase's four ranks; the flash
+   training runs and the mesh and mesh-train phases' four ranks; the flash
    backward's also per route) and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -681,15 +700,16 @@ def check_flash_bwd(gen):
     """The backward kernel (through ``ops.flash_attention`` under grad:
     the forward kernel with its LSE, then the backward kernel) against
     autograd of the plain version, float32 and bfloat16, on strided views;
-    the LSE of both forward paths; then timed at the training shape and at
-    S 2048 against SDPA."""
+    the LSE of both forward paths; then timed at the training shape, at
+    S 2048 and at a rank's shapes of ``[mesh-train]`` against SDPA."""
     import torch
     from repro_torch.kernels import flash_attention as K
     from repro_torch.kernels import ops
     errs = []
+    cases = FLASH_BWD_CASES + tuple(sh + (0,) for _, sh in MESH_TRAIN_FLASH)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        for B, H, Kv, S, hd, window in FLASH_BWD_CASES:
+        for B, H, Kv, S, hd, window in cases:
             q = _proj_view((B, H, S, hd), dtype, gen)
             k, v = (_proj_view((B, Kv, S, hd), dtype, gen) for _ in range(2))
             dout = _proj_view((B, H, S, hd), dtype, gen)
@@ -726,6 +746,9 @@ def check_flash_bwd(gen):
     row.update(_flash_bwd_timing(K, FLASH_BWD_TRAIN, gen))
     row["long"] = {"shape": "(B,H,Kv,S,hd)=" + str(FLASH_LONG),
                    **_flash_bwd_timing(K, FLASH_LONG, gen)}
+    for arch, shape in MESH_TRAIN_FLASH:
+        row[f"{arch} train local"] = {"shape": "(B,H,Kv,S,hd)=" + str(shape),
+                                      **_flash_bwd_timing(K, shape, gen)}
     return row
 
 
@@ -1766,10 +1789,10 @@ PATHS = (
     ("hybrid", "zamba2-2.7b", {}, RECURRENT_KERNELS + ("decode_attention",)),
 )
 # served depth where it is cut (edge layers; the granite-8b cloud keeps its
-# 36): the moe, mamba2 and zamba2 edges at half or a third of their depth
-# (zamba2 keeps three shared-attention groups of 6), for the script's time
-SERVE_DEPTH = {"granite-moe-1b-a400m": 12, "mamba2-370m": 24,
-               "zamba2-2.7b": 18}
+# 36): the moe, mamba2 and zamba2 edges at a quarter of their depth
+# (zamba2 keeps two shared-attention groups of 6), for the script's time
+SERVE_DEPTH = {"granite-moe-1b-a400m": 6, "mamba2-370m": 12,
+               "zamba2-2.7b": 12}
 # f32 parity depth per edge (edge layers, cloud layers): zamba2 keeps its
 # own shared_attn_every = 6 (one group), xLSTM reaches its sLSTM block 3
 PARITY_DEPTH = {"smollm-135m": (2, 2), "mamba2-370m": (2, 2),
@@ -2812,8 +2835,8 @@ MESH_CLOUD_LAYERS = 2
 MESH_KERNELS = ("paged_decode_attention", "flash_attention", "spec_verify")
 MESH_MOE = dict(n=4, prompt=4097, new=8)
 MESH_PARITY_NEW = 4
-# new tokens of each bf16 drain on the mesh
-MESH_NEW = 8
+# new tokens of each bf16 drain on the mesh (as many as its parity's)
+MESH_NEW = 4
 # the other lanes and layouts on the mesh, served as their ``PATHS`` entries
 # (the same engine settings, the kernels each must launch on every rank):
 # the tree lane on dense states, the self lane, the recurrent mamba2 edge
@@ -3204,6 +3227,302 @@ def phase_mesh(total):
           flush=True)
 
 
+# --------------------------------------------------------------- phase 3d
+# Sharded training on the one card (``[mesh-train]``): four ranks at
+# (data 2, model 2) over gloo, ``launch/train.train_on_mesh`` (the CLI's
+# ``--mesh`` path below the mesh's construction) on granite-8b (32 query
+# heads over 8 kv heads: heads split over 'model', FSDP over 'data') and
+# olmoe-1b-7b (64 experts over 'model'), each at full width cut to
+# MESH_CLOUD_LAYERS layers, bf16, the trainer cell's batch 8 and seq 256,
+# MESH_TRAIN_STEPS AdamW steps; then each at float32 for
+# MESH_TRAIN_PARITY_STEPS steps against the unsharded port's step in this
+# process (AdamW at eps 1e-3, as ``_train_step_parity`` says why): every
+# rank's gathered parameters within MESH_TRAIN_TOL (absolute and
+# relative, ``tests/test_torch_mesh_training.py``'s), losses and grad
+# norms within 1e-5 relative.  The reference parameters reach the ranks
+# through CUDA IPC (the spawn's arguments).  ``[dryrun]``: granite-8b x
+# train_4k on rank 0 of the 256-rank mesh, on the meta device.
+MESH_TRAIN = ("granite-8b", "olmoe-1b-7b")
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_PARITY_STEPS = 2
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 8, 256
+MESH_TRAIN_TOL = 1e-6
+MESH_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+# a rank's flash shapes in that phase: (B / data, H / model, Kv / model,
+# seq, hd), held and timed in phase 2
+MESH_TRAIN_FLASH = (("granite-8b", (4, 16, 4, 256, 128)),
+                    ("olmoe-1b-7b", (4, 8, 8, 256, 128)))
+
+
+def _mesh_train_cfg(arch, dtype=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(num_layers=MESH_CLOUD_LAYERS)
+    return cfg if dtype is None else cfg.replace(param_dtype=dtype,
+                                                 activ_dtype=dtype)
+
+
+def _parity_opt():
+    from repro_torch.training import AdamW
+    return AdamW(lr=1e-2, eps=1e-3)
+
+
+def _mesh_train_rank(rank, refs):
+    """One rank of ``[mesh-train]`` (a spawned process; imports only the
+    port): per arch the bf16 run's per-step timings, bytes, losses and
+    launches and its state bytes, then the float32 steps against
+    ``refs`` (the unsharded run's parameters, shared from the parent)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import gather_params, init_placed
+    from repro_torch.models import Model
+    from repro_torch.training import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(*MESH_SHAPE, device=dev)
+    out = {"rank": rank, "coords": mesh.coords, "runs": {}, "parity": {}}
+    real = trainer.make_train_step
+    for arch in MESH_TRAIN:
+        steps = []
+
+        def timed(*a, **k):
+            step = real(*a, **k)
+
+            def run(params, state, batch):
+                before = dict(mesh.moved)
+                prof = None
+                if rank == 0 and len(steps) == 1:
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.__enter__()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                h = time.perf_counter()
+                e0.record()
+                params, state, m = step(params, state, batch)
+                e1.record()
+                host = (time.perf_counter() - h) * 1e3
+                e1.synchronize()
+                busy = None
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    busy = device_activity(prof)[0]
+                steps.append({
+                    "host": host, "span": e0.elapsed_time(e1), "busy": busy,
+                    "bytes": {key: n - before.get(key, 0)
+                              for key, n in mesh.moved.items()
+                              if n != before.get(key, 0)},
+                    "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])})
+                return params, state, m
+            return run
+
+        trainer.make_train_step = timed
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        try:
+            res = launch_train.train_on_mesh(launch_train.parse_args(
+                ["--arch", arch, "--steps", str(MESH_TRAIN_STEPS),
+                 "--batch", str(MESH_TRAIN_BATCH), "--seq",
+                 str(MESH_TRAIN_SEQ)]), mesh, _mesh_train_cfg(arch))
+        finally:
+            trainer.make_train_step = real
+        wall = time.perf_counter() - t
+        launches = ops.launch_counts()
+        p = res["params"]
+        n_local = sum(x.numel() for x in p.parameters())
+        size = next(iter(p.parameters())).element_size()
+        out["runs"][arch] = {
+            "steps": steps, "launches": launches, "wall": wall,
+            "rank_bytes": n_local * (size + 8),
+            "whole_bytes": res["whole_params"] * (size + 8),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del res, p
+        torch.cuda.empty_cache()
+
+    for arch in MESH_TRAIN:
+        cfg = _mesh_train_cfg(arch, "float32")
+        model = Model(cfg)
+        p = init_placed(model, 0, mesh, dev)
+        opt = _parity_opt()
+        st = opt.init(p, cfg)
+        step = trainer.make_train_step(model, opt, mesh=mesh)
+        it = batches(cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, device=dev)
+        ops.reset_launch_counts()
+        hist = []
+        for _ in range(MESH_TRAIN_PARITY_STEPS):
+            p, st, m = step(p, st, next(it))
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        launches = ops.launch_counts()
+        del st
+        full = dict(gather_params(p).named_parameters())
+        ref = refs[arch]
+        err, excess = 0.0, 0.0
+        for n, t in full.items():
+            d = (t - ref[n]).abs()
+            err = max(err, float(d.max()))
+            excess = max(excess, float((d - MESH_TRAIN_TOL
+                                        * (1 + ref[n].abs())).max()))
+        out["parity"][arch] = {"hist": hist, "max_err": err,
+                               "within": excess <= 0.0,
+                               "launches": launches}
+        del full, p
+        torch.cuda.empty_cache()
+    refs.clear()              # release the parent's shared tensors
+    out["moved"] = dict(mesh.moved)
+    return out
+
+
+def _mesh_train_refs():
+    """The unsharded port's float32 steps of each ``MESH_TRAIN`` arch here:
+    ({arch: {name: parameter}}, {arch: [(loss, grad norm)]})."""
+    import torch
+    from repro_torch.data import batches
+    from repro_torch.models import Model
+    from repro_torch.training import make_train_step
+    refs, hists = {}, {}
+    for arch in MESH_TRAIN:
+        cfg = _mesh_train_cfg(arch, "float32")
+        m = Model(cfg)
+        p = m.init(seed=0, device="cuda")
+        opt = _parity_opt()
+        st = opt.init(p, cfg)
+        step = make_train_step(m, opt)
+        it = batches(cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, device="cuda")
+        hists[arch] = []
+        for _ in range(MESH_TRAIN_PARITY_STEPS):
+            p, st, met = step(p, st, next(it))
+            hists[arch].append((float(met["loss"]),
+                                float(met["grad_norm"])))
+        del st
+        refs[arch] = {n: t.detach() for n, t in p.named_parameters()}
+        torch.cuda.empty_cache()
+    return refs, hists
+
+
+def phase_mesh_train(total):
+    """[mesh-train] and [dryrun] (see ``MESH_TRAIN``); adds every rank's
+    launches to ``total``."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    refs, ref_hist = _mesh_train_refs()
+    print(f"[mesh-train] unsharded float32 references "
+          f"({MESH_TRAIN_PARITY_STEPS} steps each) in "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    store = ROOT / "build" / f"mesh_train_store_{int(time.time() * 1e3)}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    ranks = spawn_ranks(_mesh_train_rank, MESH_SHAPE[0] * MESH_SHAPE[1],
+                        refs, store=str(store), device="cuda", timeout=600)
+    del refs
+    torch.cuda.empty_cache()
+    import math
+    for arch in MESH_TRAIN:
+        runs = [r["runs"][arch] for r in ranks]
+        for r, run in zip(ranks, runs):
+            for k in MESH_TRAIN_KERNELS:
+                check(run["launches"][k] > 0, f"[mesh-train] {arch}: {k} "
+                      f"was not launched on rank {r['rank']} {r['coords']}")
+            check([(s["loss"], s["grad_norm"]) for s in run["steps"]]
+                  == [(s["loss"], s["grad_norm"]) for s in runs[0]["steps"]],
+                  f"[mesh-train] {arch}: rank {r['rank']}'s losses or grad "
+                  "norms differ from rank 0's")
+            check(all(math.isfinite(s["loss"]) and
+                      math.isfinite(s["grad_norm"]) for s in run["steps"]),
+                  f"[mesh-train] {arch}: a non-finite loss or grad norm on "
+                  f"rank {r['rank']}")
+            check(len(run["steps"]) == MESH_TRAIN_STEPS,
+                  f"[mesh-train] {arch}: {len(run['steps'])} steps")
+            for k, n in run["launches"].items():
+                total[k] += n
+        run = runs[0]
+        st = run["steps"]
+        later = [s for r in runs for s in r["steps"][1:]]
+        per_step = {}
+        for s in st[1:]:
+            for k, n in s["bytes"].items():
+                per_step.setdefault(k, []).append(n)
+        print(f"[mesh-train] {arch} ({MESH_CLOUD_LAYERS} layers, full "
+              f"width, bf16, batch {MESH_TRAIN_BATCH}, seq {MESH_TRAIN_SEQ},"
+              f" mesh (data {MESH_SHAPE[0]}, model {MESH_SHAPE[1]})): loss "
+              + " -> ".join(f"{s['loss']:.4f}" for s in st)
+              + ", grad norm " + " -> ".join(f"{s['grad_norm']:.4f}"
+                                             for s in st)
+              + f" (every rank the same); wall {run['wall']:.2f}s; per step "
+              f"after the first (all ranks, median): host issue "
+              f"{_pct([s['host'] for s in later]):.1f} ms, stream span "
+              f"{_pct([s['span'] for s in later]):.1f} ms; rank 0's device "
+              f"busy in step 2 (profiled) {st[1]['busy']:.1f} ms; first "
+              f"step {st[0]['span']:.1f} ms; launches per rank "
+              + ", ".join(f"{k} {[r['launches'][k] for r in runs]}"
+                          for k in MESH_TRAIN_KERNELS)
+              + "; flash backward routes " + str(
+                  {k: n for k, n in run["launches"].items()
+                   if k.startswith("flash_attention_bwd/")})
+              + f"; peak memory per rank "
+              f"{max(r['peak_gib'] for r in runs):.2f} GiB", flush=True)
+        print(f"[mesh-train] {arch} bytes per step on rank 0 (median of "
+              "steps 2-3): " + "; ".join(
+                  f"{k} {_pct(v) / 1e6:.3f} MB"
+                  for k, v in sorted(per_step.items()))
+              + f"; parameters + AdamW moments on a rank "
+              f"{run['rank_bytes']} B of the whole model's "
+              f"{run['whole_bytes']} B "
+              f"({run['rank_bytes'] / run['whole_bytes']:.3f})", flush=True)
+    for arch in MESH_TRAIN:
+        ref = ref_hist[arch]
+        for r in ranks:
+            par = r["parity"][arch]
+            for (l, n), (rl, rn) in zip(par["hist"], ref):
+                check(abs(l - rl) <= 1e-5 * abs(rl)
+                      and abs(n - rn) <= 1e-5 * rn,
+                      f"[mesh-train] {arch} float32 rank {r['rank']}: loss "
+                      f"{l} / grad norm {n} against the unsharded {rl} / "
+                      f"{rn}")
+            check(par["within"], f"[mesh-train] {arch} float32 rank "
+                  f"{r['rank']}: gathered params differ by "
+                  f"{par['max_err']:.3e} (tol {MESH_TRAIN_TOL:g} x (1 + "
+                  "|ref|))")
+            for k in MESH_TRAIN_KERNELS:
+                check(par["launches"][k] > 0, f"[mesh-train] {arch} float32:"
+                      f" {k} not launched on rank {r['rank']}")
+            for k, n in par["launches"].items():
+                total[k] += n
+        pars = [r["parity"][arch] for r in ranks]
+        print(f"[mesh-train] {arch} float32 parity "
+              f"({MESH_TRAIN_PARITY_STEPS} steps, AdamW eps 1e-3) against "
+              f"the unsharded step: "
+              f"losses {[round(l, 6) for l, _ in pars[0]['hist']]} vs "
+              f"{[round(l, 6) for l, _ in ref]}, grad norms "
+              f"{[round(n, 6) for _, n in pars[0]['hist']]} vs "
+              f"{[round(n, 6) for _, n in ref]}; gathered params max diff "
+              f"per rank {[format(p['max_err'], '.2e') for p in pars]} (tol "
+              f"{MESH_TRAIN_TOL:g} x (1 + |ref|))", flush=True)
+    print("[mesh-train] whole phase on rank 0: " + "; ".join(
+        f"{k} {n / 1e6:.1f} MB" for k, n in sorted(ranks[0]["moved"].items())),
+        flush=True)
+    t = time.perf_counter()
+    rec = dryrun.run_one("granite-8b", "train_4k", "single", verbose=False,
+                         results_dir=str(ROOT / "build" / "dryrun_torch"))
+    check(rec["status"] == "ok" and rec["flops_per_device"] > 0,
+          f"[dryrun] {rec}")
+    print(f"[dryrun] granite-8b x train_4k x single (rank 0 of "
+          f"{rec['devices']}, meta device): flops "
+          f"{rec['flops_per_device']:.6g}, bytes {rec['bytes_per_device']:.6g}"
+          f" (unfused upper bound), collective bytes "
+          f"{rec['hlo_cost']['collective_bytes']:.6g} in "
+          f"{rec['collectives']['count']} calls per rank; arguments "
+          f"{rec['memory']['argument_bytes']} B, saved for the backward "
+          f"{rec['memory']['temp_bytes']} B; "
+          f"{time.perf_counter() - t:.1f}s", flush=True)
+    print(f"[mesh-train] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 def _per_round_bytes(timing):
     """Median bytes per round of each collective ("<op>/<axes>")."""
     per_round = {}
@@ -3517,6 +3836,8 @@ def main() -> int:
         lap("+ adaptation and training")
         phase_mesh(launches)
         lap("+ mesh")
+        phase_mesh_train(launches)
+        lap("+ mesh-train and dryrun")
         phase_examples()
         lap("+ examples")
         phase_parity()

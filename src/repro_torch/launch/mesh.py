@@ -19,6 +19,12 @@ group.  Rank ``r`` computes on ``cuda:(local_rank % device_count)`` (or the
 CPU when the caller asks for it); the backend is NCCL when the ranks map to
 distinct cards and gloo otherwise — NCCL refuses two ranks on one card.
 The choice is printed, never silent.
+
+Collectives that training differentiates (``all_gather``, ``all_reduce``,
+``copy_to``) are autograd ``Function``s whenever their input requires
+grad, each with the backward its consumer needs; ``ShapeMesh`` is the
+same interface at one rank of a mesh of any shape with no process group,
+for the meta-device dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -81,7 +87,7 @@ class Mesh:
     ``shape`` is a dict axis -> size in axis order, as ``jax.sharding.Mesh``
     exposes it; ``devices`` the (shape) array of ranks; ``device`` this
     rank's torch device.  ``moved`` counts the bytes each collective moved
-    on this rank, keyed ``"<op>/<axes>"``."""
+    on this rank, keyed ``"<op>/<axes>"``, and ``calls`` the calls."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  device=None):
@@ -104,6 +110,8 @@ class Mesh:
             torch.device("cpu")
         self.backend = dist.get_backend() if dist.is_initialized() else None
         self.moved: Dict[str, int] = {}
+        self.calls: Dict[str, int] = {}
+        self.scatter_route: Dict[str, str] = {}   # device type -> route
         self._groups = {}
         data = tuple(a for a in axis_names if a != "model")
         for axes in [(a,) for a in axis_names] + ([data] if len(data) > 1
@@ -147,32 +155,99 @@ class Mesh:
         return self._groups[axes]
 
     # ------------------------------------------------------------ collectives
+    # The raw collectives (``_gather``, ``_reduce``, ``_scatter_sum``) move
+    # bytes and count them in ``moved``; autograd does not see them.  The
+    # public ones are what model code calls: each is an autograd
+    # ``Function`` when its input requires grad, with the backward its
+    # consumer needs (the module docstring of ``launch/sharding.py``).
     def _count(self, op: str, axes, nbytes: int):
         key = f"{op}/{','.join((axes,) if isinstance(axes, str) else axes)}"
         self.moved[key] = self.moved.get(key, 0) + nbytes
+        self.calls[key] = self.calls.get(key, 0) + 1
 
-    def all_gather(self, x: torch.Tensor, axes, dim: int = 0):
-        """Concatenate every member's ``x`` along ``dim`` in the axes'
-        row-major order (``lax.all_gather(..., tiled=True)``)."""
+    def _gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         n = self.axis_size(axes)
-        if n == 1:
-            return x
         x = x.contiguous()
         out = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(out, x, group=self.group(axes))
         self._count("all_gather", axes, x.nbytes * n)
         return torch.cat(out, dim=dim)
 
-    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"):
-        """Sum (or mean) of every member's ``x`` (``lax.psum`` / ``pmean``);
-        returns a new tensor."""
-        n = self.axis_size(axes)
-        if n == 1:
-            return x
+    def _reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
         y = x.contiguous().clone()
         dist.all_reduce(y, group=self.group(axes))
         self._count("all_reduce", axes, y.nbytes)
+        return y
+
+    def _scatter_sum(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This member's block along ``dim`` of the sum of every member's
+        ``x`` (a reduce-scatter).  Where the backend has no reduce-scatter
+        for the tensor's device (gloo on CUDA tensors may lack it) it is an
+        all-reduce and a slice; rank 0 prints the route the first time."""
+        n = self.axis_size(axes)
+        x = x.movedim(dim, 0).contiguous()
+        kind = x.device.type
+        if self.scatter_route.get(kind) != "all_reduce":
+            out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+            try:
+                _REDUCE_SCATTER(out, x, group=self.group(axes))
+            except (RuntimeError, NotImplementedError, ValueError) as e:
+                self._route(kind, "all_reduce", f" ({e!r:.120})")
+            else:
+                self._route(kind, "reduce_scatter")
+                self._count("reduce_scatter", axes, x.nbytes)
+                return out.movedim(0, dim)
+        y = self._reduce(x, axes)
+        i, k = self.axis_index(axes), x.shape[0] // n
+        return y[i * k:(i + 1) * k].movedim(0, dim)
+
+    def _route(self, kind: str, route: str, why: str = ""):
+        if kind not in self.scatter_route:
+            self.scatter_route[kind] = route
+            if self.rank == 0:
+                print(f"distributed: reduce-scatter of {kind} tensors as "
+                      f"{route}{why}", flush=True)
+
+    def _local(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This member's block along ``dim`` of a tensor whole on every
+        member (no communication)."""
+        k = x.shape[dim] // self.axis_size(axes)
+        return x.narrow(dim, self.axis_index(axes) * k, k)
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0, *,
+                   grad: str = "local"):
+        """Concatenate every member's ``x`` along ``dim`` in the axes'
+        row-major order (``lax.all_gather(..., tiled=True)``).  Its
+        gradient: ``grad="sum"`` where the members compute different things
+        on the whole (an FSDP weight gathered over the data axes: a
+        reduce-scatter of the members' gradients), ``"local"`` where every
+        member computes the same thing on it (this member's block of the
+        gradient, no communication)."""
+        if self.axis_size(axes) == 1:
+            return x
+        if _tracks(x):
+            return _Gather.apply(x, self, axes, dim, grad)
+        return self._gather(x, axes, dim)
+
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"):
+        """Sum (or mean) of every member's ``x`` (``lax.psum`` / ``pmean``);
+        returns a new tensor.  Its gradient is the identity (each member's
+        part of a row-parallel sum, whose result every member then uses
+        alike, gets the whole gradient of that result)."""
+        n = self.axis_size(axes)
+        if n == 1:
+            return x
+        y = _Sum.apply(x, self, axes) if _tracks(x) else self._reduce(x, axes)
         return y / n if op == "mean" else y
+
+    def copy_to(self, x: torch.Tensor, axes):
+        """``x`` itself, whose gradient is summed over ``axes``: the input
+        of a computation split over the axes (a column-parallel projection
+        over 'model', Megatron's *f*), where each member's gradient holds
+        only its part."""
+        if self.axis_size(axes) == 1 or not _tracks(x):
+            return x
+        return _Copy.apply(x, self, axes)
 
     def broadcast(self, x: torch.Tensor, src: int = 0):
         """Rank ``src``'s ``x`` on every rank of the mesh; returns a new
@@ -188,6 +263,113 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank}, device={self.device})"
 
 
+# ``reduce_scatter_tensor`` under its newer name where torch has it
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def _tracks(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather; the backward reduce-scatters (``grad="sum"``) or takes
+    this member's block (``"local"``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, grad):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.grad = mesh, axes, dim, grad
+        return mesh._gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh
+        g = m._scatter_sum(g, ctx.axes, ctx.dim) if ctx.grad == "sum" \
+            else m._local(g, ctx.axes, ctx.dim)
+        return g, None, None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce sum; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh._reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    """Identity; all-reduce sum backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._reduce(g, ctx.axes), None, None
+
+
+class ShapeMesh(Mesh):
+    """The ``Mesh`` interface at one rank's coordinates of a mesh of any
+    shape, with no process group: every collective returns a meta tensor
+    of the shape the real one would give and counts in ``moved`` the
+    bytes the real one would count.  Run on meta tensors, a step through
+    it shows what one rank of that mesh computes, holds and moves — the
+    port's stand-in for JAX's ``--xla_force_host_platform_device_count``
+    (``launch/dryrun.py``)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int = 0):
+        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {shape} vs axes {axis_names}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.size = math.prod(shape)
+        self.devices = np.arange(self.size).reshape(shape)
+        self.rank = int(rank)
+        self.coords = dict(zip(axis_names, (int(c) for c in np.unravel_index(
+            self.rank, shape))))
+        self.device = torch.device("meta")
+        self.backend = None
+        self.moved = {}
+        self.calls = {}
+        self._groups = {}
+
+    def group(self, axes):
+        return None
+
+    def _gather(self, x, axes, dim):
+        n = self.axis_size(axes)
+        shape = list(x.shape)
+        shape[dim] *= n
+        self._count("all_gather", axes, x.nbytes * n)
+        return x.new_empty(shape, device="meta")
+
+    def _reduce(self, x, axes):
+        self._count("all_reduce", axes, x.nbytes)
+        return x.new_empty(x.shape, device="meta")
+
+    def _scatter_sum(self, x, axes, dim):
+        shape = list(x.shape)
+        shape[dim] //= self.axis_size(axes)
+        self._count("reduce_scatter", axes, x.nbytes)
+        return x.new_empty(shape, device="meta")
+
+    def broadcast(self, x, src: int = 0):
+        if self.size > 1:
+            self._count("broadcast", self.axis_names, x.nbytes)
+        return x.new_empty(x.shape, device="meta")
+
+    def __repr__(self):
+        return f"ShapeMesh({self.shape}, rank={self.rank})"
+
+
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
               device=None) -> Mesh:
     return Mesh(shape, axis_names, device)
@@ -197,6 +379,14 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device)
+
+
+def make_shape_mesh(*, multi_pod: bool = False, rank: int = 0) -> ShapeMesh:
+    """``make_production_mesh``'s shape and axes as a ``ShapeMesh`` at
+    ``rank``'s coordinates: no process group, no card."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return ShapeMesh(shape, axes, rank)
 
 
 def make_host_mesh(data: int = 2, model: int = 2, device=None) -> Mesh:

@@ -23,12 +23,30 @@ Every rule checks divisibility and falls back to replication.
 ``place_params`` cuts a full parameter module down to this rank's blocks
 and attaches a ``TensorParallel`` (``params.tp``): the collectives the
 model's forward runs on those blocks (``models/transformer.py``).
+
+Training differentiates through those collectives (``launch/mesh.py``),
+each with the backward its consumer needs: an FSDP weight gathered over
+the data axes reduce-scatters its gradient (the data ranks saw different
+rows); a gather whose result every member computes with alike (the
+norms' and the vocabulary-split logits' model-axis gathers) takes this
+member's block of the gradient; a row-parallel sum (``wo``, ``w_down``,
+the experts, the embedding lookup) passes its gradient through; and the
+input of a column-parallel computation over 'model' (``wq``/``wk``/``wv``
+on the local heads, ``w_gate``/``w_up``, the vocabulary-split head, a
+moe block's local experts and their gates) sums its gradient over
+'model' (Megatron's *f*, ``Mesh.copy_to``).  What is left after the
+backward — leaves whole over a data axis (the vocabulary-split embedding,
+the norms, the router, experts split over 'model' only) summed over it,
+and the K/V projections of a one-kv-head attention summed over 'model'
+— is ``TensorParallel.grad_axes``; ``gather_params`` is the inverse of
+``place_params``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import types
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -269,6 +287,17 @@ class TensorParallel:
     embed: tuple
     head: tuple
     attn_heads: bool = True
+    rows: Optional["DataRows"] = None
+
+    @contextlib.contextmanager
+    def training(self, rows: "DataRows"):
+        """Within: the forward takes ``rows``' view of the batch (a moe
+        block's load-balance loss over the global batch)."""
+        prev, self.rows = self.rows, rows
+        try:
+            yield self
+        finally:
+            self.rows = prev
 
     # ------------------------------------------------------------ weights
     def gather_block(self, blk):
@@ -286,7 +315,9 @@ class TensorParallel:
             for dim, ax in enumerate(spec):
                 if ax is not None and not (ax == "model" and keep is not None
                                            and dim - len(spec) == keep):
-                    t = self.mesh.all_gather(t, ax, dim=dim)
+                    t = self.mesh.all_gather(
+                        t, ax, dim=dim, grad="local" if ax == "model"
+                        else "sum")
             return t
 
         def group(kind, d):
@@ -298,6 +329,28 @@ class TensorParallel:
             mlp_norm=full("mlp_norm", blk.mlp_norm),
             attn=group("attn", blk.attn), mlp=group("mlp", blk.mlp),
             moe=group("moe", blk.moe))
+
+    # ------------------------------------------------------------ inputs
+    def _split_heads(self) -> bool:
+        return self.attn_heads and _has(self.block["attn/wq"], "model", -1)
+
+    def attn_in(self, x):
+        """The normed input of an attention that runs on this rank's heads:
+        its gradient summed over 'model' (Megatron's *f*)."""
+        return self.mesh.copy_to(x, "model") if self._split_heads() else x
+
+    def mlp_in(self, x):
+        """The normed input of a column-parallel MLP, as ``attn_in``."""
+        key = "mlp/w_up"
+        return self.mesh.copy_to(x, "model") \
+            if key in self.block and _has(self.block[key], "model", -1) \
+            else x
+
+    def head_in(self, x):
+        """The final-normed input of a vocabulary-split head, as
+        ``attn_in``."""
+        return self.mesh.copy_to(x, "model") \
+            if _has(self.head, "model", 0) else x
 
     # ------------------------------------------------------------ partials
     def reduce_attn(self, a):
@@ -322,7 +375,10 @@ class TensorParallel:
         divide the axis)."""
         from repro_torch.models import moe as MOE
         if _has(self.block["moe/w_up"], "model", -3):
-            return MOE.moe_block_sharded(p, x, cfg, self.mesh, (), "model")
+            return MOE.moe_block_sharded(p, x, cfg, self.mesh, (), "model",
+                                         rows=self.rows)
+        if self.rows is not None:
+            return MOE.moe_block(p, x, cfg, rows=self.rows)
         return MOE.moe_apply(p, x, cfg)
 
     # ------------------------------------------------------------ vocab
@@ -343,6 +399,90 @@ class TensorParallel:
         """Full-vocabulary logits from each model rank's (..., V/m)."""
         return self.mesh.all_gather(logits, "model", dim=-1) \
             if _has(self.head, "model", 0) else logits
+
+    # ------------------------------------------------------------ leaves
+    def leaf_specs(self, params) -> Dict[str, tuple]:
+        """Port parameter name -> the spec of this rank's tensor (the
+        placement ``leaf_placer`` made)."""
+        out = {}
+        for n, _ in params.named_parameters():
+            parts = n.split(".")
+            if parts[0] == "blocks":
+                out[n] = self.block["/".join(parts[2:])]
+            else:
+                out[n] = {"embed": self.embed, "lm_head": self.head}.get(
+                    parts[0], ())
+        return out
+
+    def grad_axes(self, params) -> Dict[str, Tuple[Tuple[str, ...], ...]]:
+        """Port parameter name -> the axis groups its gradient is still
+        summed over after the backward, one all-reduce each: the data axes
+        that do not split it (an FSDP gather's backward already summed
+        over the one that does), and ('model',) for the K/V projections of
+        an attention whose query heads split over 'model' while its kv
+        heads do not (each rank's K/V gradient holds only its query heads'
+        part)."""
+        data = batch_axes(self.mesh)
+        partial = ("attn/wk", "attn/wv") if self._split_heads() and \
+            not _has(self.block["attn/wk"], "model", -1) else ()
+        out = {}
+        for n, spec in self.leaf_specs(params).items():
+            axes = tuple(a for a in data if a not in spec)
+            groups = (axes,) if axes else ()
+            if n.split(".")[0] == "blocks" and \
+                    "/".join(n.split(".")[2:]) in partial:
+                groups += (("model",),)
+            out[n] = groups
+        return out
+
+    def owns(self, params) -> Dict[str, bool]:
+        """Port parameter name -> whether this rank's copy counts in a sum
+        over the whole model (a leaf whole over an axis counts on that
+        axis' first member only)."""
+        return {n: all(self.mesh.coords[a] == 0 for a in self.mesh.axis_names
+                       if a not in spec)
+                for n, spec in self.leaf_specs(params).items()}
+
+
+@dataclasses.dataclass
+class DataRows:
+    """How a training batch lies over the data axes: ``split`` when each
+    data rank holds its own rows (``batch_spec`` divides the batch), else
+    every data rank holds all of them."""
+    mesh: object
+    split: bool
+
+    @property
+    def n_sets(self) -> int:
+        """How many distinct row sets the data ranks hold."""
+        return _dp_size(self.mesh) if self.split else 1
+
+    @property
+    def weight(self) -> float:
+        """This rank's weight in a sum over the data ranks that counts
+        every row once: 1, or 0 on all but the first data rank when the
+        rows are whole on every one."""
+        return 1.0 if self.split or all(
+            self.mesh.coords[a] == 0 for a in batch_axes(self.mesh)) else 0.0
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data ranks' row sets (no gradient)."""
+        return self.mesh.all_reduce(x.detach(), batch_axes(self.mesh)) \
+            if self.split else x
+
+    def local(self, batch: Dict) -> Dict:
+        """This rank's rows of a global batch."""
+        from repro_torch import runtime
+        return {k: runtime.local_slice(v, batch_spec(tuple(v.shape),
+                                                     self.mesh), self.mesh)
+                for k, v in batch.items()}
+
+
+def data_rows(batch: Dict, mesh) -> DataRows:
+    """The ``DataRows`` of a global batch on ``mesh`` (every entry has the
+    same leading batch dim)."""
+    b = next(iter(batch.values()))
+    return DataRows(mesh, batch_spec(tuple(b.shape), mesh)[0] is not None)
 
 
 def _local_cfg(cfg, specs, mesh):
@@ -453,6 +593,36 @@ def place_params(params, mesh, cfg=None):
     out = Transformer(cfg, place("embed", params.embed.data), blocks,
                       place("final_norm", params.final_norm.data), head)
     return attach_tp(out, mesh, cfg)
+
+
+def gather_params(params):
+    """The whole (unplaced) parameter module of a placed one, on every
+    rank: each leaf all-gathered over the axes its spec splits, in the
+    order ``leaf_placer`` cut it — the inverse of ``place_params``."""
+    from repro_torch.models.transformer import Block, Transformer
+    tp = params.tp
+    specs = tp.leaf_specs(params)
+
+    def full(name, t):
+        for dim, ax in enumerate(specs[name]):
+            if ax is not None:
+                t = tp.mesh.all_gather(t.detach(), ax, dim=dim)
+        return t
+
+    def group(i, kind, d):
+        return None if d is None else \
+            {k: full(f"blocks.{i}.{kind}.{k}", v) for k, v in d.items()}
+
+    blocks = [Block(full(f"blocks.{i}.attn_norm", b.attn_norm),
+                    group(i, "attn", b.attn),
+                    full(f"blocks.{i}.mlp_norm", b.mlp_norm),
+                    **({"moe": group(i, "moe", b.moe)} if b.moe is not None
+                       else {"mlp": group(i, "mlp", b.mlp)}))
+              for i, b in enumerate(params.blocks)]
+    head = None if params.lm_head is None else full("lm_head",
+                                                    params.lm_head)
+    return Transformer(tp.full_cfg, full("embed", params.embed), blocks,
+                       full("final_norm", params.final_norm), head)
 
 
 def local_attention(params, mesh, cfg=None):

@@ -18,8 +18,21 @@ families' chunked scan the SSD-scan kernel forward and backward.
 hybrid), every family.  The step updates the parameters and the AdamW
 moments in place (the port's buffer donation, ``train(donate=True)``), so
 one copy of each lives on the card.
-``--save PATH`` writes the trained params in the JAX layout.  ``--mesh``
-(sharded training) is not ported (ROADMAP A.8).
+``--save PATH`` writes the trained params in the JAX layout.
+
+``--mesh single|multi`` trains on ``make_production_mesh`` over the world's
+ranks, one process per rank under ``torchrun`` (16 x 16 = 256 or 2 x 16 x
+16 = 512 ranks; another world size raises ``Mesh``'s message):
+
+    torchrun --nproc-per-node 4 ... -m repro_torch.launch.train \
+        --arch granite-8b --mesh single
+
+Each rank draws only its blocks (``sharding.init_placed``) and steps them
+(``training/trainer.py``, ``mesh=``); every rank reads the same seeded
+global batches and takes its rows.  The dense, moe and vlm families train
+on a mesh; the others raise (ROADMAP A.8e).  Only rank 0 prints and
+writes ``--save``.  ``train_on_mesh`` is everything below the mesh's
+construction, so tests and ``chip_smoke.py`` run it on a small host mesh.
 """
 from __future__ import annotations
 
@@ -49,7 +62,8 @@ def parse_args(argv=None):
                     help="train the smoke-scale variant (CPU-friendly)")
     ap.add_argument("--mesh", choices=["none", "single", "multi"],
                     default="none",
-                    help="sharded training (not ported: ROADMAP A.8)")
+                    help="sharded training on the production mesh (256 or "
+                         "512 ranks under torchrun)")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--save", default=None)
     return ap.parse_args(argv)
@@ -61,15 +75,17 @@ def main(argv=None):
     with the card)."""
     args = parse_args(argv)
     if args.mesh != "none":
-        raise NotImplementedError("--mesh (sharded training) is not ported "
-                                  "yet: ROADMAP A.8")
+        from repro_torch.launch.mesh import (init_distributed,
+                                             make_production_mesh)
+        require_mesh_family(_config(args))
+        dev = init_distributed(args.device)
+        return train_on_mesh(args, make_production_mesh(
+            multi_pod=args.mesh == "multi", device=dev))
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a CUDA card; "
                            "pass --device cpu to train on the CPU")
     dev = torch.device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    cfg = _config(args)
     model = Model(cfg)
     params = model.init(seed=0, device=dev)
     n = sum(p.numel() for p in params.parameters())
@@ -92,6 +108,61 @@ def main(argv=None):
         print(f"saved to {args.save}")
     return {"history": res["history"], "params": res["params"],
             "seconds": dt, "steps": args.steps, "tokens": tokens}
+
+
+def _config(args):
+    cfg = get_config(args.arch)
+    return cfg.reduced() if args.reduced else cfg
+
+
+def require_mesh_family(cfg) -> None:
+    """Raise unless ``cfg``'s family trains on a mesh (dense, moe, vlm)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"--mesh trains the dense, moe and vlm families; {cfg.name} "
+            f"(family {cfg.family!r}) has no sharded forward yet: ROADMAP "
+            "A.8e")
+
+
+def train_on_mesh(args, mesh, cfg=None):
+    """``main``'s training on ``mesh`` (its ranks' process group joined,
+    ``mesh.device`` this rank's device) of ``cfg`` (``--arch``'s by
+    default; a caller may cut its depth): returns ``{"history", "params"
+    (this rank's blocks), "seconds", "steps", "tokens", "whole_params",
+    "rank_params"}``."""
+    from repro_torch.launch.sharding import init_placed
+    cfg = cfg or _config(args)
+    require_mesh_family(cfg)
+    dev = mesh.device
+    rank0 = mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    model = Model(cfg)
+    params = init_placed(model, 0, mesh, dev)
+    specs = params.tp.leaf_specs(params)
+    mine = sum(p.numel() for p in params.parameters())
+    whole = sum(p.numel() * mesh.axis_size(tuple(a for a in specs[n] if a))
+                for n, p in params.named_parameters())
+    say(f"{cfg.name}: {whole / 1e6:.1f}M params, {mine / 1e6:.1f}M on a "
+        f"rank ({'reduced' if args.reduced else 'full'}, {dev.type}), mesh "
+        f"{mesh.shape}")
+    opt = AdamW(lr=args.lr,
+                schedule=cosine_schedule(args.steps // 10, args.steps))
+    it = batches(cfg, args.batch, args.seq, device=dev)
+    t0 = time.perf_counter()
+    res = train(model, params, it, steps=args.steps, opt=opt,
+                remat=args.remat, donate=True, mesh=mesh, log=say)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    tokens = args.steps * args.batch * args.seq
+    say(f"{args.steps} steps in {dt:.2f}s ({dt / args.steps * 1e3:.1f} "
+        f"ms/step, {tokens / dt:.0f} tokens/s)")
+    if args.save:
+        save(args.save, res["params"], step=args.steps, cfg=cfg)
+        say(f"saved to {args.save}")
+    return {"history": res["history"], "params": res["params"],
+            "seconds": dt, "steps": args.steps, "tokens": tokens,
+            "whole_params": whole, "rank_params": mine}
 
 
 if __name__ == "__main__":

@@ -214,6 +214,10 @@ def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
     B, Sq, H, hd = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
     G = H // Kv
+    if q.device.type == "meta":
+        # the dry run (``launch/dryrun.py``) computes nothing: one block
+        # has every block's products (flops) and no loop to dispatch
+        bq, bk = Sq, Sk
     bq, bk = min(bq, Sq), min(bk, Sk)
     if Sq % bq or Sk % bk:
         raise ValueError(f"Sq {Sq} / Sk {Sk} must divide by bq {bq} / bk {bk}")

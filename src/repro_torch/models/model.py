@@ -28,15 +28,21 @@ from repro_torch.configs.base import (STUB_INPUTS, ModelConfig, stub_input,
 from repro_torch.models import encdec, hybrid, ssm, transformer, xlstm
 
 
-def cross_entropy(logits, labels, ignore: int = -1):
-    """logits (B, S, V) f32; labels (B, S) int.  Mean over the labels that
-    are not ``ignore``."""
+def nll_sum(logits, labels, ignore: int = -1):
+    """(summed negative log-likelihood () f32, count () int64) of the
+    labels (B, S) that are not ``ignore`` under logits (B, S, V) f32."""
     mask = labels != ignore
     lab = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lab[..., None])[..., 0]
-    nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp(min=1)
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits, labels, ignore: int = -1):
+    """logits (B, S, V) f32; labels (B, S) int.  Mean over the labels that
+    are not ``ignore``."""
+    nll, n = nll_sum(logits, labels, ignore)
+    return nll / n.clamp(min=1)
 
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": ssm, "xlstm": xlstm, "hybrid": hybrid, "encdec": encdec}

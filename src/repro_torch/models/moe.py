@@ -63,25 +63,48 @@ def _experts(p, h):
     return torch.bmm(act, p["w_down"])
 
 
-def moe_block(p, x, cfg):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss () f32)."""
+def _counts(e_flat, E: int):
+    """Assignments per expert, (E,) int64: ``bincount`` written as a
+    ``scatter_add`` into E zeros (the same integers, and a static shape a
+    meta-device trace can follow)."""
+    return torch.zeros(E, dtype=torch.long, device=e_flat.device) \
+        .scatter_add_(0, e_flat.long(), torch.ones_like(e_flat,
+                                                        dtype=torch.long))
+
+
+def _aux(probs, counts, T: int, cfg, rows=None):
+    """Switch-style load-balance loss of the router probabilities (T, E)
+    and the assignment counts (E,).  ``rows`` (``sharding.DataRows``, in
+    training on a mesh): the tokens are this data rank's rows of a batch;
+    the token count and the counts are the global batch's, so the data
+    ranks' terms sum to the unsharded loss."""
+    E, k = cfg.num_experts, cfg.top_k
+    if rows is None:
+        me, Tg = probs.mean(0), T
+    else:
+        Tg = T * rows.n_sets
+        me, counts = probs.sum(0) / Tg, rows.total(counts)
+    ce = counts.float() / (Tg * k)
+    return cfg.router_aux_coef * E * (me * ce).sum()
+
+
+def moe_block(p, x, cfg, rows=None):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss () f32).  ``rows``: see
+    ``_aux``."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, d)
     probs, gate, expert_idx = _route(p, xt, k)
 
-    # ---- load-balance auxiliary loss (Switch-style)
-    me = probs.mean(0)
-    ce = torch.bincount(expert_idx.reshape(-1), minlength=E).float() / (T * k)
-    aux = cfg.router_aux_coef * E * (me * ce).sum()
-
     # ---- dispatch: sort token-expert assignments by expert id (stable)
     C = capacity(T, cfg)
     e_flat = expert_idx.reshape(-1)                           # (T*k,)
     order = torch.argsort(e_flat, stable=True)
     sorted_e = e_flat[order]
-    counts = torch.bincount(e_flat, minlength=E)
+    counts = _counts(e_flat, E)
+    # ---- load-balance auxiliary loss (Switch-style)
+    aux = _aux(probs, counts, T, cfg, rows)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=x.device) - starts[sorted_e]
     keep = pos_in_e < C
@@ -107,7 +130,7 @@ def _combine(contrib, order, T: int, k: int):
     return contrib[slot_of.reshape(T, k).sort(dim=-1).values].sum(1)
 
 
-def moe_block_sharded(p, x, cfg, mesh, dp_axes, ep_axis: str):
+def moe_block_sharded(p, x, cfg, mesh, dp_axes, ep_axis: str, rows=None):
     """Expert-parallel MoE (the survey's MoE-based modular collaboration,
     §2.1.2, mapped to a device mesh): the twin of the JAX package's
     ``shard_map`` version, run on this rank's local view.
@@ -122,7 +145,14 @@ def moe_block_sharded(p, x, cfg, mesh, dp_axes, ep_axis: str):
     ``ep_axis``, whose tokens and router are the same, so JAX's mean over
     that axis too needs no collective here).  With no ``dp_axes`` the
     tokens are whole on every rank: the tensor-parallel cloud's
-    ``TensorParallel.moe``, at any token count."""
+    ``TensorParallel.moe``, at any token count.
+
+    In training (``rows``, a ``sharding.DataRows``: the tokens are this
+    data rank's rows, whole over ``ep_axis``) the aux loss is the global
+    batch's share of ``_aux``, and the gradients of the experts' input
+    and of the gates are summed over ``ep_axis`` (each rank's holds only
+    its experts' part; ``Mesh.copy_to``); the router's path is the same
+    on every rank and needs no sum."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     n_ep = mesh.axis_size(ep_axis)
@@ -133,15 +163,14 @@ def moe_block_sharded(p, x, cfg, mesh, dp_axes, ep_axis: str):
     xt = x.reshape(T, d)
     probs, gate, expert_idx = _route(p, xt, k)
 
-    me = probs.mean(0)
-    ce = torch.bincount(expert_idx.reshape(-1), minlength=E).float() / (T * k)
-    aux = mesh.all_reduce(cfg.router_aux_coef * E * (me * ce).sum(),
-                          tuple(dp_axes), op="mean")
-
     e_flat = expert_idx.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     sorted_e = e_flat[order]
-    counts = torch.bincount(e_flat, minlength=E)
+    counts = _counts(e_flat, E)
+    aux = _aux(probs, counts, T, cfg, rows)
+    if rows is None:
+        aux = mesh.all_reduce(aux, tuple(dp_axes), op="mean")
+    xt, gate = mesh.copy_to(xt, ep_axis), mesh.copy_to(gate, ep_axis)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=x.device) - starts[sorted_e]
     mine = (sorted_e >= lo) & (sorted_e < lo + E_local) & (pos_in_e < C)

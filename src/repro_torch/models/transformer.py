@@ -26,7 +26,10 @@ weights before it computes (FSDP, ``tp.gather_block``), sums the
 row-parallel ``wo`` / ``w_down`` partials over 'model', runs a moe
 block's experts expert-parallel over 'model', looks tokens up in the
 vocabulary-split embedding and all-gathers the vocabulary-split logits.
-Without ``tp`` none of this runs.
+Under grad (sharded training, ``training/trainer.py``) the inputs of the
+column-parallel computations sum their gradients over 'model'
+(``TensorParallel.attn_in`` / ``mlp_in`` / ``head_in``).  Without ``tp``
+none of this runs.
 """
 from __future__ import annotations
 
@@ -116,12 +119,14 @@ def init_params(cfg, seed: int = 0, device="cuda", place=None) -> Transformer:
     ``place(path, tensor)``, when given, cuts every leaf to this rank's
     block as soon as it is drawn (``launch/sharding.leaf_placer``; the
     draws are the unplaced init's), so a rank of a mesh never holds the
-    whole model."""
+    whole model.  On the meta device (the dry run) nothing is drawn."""
     require_dense(cfg)
     dtype = dtype_of(cfg.param_dtype)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":            # meta: shapes only, no draws
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     d = cfg.d_model
     put = place or (lambda path, t: t)
 
@@ -185,7 +190,8 @@ def _ffn(blk, h, cfg, tp=None):
     if blk.moe is not None:
         return MOE.moe_apply(blk.moe, hn, cfg) if tp is None \
             else tp.moe(blk.moe, hn, cfg)
-    m = L.mlp_block(blk.mlp, hn, cfg.mlp_activation)
+    m = L.mlp_block(blk.mlp, hn if tp is None else tp.mlp_in(hn),
+                    cfg.mlp_activation)
     return (m if tp is None else tp.reduce_mlp(m)), None
 
 
@@ -203,10 +209,11 @@ def _tokens(params, tokens, cfg):
 
 
 def _logits(params, h, cfg):
-    logits = L.unembed(params.head, L.rmsnorm(h, params.final_norm,
-                                              cfg.norm_eps))
-    if _tp(params) is not None:
-        logits = _tp(params).gather_logits(logits)
+    tp = _tp(params)
+    hn = L.rmsnorm(h, params.final_norm, cfg.norm_eps)
+    logits = L.unembed(params.head, hn if tp is None else tp.head_in(hn))
+    if tp is not None:
+        logits = tp.gather_logits(logits)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -214,8 +221,8 @@ def _logits(params, h, cfg):
 
 def _block(blk, h, positions, cfg, window, backend, prefix_len=0, tp=None):
     """One layer over the full sequence: (h, aux loss or None, (k, v))."""
-    a, kv = L.attention_block(blk.attn,
-                              L.rmsnorm(h, blk.attn_norm, cfg.norm_eps),
+    x = L.rmsnorm(h, blk.attn_norm, cfg.norm_eps)
+    a, kv = L.attention_block(blk.attn, x if tp is None else tp.attn_in(x),
                               positions, cfg, window=window,
                               prefix_len=prefix_len, backend=backend)
     h = h + (a if tp is None else tp.reduce_attn(a))

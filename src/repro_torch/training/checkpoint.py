@@ -11,6 +11,11 @@ through ``bridge.params_from_numpy`` in the config's dtypes, so a
 checkpoint written by either package restores in the other.  Plain trees
 (dicts, lists, NamedTuples of tensors) save their leaves as they are and
 restore into the structure, devices and dtypes of ``like``.
+
+Parameters placed on a device mesh (``params.tp``, sharded training) save
+from every rank at once: each leaf is all-gathered whole
+(``launch/sharding.gather_params``) and rank 0 alone writes the file the
+unsharded ``save`` writes.
 """
 from __future__ import annotations
 
@@ -54,6 +59,12 @@ def _host(x) -> np.ndarray:
 
 
 def save(path: str, params: Any, step: int = 0, cfg=None):
+    tp = getattr(params, "tp", None)
+    if tp is not None:                      # every rank gathers, rank 0 writes
+        from repro_torch.launch.sharding import gather_params
+        params = gather_params(params)
+        if tp.mesh.rank != 0:
+            return
     if isinstance(params, nn.Module):
         from repro_torch.bridge import config_of, params_to_numpy
         params = params_to_numpy(params, config_of(params, cfg))

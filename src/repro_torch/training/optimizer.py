@@ -50,6 +50,17 @@ def _groups(tensors, cap: int):
     return out + [cur] if cur else out
 
 
+def _sq_norms(tensors) -> torch.Tensor:
+    """Each tensor's squared L2 norm, (n,) f32: ``_foreach_norm`` on CUDA;
+    on the CPU, whose ``_foreach_norm`` and ``linalg.vector_norm`` sum a
+    large tensor's squares with a relative error near 1e-5, a cascade
+    ``sum`` of the squares (1e-8, as the JAX package's)."""
+    if tensors[0].is_cuda:
+        return torch.stack(torch._foreach_norm(
+            [t.float() for t in tensors])).square()
+    return torch.stack([t.float().square().sum() for t in tensors])
+
+
 class AdamWState(NamedTuple):
     m: List[torch.Tensor]
     v: List[torch.Tensor]
@@ -81,19 +92,21 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, *,
-               inplace: bool = False):
+               inplace: bool = False, norm_sq: Optional[Callable] = None):
         """One step: ``grads`` in ``tree.leaves(params)`` order.  Returns
         (new params, new state, global grad norm () f32).  ``inplace``
         writes the new parameters and moments into the given tensors (the
         port's buffer donation) and returns ``params`` itself; otherwise
-        everything returned is new and the inputs stay valid."""
+        everything returned is new and the inputs stay valid.
+        ``norm_sq(sq)`` maps the leaves' squared norms (n,) f32 to the
+        squared global norm (their sum by default; on a device mesh the
+        whole model's, ``training/trainer.py``); the clip scale and the
+        decay mask stay per leaf."""
         step = state.step + 1
         ps = T.tensors(params)
         groups = _groups(ps, GROUP_ELEMS)
-        norms = []
-        for idx in groups:
-            norms += torch._foreach_norm([grads[i].float() for i in idx])
-        gnorm = torch.stack(norms).square().sum().sqrt()
+        sq = torch.cat([_sq_norms([grads[i] for i in idx]) for idx in groups])
+        gnorm = (sq.sum() if norm_sq is None else norm_sq(sq)).sqrt()
         scale = torch.clamp(self.grad_clip / gnorm.clamp(min=1e-9),
                             max=1.0) if self.grad_clip else None
         lr = self.lr * (float(self.schedule(step)) if self.schedule else 1.0)

@@ -1,6 +1,7 @@
-"""Rank bodies for ``tests/test_torch_mesh_serving.py``: each runs in a
-process spawned by ``repro_torch.launch.mesh.spawn_ranks`` (gloo on the
-CPU, a ``FileStore`` rendezvous), imports only the port, and returns
+"""Rank bodies for ``tests/test_torch_mesh_{serving,lanes,training}.py``:
+each runs in a process spawned by ``repro_torch.launch.mesh.spawn_ranks``
+(gloo on the CPU, a ``FileStore`` rendezvous), imports only the port, and
+returns
 numpy/python results to the parent, which holds them against the JAX
 package and the unsharded port.  Not a test module (no ``test_`` prefix):
 importing it must stay cheap and free of JAX."""
@@ -302,3 +303,121 @@ def lanes_worker(rank, payload):
     out["serve_moe"] = (text, st["spec_mode"], st["mesh_shape"])
     out["moved"] = dict(mesh.moved)
     return out
+
+
+# ---------------------------------------------------------------- training
+# ``tests/test_torch_mesh_training.py``: the sharded train step on three
+# meshes of the same four ranks, for a dense (smollm-135m at 9 query heads
+# over 3 kv heads, whose attention then runs whole on every model rank), a
+# moe (granite-moe-1b-a400m: clean head and expert splits) and a vlm
+# (paligemma-3b: one kv head, its K/V whole on every rank) family
+TRAIN_MESHES = ((2, 2), (4, 1), (1, 4))
+TRAIN_ARCHS = ("smollm-135m", "granite-moe-1b-a400m", "paligemma-3b")
+
+
+def train_cfg(arch):
+    """The reduced (float32) config a training case runs."""
+    from repro_torch.configs import get_config
+    c = get_config(arch).reduced()
+    return c.replace(num_heads=9, num_kv_heads=3) \
+        if arch == "smollm-135m" else c
+
+
+def train_opt():
+    """AdamW at eps 1e-3: Adam's first step divides each gradient element
+    by its own magnitude, so at eps 1e-8 an element near zero whose last
+    bits differ (sums taken in another order) moves its parameter by up to
+    lr — 1.7e-3 apart between the unsharded port and JAX already; at 1e-3
+    the update is a smooth function of the gradient."""
+    from repro_torch.training.optimizer import AdamW
+    return AdamW(lr=1e-2, eps=1e-3)
+
+
+def _tensor_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def train_steps(params, cfg, batches, mesh=None):
+    """AdamW steps of ``make_train_step`` (``mesh``: the sharded one) over
+    numpy ``batches``: (params, [(loss, grad norm)])."""
+    from repro_torch.models import Model
+    from repro_torch.training.trainer import make_train_step
+    opt = train_opt()
+    st = opt.init(params, cfg)
+    step = make_train_step(Model(cfg), opt, mesh=mesh, donate=False)
+    hist = []
+    for b in batches:
+        params, st, m = step(params, st, _tensor_batch(b))
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+    return params, hist
+
+
+def _rank0_gap(mesh, arrays):
+    """max |x - rank 0's x| over a list of float32 arrays (one broadcast)."""
+    flat = torch.cat([torch.from_numpy(np.ascontiguousarray(a)).reshape(-1)
+                      for a in arrays])
+    return float((flat - mesh.broadcast(flat)).abs().max())
+
+
+def train_worker(rank, payload):
+    """Every case of ``tests/test_torch_mesh_training.py`` on four ranks:
+    per mesh and arch, the two steps' losses and norms, rank 0's gathered
+    parameters (the others' largest difference from them); at (2, 2) a
+    batch that does not divide the data axes, ``save`` from the mesh,
+    rank 0's counted cost of one granite-moe step and ``train_on_mesh``."""
+    from repro_torch.bridge import params_from_numpy, params_to_numpy
+    from repro_torch.launch.hlo_cost import measure
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import gather_params, place_params
+    from repro_torch.models import Model
+    from repro_torch.training import checkpoint
+    from repro_torch.training import tree as T
+    from repro_torch.training.trainer import make_train_step
+    from torch.utils._pytree import tree_leaves
+    torch.set_num_threads(1)
+    out = {"runs": {}}
+    for shape in TRAIN_MESHES:
+        mesh = make_mesh(shape, ("data", "model"))
+        for arch in TRAIN_ARCHS:
+            cfg = train_cfg(arch)
+            p = place_params(params_from_numpy(payload["params"][arch], cfg,
+                                               "cpu"), mesh)
+            cases = [("even", payload["batches"][arch])]
+            if shape == (2, 2) and arch == "smollm-135m":
+                cases.append(("odd", payload["odd"]))
+            for case, batches in cases:
+                q, hist = train_steps(p, cfg, batches, mesh)
+                full = params_to_numpy(gather_params(q), cfg)
+                gap = _rank0_gap(mesh, tree_leaves(full))
+                out["runs"][(shape, arch, case)] = (
+                    hist, full if rank == 0 else None, gap)
+                if case == "odd":
+                    out["saved"] = checkpoint.save(payload["ckpt"], q,
+                                                   step=2, cfg=cfg)
+        if shape == (2, 2):
+            cfg = train_cfg("granite-moe-1b-a400m")
+            p = place_params(params_from_numpy(
+                payload["params"]["granite-moe-1b-a400m"], cfg, "cpu"), mesh)
+            opt = train_opt()
+            step = make_train_step(Model(cfg), opt, mesh=mesh, donate=False)
+            cost, _ = measure(step, p, opt.init(p, cfg), _tensor_batch(
+                payload["batches"]["granite-moe-1b-a400m"][0]), mesh=mesh)
+            out["cost"] = {k: cost[k] for k in ("flops", "moved", "calls")}
+            out["leaf_shapes"] = [tuple(t.shape) for t in T.tensors(p)]
+            out["cli"] = _train_cli(mesh, payload["cli_save"])
+    return out
+
+
+def _train_cli(mesh, save):
+    """``launch/train.train_on_mesh`` (the ``--mesh`` path below the
+    mesh's construction) at reduced size: (what this rank printed, the
+    loss history, the whole and per-rank parameter counts)."""
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train.train_on_mesh(train.parse_args(
+            ["--arch", "granite-moe-1b-a400m", "--device", "cpu",
+             "--reduced", "--steps", "3", "--batch", "4", "--seq", "16",
+             "--save", save]), mesh)
+    return (buf.getvalue(), res["history"], res["whole_params"],
+            res["rank_params"])
