@@ -144,7 +144,11 @@ def cumsum_blocked(x, dim: int):
     cumsum, in the same order, of the block totals), so the log-decay sums
     and the stabiliser ``m`` built from them match the JAX package to the
     last bit, not only mathematically.  The CUDA kernel sums in this order
-    too."""
+    too.  On the meta device (the dry run), where nothing is summed, one
+    ``torch.cumsum``: the order moves no flop and no byte the counters
+    read, and the 16-long loop would dispatch an operator per add."""
+    if x.device.type == "meta":
+        return torch.cumsum(x, dim)
     x = x.movedim(dim, -1)
     n = x.shape[-1]
     if n <= CUMSUM_BLOCK:
@@ -178,6 +182,26 @@ def ssd_chunk_scan_plain(q, k, v, log_a, log_i, *, chunk: int, state=None,
         q, k, v = pf(q), pf(k), pf(v)
         log_a, log_i = pf(log_a), pf(log_i, NEG)
     nc = (S + pad) // Q
+    if q.device.type == "meta" and nc > 1 and not chunk_states:
+        # the dry run computes nothing: every chunk as a batch row of a
+        # one-chunk scan (each from a state of the carried-in state's
+        # shape) has each chunk's forward products and bytes, and no
+        # per-chunk loop to dispatch.  Its backward does not carry a
+        # gradient from chunk to chunk, so it counts fewer products than
+        # the loop's: a mamba2-370m train_4k step 1.4% fewer flops
+        def fold(x):
+            return x.reshape((B * nc, Q) + x.shape[2:])
+
+        st = None if state is None else \
+            tuple(x.float().repeat_interleave(nc, 0) for x in state)
+        y, den, m, fin = ssd_chunk_scan_plain(
+            fold(q), fold(k), fold(v), fold(log_a), fold(log_i), chunk=Q,
+            state=st)
+
+        def unfold(x):
+            return x.reshape((B, nc * Q) + x.shape[2:])[:, pad:]
+        return (unfold(y), unfold(den), unfold(m),
+                tuple(x.reshape((B, nc) + x.shape[1:])[:, -1] for x in fin))
 
     def to_chunks(x):                                  # (nc, B, Q, ...)
         return x.reshape((B, nc, Q) + x.shape[2:]).transpose(0, 1)

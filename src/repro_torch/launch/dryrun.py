@@ -37,8 +37,11 @@ The train step is ``training/trainer.make_train_step(mesh=...)`` with
 remat, prefill ``Model.prefill`` and serve ``Model.decode_step`` on the
 rank's rows (a dense cache whose kv heads do not split over 'model' is
 cut on the head dim by ``cache_spec`` and all-gathered over 'model'
-before the step).  Families without a sharded forward in the port are
-recorded ``skipped`` (ROADMAP A.8e), as is JAX's one ``SKIPS`` entry.
+before the step).  Every family trains on the mesh; the prefill and
+serve steps of the families whose cache has no placement in the port
+(ssm, xlstm, hybrid, encdec: a placed recurrent or encoder-decoder model
+serving on a mesh) are recorded ``skipped`` (ROADMAP A.8f), as is JAX's
+one ``SKIPS`` entry.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ import torch
 
 from repro_torch.configs import LONG_DECODE_WINDOW, SHAPES, get_config, \
     list_archs
+from repro_torch.configs.base import stub_input
 from repro_torch.launch.hlo_cost import measure
 from repro_torch.launch.mesh import make_shape_mesh
 from repro_torch.launch.sharding import data_rows
@@ -68,7 +72,9 @@ SKIPS = {
         "encoder-decoder with full cross-attention; no 512k decode use-case "
         "and no sliding-window variant implemented (DESIGN.md)",
 }
-MESH_FAMILIES = ("dense", "moe", "vlm")
+# families whose prefill and serve steps run on a mesh (every family's
+# train step does)
+SERVE_FAMILIES = ("dense", "moe", "vlm")
 
 
 def decode_window(cfg, shape_name: str) -> int:
@@ -109,9 +115,10 @@ def input_specs(arch: str, shape_name: str, mesh) -> Dict:
                                           device=meta)
             out["opt"] = AdamW()
             out["opt_state"] = out["opt"].init(params, cfg)
-        if cfg.family == "vlm":
-            batch["embeds"] = torch.empty((B, cfg.num_image_tokens,
-                                           cfg.d_model), dtype=f, device=meta)
+        key, rows = stub_input(cfg)
+        if key is not None:            # vlm embeds, encdec frames
+            batch[key] = torch.empty((B, rows, cfg.d_model), dtype=f,
+                                     device=meta)
         out["batch"] = batch
     else:
         from repro_torch.launch.sharding import batch_spec
@@ -162,9 +169,11 @@ def run_one(arch: str, shape_name: str, mesh_kind: str,
     cfg = get_config(arch)
     base = {"arch": arch, "shape": shape_name, "mesh": mesh_kind}
     reason = SKIPS.get((arch, shape_name))
-    if reason is None and cfg.family not in MESH_FAMILIES:
-        reason = (f"family {cfg.family!r} has no sharded forward in the "
-                  "port: ROADMAP A.8e")
+    if reason is None and SHAPES[shape_name].kind != "train" and \
+            cfg.family not in SERVE_FAMILIES:
+        reason = (f"family {cfg.family!r} trains on a mesh but its cache "
+                  "has no placement in the port, so a placed model does "
+                  "not serve: ROADMAP A.8f")
     if reason is not None:
         rec = {**base, "status": "skipped", "reason": reason}
         _write(rec, results_dir)

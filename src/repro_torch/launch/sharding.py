@@ -20,9 +20,23 @@ batch axes):
 
 Every rule checks divisibility and falls back to replication.
 
-``place_params`` cuts a full parameter module down to this rank's blocks
-and attaches a ``TensorParallel`` (``params.tp``): the collectives the
-model's forward runs on those blocks (``models/transformer.py``).
+``place_params`` cuts a full parameter module of any family down to this
+rank's blocks and attaches a ``TensorParallel`` (``params.tp``): the
+collectives the model's forward runs on those blocks.  The leaves are
+placed by ``param_spec`` on the JAX leaf shapes (stacked on L for
+``blocks/*`` and the encoder and decoder, on (G, K) for the hybrid's
+``mamba/*``, unstacked for its ``shared/*`` and xLSTM's blocks;
+``leaf_specs_of``).  What each family's forward does with them:
+  * dense, moe, vlm (``models/transformer.py``), zamba2's shared block
+    (``models/hybrid.py``), whisper's encoder, decoder and cross
+    attention (``models/encdec.py``): attention on the local heads, the
+    MLP on the local d_ff, FSDP gathers of the rest;
+  * a mamba2 layer (``models/ssm.py``; mamba2, zamba2's backbone): on
+    this rank's SSD heads where they divide 'model'
+    (``TensorParallel.mamba_view``), whole otherwise;
+  * xLSTM (``models/xlstm.py``): every block whole on every rank, its
+    splits gathered;
+  * the tied or untied embedding and head split over the vocabulary.
 
 Training differentiates through those collectives (``launch/mesh.py``),
 each with the backward its consumer needs: an FSDP weight gathered over
@@ -37,14 +51,17 @@ moe block's local experts and their gates) sums its gradient over
 'model' (Megatron's *f*, ``Mesh.copy_to``).  What is left after the
 backward — leaves whole over a data axis (the vocabulary-split embedding,
 the norms, the router, experts split over 'model' only) summed over it,
-and the K/V projections of a one-kv-head attention summed over 'model'
-— is ``TensorParallel.grad_axes``; ``gather_params`` is the inverse of
-``place_params``.
+and the leaves whole over 'model' whose gradient each model rank holds
+only its part of (the K/V projections of a one-kv-head attention, a
+mamba2 layer's per-head ``A_log`` / ``dt_bias`` / ``D`` on its SSD heads)
+summed over 'model' — is ``TensorParallel.grad_axes``; ``gather_params``
+is the inverse of ``place_params``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import types
 from typing import Dict, Optional, Tuple
 
@@ -265,9 +282,18 @@ def _has(spec, axis: str, dim: int) -> bool:
 # row-parallel outputs); every other split of a block leaf is gathered
 # before the layer runs
 _COMPUTE_SPLITS = {"attn/wq": -1, "attn/wk": -1, "attn/wv": -1,
-                   "attn/wo": -2, "mlp/w_gate": -1, "mlp/w_up": -1,
-                   "mlp/w_down": -2, "moe/w_gate": -3, "moe/w_up": -3,
-                   "moe/w_down": -3}
+                   "attn/wo": -2, "cross/wq": -1, "cross/wk": -1,
+                   "cross/wv": -1, "cross/wo": -2, "mlp/w_gate": -1,
+                   "mlp/w_up": -1, "mlp/w_down": -2, "moe/w_gate": -3,
+                   "moe/w_up": -3, "moe/w_down": -3}
+# the JAX path prefix of each family's attention + MLP leaves (the ones
+# ``TensorParallel``'s attention and MLP splits read): the decoder's
+# blocks, zamba2's shared block, whisper's decoder (its encoder's specs
+# are the same); the pure recurrent families have none
+_ATTN_GROUP = {"dense": "blocks/", "moe": "blocks/", "vlm": "blocks/",
+               "hybrid": "shared/", "encdec": "decoder/"}
+# the JAX path prefix of each family's mamba2 layers
+_MAMBA_GROUP = {"ssm": "blocks/", "hybrid": "mamba/"}
 
 
 @dataclasses.dataclass
@@ -275,11 +301,16 @@ class TensorParallel:
     """What a placed parameter module's forward does on each rank's
     blocks: ``cfg`` is the LOCAL config (heads and d_ff cut by the model
     axis where the rules split them), ``full_cfg`` the model's.  ``block``
-    holds each block leaf's spec (the same for every layer).
-    ``attn_heads``: the attention runs on this rank's query heads (the
-    model-axis splits of ``wq`` / ``wo`` are computed on and ``wo``'s
-    partials summed); False gathers them and runs every head on every
-    rank (``_local_cfg``)."""
+    holds the spec of each leaf of an attention + MLP block (the same for
+    every layer; zamba2's shared block, whisper's encoder and decoder
+    blocks), ``specs`` every leaf's, by its JAX path with the stacked axes
+    dropped (``leaf_specs_of``).  ``attn_heads``: the attention runs on
+    this rank's query heads (the model-axis splits of ``wq`` / ``wo`` are
+    computed on and ``wo``'s partials summed); False gathers them and runs
+    every head on every rank (``_local_cfg``).  ``ssd_heads``: each mamba2
+    layer runs on this rank's SSD heads (``mamba_view``); False runs it
+    whole.  ``partial``: the JAX paths of the leaves whole over 'model'
+    whose gradient each model rank holds only its part of."""
     mesh: object
     full_cfg: object
     cfg: object
@@ -288,6 +319,9 @@ class TensorParallel:
     head: tuple
     attn_heads: bool = True
     rows: Optional["DataRows"] = None
+    specs: Optional[Dict[str, tuple]] = None
+    ssd_heads: bool = False
+    partial: frozenset = frozenset()
 
     @contextlib.contextmanager
     def training(self, rows: "DataRows"):
@@ -300,25 +334,35 @@ class TensorParallel:
             self.rows = prev
 
     # ------------------------------------------------------------ weights
+    def _full(self, t, spec, keep=None, model_grad: str = "local"):
+        """``t`` with every split of ``spec`` all-gathered (one collective
+        per split dim) except a 'model' split on dim ``keep`` (negative).
+        A data gather reduce-scatters its gradient; a model gather takes
+        this member's block of it (``"local"``: every model rank computes
+        alike on the whole) or reduce-scatters it (``"sum"``)."""
+        for dim, ax in enumerate(spec):
+            if ax is None or (ax == "model" and keep is not None
+                              and dim - len(spec) == keep):
+                continue
+            t = self.mesh.all_gather(t, ax, dim=dim, grad=model_grad
+                                     if ax == "model" else "sum")
+        return t
+
+    def compute_split(self, rel: str):
+        """The model-axis split of an attention / MLP / moe leaf (``rel``,
+        its path inside the block) the forward computes on, or None."""
+        if rel.split("/")[0] in ("attn", "cross") and not self.attn_heads:
+            return None
+        return _COMPUTE_SPLITS.get(rel)
+
     def gather_block(self, blk):
-        """FSDP: the layer's weights with every split all-gathered (one
-        collective per split dim) except the model-axis splits the forward
-        computes on (``_COMPUTE_SPLITS``).  The rules also split the
-        per-layer norms' d over 'model' (their stacked (L, d) JAX leaf takes
-        (data, model)); the layer axis is no tensor dim here, so each rank
-        keeps every layer's slice."""
+        """FSDP: the layer's weights with every split all-gathered except
+        the model-axis splits the forward computes on (``_COMPUTE_SPLITS``).
+        The rules also split the per-layer norms' d over 'model' (their
+        stacked (L, d) JAX leaf takes (data, model)); the layer axis is no
+        tensor dim here, so each rank keeps every layer's slice."""
         def full(name, t):
-            keep = _COMPUTE_SPLITS.get(name)
-            if name.startswith("attn/") and not self.attn_heads:
-                keep = None
-            spec = self.block[name]
-            for dim, ax in enumerate(spec):
-                if ax is not None and not (ax == "model" and keep is not None
-                                           and dim - len(spec) == keep):
-                    t = self.mesh.all_gather(
-                        t, ax, dim=dim, grad="local" if ax == "model"
-                        else "sum")
-            return t
+            return self._full(t, self.block[name], self.compute_split(name))
 
         def group(kind, d):
             return None if d is None else \
@@ -330,27 +374,89 @@ class TensorParallel:
             attn=group("attn", blk.attn), mlp=group("mlp", blk.mlp),
             moe=group("moe", blk.moe))
 
+    def gather_tree(self, prefix: str, tree, keep=None,
+                    model_grad: str = "local") -> Dict:
+        """A sub-tree of the parameters at JAX path ``prefix`` ("encoder",
+        "shared", "blocks/3") as nested dicts of its leaves, each gathered
+        by ``_full`` (``keep(rel)`` the model split to keep, by the leaf's
+        path inside the sub-tree; None gathers every split)."""
+        out: Dict = {}
+        for n, t in tree.named_parameters():
+            rel = n.replace(".", "/")
+            *head, last = rel.split("/")
+            node = out
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = self._full(t, self.specs[f"{prefix}/{rel}"],
+                                    keep(rel) if keep else None,
+                                    model_grad)
+        return out
+
+    def mamba_view(self, prefix: str, p) -> Dict:
+        """A mamba2 layer's weights as this rank computes with them.
+
+        Whole (``ssd_heads`` False): every split gathered.  On this rank's
+        SSD heads: ``norm`` and ``out_proj`` keep their model split (di is
+        head-major, so it is this rank's heads' columns and rows); ``in_proj``
+        and the conv, whose model splits cut the concatenated [z | x | B |
+        C | dt] and [x | B | C] columns off the head boundaries, are
+        gathered whole and cut to this rank's z, x and dt columns and
+        channels beside the whole B and C — their gradient reduce-scattered
+        (``model_grad="sum"``: each model rank's holds its heads' columns
+        and its part of B and C's); ``A_log``, ``dt_bias`` and ``D``
+        (replicated) cut to this rank's heads."""
+        if not self.ssd_heads:
+            return self.gather_tree(prefix, p)
+        w = self.gather_tree(prefix, p, {"norm": -1, "out_proj": -2}.get,
+                             model_grad="sum")
+        from repro_torch.models.ssm import _mamba_dims
+        di, N, _, H = _mamba_dims(self.full_cfg)
+        m, i = self.mesh.shape["model"], self.mesh.axis_index("model")
+        dl, hl = di // m, H // m
+
+        def cols(t, *spans):
+            return torch.cat([t[..., lo:lo + n] for lo, n in spans], dim=-1)
+
+        w["in_proj"] = cols(w["in_proj"], (i * dl, dl), (di + i * dl, dl),
+                            (2 * di, 2 * N), (2 * di + 2 * N + i * hl, hl))
+        w["conv"] = {k: cols(v, (i * dl, dl), (di, 2 * N))
+                     for k, v in w["conv"].items()}
+        for k in ("A_log", "dt_bias", "D"):
+            w[k] = w[k][i * hl:(i + 1) * hl]
+        return w
+
     # ------------------------------------------------------------ inputs
     def _split_heads(self) -> bool:
-        return self.attn_heads and _has(self.block["attn/wq"], "model", -1)
+        return self.attn_heads and _has(self.block.get("attn/wq", ()),
+                                        "model", -1)
 
     def attn_in(self, x):
-        """The normed input of an attention that runs on this rank's heads:
-        its gradient summed over 'model' (Megatron's *f*)."""
+        """The normed input of an attention that runs on this rank's heads
+        (and the encoder output a cross-attention's K/V project): its
+        gradient summed over 'model' (Megatron's *f*)."""
         return self.mesh.copy_to(x, "model") if self._split_heads() else x
 
     def mlp_in(self, x):
         """The normed input of a column-parallel MLP, as ``attn_in``."""
-        key = "mlp/w_up"
         return self.mesh.copy_to(x, "model") \
-            if key in self.block and _has(self.block[key], "model", -1) \
-            else x
+            if _has(self.block.get("mlp/w_up", ()), "model", -1) else x
 
     def head_in(self, x):
         """The final-normed input of a vocabulary-split head, as
         ``attn_in``."""
         return self.mesh.copy_to(x, "model") \
             if _has(self.head, "model", 0) else x
+
+    def ssd_in(self, x):
+        """The input of a mamba2 layer on this rank's SSD heads, as
+        ``attn_in``."""
+        return self.mesh.copy_to(x, "model") if self.ssd_heads else x
+
+    def ssd_sum(self, x):
+        """Sum over 'model' of a term of the gated RMSNorm over the whole
+        di (each model rank holds its heads' columns), its gradient summed
+        over 'model' too: every model rank's output reads the sum."""
+        return self.mesh.all_reduce(self.mesh.copy_to(x, "model"), "model")
 
     # ------------------------------------------------------------ partials
     def reduce_attn(self, a):
@@ -365,6 +471,11 @@ class TensorParallel:
         return self.mesh.all_reduce(m, "model") \
             if key in self.block and _has(self.block[key], "model", -2) \
             else m
+
+    def reduce_ssd(self, y):
+        """Row-parallel ``out_proj`` on this rank's SSD heads: sum over
+        'model'."""
+        return self.mesh.all_reduce(y, "model") if self.ssd_heads else y
 
     def moe(self, p, x, cfg):
         """A moe block on this rank's experts: expert parallel over
@@ -400,39 +511,36 @@ class TensorParallel:
         return self.mesh.all_gather(logits, "model", dim=-1) \
             if _has(self.head, "model", 0) else logits
 
+    def unembed(self, head, hn):
+        """Full-vocabulary f32 logits of the final-normed ``hn`` through a
+        (possibly vocabulary-split) head."""
+        from repro_torch.models.layers import unembed
+        return self.gather_logits(unembed(head, self.head_in(hn)))
+
     # ------------------------------------------------------------ leaves
+    def _paths(self, params) -> Dict[str, str]:
+        return _port_paths(params, self.full_cfg)
+
     def leaf_specs(self, params) -> Dict[str, tuple]:
         """Port parameter name -> the spec of this rank's tensor (the
         placement ``leaf_placer`` made)."""
-        out = {}
-        for n, _ in params.named_parameters():
-            parts = n.split(".")
-            if parts[0] == "blocks":
-                out[n] = self.block["/".join(parts[2:])]
-            else:
-                out[n] = {"embed": self.embed, "lm_head": self.head}.get(
-                    parts[0], ())
-        return out
+        return {n: self.specs[path] for n, path in self._paths(params).items()}
 
     def grad_axes(self, params) -> Dict[str, Tuple[Tuple[str, ...], ...]]:
         """Port parameter name -> the axis groups its gradient is still
         summed over after the backward, one all-reduce each: the data axes
         that do not split it (an FSDP gather's backward already summed
-        over the one that does), and ('model',) for the K/V projections of
-        an attention whose query heads split over 'model' while its kv
-        heads do not (each rank's K/V gradient holds only its query heads'
-        part)."""
+        over the one that does), and ('model',) for the ``partial`` leaves
+        (the K/V projections of an attention whose query heads split over
+        'model' while its kv heads do not, a mamba2 layer's per-head
+        leaves and the leaves it cuts to its SSD heads that are whole
+        over 'model')."""
         data = batch_axes(self.mesh)
-        partial = ("attn/wk", "attn/wv") if self._split_heads() and \
-            not _has(self.block["attn/wk"], "model", -1) else ()
         out = {}
-        for n, spec in self.leaf_specs(params).items():
-            axes = tuple(a for a in data if a not in spec)
-            groups = (axes,) if axes else ()
-            if n.split(".")[0] == "blocks" and \
-                    "/".join(n.split(".")[2:]) in partial:
-                groups += (("model",),)
-            out[n] = groups
+        for n, path in self._paths(params).items():
+            axes = tuple(a for a in data if a not in self.specs[path])
+            out[n] = ((axes,) if axes else ()) + \
+                ((("model",),) if path in self.partial else ())
         return out
 
     def owns(self, params) -> Dict[str, bool]:
@@ -471,7 +579,8 @@ class DataRows:
             if self.split else x
 
     def local(self, batch: Dict) -> Dict:
-        """This rank's rows of a global batch."""
+        """This rank's rows of a global batch (every entry: tokens,
+        labels, vlm ``embeds``, encdec ``frames``)."""
         from repro_torch import runtime
         return {k: runtime.local_slice(v, batch_spec(tuple(v.shape),
                                                      self.mesh), self.mesh)
@@ -508,90 +617,126 @@ def _local_cfg(cfg, specs, mesh):
     return (cfg.replace(**kw) if kw else cfg), heads or not q_split
 
 
-def block_specs(cfg, mesh) -> Dict[str, tuple]:
-    """Each per-layer leaf's spec ("attn/wq" -> spec of the (d, H*hd)
-    tensor) from ``param_spec`` on the stacked JAX shape."""
-    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
-    H, Kv, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
-    shapes = {"attn/wq": (d, H * hd), "attn/wk": (d, Kv * hd),
-              "attn/wv": (d, Kv * hd), "attn/wo": (H * hd, d),
-              "attn_norm": (d,), "mlp_norm": (d,)}
-    if cfg.family == "moe":
-        E = cfg.num_experts
-        shapes.update({"moe/router": (d, E), "moe/w_gate": (E, d, f),
-                       "moe/w_up": (E, d, f), "moe/w_down": (E, f, d)})
-    else:
-        if cfg.mlp_activation in ("silu", "geglu"):
-            shapes["mlp/w_gate"] = (d, f)
-        shapes.update({"mlp/w_up": (d, f), "mlp/w_down": (f, d)})
+def _port_paths(params, cfg) -> Dict[str, str]:
+    """Port parameter name -> its JAX leaf path."""
+    from repro_torch.bridge import jax_layout
+    return {n: path for path, (_, names) in jax_layout(params, cfg).items()
+            for n in names}
+
+
+@functools.lru_cache(maxsize=64)
+def _specs_at(cfg, axes: Tuple[Tuple[str, int], ...]) -> Dict[str, tuple]:
+    from repro_torch.bridge import jax_layout
+    from repro_torch.models import Model
+    mesh = types.SimpleNamespace(axis_names=tuple(a for a, _ in axes),
+                                 shape=dict(axes))
+    whole = Model(cfg).init(device="meta")
+    named = dict(whole.named_parameters())
     out = {}
-    for k, s in shapes.items():
-        spec = param_spec(f"blocks/{k}", (L,) + s, mesh, cfg)
-        out[k] = spec[1:] if spec else ()
+    for path, (stack, names) in jax_layout(whole, cfg).items():
+        spec = param_spec(path, stack + tuple(named[names[0]].shape), mesh,
+                          cfg)
+        out[path] = tuple(spec[len(stack):]) if spec else ()
     return out
 
 
+def leaf_specs_of(cfg, mesh) -> Dict[str, tuple]:
+    """JAX leaf path ("blocks/attn/wq", "mamba/in_proj", "shared/mlp/w_up",
+    "blocks/3/w_up", "encoder/attn/wq", "embed") -> the spec of each port
+    tensor of it: ``param_spec`` on the JAX leaf's shape (stacked on L
+    for ``blocks/*`` and the encoder and decoder, on (G, K) for the
+    hybrid's ``mamba/*``, unstacked for the hybrid's ``shared/*`` and
+    xLSTM's blocks) with the stacked axes dropped.  The shapes are those
+    of ``cfg``'s parameters drawn on the meta device."""
+    return dict(_specs_at(cfg, tuple((a, int(mesh.shape[a]))
+                                     for a in mesh.axis_names)))
+
+
+def block_specs(cfg, mesh) -> Dict[str, tuple]:
+    """The spec of each leaf of an attention + MLP block ("attn/wq" ->
+    spec of the (d, H*hd) tensor; the same for every layer): the decoder
+    block's, zamba2's shared block's, whisper's decoder block's; empty for
+    the pure recurrent families."""
+    prefix = _ATTN_GROUP.get(cfg.family)
+    if prefix is None:
+        return {}
+    return {k[len(prefix):]: v for k, v in leaf_specs_of(cfg, mesh).items()
+            if k.startswith(prefix)}
+
+
 def leaf_placer(cfg, mesh):
-    """``leaf(path, tensor) -> this rank's block`` for a per-layer tensor
-    at JAX path ``blocks/...`` or an unstacked one (``embed``,
-    ``lm_head``, ``final_norm``): what ``init_params(place=...)`` applies to
-    each leaf as it is drawn, so a rank never holds a whole large model."""
+    """``leaf(path, tensor) -> this rank's block`` of a whole tensor at JAX
+    path ``path`` (``leaf_specs_of``'s keys): what ``init_params(place=...)``
+    applies to each leaf as it is drawn, so a rank never holds a whole
+    large model."""
     from repro_torch import runtime
-    blk = block_specs(cfg, mesh)
-    V, d = cfg.vocab_size, cfg.d_model
+    specs = leaf_specs_of(cfg, mesh)
 
     def place(path: str, t: torch.Tensor) -> torch.Tensor:
-        if path.startswith("blocks/"):
-            spec = blk[path[len("blocks/"):]]
-        else:
-            spec = param_spec(path, (V, d) if path in _EMBED else (d,),
-                              mesh, cfg)
-        return runtime.local_slice(t, spec, mesh).contiguous()
+        return runtime.local_slice(t, specs[path], mesh).contiguous()
     return place
+
+
+def _partial(cfg, specs, block, heads: bool, ssd: bool) -> frozenset:
+    """``TensorParallel.partial``: the K/V projections of every attention
+    whose query heads split over 'model' while its kv heads do not; on
+    the SSD heads a mamba2 layer's per-head leaves, and ``in_proj`` and the
+    conv where their model split does not divide."""
+    out = set()
+    prefix = _ATTN_GROUP.get(cfg.family)
+    if heads and _has(block.get("attn/wq", ()), "model", -1) and \
+            not _has(block.get("attn/wk", ()), "model", -1):
+        groups = ("encoder/", "decoder/") if cfg.family == "encdec" \
+            else (prefix,)
+        for g in groups:
+            out.update(f"{g}{k}/{w}" for k in ("attn", "cross")
+                       for w in ("wk", "wv") if f"{g}{k}/{w}" in specs)
+    if ssd:
+        mp = _MAMBA_GROUP[cfg.family]
+        out.update(mp + k for k in ("A_log", "dt_bias", "D"))
+        out.update(mp + k for k in ("in_proj", "conv/w", "conv/b")
+                   if "model" not in specs[mp + k])
+    return frozenset(out)
 
 
 def attach_tp(params, mesh, cfg=None):
     """Mark an already-placed (local-block) parameter module with its
     ``TensorParallel`` and return it."""
     from repro_torch.bridge import config_of
-    from repro_torch.models.transformer import require_dense
+    from repro_torch.models.ssm import _mamba_dims
     cfg = config_of(params, cfg)
-    require_dense(cfg)
-    specs = block_specs(cfg, mesh)
+    specs = leaf_specs_of(cfg, mesh)
+    block = block_specs(cfg, mesh)
     V, d = cfg.vocab_size, cfg.d_model
     emb = param_spec("embed", (V, d), mesh, cfg)
     head = param_spec("lm_head", (V, d), mesh, cfg) \
         if not cfg.tie_embeddings else emb
-    local, heads = _local_cfg(cfg, specs, mesh)
-    params.tp = TensorParallel(mesh, cfg, local, specs, emb, head, heads)
+    local, heads = _local_cfg(cfg, block, mesh)
+    m = mesh.shape.get("model", 1)
+    # SSD heads that divide 'model' divide di (head-major), so norm and
+    # out_proj split over it with them
+    ssd = cfg.family in _MAMBA_GROUP and m > 1 and \
+        _mamba_dims(cfg)[3] % m == 0
+    params.tp = TensorParallel(mesh, cfg, local, block, emb, head, heads,
+                               specs=specs, ssd_heads=ssd,
+                               partial=_partial(cfg, specs, block, heads,
+                                                ssd))
     return params
 
 
 def place_params(params, mesh, cfg=None):
     """This rank's blocks of a full (replicated) parameter module, by
-    ``param_spec``, as a new module of the same class with ``tp`` set —
+    ``param_spec``, as a copy of the module holding them with ``tp`` set —
     the twin of ``jax.device_put(params, params_shardings(...))``."""
     from repro_torch.bridge import config_of
-    from repro_torch.models.transformer import Block, Transformer
+    from repro_torch.training import tree as T
     cfg = config_of(params, cfg)
     if getattr(params, "tp", None) is not None:
         return params
     place = leaf_placer(cfg, mesh)
-
-    def group(prefix, d):
-        return None if d is None else \
-            {k: place(f"blocks/{prefix}/{k}", v.data) for k, v in d.items()}
-
-    blocks = [Block(place("blocks/attn_norm", b.attn_norm.data),
-                    group("attn", b.attn),
-                    place("blocks/mlp_norm", b.mlp_norm.data),
-                    **({"moe": group("moe", b.moe)} if b.moe is not None
-                       else {"mlp": group("mlp", b.mlp)}))
-              for b in params.blocks]
-    head = None if params.lm_head is None else \
-        place("lm_head", params.lm_head.data)
-    out = Transformer(cfg, place("embed", params.embed.data), blocks,
-                      place("final_norm", params.final_norm.data), head)
+    paths = _port_paths(params, cfg)
+    out = T.replace(params, [place(paths[n], t.data)
+                             for n, t in params.named_parameters()])
     return attach_tp(out, mesh, cfg)
 
 
@@ -599,7 +744,7 @@ def gather_params(params):
     """The whole (unplaced) parameter module of a placed one, on every
     rank: each leaf all-gathered over the axes its spec splits, in the
     order ``leaf_placer`` cut it — the inverse of ``place_params``."""
-    from repro_torch.models.transformer import Block, Transformer
+    from repro_torch.training import tree as T
     tp = params.tp
     specs = tp.leaf_specs(params)
 
@@ -609,20 +754,10 @@ def gather_params(params):
                 t = tp.mesh.all_gather(t.detach(), ax, dim=dim)
         return t
 
-    def group(i, kind, d):
-        return None if d is None else \
-            {k: full(f"blocks.{i}.{kind}.{k}", v) for k, v in d.items()}
-
-    blocks = [Block(full(f"blocks.{i}.attn_norm", b.attn_norm),
-                    group(i, "attn", b.attn),
-                    full(f"blocks.{i}.mlp_norm", b.mlp_norm),
-                    **({"moe": group(i, "moe", b.moe)} if b.moe is not None
-                       else {"mlp": group(i, "mlp", b.mlp)}))
-              for i, b in enumerate(params.blocks)]
-    head = None if params.lm_head is None else full("lm_head",
-                                                    params.lm_head)
-    return Transformer(tp.full_cfg, full("embed", params.embed), blocks,
-                       full("final_norm", params.final_norm), head)
+    out = T.replace(params, [full(n, t)
+                             for n, t in params.named_parameters()])
+    del out.tp
+    return out
 
 
 def local_attention(params, mesh, cfg=None):

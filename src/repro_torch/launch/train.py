@@ -29,9 +29,12 @@ ranks, one process per rank under ``torchrun`` (16 x 16 = 256 or 2 x 16 x
 
 Each rank draws only its blocks (``sharding.init_placed``) and steps them
 (``training/trainer.py``, ``mesh=``); every rank reads the same seeded
-global batches and takes its rows.  The dense, moe and vlm families train
-on a mesh; the others raise (ROADMAP A.8e).  Only rank 0 prints and
-writes ``--save``.  ``train_on_mesh`` is everything below the mesh's
+global batches (with the vlm ``embeds`` and the encdec ``frames``) and
+takes its rows.  Every family trains on a mesh: the decoders' attention
+and MLP, zamba2's shared block and whisper's encoder, decoder and
+cross-attention split over 'model' by heads and d_ff, the mamba2 layers
+(mamba2, zamba2) by SSD heads, xLSTM's blocks whole on every rank.  Only
+rank 0 prints and writes ``--save``.  ``train_on_mesh`` is everything below the mesh's
 construction, so tests and ``chip_smoke.py`` run it on a small host mesh.
 """
 from __future__ import annotations
@@ -77,7 +80,6 @@ def main(argv=None):
     if args.mesh != "none":
         from repro_torch.launch.mesh import (init_distributed,
                                              make_production_mesh)
-        require_mesh_family(_config(args))
         dev = init_distributed(args.device)
         return train_on_mesh(args, make_production_mesh(
             multi_pod=args.mesh == "multi", device=dev))
@@ -115,15 +117,6 @@ def _config(args):
     return cfg.reduced() if args.reduced else cfg
 
 
-def require_mesh_family(cfg) -> None:
-    """Raise unless ``cfg``'s family trains on a mesh (dense, moe, vlm)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"--mesh trains the dense, moe and vlm families; {cfg.name} "
-            f"(family {cfg.family!r}) has no sharded forward yet: ROADMAP "
-            "A.8e")
-
-
 def train_on_mesh(args, mesh, cfg=None):
     """``main``'s training on ``mesh`` (its ranks' process group joined,
     ``mesh.device`` this rank's device) of ``cfg`` (``--arch``'s by
@@ -132,7 +125,6 @@ def train_on_mesh(args, mesh, cfg=None):
     "rank_params"}``."""
     from repro_torch.launch.sharding import init_placed
     cfg = cfg or _config(args)
-    require_mesh_family(cfg)
     dev = mesh.device
     rank0 = mesh.rank == 0
     say = print if rank0 else (lambda *a, **k: None)

@@ -26,7 +26,9 @@ and cross-attention the dense decode kernel.
 The entry points take the keywords of the other attention families'
 (``window``, ``attn_backend``/``backend``) so that ``Model`` dispatches
 to every family alike; the family has no sliding window, and a nonzero
-``window`` raises.
+``window`` raises.  Parameters placed on a device mesh
+(``launch/sharding.place_params``) train through ``forward``; the cached
+entry points raise for them (ROADMAP A.8f).
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamTree
-from repro_torch.models.transformer import dtype_of
+from repro_torch.models.transformer import _cfg, _tp, dtype_of
 
 
 # the JAX pytree's top-level keys, in its order
@@ -79,13 +81,16 @@ class EncDec(ParamTree):
 
 
 # ----------------------------------------------------------------- init
-def init_params(cfg, seed: int = 0, device="cuda") -> EncDec:
+def init_params(cfg, seed: int = 0, device="cuda", place=None) -> EncDec:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (the JAX package's distributions, not its draws)."""
+    (the JAX package's distributions, not its draws).  ``place(path,
+    tensor)`` cuts each leaf (``encoder/...``, ``decoder/...``, the
+    top-level ones) to a mesh rank's block as it is drawn; on the meta
+    device nothing is drawn."""
     dtype = dtype_of(cfg.param_dtype)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = L.seeded(seed, device)
+    put = place or L.keep_whole
     d = cfg.d_model
 
     def ones():
@@ -104,17 +109,19 @@ def init_params(cfg, seed: int = 0, device="cuda") -> EncDec:
                        cross=L.init_attention(gen, cfg, dtype, device))
         return blk
 
-    enc = [block(False) for _ in range(cfg.encoder_layers)]
-    dec = [block(True) for _ in range(cfg.num_layers)]
-    return EncDec(cfg, {
-        "enc_pos": L.dense_init(gen, (cfg.encoder_seq, d), dtype=dtype,
-                                device=device),
-        "dec_pos": L.dense_init(gen, (cfg.max_position_embeddings, d),
-                                dtype=dtype, device=device),
-        "embed": L.init_embedding(gen, cfg.vocab_size, d, dtype, device),
-        "encoder": enc, "decoder": dec,
-        "enc_norm_w": ones(), "enc_norm_b": zeros(),
-        "final_norm_w": ones(), "final_norm_b": zeros()})
+    enc = [L.place_tree(put, "encoder", block(False))
+           for _ in range(cfg.encoder_layers)]
+    dec = [L.place_tree(put, "decoder", block(True))
+           for _ in range(cfg.num_layers)]
+    top = {"enc_pos": L.dense_init(gen, (cfg.encoder_seq, d), dtype=dtype,
+                                   device=device),
+           "dec_pos": L.dense_init(gen, (cfg.max_position_embeddings, d),
+                                   dtype=dtype, device=device),
+           "embed": L.init_embedding(gen, cfg.vocab_size, d, dtype, device),
+           "enc_norm_w": ones(), "enc_norm_b": zeros(),
+           "final_norm_w": ones(), "final_norm_b": zeros()}
+    return EncDec(cfg, {"encoder": enc, "decoder": dec,
+                        **{k: put(k, v) for k, v in top.items()}})
 
 
 def _no_window(window: int) -> None:
@@ -128,36 +135,67 @@ def _ln(h, p, name):
     return L.layernorm(h, p[f"{name}_w"], p[f"{name}_b"])
 
 
-def _mlp(blk, h, cfg):
-    return L.mlp_block(blk.mlp, _ln(h, blk, "mlp_norm"), cfg.mlp_activation)
+def _in(tp, x, kind="attn"):
+    """A column-parallel computation's input under ``tp`` (its gradient
+    summed over 'model'), ``x`` itself otherwise."""
+    if tp is None:
+        return x
+    return tp.attn_in(x) if kind == "attn" else tp.mlp_in(x)
+
+
+def _mlp(blk, h, cfg, tp=None):
+    m = L.mlp_block(blk["mlp"], _in(tp, _ln(h, blk, "mlp_norm"), "mlp"),
+                    cfg.mlp_activation)
+    return m if tp is None else tp.reduce_mlp(m)
+
+
+def _attn_sum(tp, a):
+    return a if tp is None else tp.reduce_attn(a)
+
+
+def _view(tp, prefix, blk):
+    """A block's weights as this rank computes with them: itself, or under
+    ``tp`` its FSDP splits gathered, its attention and MLP splits kept."""
+    return blk if tp is None else \
+        tp.gather_tree(prefix, blk, tp.compute_split)
 
 
 def encode(params, frames, cfg, *, backend: str = "auto"):
     """frames: (B, Se, d) precomputed embeddings -> (B, Se, d): the encoder
-    (non-causal attention) and its final layernorm."""
+    (non-causal attention) and its final layernorm.  On placed parameters
+    (``params.tp``) each block's attention and MLP run on this rank's
+    heads and d_ff."""
+    tp = _tp(params)
+    cfg = _cfg(params, cfg)
     Se = frames.shape[1]
     h = frames.to(dtype_of(cfg.activ_dtype)) + params.enc_pos[None, :Se]
     positions = torch.arange(Se, device=h.device)
     for blk in params.encoder:
-        a, _ = L.attention_block(blk.attn, _ln(h, blk, "attn_norm"),
+        blk = _view(tp, "encoder", blk)
+        a, _ = L.attention_block(blk["attn"],
+                                 _in(tp, _ln(h, blk, "attn_norm")),
                                  positions, cfg, causal=False,
                                  backend=backend)
-        h = h + a
-        h = h + _mlp(blk, h, cfg)
+        h = h + _attn_sum(tp, a)
+        h = h + _mlp(blk, h, cfg, tp)
     return _ln(h, params, "enc_norm")
 
 
-def _dec_block(blk, h, positions, cfg, ck, cv, backend):
-    a, kv = L.attention_block(blk.attn, _ln(h, blk, "attn_norm"), positions,
-                              cfg, backend=backend)
-    h = h + a
-    h = h + L.cross_attention(blk.cross, _ln(h, blk, "cross_norm"), ck, cv,
-                              cfg, backend=backend)
-    return h + _mlp(blk, h, cfg), kv
+def _dec_block(blk, h, positions, cfg, ck, cv, backend, tp=None):
+    a, kv = L.attention_block(blk["attn"], _in(tp, _ln(h, blk, "attn_norm")),
+                              positions, cfg, backend=backend)
+    h = h + _attn_sum(tp, a)
+    c = L.cross_attention(blk["cross"], _in(tp, _ln(h, blk, "cross_norm")),
+                          ck, cv, cfg, backend=backend)
+    h = h + _attn_sum(tp, c)
+    return h + _mlp(blk, h, cfg, tp), kv
 
 
 def _logits(params, h):
-    return L.unembed(params.embed, _ln(h, params, "final_norm"))
+    hn = _ln(h, params, "final_norm")
+    tp = _tp(params)
+    return L.unembed(params.embed, hn) if tp is None else \
+        tp.unembed(params.embed, hn)
 
 
 def _dec_embed(params, tokens, cfg, start):
@@ -165,7 +203,10 @@ def _dec_embed(params, tokens, cfg, start):
     ``start`` an int or a () / (B,) tensor, clamped to [0, P - T] like
     ``lax.dynamic_slice_in_dim`` (P = max_position_embeddings)."""
     T = tokens.shape[1]
-    h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
+    tp = _tp(params)
+    h = L.embed(params.embed, tokens) if tp is None else \
+        tp.embed_lookup(params.embed, tokens)
+    h = h.to(dtype_of(cfg.activ_dtype))
     if isinstance(start, int):
         return h + params.dec_pos[None, start:start + T]
     first = start.long().clamp(0, params.dec_pos.shape[0] - T)
@@ -182,16 +223,27 @@ def forward(params, tokens, cfg, *, frames, window: int = 0,
     Returns (logits (B, Sd, V) f32, aux 0.0) and, with ``collect_hidden``,
     the decoder layers' outputs (L, B, Sd, d).  ``remat`` recomputes each
     decoder block (its cross K/V included) in the backward, as JAX's
-    ``jax.checkpoint`` of the scan body does."""
+    ``jax.checkpoint`` of the scan body does.
+
+    Parameters placed on a device mesh (``params.tp``): every block's
+    self-attention, cross-attention (its K/V projected from the encoder
+    output on this rank's heads, whose gradient is summed over 'model')
+    and MLP split over 'model' as a decoder block's are
+    (``TensorParallel``), the frames' and tokens' rows over the data
+    axes, the tied embedding over the vocabulary when it divides."""
     L.check_backend(backend)
     _no_window(window)
+    tp = _tp(params)
     enc = encode(params, frames, cfg, backend=backend)
+    cfg = _cfg(params, cfg)
     h = _dec_embed(params, tokens, cfg, 0)
     positions = torch.arange(tokens.shape[1], device=h.device)
+    enc_in = _in(tp, enc)
 
     def body(x, blk):
-        ck, cv = L.cross_attention_kv(blk.cross, enc, cfg)
-        return _dec_block(blk, x, positions, cfg, ck, cv, backend)[0]
+        blk = _view(tp, "decoder", blk)
+        ck, cv = L.cross_attention_kv(blk["cross"], enc_in, cfg)
+        return _dec_block(blk, x, positions, cfg, ck, cv, backend, tp)[0]
 
     hidden = []
     for blk in params.decoder:
@@ -224,6 +276,7 @@ def prefill(params, tokens, cfg, *, frames, max_seq: Optional[int] = None,
     caches.  Returns (last-row logits (B, V), cache with the self K/V
     padded to ``max_seq`` entries)."""
     L.check_backend(backend)
+    L.require_unplaced(params, cfg, "prefill")
     _no_window(window)
     if frames.shape[1] != cfg.encoder_seq:
         raise ValueError(f"frames hold {frames.shape[1]} rows; the cross "
@@ -249,6 +302,7 @@ def _cached(params, tokens, cache, cfg, attend, backend):
     """The decoder over ``tokens`` at the cache's ``pos``: ``attend`` is the
     self-attention read (decode or extend), the cross-attention reads
     ``ck``/``cv``."""
+    L.require_unplaced(params, cfg, "a cached step")
     h = _dec_embed(params, tokens, cfg, cache["pos"])
     for l, blk in enumerate(params.decoder):
         a, _, _ = attend(blk.attn, _ln(h, blk, "attn_norm"), cache["k"][l],

@@ -13,6 +13,11 @@ layers run the SSD-scan kernel through ``ssm.mamba2_forward``.  Cache:
 ``{"mamba": [per-layer {"gla", "conv"}], "k", "v": (G, B, S, Kv, hd),
 "pos"}`` — the mamba states are replaced by new tensors every step, the
 K/V slabs are written in place as in ``transformer.py``.
+
+Parameters placed on a device mesh (``launch/sharding.place_params``)
+train through ``forward`` (the mamba layers on this rank's SSD heads, the
+shared block tensor parallel); the cached entry points raise for them
+(ROADMAP A.8f).
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.transformer import dtype_of
+from repro_torch.models.ssm import _logits, embed_tokens
+from repro_torch.models.transformer import _cfg, _tp, dtype_of
 
 
 def _dims(cfg):
@@ -32,57 +38,62 @@ def _dims(cfg):
     return G, K
 
 
-def init_params(cfg, seed: int = 0, device="cuda") -> L.ParamTree:
+def init_params(cfg, seed: int = 0, device="cuda",
+                place=None) -> L.ParamTree:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (the JAX package's distributions, not its draws)."""
+    (the JAX package's distributions, not its draws).  ``place(path,
+    tensor)`` cuts each leaf (``mamba/...``, ``shared/...``) to a mesh
+    rank's block as it is drawn; on the meta device nothing is drawn."""
     _dims(cfg)
     dtype = dtype_of(cfg.param_dtype)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = L.seeded(seed, device)
+    put = place or L.keep_whole
     d = cfg.d_model
     return L.ParamTree({
-        "embed": L.init_embedding(gen, cfg.vocab_size, d, dtype, device),
-        "mamba": [S.init_mamba2(gen, cfg, dtype, device)
+        "embed": put("embed", L.init_embedding(gen, cfg.vocab_size, d,
+                                               dtype, device)),
+        "mamba": [L.place_tree(put, "mamba",
+                               S.init_mamba2(gen, cfg, dtype, device))
                   for _ in range(cfg.num_layers)],
-        "shared": {
+        "shared": L.place_tree(put, "shared", {
             "attn_norm": torch.zeros((d,), dtype=dtype, device=device),
             "attn": L.init_attention(gen, cfg, dtype, device),
             "mlp_norm": torch.zeros((d,), dtype=dtype, device=device),
             "mlp": L.init_mlp(gen, cfg, dtype, device),
-        },
-        "final_norm": torch.zeros((d,), dtype=dtype, device=device),
+        }),
+        "final_norm": put("final_norm", torch.zeros((d,), dtype=dtype,
+                                                    device=device)),
     })
 
 
-def _mlp(shared, h, cfg):
-    return L.mlp_block(shared["mlp"],
-                       L.rmsnorm(h, shared["mlp_norm"], cfg.norm_eps),
-                       cfg.mlp_activation)
+def _mlp(shared, h, cfg, tp=None):
+    x = L.rmsnorm(h, shared["mlp_norm"], cfg.norm_eps)
+    m = L.mlp_block(shared["mlp"], x if tp is None else tp.mlp_in(x),
+                    cfg.mlp_activation)
+    return m if tp is None else tp.reduce_mlp(m)
 
 
-def _logits(params, h, cfg):
-    return L.unembed(params.embed, L.rmsnorm(h, params.final_norm,
-                                             cfg.norm_eps))
-
-
-def _group(params, h, g, states, cfg, mamba_fn, attend):
+def _group(params, h, g, states, cfg, mamba_fn, attend, shared=None,
+           tp=None):
     """Group ``g`` of the backbone: K mamba layers (``mamba_fn(p, h, layer
-    state or None)``) then the shared block, whose attention is
-    ``attend(attn params, normed h, group index)``.  Returns (h, the mamba
-    layers' new states, the attention's extra)."""
+    state or None)``) then the shared block (``shared``, the parameters'
+    by default), whose attention is ``attend(attn params, normed h, group
+    index)``.  Under ``tp`` the shared block's attention and MLP run on
+    this rank's heads and d_ff.  Returns (h, the mamba layers' new states,
+    the attention's extra)."""
     _, K = _dims(cfg)
-    shared = params.shared
+    shared = params.shared if shared is None else shared
     new = []
     for l in range(g * K, (g + 1) * K):
         out, st = mamba_fn(params.mamba[l], h,
                            None if states is None else states[l])
         h = h + out
         new.append(st)
-    a, extra = attend(shared["attn"],
-                      L.rmsnorm(h, shared["attn_norm"], cfg.norm_eps), g)
-    h = h + a
-    return h + _mlp(shared, h, cfg), new, extra
+    x = L.rmsnorm(h, shared["attn_norm"], cfg.norm_eps)
+    a, extra = attend(shared["attn"], x if tp is None else tp.attn_in(x), g)
+    h = h + (a if tp is None else tp.reduce_attn(a))
+    return h + _mlp(shared, h, cfg, tp), new, extra
 
 
 def _groups(params, h, states, cfg, mamba_fn, attend):
@@ -102,18 +113,31 @@ def forward(params, tokens, cfg, *, window: int = 0, backend: str = "auto",
     """Scoring / training pass. tokens (B,S) -> (logits (B,S,V) f32, aux
     loss 0), and every group's output (G, B, S, d) if ``collect_hidden``
     (the JAX package stacks per group).  ``remat``: recompute each group
-    in the backward."""
-    h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
+    in the backward.
+
+    Parameters placed on a device mesh (``params.tp``): each mamba layer
+    on this rank's SSD heads where they divide 'model'
+    (``ssm.mamba2_forward``); the shared block's weights gathered once per
+    forward (so the gradient of its G applications is reduce-scattered
+    once) and its attention and MLP split over 'model' as a decoder
+    block's are (``TensorParallel``)."""
+    tp = _tp(params)
+    cfg = _cfg(params, cfg)
+    h = embed_tokens(params, tokens, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     win = window or cfg.sliding_window
     G, _ = _dims(cfg)
+    shared = None if tp is None else \
+        tp.gather_tree("shared", params.shared, tp.compute_split)
 
     def group(g):
         return lambda x: _group(
             params, x, g, None, cfg,
-            lambda p, hh, st: S.mamba2_forward(p, hh, cfg, backend=backend),
+            lambda p, hh, st: S.mamba2_forward(p, hh, cfg, backend=backend,
+                                               tp=tp, prefix="mamba"),
             lambda p, xx, gg: L.attention_block(
-                p, xx, positions, cfg, window=win, backend=backend))[0]
+                p, xx, positions, cfg, window=win, backend=backend),
+            shared, tp)[0]
 
     h, hs = S.run_layers([group(g) for g in range(G)], h, remat=remat,
                          collect_hidden=collect_hidden)
@@ -139,6 +163,7 @@ def prefill(params, tokens, cfg, *, max_seq=None, window: int = 0,
             backend: str = "auto"):
     """Run the prompt.  tokens (B,S).  Returns (last-token logits (B,V),
     cache with K/V padded to ``max_seq`` entries)."""
+    L.require_unplaced(params, cfg, "prefill")
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
     B, Sq = tokens.shape
     max_seq = max(max_seq or Sq, Sq)
@@ -162,6 +187,7 @@ def extend_step(params, tokens, cache, cfg, *, window: int = 0,
                 backend: str = "auto"):
     """Multi-token cached decode. tokens (B,T) -> (logits (B,T,V), cache);
     the K/V slabs are written in place."""
+    L.require_unplaced(params, cfg, "extend_step")
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
     pos = cache["pos"]
     win = window or cfg.sliding_window
@@ -180,6 +206,7 @@ def decode_step(params, token, cache, cfg, *, window: int = 0,
                 attn_backend: str = "auto"):
     """One decode step. token (B,1) -> (logits (B,V), cache); the shared
     block's read is ``layers.decode_attention`` (``attn_backend``)."""
+    L.require_unplaced(params, cfg, "decode_step")
     h = L.embed(params.embed, token).to(dtype_of(cfg.activ_dtype))
     pos = cache["pos"]
     win = window or cfg.sliding_window

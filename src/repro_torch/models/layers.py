@@ -71,6 +71,42 @@ class ParamTree(nn.Module):
 
 
 # ----------------------------------------------------------------- init utils
+def seeded(seed: int, device):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on the
+    meta device (the dry run), where nothing is drawn."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def place_tree(put, prefix: str, tree):
+    """``tree`` (nested dicts of tensors) with ``put(path, leaf)`` applied
+    to every leaf, ``path`` its JAX path under ``prefix`` ("blocks/conv/w"):
+    how ``init_params(place=...)`` cuts a layer to a mesh rank's block
+    (``launch/sharding.leaf_placer``)."""
+    return {k: place_tree(put, f"{prefix}/{k}", v) if isinstance(v, dict)
+            else put(f"{prefix}/{k}", v) for k, v in tree.items()}
+
+
+def keep_whole(path: str, t):
+    """The ``put`` of an unplaced init: every leaf as drawn."""
+    return t
+
+
+def require_unplaced(params, cfg, what: str) -> None:
+    """Raise for parameters placed on a device mesh (``params.tp``) where
+    the family's entry point has no sharded form: a placed ssm, xlstm,
+    hybrid or encdec model trains (``forward``) but does not serve."""
+    if getattr(params, "tp", None) is not None:
+        raise NotImplementedError(
+            f"{what} of {cfg.name} (family {cfg.family!r}) on parameters "
+            "placed on a device mesh: the placed model trains but its "
+            "cache has no placement yet (ROADMAP A.8f)")
+
+
 def dense_init(gen, shape, scale: float = 1.0, dtype=torch.float32,
                device="cuda"):
     # fan_in is the next-to-last dim for matrices / batched matrices (E,d,f).

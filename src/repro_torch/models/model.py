@@ -82,12 +82,10 @@ class Model:
     # ---------------------------------------------------------------- init
     def init(self, seed: int = 0, device="cuda", place=None):
         """Seeded random parameters on ``device`` (CUDA by default; pass
-        ``device="cpu"`` explicitly for the CPU).  ``place`` (the
-        transformer families) cuts each leaf to a mesh rank's block as it
-        is drawn: ``launch/sharding.init_placed``."""
-        if place is not None:
-            return self._mod.init_params(self.cfg, seed, device, place=place)
-        return self._mod.init_params(self.cfg, seed, device)
+        ``device="cpu"`` explicitly for the CPU).  ``place`` (every
+        family) cuts each leaf to a mesh rank's block as it is drawn:
+        ``launch/sharding.init_placed``."""
+        return self._mod.init_params(self.cfg, seed, device, place=place)
 
     # ---------------------------------------------------------------- fwd
     def forward(self, params, batch: Dict, *, window: int = 0,

@@ -18,6 +18,11 @@ into its input, so a cache dict kept as a snapshot stays valid while the
 speculative rounds advance past it.  Where the JAX package stacks the
 layers' states on a leading ``L`` axis, the port keeps a list with one
 entry per layer, each state tensor with the batch (slot) axis first.
+
+Parameters placed on a device mesh (``launch/sharding.place_params``)
+train through ``forward``: each mamba2 layer on this rank's SSD heads
+where they divide 'model' (``mamba2_forward``'s ``tp``); the cached
+entry points raise for them (ROADMAP A.8f).
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import (ssd_chunk_scan_kernel,
                                           ssd_chunk_scan_plain)
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import dtype_of
+from repro_torch.models.transformer import _tp, dtype_of
 
 NEG = -1e30
 # leaves the JAX package keeps in float32 whatever ``param_dtype`` says
@@ -183,8 +188,12 @@ def init_mamba2(gen, cfg, dtype, device="cuda"):
 
 
 def _mamba_split(p, x, cfg):
-    di, N, P, H = _mamba_dims(cfg)
-    return torch.split(x @ p["in_proj"], [di, di + 2 * N, H], dim=-1)
+    """(z, [x | B | C], dt) of the layer's input; di and H read off the
+    weights (``norm`` is (di,)), so a rank's view of a layer on its SSD
+    heads (``TensorParallel.mamba_view``) splits as a whole layer does."""
+    di, N = p["norm"].shape[-1], cfg.ssm_state
+    return torch.split(x @ p["in_proj"], [di, di + 2 * N,
+                                          di // cfg.ssm_head_dim], dim=-1)
 
 
 def _gates(p, dt):
@@ -192,13 +201,39 @@ def _gates(p, dt):
     return -torch.exp(p["A_log"]) * delta, torch.log(delta + 1e-9)
 
 
-def mamba2_forward(p, x, cfg, cache=None, backend: str = "auto"):
+def _gated_norm(y, w, cfg, tp):
+    """The gated RMSNorm over the whole di.  On a rank's SSD heads (``tp``)
+    ``y`` holds its heads' columns: the sum of squares is summed over
+    'model' (``TensorParallel.ssd_sum``)."""
+    if tp is None or not tp.ssd_heads:
+        return L.rmsnorm(y, w, cfg.norm_eps)
+    dt = y.dtype
+    y = y.float()
+    ss = tp.ssd_sum((y * y).sum(dim=-1, keepdim=True))
+    di = y.shape[-1] * tp.mesh.shape["model"]
+    y = y * torch.rsqrt(ss / di + cfg.norm_eps)
+    return (y * (1.0 + w.float())).to(dt)
+
+
+def mamba2_forward(p, x, cfg, cache=None, backend: str = "auto", tp=None,
+                   prefix: str = "blocks"):
     """x: (B,S,d) -> (y (B,S,d), final GLA state + conv state).  ``cache``:
     optional {"gla": GLAState, "conv": (B,W-1,C)} to continue from a
     previous segment (chunked prefill / speculative extension).  B and C
-    reach the scan as head-broadcast views (head stride 0)."""
+    reach the scan as head-broadcast views (head stride 0).
+
+    ``tp`` (a ``TensorParallel``; ``p`` this rank's blocks of the layer at
+    JAX path ``prefix``): the layer runs on this rank's SSD heads where
+    they divide 'model' — the scan on H/m heads, the gated norm's sum of
+    squares and ``out_proj``'s partials summed over 'model', the input's
+    gradient too — and whole on every rank otherwise
+    (``TensorParallel.mamba_view``)."""
+    if tp is not None:
+        p, x = tp.mamba_view(prefix, p), tp.ssd_in(x)
     B, S, d = x.shape
-    di, N, P, H = _mamba_dims(cfg)
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    di = p["norm"].shape[-1]
+    H = di // P
     z, xbc, dt = _mamba_split(p, x, cfg)
     xbc, conv_state = causal_conv(p["conv"], xbc,
                                   state=None if cache is None
@@ -216,8 +251,9 @@ def mamba2_forward(p, x, cfg, cache=None, backend: str = "auto"):
     y = y + p["D"][None, None, :, None] * v.float()
     y = y.reshape(B, S, di).to(x.dtype)
     y = y * F.silu(z)
-    y = L.rmsnorm(y, p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], {"gla": st, "conv": conv_state}
+    y = _gated_norm(y, p["norm"], cfg, tp) @ p["out_proj"]
+    return (y if tp is None else tp.reduce_ssd(y)), {"gla": st,
+                                                     "conv": conv_state}
 
 
 def mamba2_init_cache(cfg, batch: int, device="cuda",
@@ -252,19 +288,25 @@ def mamba2_step(p, x, cache, cfg):
 # Pure-Mamba2 decoder (family "ssm"): embed + L mamba2 blocks + final norm.
 # The cache is pure recurrent state — no sequence axis at all, so decode
 # cost is O(1) in context length.
-def init_params(cfg, seed: int = 0, device="cuda") -> L.ParamTree:
+def init_params(cfg, seed: int = 0, device="cuda",
+                place=None) -> L.ParamTree:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (the JAX package's distributions, not its draws)."""
+    (the JAX package's distributions, not its draws).  ``place(path,
+    tensor)`` cuts each leaf to a mesh rank's block as it is drawn
+    (``launch/sharding.leaf_placer``); on the meta device nothing is
+    drawn."""
     dtype = dtype_of(cfg.param_dtype)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = L.seeded(seed, device)
+    put = place or L.keep_whole
     return L.ParamTree({
-        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype,
-                                  device),
-        "blocks": [init_mamba2(gen, cfg, dtype, device)
+        "embed": put("embed", L.init_embedding(gen, cfg.vocab_size,
+                                               cfg.d_model, dtype, device)),
+        "blocks": [L.place_tree(put, "blocks",
+                                init_mamba2(gen, cfg, dtype, device))
                    for _ in range(cfg.num_layers)],
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "final_norm": put("final_norm", torch.zeros(
+            (cfg.d_model,), dtype=dtype, device=device)),
     })
 
 
@@ -274,9 +316,21 @@ def init_cache(cfg, batch: int, device="cuda"):
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def embed_tokens(params, tokens, cfg):
+    """Token embeddings in the activation dtype (a vocabulary-split table
+    summed over 'model' when the parameters are placed on a mesh)."""
+    tp = _tp(params)
+    h = L.embed(params.embed, tokens) if tp is None else \
+        tp.embed_lookup(params.embed, tokens)
+    return h.to(dtype_of(cfg.activ_dtype))
+
+
 def _logits(params, h, cfg):
-    return L.unembed(params.embed, L.rmsnorm(h, params.final_norm,
-                                             cfg.norm_eps))
+    """Logits through the tied embedding (vocabulary-split when placed)."""
+    hn = L.rmsnorm(h, params.final_norm, cfg.norm_eps)
+    tp = _tp(params)
+    return L.unembed(params.embed, hn) if tp is None else \
+        tp.unembed(params.embed, hn)
 
 
 def run_layers(fns, h, *, remat: bool = False, collect_hidden: bool = False):
@@ -297,10 +351,14 @@ def forward(params, tokens, cfg, *, backend: str = "auto",
             remat: bool = False, collect_hidden: bool = False):
     """Scoring / training pass. tokens (B,S) -> (logits (B,S,V) f32, aux
     loss 0), and every block's output (L, B, S, d) if ``collect_hidden``.
-    ``remat``: recompute each block in the backward."""
-    h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
+    ``remat``: recompute each block in the backward.  Parameters placed on
+    a device mesh (``params.tp``) run each layer on this rank's SSD heads
+    where they divide 'model' (``mamba2_forward``)."""
+    tp = _tp(params)
+    h = embed_tokens(params, tokens, cfg)
     h, hs = run_layers(
-        [lambda x, p=p: x + mamba2_forward(p, x, cfg, backend=backend)[0]
+        [lambda x, p=p: x + mamba2_forward(p, x, cfg, backend=backend,
+                                           tp=tp)[0]
          for p in params.blocks], h, remat=remat,
         collect_hidden=collect_hidden)
     out = (_logits(params, h, cfg), torch.zeros((), device=h.device))
@@ -310,6 +368,7 @@ def forward(params, tokens, cfg, *, backend: str = "auto",
 def _run_cached(params, tokens, states, cfg, block_fn):
     """Layer loop for prefill/extend/decode: ``block_fn`` maps (p, h,
     layer_state) -> (out, new_state); returns (final h, new states)."""
+    L.require_unplaced(params, cfg, "a cached step")
     h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
     new = []
     for p, st in zip(params.blocks, states):

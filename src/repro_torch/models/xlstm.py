@@ -13,6 +13,9 @@ d_ff = 0: blocks carry their own up/down projections (mLSTM proj factor 2,
 sLSTM GLU factor 4/3).  ``blocks`` is a list of per-layer parameter trees,
 mLSTM and sLSTM mixed; the cache's ``layers`` a list of per-layer states
 (``GLAState`` or the sLSTM dict), batch axis first, updated functionally.
+Parameters placed on a device mesh (``launch/sharding.place_params``)
+train through ``forward`` (every block whole on every rank); the cached
+entry points raise for them (ROADMAP A.8f).
 """
 from __future__ import annotations
 
@@ -22,9 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.ssm import (GLAState, gla_chunked, gla_step,
-                                    init_gla_state, replay, run_layers)
-from repro_torch.models.transformer import dtype_of
+from repro_torch.models.ssm import (GLAState, _logits, embed_tokens,
+                                    gla_chunked, gla_step, init_gla_state,
+                                    replay, run_layers)
+from repro_torch.models.transformer import _tp, dtype_of
 
 NEG = -1e30
 # leaves the JAX package keeps in float32 whatever ``param_dtype`` says
@@ -178,6 +182,17 @@ def slstm_forward(p, x, cfg, state=None):
     xn = L.rmsnorm(x, p["norm"], cfg.norm_eps)
     xg = xn.float() @ p["w_gates"]                                # (B,S,4d)
     st = state or slstm_init_cache(cfg, B, x.device)
+    if x.device.type == "meta":
+        # the dry run computes nothing: the S steps' cells as one batch of
+        # B * S rows have every step's forward products and bytes, and no
+        # per-token loop to dispatch.  Their backward carries no gradient
+        # from step to step (nor does the mLSTM's folded scan), so an
+        # xlstm-125m train_4k step counts 3.5% fewer flops than the loops
+        out = _slstm_cell(p, xg.reshape(B * S, -1), {
+            k: v.repeat_interleave(S, 0) for k, v in st.items()}, cfg)
+        out = {k: v.reshape((B, S) + v.shape[1:]) for k, v in out.items()}
+        return _slstm_out(p, x, out["h"], cfg), \
+            {k: v[:, -1] for k, v in out.items()}
     hs = []
     for t in range(S):
         st = _slstm_cell(p, xg[:, t], st, cfg)
@@ -193,20 +208,25 @@ def slstm_step(p, x, state, cfg):
 
 
 # ----------------------------------------------------------------- model
-def init_params(cfg, seed: int = 0, device="cuda") -> L.ParamTree:
+def init_params(cfg, seed: int = 0, device="cuda",
+                place=None) -> L.ParamTree:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (the JAX package's distributions, not its draws)."""
+    (the JAX package's distributions, not its draws).  ``place(path,
+    tensor)`` cuts each leaf (JAX path ``blocks/<l>/...``) to a mesh
+    rank's block as it is drawn; on the meta device nothing is drawn."""
     dtype = dtype_of(cfg.param_dtype)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    blocks = [(init_slstm if is_slstm(cfg, l) else init_mlstm)(
-        gen, cfg, dtype, device) for l in range(cfg.num_layers)]
+    gen = L.seeded(seed, device)
+    put = place or L.keep_whole
+    blocks = [L.place_tree(put, f"blocks/{l}", (
+        init_slstm if is_slstm(cfg, l) else init_mlstm)(
+            gen, cfg, dtype, device)) for l in range(cfg.num_layers)]
     return L.ParamTree({
-        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype,
-                                  device),
+        "embed": put("embed", L.init_embedding(gen, cfg.vocab_size,
+                                               cfg.d_model, dtype, device)),
         "blocks": blocks,
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "final_norm": put("final_norm", torch.zeros(
+            (cfg.d_model,), dtype=dtype, device=device)),
     })
 
 
@@ -217,13 +237,9 @@ def init_cache(cfg, batch: int, device="cuda"):
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _logits(params, h, cfg):
-    return L.unembed(params.embed, L.rmsnorm(h, params.final_norm,
-                                             cfg.norm_eps))
-
-
 def _layers(params, h, states, cfg, backend):
     """Every block over a segment, from ``states`` (None: fresh)."""
+    L.require_unplaced(params, cfg, "a cached step")
     new = []
     for l, p in enumerate(params.blocks):
         st = None if states is None else states[l]
@@ -240,13 +256,23 @@ def forward(params, tokens, cfg, *, backend: str = "auto",
     """Scoring / training pass. tokens (B,S) -> (logits (B,S,V) f32, aux
     loss 0), and every block's output (L, B, S, d) if ``collect_hidden``.
     ``remat``: recompute each m/sLSTM block in the backward.  sLSTM's
-    per-token loop has no kernel: autograd sees it as it is."""
-    h = L.embed(params.embed, tokens).to(dtype_of(cfg.activ_dtype))
+    per-token loop has no kernel: autograd sees it as it is.
+
+    Parameters placed on a device mesh (``params.tp``) run every block
+    whole on every rank: its leaves gathered over the axes that split them
+    (``TensorParallel.gather_tree``; the data gathers reduce-scatter their
+    gradient, the model gathers take this rank's block of it), the rows
+    split over the data axes, the tied embedding split over the
+    vocabulary."""
+    tp = _tp(params)
+    h = embed_tokens(params, tokens, cfg)
 
     def block(l, p):
+        def view():
+            return p if tp is None else tp.gather_tree(f"blocks/{l}", p)
         if is_slstm(cfg, l):
-            return lambda x: slstm_forward(p, x, cfg)[0]
-        return lambda x: mlstm_forward(p, x, cfg, backend=backend)[0]
+            return lambda x: slstm_forward(view(), x, cfg)[0]
+        return lambda x: mlstm_forward(view(), x, cfg, backend=backend)[0]
 
     h, hs = run_layers([block(l, p) for l, p in enumerate(params.blocks)],
                        h, remat=remat, collect_hidden=collect_hidden)
@@ -274,6 +300,7 @@ def extend_step(params, tokens, cache, cfg, *, backend: str = "auto"):
 
 
 def decode_step(params, token, cache, cfg):
+    L.require_unplaced(params, cfg, "a cached step")
     h = L.embed(params.embed, token).to(dtype_of(cfg.activ_dtype))
     new = []
     for l, (p, st) in enumerate(zip(params.blocks, cache["layers"])):

@@ -9,9 +9,9 @@ to the optimizer.  Everything it returns stays on the device: the step
 makes no host pull.  On CUDA the attention of the loss runs the flash
 kernel forward and backward (``kernels/flash_attention.FlashAttention``).
 
-On a device mesh (``mesh=``; the dense, moe and vlm families, parameters
-placed by ``launch/sharding.place_params`` or ``init_placed``) each rank
-steps its own blocks.  It takes its rows of the global batch
+On a device mesh (``mesh=``; every family, parameters placed by
+``launch/sharding.place_params`` or ``init_placed``) each rank steps its
+own blocks.  It takes its rows of the global batch
 (``sharding.DataRows``); its loss term is its rows' summed cross entropy
 over the global batch's label count plus its share of the moe
 load-balance loss, so the data ranks' terms sum to the unsharded loss
@@ -78,43 +78,15 @@ def make_train_step(model, opt: AdamW, *, loss_fn: Optional[Callable] = None,
 
 
 def _sharded_step(model, opt: AdamW, mesh, remat: bool, donate: bool):
-    from repro_torch.launch.sharding import batch_axes, data_rows
-    from repro_torch.models.model import nll_sum
+    from repro_torch.launch.sharding import batch_axes
     plan = {}
 
-    def local_loss(p, batch, rows):
-        """This rank's term of the global loss (module docstring)."""
-        logits, aux = model.forward(p, batch, remat=remat)[:2]
-        logits = model.text_rows(logits, batch)
-        nll, n = nll_sum(logits[:, :-1, :], batch["labels"][:, 1:])
-        return nll / rows.total(n).clamp(min=1) + aux
-
     def step(params, opt_state: AdamWState, batch):
-        tp = params.tp
-        if tp.mesh is not mesh:
-            raise ValueError("the parameters are placed on another mesh")
         if not plan:
-            names = [n for n, _ in T.leaves(params)]
-            owns = tp.owns(params)
-            plan.update(names=names, axes=tp.grad_axes(params),
-                        owns=torch.tensor([float(owns[n]) for n in names],
-                                          device=mesh.device))
-        rows = data_rows(batch, mesh)
-        train_p = T.replace(params, [t.detach().requires_grad_(True)
-                                     for t in T.tensors(params)])
-        leaves = T.tensors(train_p)
-        with tp.training(rows), torch.enable_grad():
-            part = local_loss(train_p, rows.local(batch), rows)
-            if rows.weight != 1.0:
-                part = part * rows.weight
-            grads = torch.autograd.grad(part, leaves, allow_unused=True)
-        missing = [n for n, g in zip(plan["names"], grads) if g is None]
-        if missing:
-            raise RuntimeError(
-                f"no gradient reached {len(missing)} leaves the loss reads on "
-                f"a device mesh ({', '.join(missing[:4])}, ...): a collective "
-                "on their path is not differentiable")
-        grads = _sum_grads(list(grads), plan["names"], plan["axes"], mesh)
+            plan.update(_plan(params, mesh))
+        part, grads = _local_grads(model, params, batch, mesh, remat,
+                                   plan["names"])
+        grads = _sum_grads(grads, plan["names"], plan["axes"], mesh)
         params, opt_state, gnorm = opt.update(
             grads, opt_state, params, inplace=donate,
             norm_sq=lambda sq: mesh.all_reduce((sq * plan["owns"]).sum(),
@@ -123,6 +95,64 @@ def _sharded_step(model, opt: AdamW, mesh, remat: bool, donate: bool):
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def _plan(params, mesh) -> Dict:
+    """The leaves' names, the axes their gradients are summed over and
+    whether this rank's copy counts in the whole model's norm."""
+    tp = params.tp
+    if tp.mesh is not mesh:
+        raise ValueError("the parameters are placed on another mesh")
+    names = [n for n, _ in T.leaves(params)]
+    owns = tp.owns(params)
+    return {"names": names, "axes": tp.grad_axes(params),
+            "owns": torch.tensor([float(owns[n]) for n in names],
+                                 device=mesh.device)}
+
+
+def _local_grads(model, params, batch, mesh, remat, names):
+    """(this rank's term of the global loss, its gradient of every leaf):
+    its rows' summed cross entropy over the global batch's label count
+    plus its share of the moe load-balance loss (module docstring).  A
+    leaf the loss reads that no gradient reaches raises."""
+    from repro_torch.launch.sharding import data_rows
+    from repro_torch.models.model import nll_sum
+    if params.tp.mesh is not mesh:
+        raise ValueError("the parameters are placed on another mesh")
+    rows = data_rows(batch, mesh)
+    train_p = T.replace(params, [t.detach().requires_grad_(True)
+                                 for t in T.tensors(params)])
+    leaves = T.tensors(train_p)
+    with params.tp.training(rows), torch.enable_grad():
+        local = rows.local(batch)
+        logits, aux = model.forward(train_p, local, remat=remat)[:2]
+        logits = model.text_rows(logits, local)
+        nll, n = nll_sum(logits[:, :-1, :], local["labels"][:, 1:])
+        part = nll / rows.total(n).clamp(min=1) + aux
+        if rows.weight != 1.0:
+            part = part * rows.weight
+        grads = torch.autograd.grad(part, leaves, allow_unused=True)
+    missing = [n for n, g in zip(names, grads) if g is None]
+    if missing:
+        raise RuntimeError(
+            f"no gradient reached {len(missing)} leaves the loss reads on "
+            f"a device mesh ({', '.join(missing[:4])}, ...): a collective "
+            "on their path is not differentiable")
+    return part, list(grads)
+
+
+def sharded_grads(model, params, batch, mesh, remat: bool = False):
+    """The gradient the sharded step hands AdamW: this rank's block of
+    every leaf's gradient of the global loss (summed over its
+    ``TensorParallel.grad_axes``), by parameter name; and the global
+    loss."""
+    from repro_torch.launch.sharding import batch_axes
+    plan = _plan(params, mesh)
+    part, grads = _local_grads(model, params, batch, mesh, remat,
+                               plan["names"])
+    grads = _sum_grads(grads, plan["names"], plan["axes"], mesh)
+    return (mesh.all_reduce(part.detach(), batch_axes(mesh)),
+            dict(zip(plan["names"], grads)))
 
 
 def _sum_grads(grads, names, axes, mesh):

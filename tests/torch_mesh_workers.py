@@ -309,18 +309,31 @@ def lanes_worker(rank, payload):
 # ``tests/test_torch_mesh_training.py``: the sharded train step on three
 # meshes of the same four ranks, for a dense (smollm-135m at 9 query heads
 # over 3 kv heads, whose attention then runs whole on every model rank), a
-# moe (granite-moe-1b-a400m: clean head and expert splits) and a vlm
-# (paligemma-3b: one kv head, its K/V whole on every rank) family
+# moe (granite-moe-1b-a400m: clean head and expert splits), a vlm
+# (paligemma-3b: one kv head, its K/V whole on every rank), an ssm
+# (mamba2-370m: 8 SSD heads split over 'model'), an xlstm (xlstm-125m:
+# every block whole on every rank), a hybrid (zamba2-2.7b: SSD heads and
+# the shared block's heads split) and an encdec (whisper-small: encoder,
+# decoder and cross-attention heads split) family, and a mamba2 of 6 SSD
+# heads (``MAMBA6``), which split over model 2 and run whole at model 4
 TRAIN_MESHES = ((2, 2), (4, 1), (1, 4))
-TRAIN_ARCHS = ("smollm-135m", "granite-moe-1b-a400m", "paligemma-3b")
+MAMBA6 = "mamba2-370m/6-heads"
+TRAIN_ARCHS = ("smollm-135m", "granite-moe-1b-a400m", "paligemma-3b",
+               "mamba2-370m", "xlstm-125m", "zamba2-2.7b", "whisper-small",
+               MAMBA6)
+# the cases whose gathered parameters are also saved from the (2, 2) mesh
+SAVED = ("smollm-135m", "zamba2-2.7b", "whisper-small")
 
 
 def train_cfg(arch):
-    """The reduced (float32) config a training case runs."""
+    """The reduced (float32) config a training case runs: smollm-135m at 9
+    query over 3 kv heads, ``MAMBA6`` mamba2-370m at d_model 192 (di 384:
+    6 SSD heads of 64)."""
     from repro_torch.configs import get_config
-    c = get_config(arch).reduced()
-    return c.replace(num_heads=9, num_kv_heads=3) \
-        if arch == "smollm-135m" else c
+    c = get_config(arch.split("/")[0]).reduced()
+    if arch == "smollm-135m":
+        return c.replace(num_heads=9, num_kv_heads=3)
+    return c.replace(d_model=192) if arch == MAMBA6 else c
 
 
 def train_opt():
@@ -359,12 +372,32 @@ def _rank0_gap(mesh, arrays):
     return float((flat - mesh.broadcast(flat)).abs().max())
 
 
+def mamba_grads(params, cfg, batch, mesh):
+    """The gradient the sharded step hands AdamW (``trainer.sharded_grads``)
+    of layer 0's gated-norm weight and ``in_proj``, gathered whole: (norm
+    (di,), in_proj (d, 2 di + 2 N + H)) float32 numpy."""
+    from repro_torch.models import Model
+    from repro_torch.training.trainer import sharded_grads
+    _, grads = sharded_grads(Model(cfg), params, _tensor_batch(batch), mesh)
+    specs = params.tp.leaf_specs(params)
+    out = []
+    for n in ("blocks.0.norm", "blocks.0.in_proj"):
+        g = grads[n]
+        for dim, ax in enumerate(specs[n]):
+            if ax is not None:
+                g = mesh.all_gather(g, ax, dim=dim)
+        out.append(g.numpy())
+    return tuple(out)
+
+
 def train_worker(rank, payload):
     """Every case of ``tests/test_torch_mesh_training.py`` on four ranks:
     per mesh and arch, the two steps' losses and norms, rank 0's gathered
-    parameters (the others' largest difference from them); at (2, 2) a
-    batch that does not divide the data axes, ``save`` from the mesh,
-    rank 0's counted cost of one granite-moe step and ``train_on_mesh``."""
+    parameters (the others' largest difference from them); mamba2's
+    first-step gradients of its gated norm and ``in_proj`` at (2, 2) and
+    (1, 4); at (2, 2) a batch that does not divide the data axes,
+    ``save`` from the mesh, rank 0's counted cost of one granite-moe step
+    and ``train_on_mesh`` of granite-moe and mamba2."""
     from repro_torch.bridge import params_from_numpy, params_to_numpy
     from repro_torch.launch.hlo_cost import measure
     from repro_torch.launch.mesh import make_mesh
@@ -375,13 +408,16 @@ def train_worker(rank, payload):
     from repro_torch.training.trainer import make_train_step
     from torch.utils._pytree import tree_leaves
     torch.set_num_threads(1)
-    out = {"runs": {}}
+    out = {"runs": {}, "saved": {}, "grads": {}}
     for shape in TRAIN_MESHES:
         mesh = make_mesh(shape, ("data", "model"))
         for arch in TRAIN_ARCHS:
             cfg = train_cfg(arch)
             p = place_params(params_from_numpy(payload["params"][arch], cfg,
-                                               "cpu"), mesh)
+                                               "cpu"), mesh, cfg)
+            if arch == "mamba2-370m" and shape != (4, 1):
+                out["grads"][shape] = mamba_grads(
+                    p, cfg, payload["batches"][arch][0], mesh)
             cases = [("even", payload["batches"][arch])]
             if shape == (2, 2) and arch == "smollm-135m":
                 cases.append(("odd", payload["odd"]))
@@ -391,9 +427,10 @@ def train_worker(rank, payload):
                 gap = _rank0_gap(mesh, tree_leaves(full))
                 out["runs"][(shape, arch, case)] = (
                     hist, full if rank == 0 else None, gap)
-                if case == "odd":
-                    out["saved"] = checkpoint.save(payload["ckpt"], q,
-                                                   step=2, cfg=cfg)
+                if shape == (2, 2) and arch in SAVED and \
+                        case == ("odd" if arch == "smollm-135m" else "even"):
+                    out["saved"][arch] = checkpoint.save(
+                        payload["ckpt"][arch], q, step=2, cfg=cfg)
         if shape == (2, 2):
             cfg = train_cfg("granite-moe-1b-a400m")
             p = place_params(params_from_numpy(
@@ -404,20 +441,23 @@ def train_worker(rank, payload):
                 payload["batches"]["granite-moe-1b-a400m"][0]), mesh=mesh)
             out["cost"] = {k: cost[k] for k in ("flops", "moved", "calls")}
             out["leaf_shapes"] = [tuple(t.shape) for t in T.tensors(p)]
-            out["cli"] = _train_cli(mesh, payload["cli_save"])
+            out["cli"] = {arch: _train_cli(mesh, payload["cli_save"][arch],
+                                           arch)
+                          for arch in ("granite-moe-1b-a400m",
+                                       "mamba2-370m")}
     return out
 
 
-def _train_cli(mesh, save):
+def _train_cli(mesh, save, arch):
     """``launch/train.train_on_mesh`` (the ``--mesh`` path below the
-    mesh's construction) at reduced size: (what this rank printed, the
-    loss history, the whole and per-rank parameter counts)."""
+    mesh's construction) of ``arch`` at reduced size: (what this rank
+    printed, the loss history, the whole and per-rank parameter
+    counts)."""
     from repro_torch.launch import train
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         res = train.train_on_mesh(train.parse_args(
-            ["--arch", "granite-moe-1b-a400m", "--device", "cpu",
-             "--reduced", "--steps", "3", "--batch", "4", "--seq", "16",
-             "--save", save]), mesh)
+            ["--arch", arch, "--device", "cpu", "--reduced", "--steps", "3",
+             "--batch", "4", "--seq", "16", "--save", save]), mesh)
     return (buf.getvalue(), res["history"], res["whole_params"],
             res["rank_params"])
