@@ -78,8 +78,17 @@ the first phase that fails:
    and zamba2 edges at the depth ``SERVE_DEPTH`` cuts) — and check every
    request, the logits' finiteness and that each kernel the path runs was
    launched during that path's run (counts reset just before it, read just
-   after); then time the pieces of the smollm rounds and profile the
-   linear and tree drains, and time one round of the moe and each
+   after); every path's edge tick (``Lane.chunk``) and linear round run
+   as CUDA graphs where their rule says so (``core/capture.py``; tree and
+   self rounds and recurrent states eager), and the launches count
+   through the graphs' replays; after the linear path, ``[graphs]``
+   (``phase_graphs``): eager (``graphs=False``) against captured drains,
+   float32 at cut depth on the paged linear path, the dense tick and T = 1
+   (traces and launch counts identical, a second identical drain
+   capturing nothing), then at full width in turns eager, captured,
+   captured, eager (ms per drain and tick, one round's host issue, stream
+   span and device busy, the captures' seconds); then time the pieces of
+   the smollm rounds and profile the linear and tree drains, and time one round of the moe and each
    recurrent path; after the smollm paths, the per-request phase with the
    same models: ``CollaborativeEngine.serve_reference`` (threshold -1)
    with each escalation and ``serve`` on two prompts, ``TreeSpecDecoder``
@@ -196,7 +205,8 @@ the first phase that fails:
    encoder): the Model-API run on the kernels against the plain versions
    teacher-forced on its tokens (logits within 1e-4) and one train step;
 5. print the card's name and power limit, a ``{"kernels": [...]}`` line
-   (launches summed over the seven served paths, the per-request phase,
+   (launches summed over the seven served paths, the ``[graphs]``
+   full-width drains, the per-request phase,
    the encdec and vlm paths, the two adaptation paths, the nine
    training runs and the mesh and mesh-train phases' four ranks; the flash
    backward's also per route) and last the
@@ -207,6 +217,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import statistics
@@ -1859,10 +1870,10 @@ def _engine(e_cfg, c_cfg, attn_backend="auto", **kw):
     from repro_torch.core.policy import SpeculativePolicy
     from repro_torch.core.scheduler import BatchedEngine
     from repro_torch.models import Model
-    kw = {"kv_layout": "auto", "batch_size": 8,
+    kw = {"kv_layout": "auto", "batch_size": 8, "temperature": 0.0,
           "policy": SpeculativePolicy(0.6), **kw}
     return BatchedEngine(Model(e_cfg), Model(c_cfg), gamma=4,
-                         temperature=0.0, attn_backend=attn_backend, **kw)
+                         attn_backend=attn_backend, **kw)
 
 
 def _init(cfg, seed):
@@ -1940,11 +1951,17 @@ def phase_serve():
               f"{sum(tr.cloud_passes for tr in traces) / len(traces):.1f}; "
               f"max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"graphs {stats['graphs']}, captures {stats['captures']} in "
+              f"{stats['capture_seconds']:.2f}s; "
               f"launches {launches}", flush=True)
         # finiteness of the logits on the path: a prefill of every served
         # sequence through both models must give finite logits
         _check_finite(ep, cp, e_cfg, c_cfg, prompts, traces)
         lap(f"serve {name} path")
+        if name == "linear":
+            for k, n in phase_graphs(ep, cp, e_cfg, c_cfg, prompts).items():
+                total[k] += n
+            lap("graphs")
         if name == "self":            # the last path of the dense edge
             phase_breakdown(ep, cp, e_cfg, c_cfg, prompts)
             lap("breakdown")
@@ -1961,6 +1978,164 @@ def phase_serve():
             lap(f"{name} round breakdown")
     del ep, cp
     torch.cuda.empty_cache()
+    return total
+
+
+# [graphs]: new tokens of the full-width drains (eager against captured)
+# and of the float32 parity drains; the kernels a captured drain launches
+# through its graphs' replays on the paged and the dense tick
+GRAPHS_NEW = 8
+GRAPHS_PARITY_NEW = 16
+GRAPHS_KERNELS = {"paged": ("paged_decode_attention", "spec_verify"),
+                  "dense": ("decode_attention", "spec_verify")}
+
+
+def _graphs_drain(eng, ep, cp, prompts, max_new):
+    """(traces, seconds, launch counts, stats) of one drain, the counts set
+    to 0 just before it and read just after."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    traces = eng.serve_batch(ep, cp, prompts, max_new)
+    torch.cuda.synchronize()
+    return traces, time.perf_counter() - t, ops.launch_counts(), eng.stats()
+
+
+def _trace_key(traces):
+    return [(t.path, t.tokens, t.edge_calls, t.cloud_passes,
+             round(t.uncertainty, 6)) for t in traces]
+
+
+def phase_graphs(ep, cp, e_cfg, c_cfg, prompts):
+    """``[graphs]``: the compiled serving tick (``core/capture.py``).
+
+    The semantic cache is off in every engine here, so that a repeated
+    drain runs its ticks and rounds again.  Float32 parity at
+    ``PARITY_DEPTH`` (TF32 off): the linear path on
+    paged KV, the dense tick (``kv_layout="dense"``) and the paged path at
+    T = 1, each drained by an eager engine (``graphs=False``) and a
+    captured one — tokens, paths, edge calls, cloud passes and
+    uncertainties identical, the launch counts (through the replays) equal
+    and the kernels of the tick and round launched; a second identical
+    drain of the captured paged engine captures nothing
+    (``CaptureCounter``) and repeats its tokens.  Then at full width
+    (``ep``/``cp``: the bf16 smollm-135m and granite-8b of the linear
+    path), batch 8, ``GRAPHS_NEW`` new tokens: each engine warmed by one
+    drain (the captured one's captures and their seconds printed), then
+    eager, captured, captured, eager drains (ms per drain and per tick)
+    and one round of each engine in the same turns (host issue, stream
+    span, device busy).  Returns the launches of the full-width drains."""
+    import torch
+    from repro_torch.analysis.compile_guard import CaptureCounter
+    from repro_torch.models import Model
+    total = {}
+    pe, pc = _configs("smollm-135m", PARITY_DEPTH["smollm-135m"], "float32")
+    fep = Model(pe).init(seed=0, device="cuda")
+    fcp = Model(pc).init(seed=1, device="cuda")
+    fprompts = _prompts(pe.vocab_size)
+    for label, kw in (("paged", {}), ("dense", {"kv_layout": "dense"}),
+                      ("paged T=1", {"temperature": 1.0})):
+        runs = {}
+        for graphs in (False, True):
+            eng = _engine(pe, pc, graphs=graphs, use_cache=False, **kw)
+            with CaptureCounter() as cc:
+                runs[graphs] = _graphs_drain(eng, fep, fcp, fprompts,
+                                             GRAPHS_PARITY_NEW)
+                if graphs and label == "paged":
+                    check(cc.count > 0, "[graphs] the warm drain captured "
+                                        "nothing")
+                    cc.reset()
+                    again = _graphs_drain(eng, fep, fcp, fprompts,
+                                          GRAPHS_PARITY_NEW)
+                    check(cc.count == 0, "[graphs] a second drain of "
+                          "identical shape captured: " + "; ".join(cc.events))
+                    check(_trace_key(again[0]) == _trace_key(runs[True][0]),
+                          "[graphs] the second captured drain gave other "
+                          "tokens")
+            check(eng.stats()["graphs"] == dict.fromkeys(
+                ("edge", "cloud", "spec"),
+                "captured" if graphs else "eager (graphs=False)"),
+                f"[graphs] {label}: rules {eng.stats()['graphs']}")
+        eager, capt = runs[False], runs[True]
+        same = _trace_key(eager[0]) == _trace_key(capt[0])
+        check(same, f"[graphs] {label}: the captured drain's traces differ "
+                    "from the eager drain's")
+        check(eager[2] == capt[2], f"[graphs] {label}: launches through the "
+              f"replays {capt[2]} differ from the eager drain's {eager[2]}")
+        for k in GRAPHS_KERNELS[label.split()[0]]:
+            check(capt[2][k] > 0, f"[graphs] {label}: kernel {k} was not "
+                                  "launched through the replays")
+        paths = collections.Counter(t.path for t in capt[0])
+        print(f"[graphs] float32 parity, {label} ({pe.num_layers}-layer "
+              f"{pe.name} + {pc.num_layers}-layer {pc.name}, {len(fprompts)} "
+              f"requests, {GRAPHS_PARITY_NEW} new): captured == eager on "
+              f"{len(fprompts)}/{len(fprompts)} traces (tokens, paths "
+              f"{dict(paths)}, edge calls, cloud passes, uncertainty); "
+              f"captures {capt[3]['captures']}; launches through the "
+              f"replays == eager: "
+              + ", ".join(f"{k} {capt[2][k]}"
+                          for k in GRAPHS_KERNELS[label.split()[0]]),
+              flush=True)
+    del fep, fcp
+    torch.cuda.empty_cache()
+
+    # ---- full width, bf16: eager, captured, captured, eager
+    engines = {g: _engine(e_cfg, c_cfg, graphs=g, use_cache=False)
+               for g in (False, True)}
+    warm = {}
+    for graphs in (False, True):
+        with CaptureCounter() as cc:
+            warm[graphs] = _graphs_drain(engines[graphs], ep, cp, prompts,
+                                         GRAPHS_NEW)
+        check((cc.count > 0) == graphs,
+              f"[graphs] warm drain (graphs={graphs}) captured {cc.count}")
+    st = warm[True][3]
+    print(f"[graphs] full width ({e_cfg.num_layers}-layer {e_cfg.name} + "
+          f"{c_cfg.num_layers}-layer {c_cfg.name}, {e_cfg.param_dtype}, "
+          f"batch 8, {GRAPHS_NEW} new): warm drains eager "
+          f"{warm[False][1]:.3f} s, captured {warm[True][1]:.3f} s with "
+          f"captures {st['captures']} taking {st['capture_seconds']:.3f} s",
+          flush=True)
+    turns = []
+    rounds = {g: warm[g][3]["spec_lanes"]["linear"]["member_rounds"]
+              for g in (False, True)}
+    with CaptureCounter() as cc:
+        for graphs in (False, True, True, False):
+            traces, dt, launches, st = _graphs_drain(
+                engines[graphs], ep, cp, prompts, GRAPHS_NEW)
+            done = st["spec_lanes"]["linear"]["member_rounds"]
+            turns.append((graphs, traces, dt, launches, st,
+                          done - rounds[graphs]))
+            rounds[graphs] = done
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+        check(cc.count == 0, "[graphs] a full-width drain after the warm "
+              "one captured: " + "; ".join(cc.events))
+    for graphs, traces, dt, launches, st, n_rounds in turns:
+        print(f"[graphs] full width {'captured' if graphs else 'eager'} "
+              f"drain: {dt * 1e3:.1f} ms, {len(traces) / dt:.2f} req/s; "
+              f"{st['ticks']} ticks at "
+              f"{st['tick_seconds'] / max(st['ticks'], 1) * 1e3:.2f} "
+              f"ms/tick; {n_rounds} member rounds; launches "
+              + ", ".join(f"{k} {launches[k]}"
+                          for k in GRAPHS_KERNELS["paged"]), flush=True)
+        if graphs:
+            for k in GRAPHS_KERNELS["paged"]:
+                check(launches[k] > 0, f"[graphs] full width: kernel {k} "
+                                       "was not launched through replays")
+    same = sum(a == b for a, b in zip(_trace_key(turns[0][1]),
+                                      _trace_key(turns[1][1])))
+    print(f"[graphs] full width bf16: captured traces equal the eager "
+          f"ones on {same}/{len(prompts)} requests", flush=True)
+    for graphs in (False, True, True, False):
+        h, d, busy = _round_ms(_engine(e_cfg, c_cfg, graphs=graphs), ep, cp,
+                               prompts)
+        print(f"[graphs] one linear round (G=8), "
+              f"{'captured' if graphs else 'eager'}: host issue {h:.3f} ms, "
+              f"stream span {d:.3f} ms, device busy {busy:.3f} ms",
+              flush=True)
     return total
 
 

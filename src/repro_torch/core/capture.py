@@ -1,0 +1,279 @@
+"""CUDA-graph capture of a function's device work: the port's twin of
+``jax.jit(fn, static_argnames=...)``.
+
+``capture(fn, static_argnames=..., copy_argnames=...)`` wraps ``fn`` as
+JAX's jit wraps it.  A call is keyed, as JAX keys its compile cache, by
+
+* the values of the static arguments;
+* the shape, dtype and device of each ``copy_argnames`` argument: the
+  small tensors whose VALUES change from call to call (tokens, budgets,
+  ``pos``), which every call copies into the graph's own buffers;
+* the shape, strides, dtype, device and ``data_ptr`` of every tensor of
+  the other arguments (parameters, K/V pools, block tables): the graph
+  reads and writes them where they lie, so it holds only for the buffers
+  it was captured on.  JAX recompiles on a new shape and never on a new
+  buffer; a graph is tied to addresses, which is why the scheduler reuses
+  its states' buffers (``Lane.make_state``, ``Lane.release``).
+
+A new key runs ``fn`` once on a side stream (the warm-up: kernel
+libraries built and loaded, lazy caches filled), captures it there
+(``CUDAGraph.capture_begin`` / ``capture_end``) and tells every listener (``analysis/compile_guard.py``
+``CaptureCounter``) one event naming the function and its key.  Every
+call, the first included, then copies the small inputs in, replays the
+graph and clones the outputs that escape; an output that IS an addressed
+input comes back as the caller's tensor.  The replay rewrites whatever the
+warm-up wrote in place (same inputs, same addresses), and each random
+generator handed in is set back to its state before the warm-up and
+registered with the graph (``CUDAGraph.register_generator_state``), so a
+replay draws what an eager call would have drawn.
+
+``fn`` must treat its copied inputs as read-only, take every value that
+changes between calls as a tensor or a static argument (a Python number in
+a traced argument raises: it would be baked into the graph), and do no
+host work that depends on device values (a sync raises under capture).
+
+A capture that fails raises ``CaptureError``: nothing runs ``fn`` eagerly
+in its place.  A call whose tensors lie on the CPU runs ``fn`` eagerly,
+because the CPU has no graphs and it is the device the caller chose.
+
+Launch counts (``kernels/ops.py``): the warm-up runs ``fn`` once more than
+the calls ask for, as JAX traces a function once more, and the capture
+runs nothing, so the launches of both are taken back; every replay adds the
+capture's again.  ``ops.launch_counts()`` then counts what the calls
+launched, as many as eager calls would.
+"""
+from __future__ import annotations
+
+import inspect
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+
+_LISTENERS: List[Callable[[str], None]] = []
+_SIDE: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+class CaptureError(RuntimeError):
+    """A CUDA-graph capture failed; the call ran nothing in its place."""
+
+
+def add_listener(fn: Callable[[str], None]) -> None:
+    """Call ``fn(event)`` on every capture from now on."""
+    _LISTENERS.append(fn)
+
+
+def remove_listener(fn: Callable[[str], None]) -> None:
+    _LISTENERS.remove(fn)
+
+
+def capture(fn, *, static_argnames: Sequence[str] = (),
+            copy_argnames: Sequence[str] = (),
+            name: Optional[str] = None) -> "Captured":
+    """``fn`` captured once per key and replayed (see the module
+    docstring)."""
+    return Captured(fn, static_argnames=static_argnames,
+                    copy_argnames=copy_argnames, name=name)
+
+
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    s = _SIDE.get(dev)
+    if s is None:
+        s = _SIDE[dev] = torch.cuda.Stream(dev)
+    return s
+
+
+def _meta(t: torch.Tensor) -> tuple:
+    return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+
+
+class _Walk:
+    """The tensors, generators and constants of the addressed arguments,
+    and the part of the key they make."""
+
+    def __init__(self):
+        self.tensors: List[torch.Tensor] = []
+        self.gens: List[torch.Generator] = []
+        self.key: List[Any] = []
+
+    def add(self, name: str, x) -> None:
+        if isinstance(x, torch.Tensor):
+            self.tensors.append(x)
+            self.key.append(_meta(x))
+        elif isinstance(x, nn.Module):
+            self.key.append(type(x).__name__)
+            for t in x.parameters():
+                self.add(name, t)
+            for t in x.buffers():
+                self.add(name, t)
+        elif isinstance(x, dict):
+            self.key.append(tuple(x))
+            for v in x.values():
+                self.add(name, v)
+        elif isinstance(x, (list, tuple)):
+            self.key.append(len(x))
+            for v in x:
+                self.add(name, v)
+        elif isinstance(x, torch.Generator):
+            self.gens.append(x)
+            self.key.append(("generator", id(x)))
+        elif x is None or isinstance(x, str):
+            self.key.append(x)
+        else:
+            raise TypeError(
+                f"argument {name!r} holds a {type(x).__name__}: a captured "
+                "function takes tensors, generators, containers of them, "
+                "None and strings in its traced arguments (a Python number "
+                "would be baked into the graph: make it a tensor or a "
+                "static argument)")
+
+
+class _Graph:
+    """One captured key: the graph, its input buffers, how to build the
+    call's outputs, the kernel launches one replay makes, and the
+    generators it draws from (held, so their ids stay theirs)."""
+
+    __slots__ = ("graph", "static_in", "plan", "rebuild", "launches", "gens")
+
+
+def _flatten_out(x, leaves: list):
+    """The output tree's tensors in order, and a function rebuilding the
+    tree from a list of tensors in that order."""
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return lambda it: next(it)
+    if isinstance(x, dict):
+        parts = [(k, _flatten_out(v, leaves)) for k, v in x.items()]
+        return lambda it: {k: f(it) for k, f in parts}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        parts = [_flatten_out(v, leaves) for v in x]
+        kind = type(x)
+        return lambda it: kind(f(it) for f in parts)
+    return lambda it: x          # a constant of the capture (None, ints)
+
+
+class Captured:
+    """A function captured per key into CUDA graphs (see the module
+    docstring).  ``captures`` counts this function's captures and
+    ``capture_seconds`` sums their host wall time (warm-up included)."""
+
+    def __init__(self, fn, *, static_argnames: Sequence[str] = (),
+                 copy_argnames: Sequence[str] = (),
+                 name: Optional[str] = None):
+        self.fn = fn
+        self.name = name or getattr(fn, "__qualname__", repr(fn))
+        self._sig = inspect.signature(fn)
+        for n in (*static_argnames, *copy_argnames):
+            if n not in self._sig.parameters:
+                raise ValueError(f"{self.name} has no argument {n!r}")
+        self.static_argnames = frozenset(static_argnames)
+        self.copy_argnames = frozenset(copy_argnames)
+        self._graphs: Dict[tuple, _Graph] = {}
+        self.captures = 0
+        self.capture_seconds = 0.0
+
+    def __call__(self, *args, **kwargs):
+        bound = self._sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        arg = bound.arguments
+        key: List[Any] = []
+        copied: List[Tuple[str, torch.Tensor]] = []
+        walk = _Walk()
+        for name, val in arg.items():
+            if name in self.static_argnames:
+                key.append((name, val))
+            elif name in self.copy_argnames:
+                if not isinstance(val, torch.Tensor):
+                    raise TypeError(f"{self.name}: copied argument {name!r} "
+                                    f"must be a tensor, got "
+                                    f"{type(val).__name__}")
+                copied.append((name, val))
+                key.append((name, tuple(val.shape), val.dtype, val.device))
+            else:
+                walk.add(name, val)
+        devs = {t.device for _, t in copied} | \
+            {t.device for t in walk.tensors}
+        if len(devs) != 1:
+            raise ValueError(f"{self.name}: tensors on "
+                             f"{sorted(map(str, devs))} (a call takes one "
+                             "device)")
+        dev = devs.pop()
+        if dev.type != "cuda":
+            return self.fn(*args, **kwargs)
+        key = (tuple(key), tuple(walk.key))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._capture(arg, copied, walk, dev, key)
+            self._graphs[key] = g
+        for buf, (_, src) in zip(g.static_in, copied):
+            buf.copy_(src)
+        g.graph.replay()
+        if g.launches:
+            ops.add_launch_counts(g.launches)
+        return g.rebuild(iter([walk.tensors[p] if isinstance(p, int)
+                               else p.clone() for p in g.plan]))
+
+    def _describe(self, arg, copied) -> str:
+        parts = [f"{n}={arg[n]!r}" for n in arg if n in self.static_argnames]
+        parts += [f"{n}={tuple(t.shape)}" for n, t in copied]
+        return f"{self.name}[{', '.join(parts)}]"
+
+    def _capture(self, arg, copied, walk: _Walk, dev, key) -> _Graph:
+        what = self._describe(arg, copied)
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(dev)
+        side = _side_stream(dev)
+        states = [gen.get_state() for gen in walk.gens]
+        counts = ops.launch_counts()
+        try:
+            # warm-up: libraries built and loaded, lazy caches filled, on
+            # the stream the capture will use
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self.fn(**arg)
+            main.wait_stream(side)
+            for gen, st in zip(walk.gens, states):
+                gen.set_state(st)
+            ops.add_launch_counts({k: counts[k] - n for k, n in
+                                   ops.launch_counts().items()})
+            g = _Graph()
+            g.static_in = [t.clone() for _, t in copied]
+            call = dict(arg)
+            for buf, (name, _) in zip(g.static_in, copied):
+                call[name] = buf
+            g.graph = torch.cuda.CUDAGraph()
+            for gen in walk.gens:
+                g.graph.register_generator_state(gen)
+            g.gens = list(walk.gens)
+            before = ops.launch_counts()
+            # capture_begin / capture_end on the side stream: what
+            # ``torch.cuda.graph`` does, without its device synchronize and
+            # allocator cache flush, which would cost every later
+            # allocation a fresh cudaMalloc
+            try:
+                with torch.cuda.stream(side):
+                    g.graph.capture_begin()
+                    try:
+                        out = self.fn(**call)
+                    finally:
+                        g.graph.capture_end()
+            finally:
+                after = ops.launch_counts()
+                g.launches = {k: n - before[k] for k, n in after.items()
+                              if n != before[k]}
+                ops.add_launch_counts({k: -n for k, n in g.launches.items()})
+        except Exception as e:
+            raise CaptureError(f"capture of {what} failed: "
+                               f"{type(e).__name__}: {e}") from e
+        leaves: List[torch.Tensor] = []
+        g.rebuild = _flatten_out(out, leaves)
+        where = {_meta(t): i for i, t in enumerate(walk.tensors)}
+        g.plan = [where.get(_meta(t), t) for t in leaves]
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
+        for fn in list(_LISTENERS):
+            fn(what)
+        return g

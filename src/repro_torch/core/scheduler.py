@@ -127,7 +127,15 @@ class BatchedEngine:
     decode, flash prefill, spec verify, tree verify) on CUDA and their
     plain versions on the CPU; "plain" forces the plain versions everywhere
     (the parity oracle).  The device is the one the parameters passed to
-    ``run`` live on.
+    ``run`` live on.  ``graphs``: on CUDA the edge and cloud decode ticks
+    (``Lane.chunk``) and the linear speculative round run as CUDA graphs,
+    captured once per shape and buffer set (``core/capture.py``, the twin
+    of the JAX package's ``jax.jit``); ``graphs=False`` runs them eager,
+    the same work launch by launch.  ``stats()`` reports each one's
+    ``captures`` and its ``graphs`` rule (recurrent states and a mesh run
+    eager by rule).  Drains and escalation groups reuse the device buffers
+    of earlier states of the same shape (``Lane.make_state``,
+    ``Lane.release``), so a steady state captures nothing.
 
     Speculation lane: ``spec_mode`` ("linear" | "tree" | "self"; default
     the policy's ``spec_mode``, else linear), ``spec_tree_width`` (the
@@ -154,7 +162,7 @@ class BatchedEngine:
                  spec_tree_width: Optional[int] = None,
                  spec_exit_layer: Optional[int] = None,
                  attn_backend: str = "auto",
-                 mesh=None, adaptation=None):
+                 mesh=None, adaptation=None, graphs: bool = True):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if tick_tokens < 1:
@@ -203,11 +211,12 @@ class BatchedEngine:
         self.edge = Lane(edge_model, estimator, temperature,
                          layout=layout_for(edge_model, self.kv_layout),
                          block_size=kv_block_size, attn_backend=attn_backend,
-                         mesh=mesh, data_shards=self._data_shards)
+                         mesh=mesh, data_shards=self._data_shards,
+                         graphs=graphs)
         self.cloud = Lane(cloud_model, estimator, temperature,
                           layout=layout_for(cloud_model, self.kv_layout),
                           block_size=kv_block_size,
-                          attn_backend=attn_backend, mesh=mesh)
+                          attn_backend=attn_backend, mesh=mesh, graphs=graphs)
         self.cache = SemanticCache(threshold=cache_threshold) if use_cache \
             else None
         # online adaptation (AdaptationLoop or None): completions feed its
@@ -240,18 +249,20 @@ class BatchedEngine:
                 edge_model, cloud_model, gamma=gamma,
                 temperature=temperature, mode="tree",
                 branching=branching_for(width, gamma),
-                attn_backend=attn_backend)
+                attn_backend=attn_backend, graphs=graphs)
         elif mode == "self":
             self.spec = BatchedSpecDecoder(
                 edge_model, edge_model, gamma=gamma,
                 temperature=temperature, mode="self",
-                exit_layer=exit_layer, attn_backend=attn_backend)
+                exit_layer=exit_layer, attn_backend=attn_backend,
+                graphs=graphs)
         else:
             self.spec = BatchedSpecDecoder(edge_model, cloud_model,
                                            gamma=gamma,
                                            temperature=temperature,
                                            kv_layout=self.kv_layout,
-                                           attn_backend=attn_backend)
+                                           attn_backend=attn_backend,
+                                           graphs=graphs)
         # tree/self groups always run dense per-slot caches (block-masked
         # extends are a dense-layout feature); Lane.dense_side() owns that
         # layout decision and is identity on lanes that are already dense.
@@ -270,7 +281,14 @@ class BatchedEngine:
         self._preempts = 0
         self._prefill_jobs: Dict[int, dict] = {}    # slot -> chunked job
         self._events: Dict[int, dict] = {}          # rid -> lifecycle stamps
+        # ONE generator per engine, reseeded every drain: the captured tick
+        # and round are registered with it (core/capture.py)
         self._gen: Optional[torch.Generator] = None
+        # off-mesh with an adaptation loop: the edge parameters served, a
+        # private copy each swap lands in IN PLACE (the graphs read them
+        # where they lie)
+        self._served = None
+        self._dev = None
 
     # ------------------------------------------------------------ submit
     def submit(self, prompt, max_new: int, at: Optional[float] = None,
@@ -345,7 +363,8 @@ class BatchedEngine:
         # edge weights, not the caller's baseline
         edge_whole = edge_params if self.adaptation is None \
             else self.adaptation.current(edge_params)
-        edge_params = view(edge_whole)
+        edge_params = self._serve_edge(edge_whole) if self._swaps_in_place \
+            else view(edge_whole)
         clock = self.clock
         t0 = clock.now()
         for r in self._queue:
@@ -356,8 +375,10 @@ class BatchedEngine:
             sorted(self._queue, key=lambda r: (r.at, r.rid)))
         B = self.batch_size
         dev = edge_params.embed.device
-        self._gen = torch.Generator(device=dev)
+        if self._gen is None or self._gen.device != dev:
+            self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(self.seed)
+        self._dev = dev
         # slot capacity: prompt + generation + speculative overdraft margin
         # (a tree lane overdrafts a full padded tree per round)
         ovr = self.spec.plan.n_pad if self.spec_mode == "tree" else self.gamma
@@ -382,7 +403,9 @@ class BatchedEngine:
         self._events = {r.rid: {"submit_ms": float(r.at),
                                 "swaps": 0, "defers": 0}
                         for r in self._queue}
-        stop = -1 if self.stop_token is None else int(self.stop_token)
+        stop = torch.full((), -1 if self.stop_token is None
+                          else int(self.stop_token), dtype=torch.int32,
+                          device=dev)
 
         while self._queue or self._swapped or any(s.req is not None
                                                   for s in slots):
@@ -394,8 +417,11 @@ class BatchedEngine:
                 swapped_p = self.adaptation.maybe_update(edge_whole)
                 if swapped_p is not None:
                     edge_whole = swapped_p
-                    edge_params = view(edge_whole)
-                    state.rebind(edge_params)
+                    if self._swaps_in_place:
+                        self._serve_edge(edge_whole)    # lands in place
+                    else:
+                        edge_params = view(edge_whole)
+                        state.rebind(edge_params)
             free = [b for b in range(B) if slots[b].req is None]
             wave: set = set()       # slots admitted/resumed this wave
             stalled = False
@@ -629,6 +655,7 @@ class BatchedEngine:
             # THE host readback: one batched pull per tick covers
             # retirement (steps/unc), the emitted streams (toks/actives)
             # and the pending-token mirror (the last emission)
+            # repro-lint: ok(R1, the tick's one batched pull)
             steps_d, unc_d, toks_h, act_h = host_pull(steps, unc, toks,
                                                       actives)
             self._kv_stats["ticks"] += 1
@@ -709,7 +736,31 @@ class BatchedEngine:
         self._kv_stats["kv_capacity_bytes"] = state.capacity_bytes
         self._kv_stats["preemptions"] = self._preempts
         self._kv_stats.update(state.stats())
+        self.edge.release(state)
         return results
+
+    @property
+    def _swaps_in_place(self) -> bool:
+        """An adaptation swap lands IN PLACE in the served edge parameters
+        (off-mesh): the captured tick and round read them where they lie,
+        and would go on reading old weights from a replaced tree.  On a
+        mesh, where they run eager, each swap serves a new view."""
+        return self.adaptation is not None and self.mesh is None
+
+    def _serve_edge(self, params):
+        """The served edge parameters holding ``params``' values: a private
+        copy made at the first drain (the caller's tensors are never
+        written), copied into in place from then on."""
+        from repro_torch.training import tree as T
+        if self._served is None:
+            self._served = T.replace(params, [t.detach().clone()
+                                              for t in T.tensors(params)])
+        elif params is not self._served:
+            with torch.no_grad():
+                for dst, src in zip(T.tensors(self._served),
+                                    T.tensors(params)):
+                    dst.copy_(src)
+        return self._served
 
     @hot_path
     def _pick_victim(self, state, slots, steps_h, wave) -> Optional[int]:
@@ -837,9 +888,12 @@ class BatchedEngine:
             params, state.caches, torch.as_tensor(tok_h, device=dev),
             torch.as_tensor(steps_h, device=dev),
             torch.zeros((G,), dtype=torch.float32, device=dev), self._gen,
-            -1, n_steps=n, topk=topk)
+            torch.full((), -1, dtype=torch.int32, device=dev), n_steps=n,
+            topk=topk)
         self.clock.on_steps(n)
         self._note_group(state)
+        lane.release(state)
+        # repro-lint: ok(R1, the one batched pull of the group's tapes)
         pulled = host_pull(*outs[4:])
         toks_h, act_h = pulled[:2]
         tokens = [[int(t) for t, a in zip(toks_h[:, i], act_h[:, i]) if a]
@@ -902,10 +956,12 @@ class BatchedEngine:
         d_state = self._spec_edge.make_state(edge_params, G, self._slot_len,
                                              need_tokens=need)
         states = [d_state]
+        lanes = [self._spec_edge]
         if mode != "self":
             t_state = self._spec_cloud.make_state(
                 cloud_params, G, self._slot_len, need_tokens=need)
             states.append(t_state)
+            lanes.append(self._spec_cloud)
         last_h = np.zeros((G, 1, 1), np.int32)
         for i, (r, nd) in enumerate(zip(reqs, need)):
             for st in states:
@@ -935,6 +991,8 @@ class BatchedEngine:
         self.clock.on_steps(max(st["rounds"] for st in stats[:len(reqs)])
                             * (draft_steps + 2))
         self._note_group(*states)
+        for lane, st in zip(lanes, states):
+            lane.release(st)
         return [(r, RequestTrace(
             "speculative",
             edge_calls=r.max_new + stats[i]["rounds"] * (draft_steps + 1),
@@ -959,6 +1017,15 @@ class BatchedEngine:
                 c["emitted_tokens"] / c["member_rounds"]
                 if c["member_rounds"] else 0.0,
                 "spec_lanes": {self.spec_mode: dict(c)},
+                "captures": {"edge": self.edge.captures,
+                             "cloud": self.cloud.captures,
+                             "spec": self.spec.captures},
+                "capture_seconds": self.edge.capture_seconds
+                + self.cloud.capture_seconds + self.spec.capture_seconds,
+                "graphs": {"edge": self.edge.graph_rule(self._dev),
+                           "cloud": self.cloud.graph_rule(self._dev),
+                           "spec": "eager (mesh)" if self.mesh is not None
+                           else self.spec.graph_rule(self._dev)},
                 **self.policy.stats(), **self._kv_stats,
                 **({"adaptation": self.adaptation.stats()}
                    if self.adaptation is not None else {}),

@@ -76,6 +76,7 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.analysis import hot_path
+from repro_torch.core.capture import capture
 from repro_torch.core.paged_cache import (BlockPool, ShardedBlockPool,
                                           blocks_for, copy_pool_blocks,
                                           prompt_cache_to_blocks,
@@ -454,6 +455,9 @@ class SequenceState:
 
     layout = "dense"
     caches: Any
+    # the shape Lane.make_state built this state at; Lane.release files
+    # its device buffers under it for the next state of that shape
+    reuse_key: tuple = ()
 
     def admit(self, b: int, prompt, need_tokens: int) -> bool:
         """Stage slot ``b``'s prompt prefill; reserve worst-case capacity
@@ -538,7 +542,8 @@ class DenseKV(SequenceState):
     layout = "dense"
 
     def __init__(self, lane: "Lane", params, batch: int, slot_len: int, *,
-                 data_shards: int = 1, mesh=None, kv_gather: bool = False):
+                 data_shards: int = 1, mesh=None, kv_gather: bool = False,
+                 caches: Optional[dict] = None):
         self.lane = lane
         self.params = params
         self.slot_len = slot_len
@@ -550,8 +555,11 @@ class DenseKV(SequenceState):
             self.view = DenseView(mesh, batch, data_shards, ways, kv_dim,
                                   kv_gather)
             model, rows = Model(cfg), self.view.hi - self.view.lo
-        self.caches = stack_slot_caches(model, rows, slot_len,
-                                        params.embed.device)
+        if caches is not None:      # a released state's slabs (off-mesh)
+            self.caches = {**caches, "pos": torch.zeros_like(caches["pos"])}
+        else:
+            self.caches = stack_slot_caches(model, rows, slot_len,
+                                            params.embed.device)
         if self.view is not None:
             self.caches[VIEW] = self.view
         self._pend_bs: List[int] = []
@@ -649,7 +657,7 @@ class PagedKV(SequenceState):
     def __init__(self, lane: "Lane", params, batch: int, slot_len: int,
                  block_size: int, num_blocks: Optional[int] = None, *,
                  data_shards: int = 1, kv_ways: int = 1, mesh=None,
-                 kv_gather: bool = False):
+                 kv_gather: bool = False, caches: Optional[dict] = None):
         self.lane = lane
         self.params = params
         self.block_size = block_size
@@ -684,9 +692,13 @@ class PagedKV(SequenceState):
                                   kv_gather)
         split = self.view is not None and self.view.sharded
         local_blocks = num_blocks // data_shards if split else num_blocks
-        self.caches = transformer.init_paged_cache(
-            cfg, local_blocks, block_size, self._spb if split else batch,
-            self.max_blocks, device=self.device)
+        if caches is not None:      # a released state's pool (off-mesh):
+            caches["table"].zero_()     # every row the trap block
+            self.caches = {**caches, "pos": torch.zeros_like(caches["pos"])}
+        else:
+            self.caches = transformer.init_paged_cache(
+                cfg, local_blocks, block_size, self._spb if split else batch,
+                self.max_blocks, device=self.device)
         if self.view is not None:
             self.caches[VIEW] = self.view
         # global bytes per block (every shard's part of it)
@@ -1178,7 +1190,7 @@ class Lane:
     def __init__(self, model, estimator: str, temperature: float,
                  layout: str = "dense", block_size: int = 32,
                  attn_backend: str = "auto", mesh=None,
-                 data_shards: int = 1):
+                 data_shards: int = 1, graphs: bool = True):
         if attn_backend not in ("auto", "kernel", "plain"):
             raise ValueError(f"unknown attn_backend {attn_backend!r}; "
                              "known: auto | kernel | plain")
@@ -1204,6 +1216,41 @@ class Lane:
         # families advance their state through EVERY input token, pads
         # included, so they prefill and extend at exact length.
         self._bucket_prefill = layout != "recurrent"
+        # the decode tick captured per (n_steps, topk, shapes, buffers), as
+        # the JAX package jits it with static_argnames=("n_steps", "topk")
+        self.graphs = graphs
+        self._chunk_graph = capture(
+            self._chunk_body, static_argnames=("n_steps", "topk"),
+            copy_argnames=("pos", "tok", "steps_left", "unc_sum", "stop"),
+            name="Lane.chunk")
+        # device caches of released states, by shape, for make_state
+        self._spare: Dict[tuple, List[dict]] = {}
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs this lane's decode tick has captured."""
+        return self._chunk_graph.captures
+
+    @property
+    def capture_seconds(self) -> float:
+        """Host seconds those captures took (warm-ups included)."""
+        return self._chunk_graph.capture_seconds
+
+    def graph_rule(self, device=None) -> str:
+        """How this lane's decode tick runs: "captured" (a CUDA graph per
+        key, ``core/capture.py``), or eager and why — recurrent states are
+        made anew by every step (ROADMAP A.3), a mesh's collectives run
+        over gloo, which a graph cannot capture, the switch is off, or the
+        tensors lie on the CPU, which has no graphs."""
+        if self.mesh is not None:
+            return "eager (mesh)"
+        if self.layout == "recurrent":
+            return "eager (recurrent, ROADMAP A.3)"
+        if not self.graphs:
+            return "eager (graphs=False)"
+        if device is not None and torch.device(device).type != "cuda":
+            return "eager (cpu: no graphs)"
+        return "captured"
 
     def dense_side(self) -> "Lane":
         """This lane's model re-hosted on dense per-slot caches (made once).
@@ -1219,7 +1266,8 @@ class Lane:
                                     block_size=self.block_size,
                                     attn_backend=self.attn_backend,
                                     mesh=self.mesh,
-                                    data_shards=self.data_shards)
+                                    data_shards=self.data_shards,
+                                    graphs=self.graphs)
         return self._dense_side
 
     def prefill(self, params, prompt, max_seq: int):
@@ -1283,17 +1331,32 @@ class Lane:
         return job["done"] >= entries.size
 
     @hot_path
-    def chunk(self, params, caches, tok, steps_left, unc_sum, gen,
-              stop: int, n_steps: int, topk: int = 0):
+    def chunk(self, params, caches, tok, steps_left, unc_sum, gen, stop,
+              n_steps: int, topk: int = 0):
         """``n_steps`` decode steps over all slots.  Returns the advanced
         state plus per-step (token, active) tapes (n_steps, B) — all on the
         device; the caller pulls them in one batch.  A slot that emits
-        ``stop`` (-1 = never) keeps the token but zeroes its budget.
-        ``topk > 0`` also returns each step's top-k logit values (f32) and
-        vocab indices (int32), (n_steps, B, topk): teacher supervision for
-        serve-time adaptation, pulled with the token tape in the SAME
-        batched pull.  ``topk=0`` returns exactly the tuple it always
-        has."""
+        ``stop`` (a () int32 tensor on the device; -1 = never) keeps the
+        token but zeroes its budget.  ``topk > 0`` also returns each step's
+        top-k logit values (f32) and vocab indices (int32), (n_steps, B,
+        topk): teacher supervision for serve-time adaptation, pulled with
+        the token tape in the SAME batched pull.  ``topk=0`` returns
+        exactly the tuple it always has.
+
+        Under ``graph_rule() == "captured"`` the steps run as one CUDA
+        graph per (``n_steps``, ``topk``, shapes, buffers), captured on
+        the first call of a key (``core/capture.py``); ``pos``, the tokens,
+        budgets, summed uncertainty and ``stop`` are copied in."""
+        pools = {k: v for k, v in caches.items() if k != "pos"}
+        run = self._chunk_graph if self.graph_rule() == "captured" \
+            else self._chunk_body
+        return run(params, pools, caches["pos"], tok, steps_left, unc_sum,
+                   stop, gen, n_steps=n_steps, topk=topk)
+
+    def _chunk_body(self, params, pools, pos, tok, steps_left, unc_sum, stop,
+                    gen, n_steps: int, topk: int):
+        """The steps of ``chunk`` (what its graphs capture)."""
+        caches = {**pools, "pos": pos}
         view = caches.get(VIEW)
         B = tok.shape[0]
         if view is not None and view.sharded:   # this rank's slots
@@ -1333,13 +1396,24 @@ class Lane:
         """Build this lane's decode-state adapter.  ``need_tokens``
         (escalation groups) sizes a paged pool to the group's residency,
         pow2-bucketed.  On a mesh every layout is built as this rank's
-        local view (``_place``)."""
+        local view (``_place``).
+
+        A state of a shape that ``release`` gave back takes that state's
+        device buffers: fresh host bookkeeping (allocator, prefix index),
+        the table reset to the trap block and ``pos`` to 0; the stale K/V
+        past ``pos`` is masked, as it is in a live state.  The tick's and
+        round's CUDA graphs are tied to buffer addresses
+        (``core/capture.py``), so a drain of a shape seen before captures
+        nothing new."""
         shards = self.data_shards if batch % max(self.data_shards, 1) == 0 \
             else 1
         if self.layout != "paged":
             cls = RecurrentState if self.layout == "recurrent" else DenseKV
-            return cls(self, params, batch, slot_len, data_shards=shards,
-                       **self._place(params))
+            key = (cls.layout, batch, slot_len)
+            st = cls(self, params, batch, slot_len, data_shards=shards,
+                     caches=self._take(key), **self._place(params))
+            st.reuse_key = key
+            return st
         if num_blocks is None and need_tokens is not None:
             if shards > 1:
                 # per-shard demand: slot i lives on shard i // (batch/S), so
@@ -1354,9 +1428,24 @@ class Lane:
                 needed = sum(blocks_for(t, self.block_size)
                              for t in need_tokens)
                 num_blocks = 1 + pow2_steps(needed, 1 << 30)
-        return PagedKV(self, params, batch, slot_len, self.block_size,
-                       num_blocks, data_shards=shards, kv_ways=self.kv_ways,
-                       **self._place(params))
+        key = ("paged", batch, slot_len, num_blocks)
+        st = PagedKV(self, params, batch, slot_len, self.block_size,
+                     num_blocks, data_shards=shards, kv_ways=self.kv_ways,
+                     caches=self._take(key), **self._place(params))
+        st.reuse_key = key
+        return st
+
+    def _take(self, key: tuple) -> Optional[dict]:
+        spare = self._spare.get(key)
+        return spare.pop() if spare else None
+
+    def release(self, state: SequenceState) -> None:
+        """Give ``state``'s device buffers back to ``make_state`` for the
+        next state of its shape; the state must not be used after.  A
+        no-op where the tick runs eager by rule (a mesh, recurrent
+        states): their states stay fresh."""
+        if self.mesh is None and self.layout != "recurrent":
+            self._spare.setdefault(state.reuse_key, []).append(state.caches)
 
     def _place(self, params) -> dict:
         """Where a fresh state's device arrays live (nothing off-mesh):

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.analysis import hot_path
+from repro_torch.core.capture import capture
 from repro_torch.core.self_speculative import partial_extend_step
 from repro_torch.core.seq_state import (VIEW, SpecOps, host_pull,
                                         layout_for, next_tokens)
@@ -318,7 +319,7 @@ class BatchedSpecDecoder:
     def __init__(self, draft_model, target_model, *, gamma: int = 4,
                  temperature: float = 0.0, kv_layout: str = "dense",
                  mode: str = "linear", branching=None, exit_layer=None,
-                 attn_backend: str = "auto"):
+                 attn_backend: str = "auto", graphs: bool = True):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if mode not in ("linear", "tree", "self"):
@@ -329,6 +330,13 @@ class BatchedSpecDecoder:
         self.kv_layout = kv_layout
         self.mode = mode
         self.attn_backend = attn_backend
+        # the linear round captured per (shapes, buffers): the twin of the
+        # JAX package's jitted round
+        self.graphs = graphs
+        self._linear_graph = capture(
+            self._linear_round,
+            copy_argnames=("d_pos", "t_pos", "last", "active"),
+            name="BatchedSpecDecoder.linear_round")
         self.counters = {"member_rounds": 0, "draft_tokens": 0,
                          "verify_tokens": 0, "accepted_tokens": 0,
                          "emitted_tokens": 0}
@@ -380,6 +388,34 @@ class BatchedSpecDecoder:
     def self_supported(model) -> bool:
         return model.cfg.family in FAMILIES_WITH_TREES
 
+    @property
+    def captures(self) -> int:
+        """CUDA graphs the linear round has captured."""
+        return self._linear_graph.captures
+
+    @property
+    def capture_seconds(self) -> float:
+        """Host seconds those captures took (warm-ups included)."""
+        return self._linear_graph.capture_seconds
+
+    def graph_rule(self, device=None) -> str:
+        """How a round runs: "captured" (the linear round, a CUDA graph per
+        key, ``core/capture.py``), or eager and why — the tree and self
+        rounds and recurrent states wait for ROADMAP A.3, a mesh's
+        collectives run over gloo, which a graph cannot capture, the switch
+        is off, or the tensors lie on the CPU, which has no graphs."""
+        if self.mode != "linear":
+            return f"eager ({self.mode} round, ROADMAP A.3)"
+        if "recurrent" in (self._dops.layout, self._tops.layout):
+            return "eager (recurrent, ROADMAP A.3)"
+        if runtime.current_mesh() is not None:
+            return "eager (mesh)"
+        if not self.graphs:
+            return "eager (graphs=False)"
+        if device is not None and torch.device(device).type != "cuda":
+            return "eager (cpu: no graphs)"
+        return "captured"
+
     def _accept(self, t_logits, draft_lgs, draft_toks, gen, rows=None):
         """Acceptance of a linear draft tape (linear and self lanes):
         uniforms from ``gen``, then the spec-verify kernel (its plain
@@ -417,9 +453,21 @@ class BatchedSpecDecoder:
         if self.mode == "tree":
             return self._tree_round(draft_params, target_params, d_slots,
                                     t_slots, last, active, gen)
+        d_pools = {k: v for k, v in d_slots.items() if k != "pos"}
+        t_pools = {k: v for k, v in t_slots.items() if k != "pos"}
+        run = self._linear_graph if self.graph_rule() == "captured" \
+            else self._linear_round
+        return run(draft_params, target_params, d_pools, d_slots["pos"],
+                   t_pools, t_slots["pos"], last, active, gen)
+
+    def _linear_round(self, draft_params, target_params, d_pools, d_pos,
+                      t_pools, t_pos, last, active, gen):
+        """The linear lane's round (``_round``; what its graphs capture)."""
+        d_slots = {**d_pools, "pos": d_pos}
+        t_slots = {**t_pools, "pos": t_pos}
         gamma = self.gamma
         G = active.shape[0]
-        view = d_slots.get("shard")
+        view = d_slots.get(VIEW)
         d_snap = self._dops.snapshot(d_slots)
         t_snap = self._tops.snapshot(t_slots)
 
@@ -658,6 +706,7 @@ class BatchedSpecDecoder:
         """Host half of a round: slice each active member's emission off
         the padded tape and accumulate the lane counters — fed by ONE
         batched pull of the round's device outputs."""
+        # repro-lint: ok(R1, the round's one batched pull)
         dt, na, nt = host_pull(draft_toks, n_acc, next_tok)
         per_draft, per_verify = self._per_round
         for i in range(len(out)):

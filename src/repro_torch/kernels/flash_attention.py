@@ -211,6 +211,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     return (out, lse) if return_lse else out
 
 
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *,
+                              causal: bool = True, window: int = 0,
+                              prefix_len: int = 0):
+    """Plain version of ``flash_attention_bwd_cuda``: (dq, dk, dv) by
+    autograd through ``flash_attention_plain`` (``out`` and ``lse``, which
+    the kernel reads instead of recomputing them, are not needed)."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        o = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                  prefix_len=prefix_len)
+        return torch.autograd.grad(o, (q, k, v), dout)
+
+
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
                              window: int = 0, prefix_len: int = 0):
     """Launch the Hopper backward: (dq, dk, dv) of the attention whose

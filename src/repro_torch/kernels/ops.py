@@ -67,6 +67,21 @@ def launch_counts() -> dict:
     return counts
 
 
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (keys as ``launch_counts`` names them) to the counts.
+    A CUDA graph replays its kernels without running the wrappers, so
+    ``core/capture.py`` takes back the launches its capture counted (they
+    ran nothing) and adds them again on every replay."""
+    routes = {"flash_attention_bwd": _flash.BWD_ROUTE_LAUNCHES,
+              "ssd_chunk_scan_bwd": _ssd.BWD_ROUTE_LAUNCHES}
+    for name, n in delta.items():
+        if "/" in name:
+            kernel, route = name.split("/", 1)
+            routes[kernel][route] += n
+        else:
+            KERNELS[name].launches += n
+
+
 def paged_decode_attention(q, k_pool, v_pool, table, length, *, window=0):
     if q.is_cuda:
         return _dec.paged_decode_attention_cuda(q, k_pool, v_pool, table,

@@ -340,6 +340,10 @@ def main(argv=None):
                          f"emitted={c['emitted_tokens']} "
                          f"rounds={c['member_rounds']}]"
                          for m, c in stats["spec_lanes"].items()))
+    if "captures" in stats:
+        print("graphs: " + " ".join(
+            f"{k}={stats['graphs'][k]} captures={n}"
+            for k, n in stats["captures"].items()))
     if "kv_peak_bytes" in stats:
         print(f"kv: layout={stats['kv_layout']} "
               f"peak={stats['kv_peak_bytes'] / 1e6:.2f}MB "

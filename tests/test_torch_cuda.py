@@ -1606,3 +1606,143 @@ def test_new_families_train_on_the_kernels(cuda, family, remat):
     assert abs(float(lk) - float(lp)) <= 1e-5 * float(lp)
     for a, b in zip(gk, gp):
         assert _rel_err(a, b) <= 1e-4
+
+
+# ------------------------------------------------------------ slice 19
+# The compiled serving tick (``core/capture.py``): ``Lane.chunk`` and the
+# linear round as CUDA graphs against the same work eager, at reduced f32
+# with TF32 off (token identity), and the capture counter's steady state.
+def _graph_pair(dtype="float32"):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    e = get_config("smollm-135m").reduced().replace(param_dtype=dtype,
+                                                    activ_dtype=dtype)
+    c = get_config("granite-8b").reduced().replace(
+        vocab_size=e.vocab_size, param_dtype=dtype, activ_dtype=dtype)
+    em, cm = Model(e), Model(c)
+    return em, cm, em.init(seed=0, device="cuda"), cm.init(seed=1,
+                                                          device="cuda")
+
+
+def _graph_prompts(vocab, n=4, length=10):
+    return [((np.arange(length) * 7 + 3 * i) % vocab).astype(np.int32)
+            for i in range(n)]
+
+
+def _graph_engine(em, cm, graphs, threshold=-1.0, **kw):
+    from repro_torch.core.policy import SpeculativePolicy
+    from repro_torch.core.scheduler import BatchedEngine
+    kw = {"batch_size": 4, "temperature": 0.0, "use_cache": False,
+          "tick_tokens": 4, "policy": SpeculativePolicy(threshold), **kw}
+    return BatchedEngine(em, cm, graphs=graphs, **kw)
+
+
+def _trace_tuple(traces):
+    return [(t.path, t.tokens, round(t.uncertainty, 6)) for t in traces]
+
+
+@pytest.mark.parametrize("kv_layout,temperature",
+                         [("paged", 0.0), ("dense", 0.0), ("paged", 1.0)])
+def test_captured_tick_and_linear_round_equal_eager(cuda, kv_layout,
+                                                    temperature):
+    """Every request escalates to the linear round (threshold -1): the
+    captured tick and round give the eager engine's tokens, paths and
+    uncertainties exactly, launch the same kernels as often, and capture
+    only with graphs on.  At T = 1 the captured draws are the eager ones
+    (the generator is registered with each graph)."""
+    em, cm, ep, cp = _graph_pair()
+    prompts = _graph_prompts(em.cfg.vocab_size)
+    runs = {}
+    for graphs in (False, True):
+        eng = _graph_engine(em, cm, graphs, kv_layout=kv_layout,
+                            temperature=temperature)
+        ops.reset_launch_counts()
+        traces = eng.serve_batch(ep, cp, prompts, 7)
+        torch.cuda.synchronize()
+        runs[graphs] = (_trace_tuple(traces), ops.launch_counts(),
+                        eng.stats())
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1] == runs[False][1]
+    decode = "paged_decode_attention" if kv_layout == "paged" \
+        else "decode_attention"
+    assert runs[True][1][decode] > 0 and runs[True][1]["spec_verify"] > 0
+    st, st0 = runs[True][2], runs[False][2]
+    assert st["graphs"] == {"edge": "captured", "cloud": "captured",
+                            "spec": "captured"}
+    assert st["captures"]["edge"] > 0 and st["captures"]["spec"] > 0
+    assert st0["captures"] == {"edge": 0, "cloud": 0, "spec": 0}
+    assert st0["graphs"]["edge"] == "eager (graphs=False)"
+
+
+@pytest.mark.parametrize("threshold", [1.1, -1.0])
+def test_second_identical_drain_captures_nothing(cuda, threshold):
+    """The twin of the JAX package's hot-path guard: a warm drain
+    captures, a second identical drain captures nothing (its states reuse
+    the first drain's buffers), and both give the per-request reference's
+    tokens and paths."""
+    from repro_torch.analysis.compile_guard import CaptureCounter
+    from repro_torch.core.engine import CollaborativeEngine
+    from repro_torch.core.policy import SpeculativePolicy
+    em, cm, ep, cp = _graph_pair()
+    prompts = _graph_prompts(em.cfg.vocab_size)
+    eng = _graph_engine(em, cm, True, threshold)
+    with CaptureCounter() as cc:
+        warm = eng.serve_batch(ep, cp, prompts, 8)
+        assert cc.count > 0, "the warm drain captured nothing"
+        cc.reset()
+        steady = eng.serve_batch(ep, cp, prompts, 8)
+        assert cc.count == 0, "steady drain captured: " + "; ".join(
+            cc.events)
+    ref = CollaborativeEngine(em, cm, temperature=0.0,
+                              policy=SpeculativePolicy(threshold),
+                              use_cache=False)
+    for p, w, s in zip(prompts, warm, steady):
+        rt = ref.serve_reference(ep, cp, p, 8)
+        assert w.tokens == s.tokens == rt.tokens
+        assert w.path == s.path == rt.path
+
+
+def test_adaptation_swaps_capture_nothing_and_equal_eager(cuda):
+    """A distill loop swapping between drains: the swaps land in place in
+    the served edge parameters, so after the first drain nothing is
+    captured again; the drains give what the eager engine's give, and the
+    caller's parameters are never written."""
+    from repro_torch.analysis.compile_guard import CaptureCounter
+    from repro_torch.core.adaptation import AdaptationLoop
+    em, cm, ep, cp = _graph_pair()
+    prompts = _graph_prompts(em.cfg.vocab_size, n=6)
+    before = [t.clone() for t in ep.parameters()]
+    runs = {}
+    for graphs in (False, True):
+        loop = AdaptationLoop(mode="distill", interval=6, batch_size=4,
+                              seq_len=16, topk=4, min_records=1)
+        eng = _graph_engine(em, cm, graphs, threshold=0.0, adaptation=loop)
+        out = []
+        with CaptureCounter() as cc:
+            out.append(_trace_tuple(eng.serve_batch(ep, cp, prompts, 5)))
+            cc.reset()
+            for _ in range(3):
+                out.append(_trace_tuple(eng.serve_batch(ep, cp, prompts, 5)))
+        assert loop.swaps == 3
+        runs[graphs] = out, cc.count
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1] == 0 and runs[False][1] == 0
+    assert all(torch.equal(a, b) for a, b in zip(before, ep.parameters()))
+
+
+def test_a_capture_that_syncs_raises_and_runs_nothing_eager(cuda):
+    """A captured function that pulls a value to the host (``.item()``)
+    fails under capture: the call raises ``CaptureError`` and nothing runs
+    the function eagerly in its place (no result, no graph kept)."""
+    from repro_torch.core.capture import CaptureError, capture
+
+    def scaled(x):
+        return x * x.sum().item()
+
+    fn = capture(scaled, name="scaled")
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(CaptureError, match="scaled"):
+        fn(x)
+    assert fn.captures == 0
+    # the device still works after the failed capture
+    assert float(capture(lambda y: y * 2, name="double")(x).sum()) == 8.0
