@@ -78,18 +78,22 @@ the first phase that fails:
    and zamba2 edges at the depth ``SERVE_DEPTH`` cuts) — and check every
    request, the logits' finiteness and that each kernel the path runs was
    launched during that path's run (counts reset just before it, read just
-   after); every path's edge tick (``Lane.chunk``) and linear round run
-   as CUDA graphs where their rule says so (``core/capture.py``; tree and
-   self rounds and recurrent states eager), and the launches count
-   through the graphs' replays; after the linear path, ``[graphs]``
-   (``phase_graphs``): eager (``graphs=False``) against captured drains,
-   float32 at cut depth on the paged linear path, the dense tick and T = 1
-   (traces and launch counts identical, a second identical drain
-   capturing nothing), then at full width in turns eager, captured,
-   captured, eager (ms per drain and tick, one round's host issue, stream
-   span and device busy, the captures' seconds); then time the pieces of
-   the smollm rounds and profile the linear and tree drains, and time one round of the moe and each
-   recurrent path; after the smollm paths, the per-request phase with the
+   after); every path's ticks (``Lane.chunk``) and rounds (linear, tree
+   and self lanes, KV and recurrent states) run as CUDA graphs
+   (``core/capture.py``; each path's ``graphs`` rules must read
+   "captured"), and the launches count through the graphs' replays;
+   after the linear path, ``[graphs]`` (``phase_graphs``): eager
+   (``graphs=False``) against captured drains, float32 at cut depth
+   (``PARITY_DEPTH``) on the paged linear path, the dense tick, T = 1,
+   the tree and self lanes and the mamba2, xlstm and zamba2 edges (traces
+   and launch counts identical, the path's kernels launched through the
+   replays, a second identical drain capturing nothing), then at full
+   width in turns eager, captured, captured, eager (ms per drain and
+   tick, one round's host issue, stream span and device busy, the
+   captures' seconds); then time the pieces of the smollm rounds and
+   profile the linear and tree drains, and time one captured round of
+   the moe and each recurrent path; after the smollm paths, the
+   per-request phase with the
    same models: ``CollaborativeEngine.serve_reference`` (threshold -1)
    with each escalation and ``serve`` on two prompts, ``TreeSpecDecoder``
    (3, 2, 1) and ``SelfSpecDecoder`` (exit layer 15) on one, 8 new tokens
@@ -1931,6 +1935,9 @@ def phase_serve():
         for k in kernels:
             check(launches[k] > 0,
                   f"kernel {k} was not launched on the {name} path")
+        check(stats["graphs"] == dict.fromkeys(("edge", "cloud", "spec"),
+                                               "captured"),
+              f"{name} path: graph rules {stats['graphs']}")
         for k, n in launches.items():
             total[k] += n
         paths = {}
@@ -1970,9 +1977,10 @@ def phase_serve():
                 total[k] += n
             lap("per-request")
         if e_cfg.family != "dense":
-            h, d, busy = _round_ms(_engine(e_cfg, c_cfg, **kw), ep, cp,
-                                   prompts)
-            print(f"[breakdown] one {name} round (G=8): host issue "
+            eng = _engine(e_cfg, c_cfg, **kw)
+            h, d, busy = _round_ms(eng, ep, cp, prompts)
+            print(f"[breakdown] one {name} round (G=8, "
+                  f"{eng.spec.graph_rule('cuda')}): host issue "
                   f"{h:.3f} ms, stream span {d:.3f} ms, device busy "
                   f"{busy:.3f} ms", flush=True)
             lap(f"{name} round breakdown")
@@ -1983,11 +1991,28 @@ def phase_serve():
 
 # [graphs]: new tokens of the full-width drains (eager against captured)
 # and of the float32 parity drains; the kernels a captured drain launches
-# through its graphs' replays on the paged and the dense tick
+# through its graphs' replays, per parity case (by the label's first
+# word); the parity cases: label, edge, engine settings (at PARITY_DEPTH:
+# the self lane drafts with the first of two layers)
 GRAPHS_NEW = 8
-GRAPHS_PARITY_NEW = 16
+GRAPHS_PARITY_NEW = 8
 GRAPHS_KERNELS = {"paged": ("paged_decode_attention", "spec_verify"),
-                  "dense": ("decode_attention", "spec_verify")}
+                  "dense": ("decode_attention", "spec_verify"),
+                  "tree": ("tree_verify_attention", "decode_attention"),
+                  "self": ("paged_decode_attention", "spec_verify"),
+                  "mamba2": ("spec_verify",),
+                  "xlstm": ("spec_verify",),
+                  "hybrid": ("decode_attention", "spec_verify")}
+GRAPHS_PARITY = (
+    ("paged", "smollm-135m", {}),
+    ("dense", "smollm-135m", {"kv_layout": "dense"}),
+    ("paged T=1", "smollm-135m", {"temperature": 1.0}),
+    ("tree", "smollm-135m", PATHS[1][2]),
+    ("self", "smollm-135m", {**PATHS[2][2], "spec_exit_layer": 1}),
+    ("mamba2", "mamba2-370m", {}),
+    ("xlstm", "xlstm-125m", {}),
+    ("hybrid", "zamba2-2.7b", {}),
+)
 
 
 def _graphs_drain(eng, ep, cp, prompts, max_new):
@@ -2013,13 +2038,14 @@ def phase_graphs(ep, cp, e_cfg, c_cfg, prompts):
 
     The semantic cache is off in every engine here, so that a repeated
     drain runs its ticks and rounds again.  Float32 parity at
-    ``PARITY_DEPTH`` (TF32 off): the linear path on
-    paged KV, the dense tick (``kv_layout="dense"``) and the paged path at
-    T = 1, each drained by an eager engine (``graphs=False``) and a
-    captured one — tokens, paths, edge calls, cloud passes and
-    uncertainties identical, the launch counts (through the replays) equal
-    and the kernels of the tick and round launched; a second identical
-    drain of the captured paged engine captures nothing
+    ``PARITY_DEPTH`` (TF32 off), the cases of ``GRAPHS_PARITY``: the
+    linear path on paged KV, the dense tick (``kv_layout="dense"``), the
+    paged path at T = 1, the tree and self lanes and the mamba2, xlstm
+    and zamba2 edges' linear lane, each drained by an eager engine
+    (``graphs=False``) and a captured one — tokens, paths, edge calls,
+    cloud passes and uncertainties identical, the launch counts (through
+    the replays) equal and the case's ``GRAPHS_KERNELS`` launched; a
+    second identical drain of each captured engine captures nothing
     (``CaptureCounter``) and repeats its tokens.  Then at full width
     (``ep``/``cp``: the bf16 smollm-135m and granite-8b of the linear
     path), batch 8, ``GRAPHS_NEW`` new tokens: each engine warmed by one
@@ -2031,29 +2057,35 @@ def phase_graphs(ep, cp, e_cfg, c_cfg, prompts):
     from repro_torch.analysis.compile_guard import CaptureCounter
     from repro_torch.models import Model
     total = {}
-    pe, pc = _configs("smollm-135m", PARITY_DEPTH["smollm-135m"], "float32")
-    fep = Model(pe).init(seed=0, device="cuda")
-    fcp = Model(pc).init(seed=1, device="cuda")
-    fprompts = _prompts(pe.vocab_size)
-    for label, kw in (("paged", {}), ("dense", {"kv_layout": "dense"}),
-                      ("paged T=1", {"temperature": 1.0})):
+    pe = pc = fep = fcp = None
+    for label, edge, kw in GRAPHS_PARITY:
+        e_new, c_new = _configs(edge, PARITY_DEPTH[edge], "float32")
+        if e_new != pe:
+            fep = None
+            pe, fep = e_new, Model(e_new).init(seed=0, device="cuda")
+        if c_new != pc:
+            fcp = None
+            pc, fcp = c_new, Model(c_new).init(seed=1, device="cuda")
+        fprompts = _prompts(pe.vocab_size)
+        kernels = GRAPHS_KERNELS[label.split()[0]]
         runs = {}
         for graphs in (False, True):
             eng = _engine(pe, pc, graphs=graphs, use_cache=False, **kw)
             with CaptureCounter() as cc:
                 runs[graphs] = _graphs_drain(eng, fep, fcp, fprompts,
                                              GRAPHS_PARITY_NEW)
-                if graphs and label == "paged":
-                    check(cc.count > 0, "[graphs] the warm drain captured "
-                                        "nothing")
+                if graphs:
+                    check(cc.count > 0, f"[graphs] {label}: the warm drain "
+                                        "captured nothing")
                     cc.reset()
                     again = _graphs_drain(eng, fep, fcp, fprompts,
                                           GRAPHS_PARITY_NEW)
-                    check(cc.count == 0, "[graphs] a second drain of "
-                          "identical shape captured: " + "; ".join(cc.events))
+                    check(cc.count == 0, f"[graphs] {label}: a second drain "
+                          "of identical shape captured: "
+                          + "; ".join(cc.events))
                     check(_trace_key(again[0]) == _trace_key(runs[True][0]),
-                          "[graphs] the second captured drain gave other "
-                          "tokens")
+                          f"[graphs] {label}: the second captured drain gave "
+                          "other tokens")
             check(eng.stats()["graphs"] == dict.fromkeys(
                 ("edge", "cloud", "spec"),
                 "captured" if graphs else "eager (graphs=False)"),
@@ -2064,7 +2096,7 @@ def phase_graphs(ep, cp, e_cfg, c_cfg, prompts):
                     "from the eager drain's")
         check(eager[2] == capt[2], f"[graphs] {label}: launches through the "
               f"replays {capt[2]} differ from the eager drain's {eager[2]}")
-        for k in GRAPHS_KERNELS[label.split()[0]]:
+        for k in kernels:
             check(capt[2][k] > 0, f"[graphs] {label}: kernel {k} was not "
                                   "launched through the replays")
         paths = collections.Counter(t.path for t in capt[0])
@@ -2073,11 +2105,9 @@ def phase_graphs(ep, cp, e_cfg, c_cfg, prompts):
               f"requests, {GRAPHS_PARITY_NEW} new): captured == eager on "
               f"{len(fprompts)}/{len(fprompts)} traces (tokens, paths "
               f"{dict(paths)}, edge calls, cloud passes, uncertainty); "
-              f"captures {capt[3]['captures']}; launches through the "
-              f"replays == eager: "
-              + ", ".join(f"{k} {capt[2][k]}"
-                          for k in GRAPHS_KERNELS[label.split()[0]]),
-              flush=True)
+              f"captures {capt[3]['captures']}, 0 on a second drain; "
+              f"launches through the replays == eager: "
+              + ", ".join(f"{k} {capt[2][k]}" for k in kernels), flush=True)
     del fep, fcp
     torch.cuda.empty_cache()
 
@@ -2247,8 +2277,9 @@ def _round_ms(eng, ep, cp, prompts, cross_check=False):
 def phase_breakdown(ep, cp, e_cfg, c_cfg, prompts):
     """Where the full-width serving paths' time goes: the pieces of one
     edge tick step, one linear round and one tree round, timed alone at
-    the paths' shapes, and a profiler pass over a linear and a tree drain
-    for the device's busy share."""
+    the paths' shapes, one captured round of each smollm path (linear,
+    tree, self: host issue, stream span, device busy), and a profiler
+    pass over a linear and a tree drain for the device's busy share."""
     import torch
     from repro_torch.core.tree_speculation import TreePlan, branching_for
     from repro_torch.models import Model
@@ -2317,9 +2348,11 @@ def phase_breakdown(ep, cp, e_cfg, c_cfg, prompts):
     for name, edge, kw, _ in PATHS:
         if edge != e_cfg.name:
             continue
-        h, d, busy = _round_ms(_engine(e_cfg, c_cfg, **kw), ep, cp, prompts,
+        eng = _engine(e_cfg, c_cfg, **kw)
+        h, d, busy = _round_ms(eng, ep, cp, prompts,
                                cross_check=name == "linear")
-        print(f"[breakdown] one {name} round (G=8): host issue {h:.3f} ms, "
+        print(f"[breakdown] one {name} round (G=8, "
+              f"{eng.spec.graph_rule('cuda')}): host issue {h:.3f} ms, "
               f"stream span {d:.3f} ms, device busy {busy:.3f} ms",
               flush=True)
     # 8 requests, 4 new tokens: one edge tick and 4 speculative rounds
@@ -3051,7 +3084,7 @@ def _stub_parity(arch):
 # float32 parity of each MESH_PARITY path at PARITY_DEPTH and
 # MESH_PARITY_NEW new tokens against the unsharded engine in this process.
 MESH_SHAPE = (2, 2)
-MESH_CLOUD_LAYERS = 2
+MESH_CLOUD_LAYERS = 1
 MESH_KERNELS = ("paged_decode_attention", "flash_attention", "spec_verify")
 MESH_MOE = dict(n=4, prompt=4097, new=8)
 MESH_PARITY_NEW = 4

@@ -13,19 +13,24 @@ JAX's jit wraps it.  A call is keyed, as JAX keys its compile cache, by
   reads and writes them where they lie, so it holds only for the buffers
   it was captured on.  JAX recompiles on a new shape and never on a new
   buffer; a graph is tied to addresses, which is why the scheduler reuses
-  its states' buffers (``Lane.make_state``, ``Lane.release``).
+  its states' buffers (``Lane.make_state``, ``Lane.release``) and why a
+  recurrent state's steps write their new leaves back into the state's
+  own tensors (``SpecOps``).
 
-A new key runs ``fn`` once on a side stream (the warm-up: kernel
-libraries built and loaded, lazy caches filled), captures it there
-(``CUDAGraph.capture_begin`` / ``capture_end``) and tells every listener (``analysis/compile_guard.py``
-``CaptureCounter``) one event naming the function and its key.  Every
-call, the first included, then copies the small inputs in, replays the
-graph and clones the outputs that escape; an output that IS an addressed
-input comes back as the caller's tensor.  The replay rewrites whatever the
-warm-up wrote in place (same inputs, same addresses), and each random
-generator handed in is set back to its state before the warm-up and
-registered with the graph (``CUDAGraph.register_generator_state``), so a
-replay draws what an eager call would have drawn.
+The first call of a key is its warm-up: ``fn`` runs once on a side
+stream on the caller's buffers (kernel libraries built and loaded, lazy
+caches filled), and that run is the call's result, its state writes and
+random draws those of an eager call.  Then ``fn`` is captured there
+(``CUDAGraph.capture_begin`` / ``capture_end``; nothing runs, so a state
+updated in place — a recurrent step reads the leaves it overwrites — is
+advanced once, not twice) and every listener
+(``analysis/compile_guard.py`` ``CaptureCounter``) told one event naming
+the function and its key.  Every later call copies the small inputs in,
+replays the graph and clones the outputs that escape; an output that IS
+an addressed input comes back as the caller's tensor.  Each random
+generator handed in is registered with the graph
+(``CUDAGraph.register_generator_state``), so a replay draws from where
+the calls before it left the generator, as an eager call would.
 
 ``fn`` must treat its copied inputs as read-only, take every value that
 changes between calls as a tensor or a static argument (a Python number in
@@ -36,14 +41,14 @@ A capture that fails raises ``CaptureError``: nothing runs ``fn`` eagerly
 in its place.  A call whose tensors lie on the CPU runs ``fn`` eagerly,
 because the CPU has no graphs and it is the device the caller chose.
 
-Launch counts (``kernels/ops.py``): the warm-up runs ``fn`` once more than
-the calls ask for, as JAX traces a function once more, and the capture
-runs nothing, so the launches of both are taken back; every replay adds the
-capture's again.  ``ops.launch_counts()`` then counts what the calls
-launched, as many as eager calls would.
+Launch counts (``kernels/ops.py``): the warm-up counts as the first
+call's launches; the capture runs nothing, so its launches are taken back,
+and every replay adds them again.  ``ops.launch_counts()`` then counts what
+the calls launched, as many as eager calls would.
 """
 from __future__ import annotations
 
+import gc
 import inspect
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -148,9 +153,11 @@ def _flatten_out(x, leaves: list):
     if isinstance(x, dict):
         parts = [(k, _flatten_out(v, leaves)) for k, v in x.items()]
         return lambda it: {k: f(it) for k, f in parts}
-    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+    if isinstance(x, (list, tuple)):
         parts = [_flatten_out(v, leaves) for v in x]
         kind = type(x)
+        if hasattr(x, "_fields"):           # a named tuple (``GLAState``)
+            return lambda it: kind(*(f(it) for f in parts))
         return lambda it: kind(f(it) for f in parts)
     return lambda it: x          # a constant of the capture (None, ints)
 
@@ -205,9 +212,10 @@ class Captured:
             return self.fn(*args, **kwargs)
         key = (tuple(key), tuple(walk.key))
         g = self._graphs.get(key)
-        if g is None:
-            g = self._capture(arg, copied, walk, dev, key)
+        if g is None:           # the warm-up is this call; later calls replay
+            g, out = self._capture(arg, copied, walk, dev)
             self._graphs[key] = g
+            return out
         for buf, (_, src) in zip(g.static_in, copied):
             buf.copy_(src)
         g.graph.replay()
@@ -221,24 +229,24 @@ class Captured:
         parts += [f"{n}={tuple(t.shape)}" for n, t in copied]
         return f"{self.name}[{', '.join(parts)}]"
 
-    def _capture(self, arg, copied, walk: _Walk, dev, key) -> _Graph:
+    def _capture(self, arg, copied, walk: _Walk, dev):
+        """The warm-up (the call's own run) and the capture of a new key:
+        (the graph, the warm-up's outputs)."""
         what = self._describe(arg, copied)
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(dev)
         side = _side_stream(dev)
-        states = [gen.get_state() for gen in walk.gens]
-        counts = ops.launch_counts()
         try:
             # warm-up: libraries built and loaded, lazy caches filled, on
             # the stream the capture will use
             side.wait_stream(main)
             with torch.cuda.stream(side):
-                self.fn(**arg)
+                first = self.fn(**arg)
             main.wait_stream(side)
-            for gen, st in zip(walk.gens, states):
-                gen.set_state(st)
-            ops.add_launch_counts({k: counts[k] - n for k, n in
-                                   ops.launch_counts().items()})
+            ret: List[torch.Tensor] = []
+            _flatten_out(first, ret)
+            for t in ret:       # made on the side stream, used on the main
+                t.record_stream(main)
             g = _Graph()
             g.static_in = [t.clone() for _, t in copied]
             call = dict(arg)
@@ -252,7 +260,13 @@ class Captured:
             # capture_begin / capture_end on the side stream: what
             # ``torch.cuda.graph`` does, without its device synchronize and
             # allocator cache flush, which would cost every later
-            # allocation a fresh cudaMalloc
+            # allocation a fresh cudaMalloc.  The cyclic garbage collector
+            # is held off meanwhile (``torch.cuda.graph`` collects before
+            # it captures): a collection freeing an unreachable engine's
+            # graphs would destroy them and free their memory pools, which
+            # invalidates the capture in flight
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.stream(side):
                     g.graph.capture_begin()
@@ -261,6 +275,8 @@ class Captured:
                     finally:
                         g.graph.capture_end()
             finally:
+                if collecting:
+                    gc.enable()
                 after = ops.launch_counts()
                 g.launches = {k: n - before[k] for k, n in after.items()
                               if n != before[k]}
@@ -276,4 +292,4 @@ class Captured:
         self.capture_seconds += time.perf_counter() - t0
         for fn in list(_LISTENERS):
             fn(what)
-        return g
+        return g, first

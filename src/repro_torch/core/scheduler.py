@@ -128,14 +128,15 @@ class BatchedEngine:
     plain versions on the CPU; "plain" forces the plain versions everywhere
     (the parity oracle).  The device is the one the parameters passed to
     ``run`` live on.  ``graphs``: on CUDA the edge and cloud decode ticks
-    (``Lane.chunk``) and the linear speculative round run as CUDA graphs,
-    captured once per shape and buffer set (``core/capture.py``, the twin
-    of the JAX package's ``jax.jit``); ``graphs=False`` runs them eager,
-    the same work launch by launch.  ``stats()`` reports each one's
-    ``captures`` and its ``graphs`` rule (recurrent states and a mesh run
-    eager by rule).  Drains and escalation groups reuse the device buffers
-    of earlier states of the same shape (``Lane.make_state``,
-    ``Lane.release``), so a steady state captures nothing.
+    (``Lane.chunk``, every layout) and the speculative round (linear, tree
+    and self lanes, KV and recurrent states) run as CUDA graphs, captured
+    once per shape and buffer set (``core/capture.py``, the twin of the
+    JAX package's ``jax.jit``); ``graphs=False`` runs them eager, the same
+    work launch by launch.  ``stats()`` reports each one's ``captures`` and
+    its ``graphs`` rule (a mesh runs eager by rule).  Drains and escalation
+    groups reuse the device buffers of earlier states of the same shape
+    (``Lane.make_state``, ``Lane.release``; a recurrent step writes its
+    state back into them), so a steady state captures nothing.
 
     Speculation lane: ``spec_mode`` ("linear" | "tree" | "self"; default
     the policy's ``spec_mode``, else linear), ``spec_tree_width`` (the

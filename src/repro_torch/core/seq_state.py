@@ -33,9 +33,10 @@ Cache trees: every leaf has the slot axis first, except the attention
 slabs ``k`` / ``v`` (a leading layer or group axis, then the slot axis).
 Device tensors are updated IN PLACE where JAX returns new arrays (pools,
 tables, dense and hybrid K/V slabs, slot writes at admission); the
-recurrent models' steps return new state tensors, and ``pos`` is always
-replaced by a new tensor, so a snapshot never aliases live state except
-through the slabs, which the recurrent snapshot copies.
+recurrent models' steps return new state tensors, which ``SpecOps`` copies
+back into the state's own (a captured tick or round is tied to their
+addresses, ``core/capture.py``), so the recurrent snapshot copies every
+leaf; ``pos`` is always replaced by a new tensor.
 
 On a device mesh (``BatchedEngine(mesh=)``): the host bookkeeping is
 global and identical on every rank, while each rank's device cache holds
@@ -166,6 +167,16 @@ def write_slots(slots, bs: List[int], caches: List):
     pos = slots["pos"].clone()
     pos[idx] = torch.stack([c["pos"] for c in caches]).to(torch.int32)
     return {**slots, "pos": pos}
+
+
+def copy_leaves(caches, src) -> None:
+    """Copy every state leaf of the cache tree ``src`` into ``caches``'
+    own tensor of that leaf, IN PLACE (``pos`` and a mesh view aside)."""
+    for key, dst in caches.items():
+        if key not in ("pos", VIEW):
+            for d, s in zip(tree_leaves(dst), tree_leaves(src[key])):
+                if d is not s:
+                    d.copy_(s)
 
 
 def pow2_steps(n: int, cap: int) -> int:
@@ -352,20 +363,33 @@ class SpecOps:
         view = caches.get(VIEW)
         return fn(caches) if view is None else view.run(fn, caches)
 
+    def _in_place(self, caches, new):
+        """``new``, the state a recurrent step, extend or replay built, as
+        ``caches`` with every leaf copied into ``caches``' own tensor (the
+        values unchanged) and ``pos`` taken from ``new``: a captured tick
+        or round then reads and writes one set of buffers call after call.
+        KV layouts already write in place and return ``new``."""
+        if self.layout != "recurrent":
+            return new
+        copy_leaves(caches, new)
+        return {**caches, "pos": new["pos"]}
+
     def step(self, params, tok, caches):
         """tok (G, 1, 1) -> (logits (G, V), caches)."""
         step = self.model.paged_decode_step if self.layout == "paged" \
             else self.model.decode_step
-        return self.run(caches, lambda c: step(
+        lg, new = self.run(caches, lambda c: step(
             params, tok[:, :, 0], c, attn_backend=self.attn_backend))
+        return lg, self._in_place(caches, new)
 
     def extend(self, params, tokens, caches):
         """tokens (G, T) -> (logits (G, T, V), caches)."""
         if self.layout == "paged":
             return self.run(caches, lambda c: self.model.paged_extend_step(
                 params, tokens, c))
-        return self.run(caches, lambda c: self.model.extend_step(
+        lg, new = self.run(caches, lambda c: self.model.extend_step(
             params, tokens, c, attn_backend=self.attn_backend))
+        return lg, self._in_place(caches, new)
 
     def extend_tree(self, params, tokens, caches, block_mask, depths):
         """Tree-masked extend: each slot's ``tokens`` (G, T) row is a packed
@@ -386,7 +410,7 @@ class SpecOps:
         """Roll the group back to the pre-round snapshot WITHOUT committing
         anything (the self lane re-anchors before its verify)."""
         if self.layout == "recurrent":
-            return snap
+            return self._in_place(caches, snap)
         return {**caches, "pos": snap}
 
     def commit_replay(self, params, caches, snap, tokens, counts):
@@ -424,12 +448,12 @@ class SpecOps:
 
     def snapshot(self, caches):
         """Pre-round rewind anchor: ``pos`` (G,) for KV layouts (never
-        mutated later); the cache tree itself for recurrent state, whose
-        steps return new tensors — with copies of the attention slabs
-        (hybrid), which the round's steps write in place."""
+        mutated later); for recurrent state a copy of every leaf (the
+        hybrid's attention slabs too), which the round's steps write in
+        place (``_in_place``)."""
         if self.layout == "recurrent":
-            return {k: v.clone() if k in SLABS else v
-                    for k, v in caches.items()}
+            return {k: v if k in ("pos", VIEW) else
+                    tree_map(torch.clone, v) for k, v in caches.items()}
         return caches["pos"]
 
     def commit(self, params, caches, snap, tokens, counts):
@@ -439,11 +463,12 @@ class SpecOps:
         of its entries each slot commits.  KV: one ``pos`` write (rejected
         entries stay, masked and overwritten).  Recurrent: the batched
         ``replay_step`` from the snapshot — each slot re-advances through
-        its own prefix."""
+        its own prefix — landing in ``caches``' own tensors."""
         if self.layout == "recurrent":
-            return self.run(snap, lambda c: (None, self.model.replay_step(
-                params, tokens, c, counts,
-                attn_backend=self.attn_backend)))[1]
+            return self._in_place(caches, self.run(snap, lambda c: (
+                None, self.model.replay_step(
+                    params, tokens, c, counts,
+                    attn_backend=self.attn_backend)))[1])
         return {**caches, "pos": (snap + counts).to(torch.int32)}
 
 
@@ -621,9 +646,18 @@ class RecurrentState(DenseKV):
     """Fixed-size recurrent state (ssm / xlstm / hybrid): stacked like the
     dense layout — recurrent state has no sequence axis to page, so slots
     are whole per-slot states.  A separate class so layout policy stays
-    out of the scheduler."""
+    out of the scheduler.  A released state's buffers (``caches``) are
+    reset in place to what ``init_cache`` gives: a recurrence has no
+    ``pos`` mask to hide what the last occupant left."""
 
     layout = "recurrent"
+
+    def __init__(self, lane: "Lane", params, batch: int, slot_len: int, *,
+                 caches: Optional[dict] = None, **kw):
+        super().__init__(lane, params, batch, slot_len, caches=caches, **kw)
+        if caches is not None:
+            copy_leaves(self.caches, stack_slot_caches(
+                lane.model, batch, slot_len, params.embed.device))
 
 
 class PagedKV(SequenceState):
@@ -1238,14 +1272,12 @@ class Lane:
 
     def graph_rule(self, device=None) -> str:
         """How this lane's decode tick runs: "captured" (a CUDA graph per
-        key, ``core/capture.py``), or eager and why — recurrent states are
-        made anew by every step (ROADMAP A.3), a mesh's collectives run
+        key, ``core/capture.py``; every layout, recurrent states written in
+        place by ``SpecOps``), or eager and why — a mesh's collectives run
         over gloo, which a graph cannot capture, the switch is off, or the
         tensors lie on the CPU, which has no graphs."""
         if self.mesh is not None:
             return "eager (mesh)"
-        if self.layout == "recurrent":
-            return "eager (recurrent, ROADMAP A.3)"
         if not self.graphs:
             return "eager (graphs=False)"
         if device is not None and torch.device(device).type != "cuda":
@@ -1401,7 +1433,8 @@ class Lane:
         A state of a shape that ``release`` gave back takes that state's
         device buffers: fresh host bookkeeping (allocator, prefix index),
         the table reset to the trap block and ``pos`` to 0; the stale K/V
-        past ``pos`` is masked, as it is in a live state.  The tick's and
+        past ``pos`` is masked, as it is in a live state, and a recurrent
+        state's leaves are reset to ``init_cache``'s.  The tick's and
         round's CUDA graphs are tied to buffer addresses
         (``core/capture.py``), so a drain of a shape seen before captures
         nothing new."""
@@ -1441,10 +1474,11 @@ class Lane:
 
     def release(self, state: SequenceState) -> None:
         """Give ``state``'s device buffers back to ``make_state`` for the
-        next state of its shape; the state must not be used after.  A
-        no-op where the tick runs eager by rule (a mesh, recurrent
-        states): their states stay fresh."""
-        if self.mesh is None and self.layout != "recurrent":
+        next state of its shape (recurrent states are reset to
+        ``init_cache``'s values there); the state must not be used after.
+        A no-op on a mesh, whose ticks run eager by rule: its states stay
+        fresh."""
+        if self.mesh is None:
             self._spare.setdefault(state.reuse_key, []).append(state.caches)
 
     def _place(self, params) -> dict:

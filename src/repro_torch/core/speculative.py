@@ -330,13 +330,10 @@ class BatchedSpecDecoder:
         self.kv_layout = kv_layout
         self.mode = mode
         self.attn_backend = attn_backend
-        # the linear round captured per (shapes, buffers): the twin of the
-        # JAX package's jitted round
+        # the lane's round captured per (shapes, buffers), ``self._graph``:
+        # the twin of the JAX package's jitted ``_round_impl``,
+        # ``_tree_round_impl`` or ``_self_round_impl``
         self.graphs = graphs
-        self._linear_graph = capture(
-            self._linear_round,
-            copy_argnames=("d_pos", "t_pos", "last", "active"),
-            name="BatchedSpecDecoder.linear_round")
         self.counters = {"member_rounds": 0, "draft_tokens": 0,
                          "verify_tokens": 0, "accepted_tokens": 0,
                          "emitted_tokens": 0}
@@ -348,6 +345,10 @@ class BatchedSpecDecoder:
                                  layout_for(target_model, kv_layout),
                                  attn_backend)
             self._per_round = (gamma, gamma + 1)
+            self._graph = capture(
+                self._linear_round,
+                copy_argnames=("d_pos", "t_pos", "last", "active"),
+                name="BatchedSpecDecoder.linear_round")
         elif mode == "tree":
             if not self.tree_supported(draft_model, target_model):
                 raise ValueError(
@@ -362,6 +363,10 @@ class BatchedSpecDecoder:
                                  else branching_for(2, gamma))
             self._per_round = (self.plan.n - 1, self.plan.n_pad)
             self._plan_on = {}          # device -> (mask, depths) tensors
+            self._graph = capture(
+                self._tree_round,
+                copy_argnames=("d_pos", "t_pos", "last", "active"),
+                name="BatchedSpecDecoder.tree_round")
         else:                                            # self
             model = draft_model
             if not self.self_supported(model):
@@ -378,6 +383,9 @@ class BatchedSpecDecoder:
             self._cfg = model.cfg
             self._tops = SpecOps(model, "dense", attn_backend)
             self._per_round = (gamma, gamma + 1)
+            self._graph = capture(
+                self._self_body, copy_argnames=("pos", "last", "active"),
+                name="BatchedSpecDecoder.self_round")
 
     @staticmethod
     def tree_supported(draft_model, target_model) -> bool:
@@ -390,24 +398,19 @@ class BatchedSpecDecoder:
 
     @property
     def captures(self) -> int:
-        """CUDA graphs the linear round has captured."""
-        return self._linear_graph.captures
+        """CUDA graphs the lane's round has captured."""
+        return self._graph.captures
 
     @property
     def capture_seconds(self) -> float:
         """Host seconds those captures took (warm-ups included)."""
-        return self._linear_graph.capture_seconds
+        return self._graph.capture_seconds
 
     def graph_rule(self, device=None) -> str:
-        """How a round runs: "captured" (the linear round, a CUDA graph per
-        key, ``core/capture.py``), or eager and why — the tree and self
-        rounds and recurrent states wait for ROADMAP A.3, a mesh's
+        """How a round runs: "captured" (every lane and layout, a CUDA
+        graph per key, ``core/capture.py``), or eager and why — a mesh's
         collectives run over gloo, which a graph cannot capture, the switch
         is off, or the tensors lie on the CPU, which has no graphs."""
-        if self.mode != "linear":
-            return f"eager ({self.mode} round, ROADMAP A.3)"
-        if "recurrent" in (self._dops.layout, self._tops.layout):
-            return "eager (recurrent, ROADMAP A.3)"
         if runtime.current_mesh() is not None:
             return "eager (mesh)"
         if not self.graphs:
@@ -450,15 +453,16 @@ class BatchedSpecDecoder:
         every rank the wave's acceptances, which commit the replicated
         cloud state and the host pull.  Off-mesh the wave calls are the
         identity."""
-        if self.mode == "tree":
-            return self._tree_round(draft_params, target_params, d_slots,
-                                    t_slots, last, active, gen)
         d_pools = {k: v for k, v in d_slots.items() if k != "pos"}
         t_pools = {k: v for k, v in t_slots.items() if k != "pos"}
-        run = self._linear_graph if self.graph_rule() == "captured" \
-            else self._linear_round
-        return run(draft_params, target_params, d_pools, d_slots["pos"],
-                   t_pools, t_slots["pos"], last, active, gen)
+        args = (draft_params, target_params, d_pools, d_slots["pos"],
+                t_pools, t_slots["pos"], last, active, gen)
+        captured = self.graph_rule() == "captured"
+        if self.mode == "tree":
+            run = self._graph if captured else self._tree_round
+            return run(*args, *self._plan_tensors(last.device))
+        run = self._graph if captured else self._linear_round
+        return run(*args)
 
     def _linear_round(self, draft_params, target_params, d_pools, d_pos,
                       t_pools, t_pos, last, active, gen):
@@ -510,16 +514,19 @@ class BatchedSpecDecoder:
 
     def _plan_tensors(self, device):
         """The plan's (n_pad, n_pad) mask and (n_pad,) depths on
-        ``device``, copied there once."""
+        ``device``, copied there once, outside any graph: the tree round
+        takes them as addressed arguments."""
         if device not in self._plan_on:
             self._plan_on[device] = (
                 torch.as_tensor(self.plan.mask, device=device),
                 torch.as_tensor(self.plan.depths, device=device))
         return self._plan_on[device]
 
-    def _tree_round(self, draft_params, target_params, d_slots, t_slots,
-                    last, active, gen):
-        """One packed-tree draft/verify/commit round over the whole group.
+    def _tree_round(self, draft_params, target_params, d_pools, d_pos,
+                    t_pools, t_pos, last, active, gen, mask, depths):
+        """One packed-tree draft/verify/commit round over the whole group
+        (``_round``; what its graphs capture).  ``mask`` and ``depths``:
+        the plan's tensors (``_plan_tensors``).
 
         Drafting expands the static ``TreePlan`` level by level and
         INCREMENTALLY: each span (root, then each level) is one rectangular
@@ -540,11 +547,12 @@ class BatchedSpecDecoder:
         (G, n_pad, V) draft logits never cross), and ONE more gather
         brings every rank the wave's ``n_acc``, emitted tokens and paths:
         the edge commits its rows, the cloud the whole wave."""
+        d_slots = {**d_pools, "pos": d_pos}
+        t_slots = {**t_pools, "pos": t_pos}
         plan = self.plan
         G = active.shape[0]
         D = plan.depth
         dev = last.device
-        mask, depths = self._plan_tensors(dev)
         d_snap = self._dops.snapshot(d_slots)
         t_snap = self._tops.snapshot(t_slots)
 
@@ -564,11 +572,7 @@ class BatchedSpecDecoder:
                 depths[a:b] - a)
             if si + 1 == len(spans):
                 break                            # deepest level: K/V only
-            lo, hi = spans[si + 1]
-            by_parent = {}
-            for c in range(lo, hi):
-                by_parent.setdefault(int(plan.parent[c]), []).append(c)
-            for pnode, kids in sorted(by_parent.items()):
+            for pnode, kids in plan.children[si]:
                 plg = lgs[:, pnode - a].float()                  # (G, V)
                 top = torch.sort(plg, dim=-1, descending=True,
                                  stable=True).indices[:, :len(kids)]
@@ -606,6 +610,15 @@ class BatchedSpecDecoder:
         return d_slots, t_slots, last, em[:, :D], n_acc, next_tok
 
     def _self_round(self, params, slots, last, active, gen):
+        """One self-speculative round (``_self_body``): a CUDA graph per
+        key under ``graph_rule() == "captured"``, with ``pos``, the pending
+        tokens and ``active`` copied in."""
+        run = self._graph if self.graph_rule() == "captured" \
+            else self._self_body
+        return run(params, {k: v for k, v in slots.items() if k != "pos"},
+                   slots["pos"], last, active, gen)
+
+    def _self_body(self, params, pools, pos, last, active, gen):
         """One self-speculative round: the model's first ``exit_layer``
         blocks + shared head draft a gamma-chain into the SHARED cache
         (shallow K/V at the draft positions, ``pos`` advanced by hand),
@@ -619,6 +632,7 @@ class BatchedSpecDecoder:
         of (draft tape, ``n_acc``, next token) gives every rank the whole
         wave for the host pull.  (The JAX package gathers the verify input
         and verifies replicated; the tokens are the same.)"""
+        slots = {**pools, "pos": pos}
         gamma = self.gamma
         G = active.shape[0]
         view = slots.get(VIEW)

@@ -309,6 +309,13 @@ class TreePlan:
         self.levels = tuple((self.level_lo[l],
                              self.level_lo[l] + int(widths[l - 1]))
                             for l in range(1, self.depth + 1))
+        # children[l]: level l + 1's nodes grouped by parent, as (parent,
+        # child nodes) in parent order — the top-k expansion's static
+        # grouping, so a captured round walks no parent table
+        self.children = tuple(
+            tuple((p, tuple(c for c in range(lo, hi) if parent[c] == p))
+                  for p in sorted({int(parent[c]) for c in range(lo, hi)}))
+            for lo, hi in self.levels)
 
 
 def branching_for(width: int, gamma: int) -> tuple:

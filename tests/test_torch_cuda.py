@@ -1612,11 +1612,11 @@ def test_new_families_train_on_the_kernels(cuda, family, remat):
 # The compiled serving tick (``core/capture.py``): ``Lane.chunk`` and the
 # linear round as CUDA graphs against the same work eager, at reduced f32
 # with TF32 off (token identity), and the capture counter's steady state.
-def _graph_pair(dtype="float32"):
+def _graph_pair(dtype="float32", edge="smollm-135m"):
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    e = get_config("smollm-135m").reduced().replace(param_dtype=dtype,
-                                                    activ_dtype=dtype)
+    e = get_config(edge).reduced().replace(param_dtype=dtype,
+                                           activ_dtype=dtype)
     c = get_config("granite-8b").reduced().replace(
         vocab_size=e.vocab_size, param_dtype=dtype, activ_dtype=dtype)
     em, cm = Model(e), Model(c)
@@ -1746,3 +1746,77 @@ def test_a_capture_that_syncs_raises_and_runs_nothing_eager(cuda):
     assert fn.captures == 0
     # the device still works after the failed capture
     assert float(capture(lambda y: y * 2, name="double")(x).sum()) == 8.0
+
+
+# ------------------------------------------------- every round captured
+# The tree and self rounds and the recurrent tick and round captured too:
+# per path, the engine settings and the kernels its graphs launch
+ROUND_PATHS = {
+    "tree": ("smollm-135m", {"spec_mode": "tree", "kv_layout": "dense"},
+             ("tree_verify_attention", "decode_attention")),
+    "self": ("smollm-135m", {"spec_mode": "self"},
+             ("paged_decode_attention", "spec_verify")),
+    "mamba2": ("mamba2-370m", {}, ("spec_verify",)),
+    "xlstm": ("xlstm-125m", {}, ("spec_verify",)),
+    "zamba2": ("zamba2-2.7b", {}, ("decode_attention", "spec_verify")),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUND_PATHS))
+def test_captured_tree_self_and_recurrent_rounds_equal_eager(cuda, name):
+    """Every request escalates (threshold -1) on the tree lane, the self
+    lane and a recurrent edge's linear lane: the captured ticks and rounds
+    give the eager engine's tokens, paths and uncertainties exactly and
+    launch the same kernels as often (the path's own among them), every
+    rule reads "captured", and a second identical drain captures nothing
+    and repeats the tokens."""
+    from repro_torch.analysis.compile_guard import CaptureCounter
+    edge, kw, kernels = ROUND_PATHS[name]
+    em, cm, ep, cp = _graph_pair(edge=edge)
+    prompts = _graph_prompts(em.cfg.vocab_size)
+    runs = {}
+    for graphs in (False, True):
+        eng = _graph_engine(em, cm, graphs, **kw)
+        with CaptureCounter() as cc:
+            ops.reset_launch_counts()
+            traces = _trace_tuple(eng.serve_batch(ep, cp, prompts, 7))
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            warm = cc.count
+            cc.reset()
+            again = _trace_tuple(eng.serve_batch(ep, cp, prompts, 7))
+            assert cc.count == 0, "second drain captured: " + "; ".join(
+                cc.events)
+        assert again == traces
+        assert (warm > 0) == graphs
+        runs[graphs] = traces, launches, eng.stats()
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1] == runs[False][1]
+    assert all(runs[True][1][k] > 0 for k in kernels), runs[True][1]
+    assert runs[True][2]["graphs"] == dict.fromkeys(
+        ("edge", "cloud", "spec"), "captured")
+    assert runs[True][2]["captures"]["spec"] > 0
+    assert all(p == "speculative" for p, _, _ in runs[True][0])
+
+
+def test_the_collector_is_held_off_while_capturing(cuda):
+    """A collection of the cyclic garbage collector during a capture could
+    free an unreachable engine's graphs (destroying them and their memory
+    pools mid-capture), which invalidates the capture in flight: the
+    helper holds the collector off while it captures and no longer.  The
+    function runs twice on a new key, its warm-up with the collector on,
+    its capture with it off; the next call only replays."""
+    import gc
+    from repro_torch.core.capture import capture
+    seen = []
+
+    def body(y):
+        seen.append(gc.isenabled())
+        return y * 2
+
+    fn = capture(body, copy_argnames=("y",), name="body")
+    x = torch.arange(4.0, device=cuda)
+    assert torch.equal(fn(x), x * 2)
+    assert torch.equal(fn(x + 1), (x + 1) * 2)
+    assert seen == [True, False] and gc.isenabled()
+    assert fn.captures == 1
