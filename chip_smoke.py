@@ -1870,6 +1870,18 @@ PER_REQUEST_KERNELS = ("flash_attention", "decode_attention",
                        "spec_verify")
 
 
+def _rules(graphs, e_cfg):
+    """The ``stats()["graphs"]`` rules of an off-mesh engine on the card
+    with graphs on or off: every tick, round and prefill captured, but a
+    recurrent edge's prefill (exact length, eager)."""
+    rule = "captured" if graphs else "eager (graphs=False)"
+    rules = dict.fromkeys(("edge", "cloud", "spec", "edge prefill",
+                           "cloud prefill"), rule)
+    if graphs and e_cfg.family in ("ssm", "xlstm", "hybrid"):
+        rules["edge prefill"] = "eager (recurrent prefill: exact length)"
+    return rules
+
+
 def _engine(e_cfg, c_cfg, attn_backend="auto", **kw):
     from repro_torch.core.policy import SpeculativePolicy
     from repro_torch.core.scheduler import BatchedEngine
@@ -1935,8 +1947,7 @@ def phase_serve():
         for k in kernels:
             check(launches[k] > 0,
                   f"kernel {k} was not launched on the {name} path")
-        check(stats["graphs"] == dict.fromkeys(("edge", "cloud", "spec"),
-                                               "captured"),
+        check(stats["graphs"] == _rules(True, e_cfg),
               f"{name} path: graph rules {stats['graphs']}")
         for k, n in launches.items():
             total[k] += n
@@ -1996,13 +2007,25 @@ def phase_serve():
 # the self lane drafts with the first of two layers)
 GRAPHS_NEW = 8
 GRAPHS_PARITY_NEW = 8
-GRAPHS_KERNELS = {"paged": ("paged_decode_attention", "spec_verify"),
-                  "dense": ("decode_attention", "spec_verify"),
-                  "tree": ("tree_verify_attention", "decode_attention"),
-                  "self": ("paged_decode_attention", "spec_verify"),
-                  "mamba2": ("spec_verify",),
-                  "xlstm": ("spec_verify",),
-                  "hybrid": ("decode_attention", "spec_verify")}
+GRAPHS_KERNELS = {"paged": ("paged_decode_attention", "spec_verify",
+                            "flash_attention"),
+                  "dense": ("decode_attention", "spec_verify",
+                            "flash_attention"),
+                  "tree": ("tree_verify_attention", "decode_attention",
+                           "flash_attention"),
+                  "self": ("paged_decode_attention", "spec_verify",
+                           "flash_attention"),
+                  "mamba2": ("spec_verify", "flash_attention"),
+                  "xlstm": ("spec_verify", "flash_attention"),
+                  "hybrid": ("decode_attention", "spec_verify",
+                             "flash_attention")}
+# [graphs] lengths: drains of ever new prompt lengths on one engine per
+# lane kind (paged linear; dense tree) at PARITY_DEPTH, f32, the longest
+# first, GRAPHS_LENGTHS_NEW new tokens a drain; prompts past 17 tokens
+# prefill chunked
+GRAPHS_LENGTHS = tuple(range(40, 8, -2))
+GRAPHS_LENGTHS_NEW = 4
+GRAPHS_LENGTHS_ENGINES = (("paged", {}), ("tree", PATHS[1][2]))
 GRAPHS_PARITY = (
     ("paged", "smollm-135m", {}),
     ("dense", "smollm-135m", {"kv_layout": "dense"}),
@@ -2086,10 +2109,10 @@ def phase_graphs(ep, cp, e_cfg, c_cfg, prompts):
                     check(_trace_key(again[0]) == _trace_key(runs[True][0]),
                           f"[graphs] {label}: the second captured drain gave "
                           "other tokens")
-            check(eng.stats()["graphs"] == dict.fromkeys(
-                ("edge", "cloud", "spec"),
-                "captured" if graphs else "eager (graphs=False)"),
-                f"[graphs] {label}: rules {eng.stats()['graphs']}")
+            check(eng.stats()["graphs"] == _rules(graphs, pe),
+                  f"[graphs] {label}: rules {eng.stats()['graphs']}")
+            if graphs and label == "mamba2":
+                _recurrent_prefill_capture(eng, fep, fprompts[0])
         eager, capt = runs[False], runs[True]
         same = _trace_key(eager[0]) == _trace_key(capt[0])
         check(same, f"[graphs] {label}: the captured drain's traces differ "
@@ -2110,6 +2133,8 @@ def phase_graphs(ep, cp, e_cfg, c_cfg, prompts):
               + ", ".join(f"{k} {capt[2][k]}" for k in kernels), flush=True)
     del fep, fcp
     torch.cuda.empty_cache()
+    lengths_graphs()
+    torch.cuda.empty_cache()
 
     # ---- full width, bf16: eager, captured, captured, eager
     engines = {g: _engine(e_cfg, c_cfg, graphs=g, use_cache=False)
@@ -2119,15 +2144,19 @@ def phase_graphs(ep, cp, e_cfg, c_cfg, prompts):
         with CaptureCounter() as cc:
             warm[graphs] = _graphs_drain(engines[graphs], ep, cp, prompts,
                                          GRAPHS_NEW)
-        check((cc.count > 0) == graphs,
-              f"[graphs] warm drain (graphs={graphs}) captured {cc.count}")
+            check((cc.count > 0) == graphs,
+                  f"[graphs] warm drain (graphs={graphs}) captured "
+                  f"{cc.count}")
     st = warm[True][3]
     print(f"[graphs] full width ({e_cfg.num_layers}-layer {e_cfg.name} + "
           f"{c_cfg.num_layers}-layer {c_cfg.name}, {e_cfg.param_dtype}, "
           f"batch 8, {GRAPHS_NEW} new): warm drains eager "
           f"{warm[False][1]:.3f} s, captured {warm[True][1]:.3f} s with "
-          f"captures {st['captures']} taking {st['capture_seconds']:.3f} s",
-          flush=True)
+          f"captures {st['captures']} taking {st['capture_seconds']:.3f} s; "
+          "per function: " + "; ".join(
+              f"{f.name} {f.captures} in {f.capture_seconds:.3f} s"
+              for f in _functions(engines[True]) if f.captures), flush=True)
+    _graph_pools(engines[True], {"edge": ep, "cloud": cp}, prompts[0])
     turns = []
     rounds = {g: warm[g][3]["spec_lanes"]["linear"]["member_rounds"]
               for g in (False, True)}
@@ -2166,7 +2195,268 @@ def phase_graphs(ep, cp, e_cfg, c_cfg, prompts):
               f"{'captured' if graphs else 'eager'}: host issue {h:.3f} ms, "
               f"stream span {d:.3f} ms, device busy {busy:.3f} ms",
               flush=True)
+    for graphs in (False, True, True, False):
+        for side, params in (("edge", ep), ("cloud", cp)):
+            lane = getattr(engines[graphs], side)
+            h, d, busy = _prefill_ms(lane, params, prompts[0])
+            print(f"[graphs] one batch-1 prefill, {side} "
+                  f"{lane.model.cfg.name} ({prompts[0].size - 1} entries "
+                  f"in a bucket of 16, max_seq 32, "
+                  f"{lane.prefill_rule('cuda')}): host issue {h:.3f} ms, "
+                  f"stream span {d:.3f} ms, device busy {busy:.3f} ms",
+                  flush=True)
     return total
+
+
+def _functions(eng):
+    """The captured functions of an engine: each lane's tick, prefill and
+    extend (its dense side's too) and the speculative round."""
+    seen = {}
+    for lane in (eng.edge, eng.cloud, eng._spec_edge, eng._spec_cloud):
+        for f in lane.captured_functions():
+            seen[id(f)] = f
+    seen[id(eng.spec._graph)] = eng.spec._graph
+    return list(seen.values())
+
+
+def _held_bytes(g) -> int:
+    """Device bytes a captured graph keeps alive: its static inputs and the
+    outputs it builds in its memory pool."""
+    import torch
+    return sum(t.nbytes for t in g.static_in) + sum(
+        t.nbytes for t in g.plan if isinstance(t, torch.Tensor))
+
+
+def _pool_bytes():
+    """(reserved, allocated) bytes of the memory pool the graphs share
+    (``capture.pool``), from the allocator's segments; None where this
+    PyTorch does not name a segment's pool."""
+    import torch
+    from repro_torch.core.capture import pool
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    pid = tuple(pool(torch.device("cuda", torch.cuda.current_device())))
+    mine = [x for x in segs if tuple(x["segment_pool_id"]) == pid]
+    return (sum(x["total_size"] for x in mine),
+            sum(x["allocated_size"] for x in mine))
+
+
+def _graph_pools(eng, params, prompt):
+    """``[graphs] pool``: the graphs' shared memory pool after the warm
+    full-width drains (reserved: the largest capture's temporaries plus
+    every graph's outputs; allocated: the outputs), what one graph of
+    each captured function keeps alive (a prefill graph: the cache it
+    builds, which every replay clones out), and what one prefill graph of
+    each lane reserves in a private pool of its own, as every graph did
+    before they shared one."""
+    import torch
+    got = _pool_bytes()
+    print("[graphs] pool shared by every graph: " + (
+        "not named by this PyTorch" if got is None else
+        f"reserved {got[0]} B, allocated {got[1]} B; "
+        f"torch.cuda.memory_reserved {torch.cuda.memory_reserved()} B"),
+        flush=True)
+    for f in _functions(eng):
+        if not f.live_graphs:
+            continue
+        g = next(iter(f._graphs.values()))
+        print(f"[graphs] pool {f.name}, first of {f.live_graphs} graphs "
+              f"({f.captures} captured, {f.dropped} dropped): keeps alive "
+              f"{_held_bytes(g)} B", flush=True)
+    for side in ("edge", "cloud"):
+        lane = getattr(eng, side)
+        got = _private_pool_bytes(lane, params[side], prompt)
+        print(f"[graphs] pool of its own, one {lane.model.cfg.name} prefill "
+              f"graph ({prompt.size - 1} entries, max_seq 32): " + (
+                  "not named by this PyTorch" if got is None else
+                  f"reserved {got[0]} B, allocated {got[1]} B"), flush=True)
+
+
+def _private_pool_bytes(lane, params, prompt, max_seq=32):
+    """(reserved, allocated) bytes of the private memory pool of ONE
+    capture of ``lane``'s prefill body (``torch.cuda.CUDAGraph`` with no
+    shared pool), read from the allocator's segments while the graph
+    lives; None where this PyTorch does not name a segment's pool.  Its
+    launches (warm-up and capture) are taken back from the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    entries = np.asarray(prompt, np.int32)[:-1]
+    pad = 1 << (entries.size - 1).bit_length()
+    toks = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
+    toks[0, :entries.size] = torch.as_tensor(entries, device="cuda")
+    before = ops.launch_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lane._prefill_body(params, toks, max_seq=max_seq)   # warm-up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        out = lane._prefill_body(params, toks, max_seq=max_seq)
+        g.capture_end()
+    torch.cuda.synchronize()
+    ops.add_launch_counts({k: before[k] - n
+                           for k, n in ops.launch_counts().items()
+                           if n != before[k]})
+    segs = torch.cuda.memory_snapshot()
+    got = None
+    if not segs or "segment_pool_id" in segs[0]:
+        pid = tuple(g.pool())
+        mine = [x for x in segs if tuple(x["segment_pool_id"]) == pid]
+        got = (sum(x["total_size"] for x in mine),
+               sum(x["allocated_size"] for x in mine))
+    del out, g
+    torch.cuda.synchronize()
+    return got
+
+
+def _prefill_ms(lane, params, prompt, max_seq=32):
+    """(host issue ms, stream span ms, device busy ms) of one batch-1
+    admission prefill (``Lane.prefill``) as the paged linear path runs it,
+    eager or captured as the lane's rule says; the device time is the
+    profiler's per prefill over 2."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn = lambda: lane.prefill(params, prompt, max_seq)
+    host, span = _host_device_ms(fn, reps=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+    return host, span, device_activity(prof)[0] / 2
+
+
+def _recurrent_prefill_capture(eng, params, prompt):
+    """What capturing a recurrent lane's exact-length prefill would cost:
+    one capture of ``Lane._prefill_body`` (its warm-up run included)
+    against an eager prefill and a replay, at the parity depth."""
+    import torch
+    from repro_torch.core.capture import capture
+    lane = eng.edge
+    toks = torch.as_tensor(prompt[None, :-1], device="cuda")
+    n = prompt.size - 1
+    run = lambda: lane._prefill_body(params, toks, max_seq=n)
+    run()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    eager = time.perf_counter() - t
+    fn = capture(lane._prefill_body, static_argnames=("max_seq",),
+                 copy_argnames=("tokens",), name="recurrent prefill probe")
+    t = time.perf_counter()
+    fn(params, toks, max_seq=n)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t
+    t = time.perf_counter()
+    fn(params, toks, max_seq=n)
+    torch.cuda.synchronize()
+    replay = time.perf_counter() - t
+    print(f"[graphs] mamba2 recurrent prefill at exact length ({n} entries, "
+          f"{lane.model.cfg.num_layers} layers, f32): eager "
+          f"{eager * 1e3:.2f} ms; a capture {took * 1e3:.2f} ms (its "
+          f"warm-up run included, {fn.capture_seconds * 1e3:.2f} ms by the "
+          f"helper); a replay {replay * 1e3:.2f} ms; rule "
+          f"{lane.prefill_rule('cuda')!r}", flush=True)
+
+
+def lengths_graphs():
+    """``[graphs] lengths``: the bounds of fault C.3.  One engine per lane
+    kind at ``PARITY_DEPTH``, f32, serves drains of ever new prompt
+    lengths (``GRAPHS_LENGTHS``, the longest first, each drain its own
+    slot_len): after each drain every lane holds at most
+    ``MAX_SPARE_STATES`` released states and ``MAX_SPARE_DETACHED``
+    detached caches and every captured function at most ``MAX_GRAPHS``
+    graphs; ``torch.cuda.memory_allocated()`` less what it was before the
+    first drain (the drains' residue) is printed beside what the held
+    buffers account for (spares, detached caches, the graphs' static
+    buffers).  Then the residue after the last drain must be no higher
+    than after the drain at which every lane's spare states first filled
+    their bound, plus the slack that the graph bounds still allow past
+    that drain: for each function, ``MAX_GRAPHS`` less the graphs it held
+    then, times the most one of its graphs held."""
+    import gc
+    import torch
+    from repro_torch.core.capture import MAX_GRAPHS
+    from repro_torch.core.seq_state import (MAX_SPARE_DETACHED,
+                                            MAX_SPARE_STATES)
+    from repro_torch.models import Model
+    from repro_torch.models.ssm import tree_leaves
+    e_cfg, c_cfg = _configs("smollm-135m", PARITY_DEPTH["smollm-135m"],
+                            "float32")
+    ep = Model(e_cfg).init(seed=0, device="cuda")
+    cp = Model(c_cfg).init(seed=1, device="cuda")
+
+    def nbytes(tree):
+        return sum(t.nbytes for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    for label, kw in GRAPHS_LENGTHS_ENGINES:
+        eng = _engine(e_cfg, c_cfg, use_cache=False, **kw)
+        lanes = list({id(x): x for x in (eng.edge, eng.cloud, eng._spec_edge,
+                                         eng._spec_cloud)}.values())
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        rows, most = [], {}
+        t = time.perf_counter()
+        for d, n in enumerate(GRAPHS_LENGTHS):
+            eng.serve_batch(ep, cp, _prompts(e_cfg.vocab_size, length=n),
+                            GRAPHS_LENGTHS_NEW)
+            torch.cuda.synchronize()
+            fns = _functions(eng)
+            for f in fns:
+                for g in f._graphs.values():
+                    most[f.name] = max(most.get(f.name, 0), _held_bytes(g))
+            spares = [(x.spare_states, x.spare_detached) for x in lanes]
+            live = {f.name: f.live_graphs for f in fns}
+            held = sum(nbytes(b) for x in lanes
+                       for pool in (x._spare, x._detached)
+                       for _, b in pool._held.values()) + sum(
+                _held_bytes(g) for f in fns for g in f._graphs.values())
+            residue = torch.cuda.memory_allocated() - base
+            rows.append((spares, live, residue))
+            check(all(s <= MAX_SPARE_STATES and dt <= MAX_SPARE_DETACHED
+                      for s, dt in spares) and
+                  all(v <= MAX_GRAPHS for v in live.values()),
+                  f"[graphs] lengths {label}: a bound broken after drain "
+                  f"{d}: spares {spares}, graphs {live}")
+            print(f"[graphs] lengths {label} drain {d} (prompts of {n}): "
+                  f"spares (states, detached) per lane {spares}; graphs "
+                  f"{sorted(live.values(), reverse=True)}; memory_allocated "
+                  f"residue {residue} B, held by spares and graphs {held} B",
+                  flush=True)
+        full = [d for d, (sp, _, _) in enumerate(rows)
+                if all(s == MAX_SPARE_STATES for s, _ in sp)]
+        check(bool(full), f"[graphs] lengths {label}: the spare states never "
+              "filled their bound")
+        f0 = full[0]
+        slack = sum((MAX_GRAPHS - rows[f0][1].get(k, 0)) * b
+                    for k, b in most.items())
+        last = rows[-1][2]
+        check(last <= rows[f0][2] + slack,
+              f"[graphs] lengths {label}: residue {last} B after the last "
+              f"drain, above {rows[f0][2]} B + slack {slack} B")
+        st = eng.stats()
+        got = _pool_bytes()
+        print(f"[graphs] lengths {label}: the graphs' shared pool "
+              + ("not named by this PyTorch" if got is None else
+                 f"reserved {got[0]} B, allocated {got[1]} B"), flush=True)
+        print(f"[graphs] lengths {label}: {len(GRAPHS_LENGTHS)} drains in "
+              f"{time.perf_counter() - t:.1f} s, captures {st['captures']} "
+              f"in {st['capture_seconds']:.2f} s; spare states filled "
+              f"their bound ({MAX_SPARE_STATES}) at drain {f0}, residue "
+              f"{rows[f0][2]} B there and {last} B after the last drain "
+              f"(slack the graph bounds allow: {slack} B); graphs held "
+              f"at most {max(max(r[1].values()) for r in rows)} per "
+              f"function (bound {MAX_GRAPHS}); dropped "
+              + ", ".join(f"{f.name} {f.dropped}" for f in _functions(eng)
+                          if f.dropped), flush=True)
+        del eng
+    lap("graphs lengths")
 
 
 def _check_finite(ep, cp, e_cfg, c_cfg, prompts, traces):

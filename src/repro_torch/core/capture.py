@@ -45,12 +45,35 @@ Launch counts (``kernels/ops.py``): the warm-up counts as the first
 call's launches; the capture runs nothing, so its launches are taken back,
 and every replay adds them again.  ``ops.launch_counts()`` then counts what
 the calls launched, as many as eager calls would.
+
+Memory.  Every graph on a device allocates in ONE memory pool
+(``torch.cuda.graph_pool_handle``), not a private pool each: a replay's
+temporaries are dead once it ends, since every output that escapes is
+cloned at once and replays run one at a time on the caller's stream, so
+the graphs share them.  A private pool keeps its capture's peak of
+temporaries reserved for good: 0.12-0.95 GB a graph at full width (one
+H100, ``chip_smoke.py``'s ``[graphs] pool`` lines).  What a graph keeps
+allocated in the pool is its static outputs.  The pool stays open for the
+process (``pool``: an anchor graph holds it); a failed capture leaves it
+marked as being recorded into, so the next capture opens a new one.
+
+Bounds.  A ``Captured`` keeps at most ``MAX_GRAPHS`` graphs, the least
+recently called dropped first, once the capture that overflows the bound
+has ended (never while a capture is in flight: destroying a graph mid-
+capture invalidates the capture).  ``evict(tensors)`` drops, in every
+live ``Captured`` of the process, each graph whose key addresses one of
+those tensors' storages: the lanes call it when they drop a released
+state's buffers (``Lane.release``), so no graph outlives the buffers it
+reads.  A dropped graph holds nothing: its static inputs and outputs go
+with it, back to the pool for the next capture.
 """
 from __future__ import annotations
 
 import gc
 import inspect
 import time
+import weakref
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -60,6 +83,17 @@ from repro_torch.kernels import ops
 
 _LISTENERS: List[Callable[[str], None]] = []
 _SIDE: Dict[torch.device, torch.cuda.Stream] = {}
+# per device: the shared pool's handle, its anchor graph and its tensor
+_POOLS: Dict[torch.device, tuple] = {}
+# graphs kept per captured function.  A drain of one shape calls each
+# function on a handful of keys (the tick's pow2 step counts on the edge's
+# and each escalation group's state, a prefill per token bucket, an extend
+# per chunk bucket and detached cache): 32 holds them all, so a repeated
+# drain replays without a capture, while drains of ever new lengths keep
+# at most 32 graphs, and the outputs they hold in the pool, per function
+MAX_GRAPHS = 32
+# every live Captured, for ``evict``
+_LIVE: "weakref.WeakSet[Captured]" = weakref.WeakSet()
 
 
 class CaptureError(RuntimeError):
@@ -91,8 +125,42 @@ def _side_stream(dev: torch.device) -> torch.cuda.Stream:
     return s
 
 
+def pool(dev: torch.device) -> tuple:
+    """The memory pool every graph on ``dev`` allocates in.  The allocator
+    lets a shared pool go, and refuses its handle from then on, once the
+    last graph captured into it is gone (as when every engine of a process
+    has been dropped), so a one-kernel anchor graph, captured into the
+    pool first and never dropped, holds it open."""
+    p = _POOLS.get(dev)
+    if p is None:
+        handle = torch.cuda.graph_pool_handle()
+        anchor, x = torch.cuda.CUDAGraph(), torch.zeros(1, device=dev)
+        side = _side_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            anchor.capture_begin(pool=handle)
+            x.add_(0)
+            anchor.capture_end()
+        p = _POOLS[dev] = (handle, anchor, x)
+    return p[0]
+
+
 def _meta(t: torch.Tensor) -> tuple:
     return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+
+
+def _storage(t: torch.Tensor) -> int:
+    """The address of the storage ``t`` views (shared by all its views)."""
+    return t.untyped_storage().data_ptr()
+
+
+def evict(tensors) -> int:
+    """Drop, in every live ``Captured``, each graph whose key addresses the
+    storage of one of ``tensors``; returns how many went.  Called with a
+    released state's buffers before they are freed, never under a
+    capture."""
+    storages = {_storage(t) for t in tensors}
+    return sum(c.drop(storages) for c in list(_LIVE)) if storages else 0
 
 
 class _Walk:
@@ -138,10 +206,12 @@ class _Walk:
 
 class _Graph:
     """One captured key: the graph, its input buffers, how to build the
-    call's outputs, the kernel launches one replay makes, and the
-    generators it draws from (held, so their ids stay theirs)."""
+    call's outputs, the kernel launches one replay makes, the generators
+    it draws from (held, so their ids stay theirs), and the storages of
+    the tensors it addresses (``evict``)."""
 
-    __slots__ = ("graph", "static_in", "plan", "rebuild", "launches", "gens")
+    __slots__ = ("graph", "static_in", "plan", "rebuild", "launches", "gens",
+                 "storages")
 
 
 def _flatten_out(x, leaves: list):
@@ -164,8 +234,10 @@ def _flatten_out(x, leaves: list):
 
 class Captured:
     """A function captured per key into CUDA graphs (see the module
-    docstring).  ``captures`` counts this function's captures and
-    ``capture_seconds`` sums their host wall time (warm-up included)."""
+    docstring).  ``captures`` counts this function's captures,
+    ``capture_seconds`` sums their host wall time (warm-up included),
+    ``live_graphs`` is the number of graphs held (at most ``MAX_GRAPHS``)
+    and ``dropped`` counts the graphs let go (bound or ``evict``)."""
 
     def __init__(self, fn, *, static_argnames: Sequence[str] = (),
                  copy_argnames: Sequence[str] = (),
@@ -178,9 +250,40 @@ class Captured:
                 raise ValueError(f"{self.name} has no argument {n!r}")
         self.static_argnames = frozenset(static_argnames)
         self.copy_argnames = frozenset(copy_argnames)
-        self._graphs: Dict[tuple, _Graph] = {}
+        self._graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
         self.captures = 0
         self.capture_seconds = 0.0
+        self.dropped = 0
+        _LIVE.add(self)
+
+    @property
+    def live_graphs(self) -> int:
+        return len(self._graphs)
+
+    def _lookup(self, key: tuple):
+        """The graph of ``key`` (now the most recently used), or None."""
+        g = self._graphs.get(key)
+        if g is not None:
+            self._graphs.move_to_end(key)
+        return g
+
+    def _keep(self, key: tuple, g) -> None:
+        """File a new graph as the most recently used; past ``MAX_GRAPHS``
+        the least recently used go (the capture has ended)."""
+        self._graphs[key] = g
+        while len(self._graphs) > MAX_GRAPHS:
+            self._graphs.popitem(last=False)
+            self.dropped += 1
+
+    def drop(self, storages) -> int:
+        """Drop every graph addressing one of ``storages`` (addresses, as
+        ``_storage`` gives them); returns how many went."""
+        gone = [k for k, g in self._graphs.items()
+                if not storages.isdisjoint(g.storages)]
+        for k in gone:
+            del self._graphs[k]
+        self.dropped += len(gone)
+        return len(gone)
 
     def __call__(self, *args, **kwargs):
         bound = self._sig.bind(*args, **kwargs)
@@ -211,10 +314,10 @@ class Captured:
         if dev.type != "cuda":
             return self.fn(*args, **kwargs)
         key = (tuple(key), tuple(walk.key))
-        g = self._graphs.get(key)
+        g = self._lookup(key)
         if g is None:           # the warm-up is this call; later calls replay
             g, out = self._capture(arg, copied, walk, dev)
-            self._graphs[key] = g
+            self._keep(key, g)
             return out
         for buf, (_, src) in zip(g.static_in, copied):
             buf.copy_(src)
@@ -236,6 +339,7 @@ class Captured:
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(dev)
         side = _side_stream(dev)
+        began = False
         try:
             # warm-up: libraries built and loaded, lazy caches filled, on
             # the stream the capture will use
@@ -269,7 +373,9 @@ class Captured:
             gc.disable()
             try:
                 with torch.cuda.stream(side):
-                    g.graph.capture_begin()
+                    shared = pool(dev)
+                    began = True
+                    g.graph.capture_begin(pool=shared)
                     try:
                         out = self.fn(**call)
                     finally:
@@ -282,12 +388,15 @@ class Captured:
                               if n != before[k]}
                 ops.add_launch_counts({k: -n for k, n in g.launches.items()})
         except Exception as e:
+            if began:   # the allocator still deems the pool recorded
+                _POOLS.pop(dev, None)   # into: the next capture opens one
             raise CaptureError(f"capture of {what} failed: "
                                f"{type(e).__name__}: {e}") from e
         leaves: List[torch.Tensor] = []
         g.rebuild = _flatten_out(out, leaves)
         where = {_meta(t): i for i, t in enumerate(walk.tensors)}
         g.plan = [where.get(_meta(t), t) for t in leaves]
+        g.storages = frozenset(_storage(t) for t in walk.tensors)
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         for fn in list(_LISTENERS):

@@ -131,12 +131,17 @@ class BatchedEngine:
     (``Lane.chunk``, every layout) and the speculative round (linear, tree
     and self lanes, KV and recurrent states) run as CUDA graphs, captured
     once per shape and buffer set (``core/capture.py``, the twin of the
-    JAX package's ``jax.jit``); ``graphs=False`` runs them eager, the same
-    work launch by launch.  ``stats()`` reports each one's ``captures`` and
-    its ``graphs`` rule (a mesh runs eager by rule).  Drains and escalation
-    groups reuse the device buffers of earlier states of the same shape
-    (``Lane.make_state``, ``Lane.release``; a recurrent step writes its
-    state back into them), so a steady state captures nothing.
+    JAX package's ``jax.jit``), and so do the KV lanes' admission
+    prefills and chunked-prefill extends (``Lane.prefill``, per ``max_seq``
+    and token bucket; a recurrent lane prefills eager at exact length);
+    ``graphs=False`` runs them eager, the same work launch by launch.
+    ``stats()`` reports each lane's ``captures`` and the ``graphs`` rules
+    (a mesh runs eager by rule).  Drains and escalation groups reuse the
+    device buffers of earlier states of the same shape (``Lane.make_state``,
+    ``Lane.release``; a recurrent step writes its state back into them),
+    so a steady state captures nothing; a lane keeps a bounded number of
+    released states and each captured function a bounded number of graphs
+    (``seq_state.MAX_SPARE_STATES``, ``capture.MAX_GRAPHS``).
 
     Speculation lane: ``spec_mode`` ("linear" | "tree" | "self"; default
     the policy's ``spec_mode``, else linear), ``spec_tree_width`` (the
@@ -604,7 +609,9 @@ class BatchedEngine:
                         t_first=t_cw + clock.step_ms)
 
             # ---- advance chunked prefills: one detached chunk per job per
-            # tick; a finished job lands its cache and arms the slot
+            # tick; a finished job lands its cache and arms the slot, and
+            # its detached buffers go back to the lane once they have landed
+            landed = []
             for b in list(self._prefill_jobs):
                 job = self._prefill_jobs[b]
                 before = job["done"]
@@ -612,11 +619,15 @@ class BatchedEngine:
                 clock.on_prefill(job["done"] - before)
                 if finished:
                     state.finalize(b, job["cache"])
-                    del self._prefill_jobs[b]
+                    landed.append(self._prefill_jobs.pop(b))
                     r = slots[b].req
                     tok_h[b] = int(r.prompt[-1])
                     steps_h[b] = r.max_new
                     unc_h[b] = 0.0
+            if landed:
+                state.flush()
+                for job in landed:
+                    self.edge.end_prefill(job)
 
             occupied = [b for b in range(B) if slots[b].req is not None]
             if not occupied:
@@ -1026,7 +1037,10 @@ class BatchedEngine:
                 "graphs": {"edge": self.edge.graph_rule(self._dev),
                            "cloud": self.cloud.graph_rule(self._dev),
                            "spec": "eager (mesh)" if self.mesh is not None
-                           else self.spec.graph_rule(self._dev)},
+                           else self.spec.graph_rule(self._dev),
+                           "edge prefill": self.edge.prefill_rule(self._dev),
+                           "cloud prefill":
+                           self.cloud.prefill_rule(self._dev)},
                 **self.policy.stats(), **self._kv_stats,
                 **({"adaptation": self.adaptation.stats()}
                    if self.adaptation is not None else {}),

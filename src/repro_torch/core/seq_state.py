@@ -27,7 +27,8 @@
     prefill, the multi-step decode loop with ONE host pull per tick) plus
     the ``make_state`` factory and ``dense_side`` (the same model on dense
     per-slot caches, for tree/self escalation groups).  All layout
-    dispatch lives here.
+    dispatch lives here.  Released states' buffers and chunked prefills'
+    detached caches are kept for reuse in bounded ``SparePool``s.
 
 Cache trees: every leaf has the slot axis first, except the attention
 slabs ``k`` / ``v`` (a leading layer or group axis, then the slot axis).
@@ -69,7 +70,7 @@ sees the whole batch and makes the same decisions.
 from __future__ import annotations
 
 import hashlib
-from collections import Counter
+from collections import Counter, OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,7 +78,7 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.analysis import hot_path
-from repro_torch.core.capture import capture
+from repro_torch.core.capture import capture, evict
 from repro_torch.core.paged_cache import (BlockPool, ShardedBlockPool,
                                           blocks_for, copy_pool_blocks,
                                           prompt_cache_to_blocks,
@@ -92,6 +93,17 @@ from repro_torch.models.ssm import tree_leaves, tree_map
 SLABS = ("k", "v")
 # the cache entry holding a state's local view on a device mesh
 VIEW = "shard"
+# released states a lane keeps for its next states (``SparePool``).  A
+# drain holds at most a handful of one lane's states: the edge's, and per
+# escalation wave a group state, whose paged pool is a pow2 of the wave's
+# residency (1 + log2(batch) sizes, 4 at batch 8).  8 keeps all of them, so
+# a repeated drain of one shape reuses every buffer and captures nothing;
+# drains of ever new lengths leave at most 8 states, and their graphs, per
+# lane instead of one set per length ever seen
+MAX_SPARE_STATES = 8
+# detached chunked-prefill caches a lane keeps: one per slot prefilling at
+# once, which is every slot of the default batch of 8 at worst
+MAX_SPARE_DETACHED = 8
 
 
 # ---------------------------------------------------------------- host pull
@@ -480,9 +492,11 @@ class SequenceState:
 
     layout = "dense"
     caches: Any
-    # the shape Lane.make_state built this state at; Lane.release files
-    # its device buffers under it for the next state of that shape
+    # the shape Lane.make_state built this state at, and its buffers' id
+    # in the lane's SparePool; Lane.release files its device buffers under
+    # them for the next state of that shape
     reuse_key: tuple = ()
+    reuse_id: int = -1
 
     def admit(self, b: int, prompt, need_tokens: int) -> bool:
         """Stage slot ``b``'s prompt prefill; reserve worst-case capacity
@@ -591,7 +605,7 @@ class DenseKV(SequenceState):
         self._pend_caches: List[Any] = []
 
     def admit(self, b: int, prompt, need_tokens: int) -> bool:
-        _, c1 = self.lane.prefill(self.params, prompt, self.slot_len)
+        c1 = self.lane.prefill(self.params, prompt, self.slot_len)
         self._pend_bs.append(b)
         self._pend_caches.append(c1)
         return True
@@ -912,8 +926,8 @@ class PagedKV(SequenceState):
         c1 = None
         if blocks:
             nb = self.pool.blocks_for(entries.size)
-            _, c1 = self.lane.prefill(self.params, prompt,
-                                      nb * self.block_size)
+            c1 = self.lane.prefill(self.params, prompt,
+                                   nb * self.block_size)
         self._land(b, entries, blocks, ns, c1)
         return True
 
@@ -1214,6 +1228,41 @@ class PagedKV(SequenceState):
 
 
 # ---------------------------------------------------------------- lane
+class SparePool:
+    """Released device buffers kept for reuse, by shape key: at most
+    ``bound`` of them, the least recently given back dropped first, and
+    with them every CUDA graph addressing them (``capture.evict``).
+
+    ``take(key)`` hands out the spare of that key that was made first, so
+    a repeated sequence of takes and gives gets the same buffers in the
+    same places whatever order they came back in, and the graphs keyed on
+    them replay; ``give`` files buffers back under their id."""
+
+    def __init__(self, bound: int):
+        self.bound = bound
+        self._held: "OrderedDict[int, Tuple[tuple, Any]]" = OrderedDict()
+        self._made = 0
+
+    def __len__(self) -> int:
+        return len(self._held)
+
+    def take(self, key: tuple) -> Tuple[int, Optional[Any]]:
+        """(id, buffers) of the first-made spare of ``key``; (a new id,
+        None) when there is none."""
+        ids = [i for i, (k, _) in self._held.items() if k == key]
+        if not ids:
+            self._made += 1
+            return self._made - 1, None
+        i = min(ids)
+        return i, self._held.pop(i)[1]
+
+    def give(self, key: tuple, i: int, bufs) -> None:
+        self._held[i] = (key, bufs)
+        while len(self._held) > self.bound:
+            _, (_, old) = self._held.popitem(last=False)
+            evict([t for t in tree_leaves(old) if isinstance(t, torch.Tensor)])
+
+
 class Lane:
     """Batched machinery for ONE model in ONE layout: the decode step
     (``SpecOps.step``), a bucketed prefill, chunked prefill, the multi-step
@@ -1251,24 +1300,54 @@ class Lane:
         # included, so they prefill and extend at exact length.
         self._bucket_prefill = layout != "recurrent"
         # the decode tick captured per (n_steps, topk, shapes, buffers), as
-        # the JAX package jits it with static_argnames=("n_steps", "topk")
+        # the JAX package jits it with static_argnames=("n_steps", "topk");
+        # the prefill per (max_seq, token bucket) and the chunked prefill's
+        # extend per (chunk bucket, detached cache), as it jits them
         self.graphs = graphs
+        where = f"{model.cfg.name}, {layout}"
         self._chunk_graph = capture(
             self._chunk_body, static_argnames=("n_steps", "topk"),
             copy_argnames=("pos", "tok", "steps_left", "unc_sum", "stop"),
-            name="Lane.chunk")
-        # device caches of released states, by shape, for make_state
-        self._spare: Dict[tuple, List[dict]] = {}
+            name=f"Lane.chunk({where})")
+        self._prefill_graph = capture(
+            self._prefill_body, static_argnames=("max_seq",),
+            copy_argnames=("tokens",), name=f"Lane.prefill({where})")
+        self._extend_graph = capture(
+            self._extend_body, copy_argnames=("tokens", "pos"),
+            name=f"Lane.extend({where})")
+        # device caches of released states, and chunked prefills' detached
+        # caches, by shape, for make_state and advance_prefill
+        self._spare = SparePool(MAX_SPARE_STATES)
+        self._detached = SparePool(MAX_SPARE_DETACHED)
+
+    def captured_functions(self) -> list:
+        """This lane's captured functions (its dense side's too)."""
+        fns = [self._chunk_graph, self._prefill_graph, self._extend_graph]
+        if self._dense_side is not None:
+            fns += self._dense_side.captured_functions()
+        return fns
 
     @property
     def captures(self) -> int:
-        """CUDA graphs this lane's decode tick has captured."""
-        return self._chunk_graph.captures
+        """CUDA graphs this lane's tick, prefills and extends have captured
+        (its dense side's included)."""
+        return sum(c.captures for c in self.captured_functions())
 
     @property
     def capture_seconds(self) -> float:
         """Host seconds those captures took (warm-ups included)."""
-        return self._chunk_graph.capture_seconds
+        return sum(c.capture_seconds for c in self.captured_functions())
+
+    @property
+    def spare_states(self) -> int:
+        """Released states held for reuse (at most ``MAX_SPARE_STATES``)."""
+        return len(self._spare)
+
+    @property
+    def spare_detached(self) -> int:
+        """Detached prefill caches held for reuse (at most
+        ``MAX_SPARE_DETACHED``)."""
+        return len(self._detached)
 
     def graph_rule(self, device=None) -> str:
         """How this lane's decode tick runs: "captured" (a CUDA graph per
@@ -1283,6 +1362,17 @@ class Lane:
         if device is not None and torch.device(device).type != "cuda":
             return "eager (cpu: no graphs)"
         return "captured"
+
+    def prefill_rule(self, device=None) -> str:
+        """How this lane's prefills and chunked-prefill extends run: as its
+        tick (``graph_rule``), except on a recurrent lane, which prefills
+        at exact length eager.  One graph per prompt length would cost a
+        warm-up run and a capture, more than the eager pass it replaces,
+        for every length a drain brings, and a drain's lengths rarely
+        repeat (the JAX package compiles one prefill per length)."""
+        if self.mesh is None and self.graphs and not self._bucket_prefill:
+            return "eager (recurrent prefill: exact length)"
+        return self.graph_rule(device)
 
     def dense_side(self) -> "Lane":
         """This lane's model re-hosted on dense per-slot caches (made once).
@@ -1303,31 +1393,55 @@ class Lane:
         return self._dense_side
 
     def prefill(self, params, prompt, max_seq: int):
-        """Prefill ``prompt[:-1]`` into a fresh cache padded to ``max_seq``.
-        KV lanes pad the ENTRY COUNT to a pow2 bucket (capped at
-        ``max_seq``) and pin ``pos`` back to the real length: masked keys
-        weigh exactly zero (plain ``mha`` and the flash kernel alike), so
-        this is bit-identical to an exact-length prefill.  Recurrent lanes
-        prefill the exact length."""
+        """Prefill ``prompt[:-1]`` into a fresh cache padded to ``max_seq``
+        and return the cache (admission reads no logits).  KV lanes pad
+        the ENTRY COUNT to a pow2 bucket (capped at ``max_seq``) and pin
+        ``pos`` back to the real length: masked keys weigh exactly zero
+        (plain ``mha`` and the flash kernel alike), so this is
+        bit-identical to an exact-length prefill.  Recurrent lanes prefill
+        the exact length.
+
+        Under ``prefill_rule() == "captured"`` the prefill runs as one CUDA
+        graph per (``max_seq``, bucket, parameters); the tokens are copied
+        in and the cache the graph builds is cloned out of it."""
         entries = np.asarray(prompt, np.int32)[:-1]
         E = entries.size
         Ep = min(pow2_steps(E, 1 << 30), max_seq) if self._bucket_prefill \
             else E
         if Ep > E:
             entries = np.concatenate([entries, np.zeros(Ep - E, np.int32)])
-        dev = params.embed.device
-        lg, cache = self.model.prefill(
-            params, {"tokens": torch.as_tensor(entries[None], device=dev)},
-            max_seq=max_seq, attn_backend=self.attn_backend)
+        run = self._prefill_graph if self.prefill_rule() == "captured" \
+            else self._prefill_body
+        cache = run(params, torch.as_tensor(entries[None],
+                                             device=params.embed.device),
+                    max_seq=max_seq)
         if Ep > E:
             cache = {**cache, "pos": torch.full_like(cache["pos"], E)}
-        return lg, cache
+        return cache
+
+    def _prefill_body(self, params, tokens, max_seq: int):
+        """A prompt's prefill into a fresh cache of ``max_seq`` entries
+        (what the prefill's graphs capture)."""
+        _, cache = self.model.prefill(params, {"tokens": tokens},
+                                      max_seq=max_seq,
+                                      attn_backend=self.attn_backend)
+        return cache
+
+    def _extend_body(self, params, tokens, pools, pos):
+        """One chunk of a chunked prefill, written into the detached
+        cache's own K/V (what the extend's graphs capture)."""
+        _, cache = self.model.extend_step(params, tokens,
+                                          {**pools, "pos": pos},
+                                          attn_backend=self.attn_backend)
+        return cache
 
     # ------------------------------------------------------------ chunked
     def start_prefill(self, params, prompt, max_seq: int, chunk: int) -> dict:
         """Open a CHUNKED prefill job: ``advance_prefill`` moves ``chunk``
         prompt entries per call into a DETACHED single-sequence cache, so
-        a long prompt never stalls the in-flight decode batch."""
+        a long prompt never stalls the in-flight decode batch.  Once its
+        cache has landed (``SequenceState.finalize``, then ``flush``), the
+        caller hands the job to ``end_prefill``."""
         entries = np.asarray(prompt, np.int32)[:-1]
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -1338,29 +1452,63 @@ class Lane:
         """Advance one chunk of a ``start_prefill`` job; True when every
         prompt entry is in the detached cache.  The final partial chunk
         pow2-pads with ``pos`` pinned back (bit-exact) on KV lanes and runs
-        exact-length on recurrent lanes."""
+        exact-length on recurrent lanes.
+
+        The first chunk is a prefill (``prefill``'s graphs); off a mesh a
+        KV lane then moves the cache into detached buffers of its own,
+        reused across jobs by ``max_seq`` (``SparePool``), and every later
+        chunk extends them in place, captured per (chunk bucket, buffers)
+        under ``prefill_rule() == "captured"`` with the tokens and ``pos``
+        copied in.  Stale entries past ``pos`` are masked, as in a reused
+        state."""
         entries, done, C = job["entries"], job["done"], job["chunk"]
         take = min(C, entries.size - done)
         toks = entries[done:done + take]
         dev = params.embed.device
+        captured = self.prefill_rule() == "captured"
         if job["cache"] is None:
-            _, cache = self.model.prefill(
-                params, {"tokens": torch.as_tensor(toks[None], device=dev)},
-                max_seq=job["max_seq"], attn_backend=self.attn_backend)
+            run = self._prefill_graph if captured else self._prefill_body
+            cache = run(params, torch.as_tensor(toks[None], device=dev),
+                        max_seq=job["max_seq"])
+            if self._bucket_prefill and self.mesh is None:
+                key = ("detached", job["max_seq"])
+                i, bufs = self._detached.take(key)
+                if bufs is None:
+                    bufs = {k: v for k, v in cache.items() if k != "pos"}
+                else:
+                    copy_leaves(bufs, cache)
+                job["buffers"] = (key, i, bufs)
+                cache = {**bufs, "pos": cache["pos"]}
         else:
             Tp = min(pow2_steps(take, C), job["max_seq"] - done) \
                 if self._bucket_prefill else take
             if Tp > take:
                 toks = np.concatenate([toks, np.zeros(Tp - take, np.int32)])
-            _, cache = self.model.extend_step(
-                params, torch.as_tensor(toks[None], device=dev),
-                job["cache"], attn_backend=self.attn_backend)
+            tokens = torch.as_tensor(toks[None], device=dev)
+            if self._bucket_prefill:
+                run = self._extend_graph if captured else self._extend_body
+                cache = run(params, tokens,
+                            {k: v for k, v in job["cache"].items()
+                             if k != "pos"}, job["cache"]["pos"])
+            else:
+                _, cache = self.model.extend_step(
+                    params, tokens, job["cache"],
+                    attn_backend=self.attn_backend)
             if Tp > take:
                 cache = {**cache,
                          "pos": torch.full_like(cache["pos"], done + take)}
         job["cache"] = cache
         job["done"] = done + take
         return job["done"] >= entries.size
+
+    def end_prefill(self, job: dict) -> None:
+        """Give a finished job's detached buffers back for the next job;
+        call it once its cache has landed in the state's device tensors
+        (``flush``): a later job's prefill writes them."""
+        got = job.pop("buffers", None)
+        job["cache"] = None
+        if got is not None:
+            self._detached.give(*got)
 
     @hot_path
     def chunk(self, params, caches, tok, steps_left, unc_sum, gen, stop,
@@ -1437,15 +1585,17 @@ class Lane:
         state's leaves are reset to ``init_cache``'s.  The tick's and
         round's CUDA graphs are tied to buffer addresses
         (``core/capture.py``), so a drain of a shape seen before captures
-        nothing new."""
+        nothing new.  The lane keeps at most ``MAX_SPARE_STATES`` released
+        states (``SparePool``)."""
         shards = self.data_shards if batch % max(self.data_shards, 1) == 0 \
             else 1
         if self.layout != "paged":
             cls = RecurrentState if self.layout == "recurrent" else DenseKV
             key = (cls.layout, batch, slot_len)
+            i, bufs = self._spare.take(key)
             st = cls(self, params, batch, slot_len, data_shards=shards,
-                     caches=self._take(key), **self._place(params))
-            st.reuse_key = key
+                     caches=bufs, **self._place(params))
+            st.reuse_key, st.reuse_id = key, i
             return st
         if num_blocks is None and need_tokens is not None:
             if shards > 1:
@@ -1462,24 +1612,22 @@ class Lane:
                              for t in need_tokens)
                 num_blocks = 1 + pow2_steps(needed, 1 << 30)
         key = ("paged", batch, slot_len, num_blocks)
+        i, bufs = self._spare.take(key)
         st = PagedKV(self, params, batch, slot_len, self.block_size,
                      num_blocks, data_shards=shards, kv_ways=self.kv_ways,
-                     caches=self._take(key), **self._place(params))
-        st.reuse_key = key
+                     caches=bufs, **self._place(params))
+        st.reuse_key, st.reuse_id = key, i
         return st
-
-    def _take(self, key: tuple) -> Optional[dict]:
-        spare = self._spare.get(key)
-        return spare.pop() if spare else None
 
     def release(self, state: SequenceState) -> None:
         """Give ``state``'s device buffers back to ``make_state`` for the
         next state of its shape (recurrent states are reset to
         ``init_cache``'s values there); the state must not be used after.
-        A no-op on a mesh, whose ticks run eager by rule: its states stay
-        fresh."""
+        Past ``MAX_SPARE_STATES`` the least recently released state is
+        dropped with every graph keyed on its buffers.  A no-op on a mesh,
+        whose ticks run eager by rule: its states stay fresh."""
         if self.mesh is None:
-            self._spare.setdefault(state.reuse_key, []).append(state.caches)
+            self._spare.give(state.reuse_key, state.reuse_id, state.caches)
 
     def _place(self, params) -> dict:
         """Where a fresh state's device arrays live (nothing off-mesh):

@@ -343,7 +343,9 @@ def main(argv=None):
     if "captures" in stats:
         print("graphs: " + " ".join(
             f"{k}={stats['graphs'][k]} captures={n}"
-            for k, n in stats["captures"].items()))
+            for k, n in stats["captures"].items())
+            + "".join(f" {k}={v}" for k, v in stats["graphs"].items()
+                      if k.endswith("prefill")))
     if "kv_peak_bytes" in stats:
         print(f"kv: layout={stats['kv_layout']} "
               f"peak={stats['kv_peak_bytes'] / 1e6:.2f}MB "

@@ -414,8 +414,9 @@ def test_shipped_suppressions_are_load_bearing():
 
 
 def test_the_captured_tick_and_round_are_registered():
-    """R2 sees the port's captured functions (the tick and the linear,
-    tree and self rounds), with the tick's static arguments."""
+    """R2 sees the port's captured functions (the tick, the linear, tree
+    and self rounds, the prefill and the chunked prefill's extend), with
+    the tick's and the prefill's static arguments."""
     from repro_torch.analysis.core import ModuleContext
     seen = {}
     for rel in ("core/seq_state.py", "core/speculative.py"):
@@ -424,7 +425,8 @@ def test_the_captured_tick_and_round_are_registered():
         seen.update({fn.name: statics
                      for fn, statics in ctx.capture_static.items()})
     assert seen == {"_chunk_body": {"n_steps", "topk"}, "_linear_round": set(),
-                    "_tree_round": set(), "_self_body": set()}
+                    "_tree_round": set(), "_self_body": set(),
+                    "_prefill_body": {"max_seq"}, "_extend_body": set()}
 
 
 def test_reseeded_violation_turns_tree_dirty(tmp_path):

@@ -157,8 +157,9 @@ def test_graph_rules_in_stats(pair):
     eng.serve_batch(ep, cp, prompts, 3)
     st = eng.stats()
     assert st["captures"] == {"edge": 0, "cloud": 0, "spec": 0}
-    assert st["graphs"] == dict.fromkeys(("edge", "cloud", "spec"),
-                                         "eager (cpu: no graphs)")
+    assert st["graphs"] == dict.fromkeys(
+        ("edge", "cloud", "spec", "edge prefill", "cloud prefill"),
+        "eager (cpu: no graphs)")
     tree = _engine("t", pair, -1.0, spec_mode="tree", kv_layout="dense",
                    graphs=False)
     assert tree.edge.graph_rule() == "eager (graphs=False)"
@@ -167,6 +168,10 @@ def test_graph_rules_in_stats(pair):
                layout="recurrent")
     assert rec.graph_rule("cuda") == "captured"
     assert eng.edge.graph_rule("cuda") == "captured"
+    assert rec.prefill_rule("cuda") == \
+        "eager (recurrent prefill: exact length)"
+    assert eng.edge.prefill_rule("cuda") == "captured"
+    assert tree.edge.prefill_rule() == "eager (graphs=False)"
 
 
 def test_capture_helper_on_the_cpu():

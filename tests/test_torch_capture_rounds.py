@@ -163,8 +163,11 @@ def test_drains_and_waves_reuse_state_buffers_and_match_jax(
     if name in RECURRENT:
         assert first[0][1] == first[1][1] == "recurrent"
     st = eng.stats()
-    assert st["graphs"] == dict.fromkeys(("edge", "cloud", "spec"),
-                                         "eager (cpu: no graphs)")
+    assert st["graphs"] == {
+        **dict.fromkeys(("edge", "cloud", "spec", "cloud prefill"),
+                        "eager (cpu: no graphs)"),
+        "edge prefill": "eager (recurrent prefill: exact length)"
+        if name in RECURRENT else "eager (cpu: no graphs)"}
     assert eng.spec.graph_rule("cuda") == eng.edge.graph_rule("cuda") \
         == "captured"
 
@@ -291,4 +294,4 @@ def test_captured_bodies_are_registered_and_linted():
             assert [f.rule for f in found] == ["R2"], body
             assert "as_tensor" in found[0].message
     assert set(seen) == {"_linear_round", "_tree_round", "_self_body",
-                         "_chunk_body"}
+                         "_chunk_body", "_prefill_body", "_extend_body"}

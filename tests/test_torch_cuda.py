@@ -1667,8 +1667,9 @@ def test_captured_tick_and_linear_round_equal_eager(cuda, kv_layout,
         else "decode_attention"
     assert runs[True][1][decode] > 0 and runs[True][1]["spec_verify"] > 0
     st, st0 = runs[True][2], runs[False][2]
-    assert st["graphs"] == {"edge": "captured", "cloud": "captured",
-                            "spec": "captured"}
+    assert st["graphs"] == dict.fromkeys(
+        ("edge", "cloud", "spec", "edge prefill", "cloud prefill"),
+        "captured")
     assert st["captures"]["edge"] > 0 and st["captures"]["spec"] > 0
     assert st0["captures"] == {"edge": 0, "cloud": 0, "spec": 0}
     assert st0["graphs"]["edge"] == "eager (graphs=False)"
@@ -1793,8 +1794,11 @@ def test_captured_tree_self_and_recurrent_rounds_equal_eager(cuda, name):
     assert runs[True][0] == runs[False][0]
     assert runs[True][1] == runs[False][1]
     assert all(runs[True][1][k] > 0 for k in kernels), runs[True][1]
-    assert runs[True][2]["graphs"] == dict.fromkeys(
-        ("edge", "cloud", "spec"), "captured")
+    assert runs[True][2]["graphs"] == {
+        **dict.fromkeys(("edge", "cloud", "spec", "cloud prefill"),
+                        "captured"),
+        "edge prefill": "captured" if name in ("tree", "self")
+        else "eager (recurrent prefill: exact length)"}
     assert runs[True][2]["captures"]["spec"] > 0
     assert all(p == "speculative" for p, _, _ in runs[True][0])
 
@@ -1820,3 +1824,198 @@ def test_the_collector_is_held_off_while_capturing(cuda):
     assert torch.equal(fn(x + 1), (x + 1) * 2)
     assert seen == [True, False] and gc.isenabled()
     assert fn.captures == 1
+
+
+# ------------------------------------------------- prefills and the bounds
+# The admission prefill and the chunked prefill's extend captured per
+# bucket, and the bounds on released states and graphs (fault C.3).
+def _lane(em, graphs, layout):
+    from repro_torch.core.seq_state import Lane
+    return Lane(em, "entropy", 0.0, layout=layout, graphs=graphs)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_captured_prefill_and_extend_equal_eager(cuda, layout):
+    """A whole-prompt prefill and a chunked prefill (chunk 4: a first
+    chunk's prefill, then extends of a full and a padded chunk) through
+    captured lanes give the eager lane's caches exactly at f32, and the
+    logits of a decode step over them; the flash kernel launches as often
+    through the replays as eagerly; a repeat of the same calls captures
+    nothing."""
+    from repro_torch.analysis.compile_guard import CaptureCounter
+    em, _, ep, _ = _graph_pair()
+    prompt = _graph_prompts(em.cfg.vocab_size, n=1, length=12)[0]
+    out = {}
+    for graphs in (False, True):
+        lane = _lane(em, graphs, layout)
+        with CaptureCounter() as cc:
+            for rep in range(2):
+                ops.reset_launch_counts()
+                whole = lane.prefill(ep, prompt, 32)
+                job = lane.start_prefill(ep, prompt, 32, 4)
+                while not lane.advance_prefill(ep, job):
+                    pass
+                chunked = {k: v.clone() for k, v in job["cache"].items()}
+                lane.end_prefill(job)
+                torch.cuda.synchronize()
+                if rep == 0:
+                    warm = cc.count
+                    cc.reset()
+            assert cc.count == 0, "; ".join(cc.events)
+        assert (warm > 0) == graphs
+        tok = torch.as_tensor([[int(prompt[-1])]], device=cuda)
+        logits = [em.decode_step(ep, tok, {k: v.clone() for k, v in
+                                           c.items()})[0]
+                  for c in (whole, chunked)]
+        out[graphs] = whole, chunked, logits, ops.launch_counts()
+    (w0, c0, l0, n0), (w1, c1, l1, n1) = out[False], out[True]
+    for a, b in ((w0, w1), (c0, c1)):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for a, b in zip(l0, l1):
+        assert torch.equal(a, b)
+    assert n0 == n1 and n1["flash_attention"] > 0
+
+
+@pytest.mark.parametrize("kv_layout", ["paged", "dense"])
+def test_second_chunked_drain_captures_nothing(cuda, kv_layout):
+    """With chunked prefill (chunk 4, prompts of 9 and 11 entries) a warm
+    drain captures its prefills, extends, ticks and rounds, and a second
+    identical drain captures nothing and repeats the tokens: the jobs get
+    the same detached buffers."""
+    from repro_torch.analysis.compile_guard import CaptureCounter
+    em, cm, ep, cp = _graph_pair()
+    prompts = _graph_prompts(em.cfg.vocab_size, n=4, length=10) + \
+        _graph_prompts(em.cfg.vocab_size, n=2, length=12)
+    eng = _graph_engine(em, cm, True, kv_layout=kv_layout, prefill_chunk=4)
+    with CaptureCounter() as cc:
+        warm = _trace_tuple(eng.serve_batch(ep, cp, prompts, 6))
+        assert any("Lane.extend" in e for e in cc.events), cc.events
+        assert any("Lane.prefill" in e for e in cc.events), cc.events
+        cc.reset()
+        again = _trace_tuple(eng.serve_batch(ep, cp, prompts, 6))
+        assert cc.count == 0, "; ".join(cc.events)
+    assert again == warm
+    eager = _graph_engine(em, cm, False, kv_layout=kv_layout,
+                          prefill_chunk=4)
+    assert _trace_tuple(eager.serve_batch(ep, cp, prompts, 6)) == warm
+
+
+@pytest.mark.parametrize("kv_layout", ["paged", "dense"])
+def test_distinct_length_drains_stay_bounded(cuda, kv_layout):
+    """Twenty drains of ever new lengths (the longest first), chunked
+    prefill on: after each, every lane holds at most its bound of released
+    states and detached caches and every captured function at most
+    ``MAX_GRAPHS`` graphs, and ``memory_allocated`` stops growing once the
+    spare states fill their bound, but for what the graph bounds still
+    allow (each function's room left times the most one of its graphs
+    keeps alive)."""
+    import gc
+    from repro_torch.core.capture import MAX_GRAPHS
+    from repro_torch.core.seq_state import (MAX_SPARE_DETACHED,
+                                            MAX_SPARE_STATES)
+    em, cm, ep, cp = _graph_pair()
+    eng = _graph_engine(em, cm, True, kv_layout=kv_layout, prefill_chunk=4)
+    lanes = [eng.edge, eng.cloud]
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    rows, most = [], {}
+    for d, n in enumerate(range(48, 8, -2)):
+        eng.serve_batch(ep, cp, _graph_prompts(em.cfg.vocab_size, 4, n), 3)
+        torch.cuda.synchronize()
+        mine = [eng.spec._graph] + [f for x in lanes
+                                    for f in x.captured_functions()]
+        spares = [x.spare_states for x in lanes]
+        assert all(s <= MAX_SPARE_STATES for s in spares)
+        assert all(x.spare_detached <= MAX_SPARE_DETACHED for x in lanes)
+        live = {id(f): f.live_graphs for f in mine}
+        assert all(v <= MAX_GRAPHS for v in live.values())
+        for f in mine:
+            for g in f._graphs.values():
+                held = sum(t.nbytes for t in g.static_in) + sum(
+                    t.nbytes for t in g.plan if isinstance(t, torch.Tensor))
+                most[id(f)] = max(most.get(id(f), 0), held)
+        rows.append((spares, live, torch.cuda.memory_allocated() - base))
+    full = [d for d, r in enumerate(rows)
+            if r[0][0] == MAX_SPARE_STATES]
+    assert full and full[0] < len(rows) - 4, [r[0] for r in rows]
+    f0 = full[0]
+    slack = sum((MAX_GRAPHS - rows[f0][1].get(k, 0)) * b
+                for k, b in most.items())
+    assert rows[-1][2] <= rows[f0][2] + slack, (rows[f0][2], rows[-1][2],
+                                                 slack)
+    assert eng.edge._spare._made > MAX_SPARE_STATES
+
+
+def test_an_evicted_graph_leaves_nothing_of_its_pool(cuda):
+    """A graph dropped by ``capture.evict`` (its key addresses the evicted
+    buffer) or by the ``MAX_GRAPHS`` bound leaves nothing of its own
+    allocated: ``memory_allocated`` and the bytes allocated in the graphs'
+    shared memory pool return to what they were before the capture.  Two
+    graphs in the shared pool replay in any order without touching each
+    other's results."""
+    from repro_torch.core import capture as C
+    buf = torch.ones(1 << 20, device=cuda)
+
+    def body(x, scale):
+        return x * scale + 1.0
+
+    def pool_allocated():
+        pid = tuple(C.pool(buf.device))
+        return sum(x["allocated_size"] for x in torch.cuda.memory_snapshot()
+                   if tuple(x.get("segment_pool_id", ())) == pid)
+
+    fn = C.capture(body, copy_argnames=("scale",), name="evict probe")
+    scale = torch.full((), 2.0, device=cuda)
+    prime = C.capture(body, copy_argnames=("scale",), name="prime")
+    small = torch.ones(8, device=cuda)
+    prime(small, scale)     # a first capture's one-off allocations, if any
+    prime(small, scale)
+    torch.cuda.synchronize()
+    before, in_pool = torch.cuda.memory_allocated(), pool_allocated()
+    fn(buf, scale)                      # the warm-up's result, dropped
+    out = fn(buf, scale)                # a replay's clone
+    other = prime(small, scale + 1.0)   # the other graph between two
+    again = fn(buf, scale + 1.0)
+    assert torch.equal(out, buf * 2.0 + 1.0)
+    assert torch.equal(other, small * 3.0 + 1.0)
+    assert torch.equal(again, buf * 3.0 + 1.0)
+    del out, other, again
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() >= before + buf.nbytes
+    assert pool_allocated() >= in_pool + buf.nbytes
+    assert C.evict([torch.zeros(4, device=cuda)]) == 0
+    assert C.evict([buf[5:9]]) == 1 and fn.live_graphs == 0
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert pool_allocated() == in_pool
+    # the bound: past MAX_GRAPHS keys the least recently used go
+    xs = [torch.full((8,), float(i), device=cuda)
+          for i in range(C.MAX_GRAPHS + 3)]       # held: distinct addresses
+    for x in xs:
+        fn(x, scale)
+    assert fn.live_graphs == C.MAX_GRAPHS and fn.dropped == 1 + 3
+
+
+def test_a_capture_after_every_graph_is_gone(cuda):
+    """Once every graph of the process has been dropped (as when every
+    engine has), the shared pool is still open for the next capture: its
+    anchor graph holds it, where the allocator would otherwise let it go
+    and refuse its handle."""
+    import gc
+    from repro_torch.core import capture as C
+    x = torch.arange(4.0, device=cuda)
+    first = C.capture(lambda y: y + 1.0, name="before")
+    assert torch.equal(first(x), x + 1.0)
+    for c in list(C._LIVE):
+        c._graphs.clear()
+    del first
+    gc.collect()
+    torch.cuda.synchronize()
+    after = C.capture(lambda y: y * 3.0, copy_argnames=("y",),
+                      name="after")
+    assert torch.equal(after(x), x * 3.0)
+    assert torch.equal(after(x + 1.0), (x + 1.0) * 3.0)
+    assert after.captures == 1
